@@ -9,14 +9,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    CUDA kernel from ``vit_tpu_torch/csrc`` (one nvcc each, in parallel) and
    print the build seconds and ptxas' register/shared-memory report.
 2. Hold each kernel against its plain PyTorch version on the same inputs on
-   the card, at the serving shapes and a few others; one JSON line each
-   with the error, the kernel's, the plain version's and the library's
-   (SDPA for attention) median times, and the card's bound for the work.
+   the card, at the serving and training shapes and a few others, forward
+   kernels with and without dropout; one JSON line each with the error, the
+   kernel's, the plain version's and the library's median times, and the
+   card's bound for the work. The library call is SDPA for the forward
+   kernels and SDPA's backward (forward+backward minus forward, no
+   dropout) for K4/K5/K6; K4 and K5 are timed one by one, but their plain
+   and library times are of the whole backward (dq, dk, dv together).
    Tolerances: fp32 max-abs 1e-4 with TF32 off for matmuls and cuDNN;
-   bf16 on O and y the smaller of 2e-2 and four roundings to bf16 (4 *
-   2**-8) of the largest reference value, since the two round in different
-   places. The typical reference value is printed beside the limit: at the
-   stride-1 attention shape |O| is ~0.02, so a fixed 2e-2 would be blind.
+   bf16 on O, y, dq, dk, dv and dx the smaller of 2e-2 and four roundings
+   to bf16 (4 * 2**-8) of the largest reference value, since the two round
+   in different places. K7's fp32 weight gradients are sums over every row:
+   1e-5 of the largest value for fp32 inputs, 1e-3 for bf16 (a g or dh
+   rounded to the other side of a boundary moves dW by one bf16 ulp times
+   |x| or |dy|; dW rounded to bf16 would be off by up to 2**-9 of it). The typical reference value is printed beside the limit: at
+   the stride-1 attention shape |O| is ~0.02, so a fixed 2e-2 would be
+   blind. Then the dropout mask check: K1 and K2 with Q = 0 and V the
+   identity (T = d = 128, fp32, 32 heads, rate 0.5, seeds 0, -1, 2**31-1)
+   give O = M/(keep*T), zero exactly where ``hash_dropout_mask`` drops, so a
+   single wrong mask bit fails (a tolerance on O at T = 4066 is blind to
+   one dropped element).
 3. Serve the main path through ``Predictor.from_checkpoint(..., device=
    "cuda")`` three times, each from a ``.pt`` written from a port model
    initialised from a seeded ``torch.Generator``: (a) stride1 in bf16
@@ -32,7 +44,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the input and the synthetic spectra barely differ, so the per-token
    features of the probes are what tells one input from another; the run
    fails unless the probes' features lie at least 10 tolerances apart.
-4. Print the kernels' summary, the card line again, and last
+4. Train the main path through ``Experiment(config, device="cuda",
+   datamodule=...).fit()`` twice, one epoch of 64 synthetic spectra
+   (``make_dummy_spectra``, seed 1, held in memory: the card's machine has
+   no h5py) at batch 16: (d) stride1.yaml as it stands (bf16, remat: mlp,
+   dropout 0.1/0.1: K1 with dropout, K4, K5), (e) baseline.yaml with
+   ``attn_impl: flash`` and ``fused_mlp: true`` (fp32: K2 with dropout, K6,
+   K3, K7). Counts are set to 0 just before ``fit`` and read just after,
+   and must equal layers x (train steps + val batches) for the forward
+   kernels and layers x train steps for the backward ones (remat: mlp runs
+   the MLP again in the backward, and (d) has no MLP kernel). Each run
+   prints its per-step losses (all finite), steps/s and ms/step (smoke
+   figures), peak memory and torch.profiler's split of one further step.
+   Before it, on a batch of 4 with fixed dropout seeds, the first step's
+   loss and every parameter gradient on the card are held against the same
+   step in fp32 on the CPU: relative L2 error per tensor, against the
+   larger of the tensor's norm and 1e-3 of the global norm (gradients that
+   are zero in exact arithmetic, as the key bias's, are noise in both),
+   at most 1e-4 for (e) in fp32 and 2e-2 for (d) in bf16; and, as in the
+   serving runs, a probe batch (four standard-normal spectra with uniform
+   random labels) must move the CPU gradients at least 10 limits away.
+5. Print the kernels' summary, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
@@ -78,9 +110,33 @@ BASELINE_MODEL = dict(name="vit", task_type="reg", image_size=4096, patch_size=3
                       hidden_size=32, num_hidden_layers=3, num_attention_heads=2,
                       stride_size=32, proj_fn="SW")
 LOGG_STATS = {"label_min": [0.0], "label_max": [5.0]}  # log_g range of the synthetic set
+# The training sections of the two YAML files; the runs cut ep to 1 and
+# baseline's batch to 16, and (e) turns on flash and the fused MLP and
+# turns off viz (diagnostics capture is not ported). The data paths are
+# unused: the spectra come from memory.
+_DATA = {"file_path": "in-memory", "val_path": "in-memory", "test_path": "in-memory",
+         "num_samples": 10000, "num_test_samples": 512, "param": "log_g",
+         "label_norm": "minmax"}
+_OPT = {"type": "AdamW", "lr": 0.001, "lr_sch": "plateau", "factor": 0.8, "patience": 10}
+STRIDE1_TRAIN = {"project": "vit-viz", "model": STRIDE1_MODEL,
+                 "train": {"batch_size": 16, "ep": 1, "precision": "bf16", "save": False,
+                           "fused_epoch": False},
+                 "loss": {"name": "mae"}, "opt": _OPT, "data": _DATA,
+                 "noise": {"noise_level": 0}, "viz": {"enable": False}}
+BASELINE_TRAIN = {"project": "vit-viz",
+                  "model": dict(BASELINE_MODEL, attn_impl="flash", fused_mlp=True),
+                  "train": {"batch_size": 16, "ep": 1, "debug": 0, "save": False},
+                  "loss": {"name": "mae"}, "opt": _OPT, "data": _DATA,
+                  "noise": {"noise_level": 0}, "viz": {"enable": False}}
 N_INPUTS = 64
 BATCH = 16
-SERVE_REPEATS = 9  # timed passes over the N_INPUTS spectra; the median is reported
+SERVE_REPEATS = 9  # timed passes over the N_INPUTS spectra; all over their total time
+K7_FP32_REL = 1e-5  # K7 weight gradients against their largest value, fp32 inputs
+K7_BF16_REL = 1e-3  # the same with bf16 inputs; rounding dW to bf16 moves it ~2e-3
+GRAD_FLOOR = 1e-3  # per-tensor gradient norms are floored at this share of the global norm
+TRAIN_GRAD_TOL = {"d_stride1_bf16": 2e-2, "e_baseline_flash_fused_fp32": 1e-4}
+MASK_SEEDS = (0, -1, 2**31 - 1)
+DROPOUT_SEED = -123456789  # the kernel rows' dropout seed (any int32)
 
 
 def emit(obj) -> None:
@@ -120,8 +176,10 @@ def bound(flops: float, exps: float, nbytes: float, dtype, sfu_rate: float):
 
 def device_profile(fn, top: int = 6) -> dict:
     """Device time of one call of ``fn`` by torch.profiler (CUPTI): the sum
-    of the device kernels' times (the operators that launched them are left
-    out, or each kernel would count twice) and the ``top`` kernels."""
+    of the device kernels' times (the operators that launched them, and the
+    device-side spans of ``record_function`` scopes such as
+    ``Optimizer.step#AdamW.step``, are left out, or each kernel would count
+    twice) and the ``top`` kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -130,7 +188,8 @@ def device_profile(fn, top: int = 6) -> dict:
         fn()
         torch.cuda.synchronize()
     ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+           and "#" not in e.key]
     ops.sort(key=lambda o: -o[1])
     return dict(device_ms=sum(o[1] for o in ops),
                 top=[dict(op=k[:80], ms=ms, calls=n) for k, ms, n in ops[:top]])
@@ -149,16 +208,16 @@ def kernel_tol(ref: torch.Tensor) -> float:
     return min(BF16_TOL, BF16_ROUNDINGS * ref.float().abs().max().item())
 
 
-def attention_case(name, fwd, plain, b, h, t, d, dtype, g, sfu_rate, kernels):
+def attention_case(name, fwd, plain, b, h, t, d, dtype, g, sfu_rate, kernels, rate=0.0):
     import torch.nn.functional as F
 
     q, k, v = (torch.randn(b * h, t, d, generator=g, device="cuda").to(dtype) for _ in range(3))
     scale = d**-0.5
     kernels[name].launches = 0
-    o, lse = fwd(q, k, v, scale)
+    o, lse = fwd(q, k, v, scale, rate, DROPOUT_SEED)
     torch.cuda.synchronize()
     check(kernels[name].launches == 1, f"{name} did not launch")
-    o_ref, lse_ref = plain(q, k, v, scale)
+    o_ref, lse_ref = plain(q, k, v, scale, rate, DROPOUT_SEED)
     err = (o.float() - o_ref.float()).abs().max().item()
     lse_err = (lse - lse_ref).abs().max().item()
     tol = kernel_tol(o_ref)
@@ -166,14 +225,14 @@ def attention_case(name, fwd, plain, b, h, t, d, dtype, g, sfu_rate, kernels):
     check(err <= tol and lse_err <= LSE_TOL,
           f"{name} {(b, h, t, d)} {dtype}: max|O err| {err} (tol {tol}), max|lse err| {lse_err}")
     q4, k4, v4 = (x.view(b, h, t, d) for x in (q, k, v))
-    ms = time_ms(lambda: fwd(q, k, v, scale))
-    plain_ms = time_ms(lambda: plain(q, k, v, scale), reps=5)
+    ms = time_ms(lambda: fwd(q, k, v, scale, rate, DROPOUT_SEED))
+    plain_ms = time_ms(lambda: plain(q, k, v, scale, rate, DROPOUT_SEED), reps=5)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
     item = torch.finfo(dtype).bits // 8
     bms, by = bound(4.0 * b * h * t * t * d, float(b * h * t * t),
                     4.0 * b * h * t * d * item + 4.0 * b * h * t, dtype, sfu_rate)
     row = dict(phase="kernel", kernel=name, shape=dict(B=b, H=h, T=t, d=d), dtype=str(dtype),
-               max_abs_err=err, lse_max_abs_err=lse_err, tol=tol,
+               dropout=rate, max_abs_err=err, lse_max_abs_err=lse_err, tol=tol,
                mean_abs_ref=o_ref.float().abs().mean().item(),
                max_abs_ref=o_ref.float().abs().max().item(), kernel_ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
@@ -210,6 +269,221 @@ def mlp_case(r, d, f, dtype, g, sfu_rate, kernels):
                max_abs_ref=y_ref.float().abs().max().item(), kernel_ms=ms, plain_ms=plain_ms,
                library_ms=None,
                bound_ms=bms, bound_by=by, launches=kernels[name].launches)
+    emit(row)
+    return row
+
+
+def attention_bwd_case(short, b, h, t, d, dtype, rate, g, sfu_rate, kernels):
+    """K6, or K4 and K5, against the plain backward on the forward's lse;
+    one row per kernel."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = (torch.randn(b * h, t, d, generator=g, device="cuda").to(dtype)
+                   for _ in range(4))
+    scale = d**-0.5
+    o, lse = (fa.short_fwd if short else fa.flash_fwd)(q, k, v, scale, rate, DROPOUT_SEED)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, scale, rate, DROPOUT_SEED)
+    wrapper, plain = (fa.short_bwd, fa.short_bwd_plain) if short else (fa.flash_bwd,
+                                                                         fa.flash_bwd_plain)
+    # name: (outputs it writes, products of T x T x d, tensors of (BH, T, d) moved)
+    parts = ({"short_bwd": ((0, 1, 2), 5, 7)} if short else
+             {"flash_bwd_dq": ((0,), 3, 5), "flash_bwd_dkv": ((1, 2), 4, 6)})
+    for name in parts:
+        kernels[name].launches = 0
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    check(all(kernels[n].launches == 1 for n in parts), f"{list(parts)} did not launch once")
+    want = plain(*args)
+    plain_ms = time_ms(lambda: plain(*args), reps=5)
+    q4, k4, v4 = (x.view(b, h, t, d).detach().requires_grad_() for x in (q, k, v))
+    do4 = do.view(b, h, t, d)
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+    sdpa_fb = time_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4),
+                                                  (q4, k4, v4), do4))
+    item = torch.finfo(dtype).bits // 8
+    rows = {}
+    for name, (outs, products, tensors) in parts.items():
+        errs = [(got[i].float() - want[i].float()).abs().max().item() for i in outs]
+        tols = [kernel_tol(want[i]) for i in outs]
+        check(all(torch.isfinite(got[i].float()).all().item() for i in outs),
+              f"{name} gave non-finite output")
+        check(all(e <= tl for e, tl in zip(errs, tols)),
+              f"{name} {(b, h, t, d)} {dtype} rate {rate}: errors {errs} (tols {tols})")
+        bufs = [torch.empty_like(q) for _ in outs]
+        ms = time_ms(lambda: fa._launch_bwd(name, bufs, *args))
+        bms, by = bound(2.0 * products * b * h * t * t * d, float(b * h * t * t),
+                        tensors * b * h * t * d * item + 2.0 * 4 * b * h * t, dtype, sfu_rate)
+        rows[name] = dict(
+            phase="kernel", kernel=name, shape=dict(B=b, H=h, T=t, d=d), dtype=str(dtype),
+            dropout=rate, max_abs_err=max(errs), errs=errs, tol=min(tols),
+            max_abs_ref=max(want[i].float().abs().max().item() for i in outs),
+            kernel_ms=ms, plain_ms=plain_ms, plain_computes="dq, dk, dv",
+            library_ms=sdpa_fb - sdpa_fwd, library="SDPA backward (fwd+bwd - fwd), no dropout",
+            bound_ms=bms, bound_by=by)
+        emit(rows[name])
+    return rows
+
+
+def mlp_bwd_case(r, d, f, dtype, g, sfu_rate, kernels):
+    from vit_tpu_torch.ops.fused_mlp import fused_mlp_bwd, fused_mlp_bwd_plain
+
+    x, dy = (torch.randn(r, d, generator=g, device="cuda").to(dtype) for _ in range(2))
+    w1 = (torch.randn(f, d, generator=g, device="cuda") / d**0.5).to(dtype)
+    b1 = (0.1 * torch.randn(f, generator=g, device="cuda")).to(dtype)
+    w2 = (torch.randn(d, f, generator=g, device="cuda") / f**0.5).to(dtype)
+    name = "fused_mlp_bwd"
+    kernels[name].launches = 0
+    got = fused_mlp_bwd(x, dy, w1, b1, w2)
+    torch.cuda.synchronize()
+    check(kernels[name].launches == 1, f"{name} did not launch")
+    want = fused_mlp_bwd_plain(x, dy, w1, b1, w2)
+    rel = K7_FP32_REL if dtype == torch.float32 else K7_BF16_REL
+    tols = [kernel_tol(want[0])] + [rel * max(1.0, w.abs().max().item()) for w in want[1:]]
+    errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
+    check(all(torch.isfinite(a).all().item() for a in got), f"{name} gave non-finite output")
+    check(all(e <= tl for e, tl in zip(errs, tols)),
+          f"{name} {(r, d, f)} {dtype}: errors (dx, dW1, db1, dW2, db2) {errs}, tols {tols}")
+    again = fused_mlp_bwd(x, dy, w1, b1, w2)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{name} is not bit-repeatable")
+    ms = time_ms(lambda: fused_mlp_bwd(x, dy, w1, b1, w2))
+    plain_ms = time_ms(lambda: fused_mlp_bwd_plain(x, dy, w1, b1, w2), reps=5)
+    item = torch.finfo(dtype).bits // 8
+    bms, by = bound(10.0 * r * d * f, 2.0 * r * f,
+                    (3.0 * r * d + 2.0 * d * f + f) * item + (2.0 * d * f + f + d) * 4, dtype,
+                    sfu_rate)
+    row = dict(phase="kernel", kernel=name, shape=dict(R=r, D=d, F=f), dtype=str(dtype),
+               max_abs_err=max(errs), errs=dict(zip(("dx", "dW1", "db1", "dW2", "db2"), errs)),
+               tols=tols, max_abs_ref=[w.float().abs().max().item() for w in want],
+               bit_repeatable=True, kernel_ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=bms, bound_by=by)
+    emit(row)
+    return row
+
+
+def mask_check(kernels) -> dict:
+    """K1 and K2 with Q = 0 and V the identity: O = M/(keep*T), so O is zero
+    exactly where hash_dropout_mask drops."""
+    from vit_tpu_torch.ops.dropout import hash_dropout_mask
+    from vit_tpu_torch.ops.flash_attention import flash_fwd, short_fwd
+
+    t = d = 128
+    bh = 32
+    q = torch.zeros(bh, t, d, device="cuda")
+    v = torch.eye(t, device="cuda").expand(bh, t, d).contiguous()
+    out = {}
+    for name, fwd in (("short_fwd", short_fwd), ("flash_fwd", flash_fwd)):
+        for seed in MASK_SEEDS:
+            o, _ = fwd(q, q, v, d**-0.5, 0.5, seed)
+            mask = hash_dropout_mask(t, t, torch.arange(bh), seed, 0.5).cuda()
+            wrong = int(((o == 0) != (mask == 0)).sum().item())
+            check(wrong == 0, f"{name} seed {seed}: {wrong} mask bits differ from hash_dropout_mask")
+            out[f"{name}/{seed}"] = dict(wrong_bits=wrong, dropped=float((o == 0).float().mean()))
+    emit(dict(phase="mask_check", T=t, d=d, heads=bh, rate=0.5, results=out))
+    return out
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor, floor: float) -> float:
+    return ((a - b).norm() / max(b.norm().item(), floor)).item()
+
+
+def first_step_check(tag, exp, cfg, tol) -> dict:
+    """Loss and parameter gradients of one step on a batch of 4 with fixed
+    dropout seeds, on the card against fp32 on the CPU; and the CPU
+    gradients of that batch and of a probe batch (four standard-normal
+    spectra, as the serving runs' probes, with uniform random labels), which must lie
+    at least DISTINCT limits apart."""
+    import copy
+
+    from vit_tpu_torch.models.builder import get_model
+    from vit_tpu_torch.train.loop import loss_and_grads
+
+    arrays = exp.datamodule.train.arrays()
+    task, loss_name = exp.bundle.vit_config.task_type, exp.bundle.loss_name
+    cpu_cfg = copy.deepcopy(cfg)
+    cpu_cfg["train"] = dict(cpu_cfg.get("train", {}), precision="float32")
+    cpu_model = get_model(cpu_cfg).module.train()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in exp.module.state_dict().items()})
+    exp.module.train()
+    seeds = [list(range(1000, 1000 + exp.module.num_dropout_sites))]
+
+    batch = {k: torch.from_numpy(arrays[k][:4]) for k in ("x", "label")}
+    probes = {"x": torch.randn(batch["x"].shape, generator=torch.Generator().manual_seed(2)),
+              "label": torch.rand(batch["label"].shape, generator=torch.Generator().manual_seed(3))}
+    card_loss = loss_and_grads(exp.module, {k: v.cuda() for k, v in batch.items()}, task,
+                               loss_name, seeds).item()
+    card = [p.grad.float().cpu() for p in exp.module.parameters()]
+    for p in exp.module.parameters():
+        p.grad = None
+    ref = []
+    for b in (batch, probes):
+        loss = loss_and_grads(cpu_model, b, task, loss_name, seeds).item()
+        ref.append((loss, [p.grad.clone() for p in cpu_model.parameters()]))
+    (ref_loss, ref_a), (_, ref_b) = ref
+    total = torch.sqrt(sum(r.square().sum() for r in ref_a)).item()
+    names = [n for n, _ in exp.module.named_parameters()]
+    errs = {n: rel_l2(c, r, GRAD_FLOOR * total) for n, c, r in zip(names, card, ref_a)}
+    worst = max(errs, key=errs.get)
+    apart = (torch.sqrt(sum((a - b).square().sum() for a, b in zip(ref_a, ref_b))) / total).item()
+    loss_err = abs(card_loss - ref_loss) / abs(ref_loss)
+    check(loss_err <= tol, f"{tag}: first-step loss {card_loss} vs CPU fp32 {ref_loss} "
+          f"(relative {loss_err}, tol {tol})")
+    check(errs[worst] <= tol, f"{tag}: gradient of {worst} differs from the CPU fp32 step by "
+          f"relative L2 {errs[worst]} (tol {tol})")
+    check(apart >= DISTINCT * tol, f"{tag}: the probe batch's gradients only {apart} apart "
+          f"(relative L2): the check cannot tell batches apart at tol {tol}")
+    return dict(first_step_loss=card_loss, first_step_loss_cpu_fp32=ref_loss,
+                loss_rel_err=loss_err, grad_rel_l2_max=errs[worst], grad_rel_l2_worst=worst,
+                grad_rel_l2_median=statistics.median(errs.values()), grad_tol=tol,
+                grad_batches_apart=apart, grad_batches_apart_min=DISTINCT * tol)
+
+
+def train_run(tag, cfg, expect, kernels) -> dict:
+    """One epoch of Experiment.fit on the card over in-memory spectra."""
+    import copy
+
+    import numpy as np
+
+    from vit_tpu_torch.data.datasets import SpecDataModule
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+    from vit_tpu_torch.ops._build import reset_launches
+    from vit_tpu_torch.train.loop import Experiment
+    from vit_tpu_torch.train.optim import OptSpec, schedule_scale
+
+    data = make_dummy_spectra(n=N_INPUTS, length=cfg["model"]["image_size"], seed=1)
+    dm = SpecDataModule(cfg, source=data)
+    exp = Experiment(copy.deepcopy(cfg), device="cuda", datamodule=dm)
+    dm.setup("fit")
+    grads = first_step_check(tag, exp, cfg, TRAIN_GRAD_TOL[tag])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = exp.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in exp.epoch_losses]
+    steps = -(-N_INPUTS // BATCH)
+    check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
+    check(len(losses) == steps and all(np.isfinite(losses)), f"{tag}: step losses {losses}")
+
+    spec = OptSpec.from_config(exp.config, steps, monitor_metric=exp.monitor)
+    batch = {k: torch.from_numpy(dm.train.arrays()[k][:BATCH]).cuda() for k in ("x", "label")}
+    prof = device_profile(lambda: exp.train_step(batch, spec, schedule_scale(spec)))
+    vc = exp.bundle.vit_config
+    step_ms = metrics["epoch_time_s"] * 1e3 / steps
+    row = dict(phase="train", run=tag, T=vc.seq_len, layers=vc.num_hidden_layers,
+               dtype=str(vc.dtype), batch=BATCH, inputs=N_INPUTS, steps=steps, losses=losses,
+               train_loss=metrics["train_loss"], val_mae=metrics.get("val_mae"),
+               smoke_ms_per_step=step_ms, smoke_steps_per_s=1e3 / step_ms, fit_seconds=fit_s,
+               peak_mem_bytes=peak, launches=launches, expected_launches=expect,
+               device_ms_per_step=prof["device_ms"], device_busy_share=prof["device_ms"] / step_ms,
+               top_device_ops=prof["top"], **grads)
     emit(row)
     return row
 
@@ -335,7 +609,28 @@ def main() -> int:
                    g, sfu_rate, kernels)
     mlp_case(1000, 384, 1536, torch.float32, g, sfu_rate, kernels)
     mlp_case(1000, 384, 1536, torch.bfloat16, g, sfu_rate, kernels)
+    mlp_case(16 * 129, 32, 128, torch.float32, g, sfu_rate, kernels)  # (e)'s shape
+    # The training slice: forward kernels with dropout, then the backward ones.
+    attention_case("flash_fwd", flash_fwd, flash_fwd_plain, 16, 2, 4066, 64, torch.bfloat16,
+                   g, sfu_rate, kernels, rate=0.1)
+    attention_case("short_fwd", short_fwd, short_fwd_plain, 16, 2, 129, 16, torch.float32,
+                   g, sfu_rate, kernels, rate=0.1)
+    main_rows.update(attention_bwd_case(False, 16, 2, 4066, 64, torch.bfloat16, 0.1, g,
+                                        sfu_rate, kernels))
+    for dtype, rate in ((torch.bfloat16, 0.0), (torch.float32, 0.1), (torch.float32, 0.0)):
+        attention_bwd_case(False, 16, 2, 4066, 64, dtype, rate, g, sfu_rate, kernels)
+    main_rows.update(attention_bwd_case(True, 64, 2, 129, 16, torch.float32, 0.1, g, sfu_rate,
+                                        kernels))
+    attention_bwd_case(True, 16, 2, 129, 16, torch.float32, 0.1, g, sfu_rate, kernels)
+    attention_bwd_case(True, 16, 12, 197, 64, torch.bfloat16, 0.1, g, sfu_rate, kernels)
+    main_rows["fused_mlp_bwd"] = mlp_bwd_case(16 * 4066, 128, 512, torch.bfloat16, g,
+                                              sfu_rate, kernels)
+    mlp_bwd_case(16 * 129, 32, 128, torch.float32, g, sfu_rate, kernels)
+    mlp_bwd_case(1000, 384, 1536, torch.float32, g, sfu_rate, kernels)
+    mlp_bwd_case(1000, 384, 1536, torch.bfloat16, g, sfu_rate, kernels)
+    mask_check(kernels)
 
+    none = {n: 0 for n in kernels}
     stride1 = {"model": STRIDE1_MODEL, "train": {"batch_size": BATCH, "precision": "bf16"},
                "data": {"param": "log_g"}, "noise": {"noise_level": 0}}
     baseline = {"model": dict(BASELINE_MODEL, attn_impl="flash"),
@@ -352,17 +647,28 @@ def main() -> int:
         os.environ["CKPT_DIR"] = ckpt_dir  # no meta.yaml: stats come from LOGG_STATS
         runs["a_stride1_bf16"] = serve_run(
             "a_stride1_bf16", stride1,
-            dict(flash_fwd=calls, short_fwd=0, fused_mlp_fwd=0), bf16_serve_tol, BF16_FEATURE_TOL,
-            ckpt_dir, kernels)
+            dict(none, flash_fwd=calls), bf16_serve_tol, BF16_FEATURE_TOL, ckpt_dir, kernels)
         runs["b_stride1_bf16_fused_mlp"] = serve_run(
             "b_stride1_bf16_fused_mlp",
             dict(stride1, model=dict(STRIDE1_MODEL, fused_mlp=True)),
-            dict(flash_fwd=calls, short_fwd=0, fused_mlp_fwd=calls), bf16_serve_tol,
+            dict(none, flash_fwd=calls, fused_mlp_fwd=calls), bf16_serve_tol,
             BF16_FEATURE_TOL, ckpt_dir, kernels)
         runs["c_baseline_flash_fp32"] = serve_run(
-            "c_baseline_flash_fp32", baseline,
-            dict(flash_fwd=0, short_fwd=base_calls, fused_mlp_fwd=0), FP32_TOL, FP32_TOL,
-            ckpt_dir, kernels)
+            "c_baseline_flash_fp32", baseline, dict(none, short_fwd=base_calls), FP32_TOL,
+            FP32_TOL, ckpt_dir, kernels)
+
+        # Training: one epoch, BATCH-sized steps and validation batches over
+        # the N_INPUTS spectra (train and val splits both read them).
+        steps = -(-N_INPUTS // BATCH)
+        fwd = STRIDE1_MODEL["num_hidden_layers"] * 2 * steps  # train steps + val batches
+        bwd = STRIDE1_MODEL["num_hidden_layers"] * steps
+        runs["d_stride1_bf16"] = train_run(
+            "d_stride1_bf16", STRIDE1_TRAIN,
+            dict(none, flash_fwd=fwd, flash_bwd_dq=bwd, flash_bwd_dkv=bwd), kernels)
+        runs["e_baseline_flash_fused_fp32"] = train_run(
+            "e_baseline_flash_fused_fp32", BASELINE_TRAIN,
+            dict(none, short_fwd=fwd, short_bwd=bwd, fused_mlp_fwd=fwd, fused_mlp_bwd=bwd),
+            kernels)
 
     summary = []
     for name, k in kernels.items():
@@ -374,8 +680,7 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["kernel_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))
-    emit({"kernels": summary,
-          "launches": {tag: r["launches"] for tag, r in runs.items()}})
+    emit({"kernels": summary})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels, forward and backward, against their plain versions, on the card.
 
 CUDA kernels have no CPU mode, so every test here needs an NVIDIA card and
 nvcc and skips without them. The file imports no JAX; on the machine with
@@ -11,6 +11,10 @@ bf16 on O and y the smaller of 2e-2 and four roundings to bf16 (4 * 2**-8)
 of the largest reference value, because the kernel and the plain version
 sum in another order before rounding. With randn inputs |O| is typically
 ~sqrt(e/T), so a fixed 2e-2 would be most of a typical value at long T.
+The fused MLP's fp32 weight gradients are sums over every row: fp32 inputs
+1e-5 of the largest value, bf16 inputs 2e-3 of it (a bf16-rounded g or dh
+that lands on the other side of a rounding boundary moves dW by one ulp
+times |x| or |dy|).
 """
 
 import pytest
@@ -126,3 +130,127 @@ def test_model_on_the_card_matches_the_cpu(gen, fused_mlp, attn_impl):
         want = model(x)
         got = model.cuda()(x.cuda()).cpu()
     assert (got - want).abs().max().item() <= 1e-4
+
+
+RATES = [0.0, 0.1]
+
+
+def _check_backward(bwd, plain, q, k, v, rate, seed=7, names=()):
+    d = q.shape[-1]
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(3),
+                     device="cuda").to(q.dtype)
+    fwd = fa.short_fwd if bwd is fa.short_bwd else fa.flash_fwd
+    o, lse = fwd(q, k, v, d**-0.5, rate, seed)
+    delta = (do.float() * o.float()).sum(-1)
+    before = {n: KERNELS[n].launches for n in names}
+    got = bwd(q, k, v, do, lse, delta, d**-0.5, rate, seed)
+    torch.cuda.synchronize()
+    assert all(KERNELS[n].launches == before[n] + 1 for n in names)
+    want = plain(q, k, v, do, lse, delta, d**-0.5, rate, seed)
+    for a, b in zip(got, want):
+        assert a.dtype == q.dtype and a.shape == q.shape
+        # At T = 1, dq and dk are zero in exact arithmetic (P = 1, so
+        # ds = dP - delta = 0) and both sides hold fp32 noise ~1e-8: a limit
+        # relative to that noise is meaningless, hence the FP32_TOL floor.
+        assert (a.float() - b.float()).abs().max().item() <= max(_tol(b), FP32_TOL)
+
+
+@pytest.mark.parametrize("rate", RATES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 513, 1000])
+def test_flash_bwd_matches_plain(gen, t, d, dtype, rate):
+    _check_backward(fa.flash_bwd, fa.flash_bwd_plain, *_qkv(gen, 3, t, d, dtype), rate,
+                    names=("flash_bwd_dq", "flash_bwd_dkv"))
+
+
+@pytest.mark.parametrize("rate", RATES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("t", [1, 31, 32, 33, 64, 65, 129, 512])
+def test_short_bwd_matches_plain(gen, t, d, dtype, rate):
+    _check_backward(fa.short_bwd, fa.short_bwd_plain, *_qkv(gen, 3, t, d, dtype), rate,
+                    names=("short_bwd",))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("t, short", [(1, True), (129, True), (512, True), (65, False),
+                                      (1000, False)])
+def test_forward_dropout_matches_plain(gen, t, short, d, dtype):
+    q, k, v = _qkv(gen, 3, t, d, dtype)
+    kernel, plain = ((fa.short_fwd, fa.short_fwd_plain) if short
+                     else (fa.flash_fwd, fa.flash_fwd_plain))
+    o, lse = kernel(q, k, v, d**-0.5, 0.1, -5)
+    o_ref, lse_ref = plain(q, k, v, d**-0.5, 0.1, -5)
+    assert (o.float() - o_ref.float()).abs().max().item() <= _tol(o_ref)
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.parametrize("short", [True, False])
+@pytest.mark.parametrize("seed", [0, -1, 2**31 - 1])
+def test_kernel_dropout_mask_is_hash_dropout_mask(gen, short, seed):
+    """V the identity and Q = 0: O = P*M/keep with P = 1/T, so O is zero
+    exactly where hash_dropout_mask drops; a single wrong bit fails."""
+    from vit_tpu_torch.ops.dropout import hash_dropout_mask
+
+    t = d = 128
+    q = torch.zeros(32, t, d, device="cuda")
+    v = torch.eye(t, device="cuda").expand(32, t, d).contiguous()
+    o, _ = (fa.short_fwd if short else fa.flash_fwd)(q, q, v, d**-0.5, 0.5, seed)
+    mask = hash_dropout_mask(t, t, torch.arange(32), seed, 0.5).cuda()
+    assert torch.equal(o == 0, mask == 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("r, d, f", [(1, 16, 32), (65, 48, 96), (200, 128, 512),
+                                     (130, 384, 1536), (64, 1024, 4096), (70, 100, 30),
+                                     (5000, 128, 512)])
+def test_fused_mlp_bwd_matches_plain_and_repeats(gen, r, d, f, dtype):
+    x, dy = (torch.randn(r, d, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    w1 = (torch.randn(f, d, generator=gen, device="cuda") / d**0.5).to(dtype)
+    b1 = (0.1 * torch.randn(f, generator=gen, device="cuda")).to(dtype)
+    w2 = (torch.randn(d, f, generator=gen, device="cuda") / f**0.5).to(dtype)
+    before = KERNELS["fused_mlp_bwd"].launches
+    got = fm.fused_mlp_bwd(x, dy, w1, b1, w2)
+    torch.cuda.synchronize()
+    assert KERNELS["fused_mlp_bwd"].launches == before + 1
+    want = fm.fused_mlp_bwd_plain(x, dy, w1, b1, w2)
+    assert got[0].dtype == dtype and all(g.dtype == torch.float32 for g in got[1:])
+    assert (got[0].float() - want[0].float()).abs().max().item() <= _tol(want[0])
+    rel = 1e-5 if dtype == torch.float32 else 2e-3
+    for a, b in zip(got[1:], want[1:]):
+        assert a.shape == b.shape
+        assert (a - b).abs().max().item() <= rel * max(1.0, b.abs().max().item())
+    again = fm.fused_mlp_bwd(x, dy, w1, b1, w2)  # no atomics: bit-repeatable
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("fused_mlp, attn_impl, t_image", [(True, "flash", 1100),
+                                                          (True, "flash", 256),
+                                                          (False, "xla", 256)])
+def test_training_step_on_the_card_matches_the_cpu(gen, fused_mlp, attn_impl, t_image):
+    """Loss and every parameter gradient of one training step with dropout
+    on, on the card and on the CPU from the same weights and seeds (fp32):
+    per tensor within 1e-4 of the larger of its norm and 1e-3 of the global
+    norm (the floor covers gradients that are zero in exact arithmetic)."""
+    from vit_tpu_torch.models.builder import get_model
+    from vit_tpu_torch.train.loop import loss_and_grads
+
+    cfg = {"model": dict(task_type="reg", image_size=t_image, patch_size=16, hidden_size=64,
+                         num_hidden_layers=2, num_attention_heads=2, stride_size=2,
+                         attn_impl=attn_impl, fused_mlp=fused_mlp, remat="mlp"),
+           "data": {"param": "log_g"}}
+    model = get_model(cfg, generator=torch.Generator().manual_seed(1)).module.train()
+    batch = {"x": torch.randn(3, t_image, generator=torch.Generator().manual_seed(2)),
+             "label": torch.rand(3, 1, generator=torch.Generator().manual_seed(3))}
+    seeds = [list(range(11, 11 + model.num_dropout_sites))]
+    loss_cpu = loss_and_grads(model, batch, "reg", "mae", seeds).item()
+    want = [p.grad.clone() for p in model.parameters()]
+    model.cuda()
+    loss = loss_and_grads(model, {k: v.cuda() for k, v in batch.items()}, "reg", "mae", seeds)
+    assert abs(loss.item() - loss_cpu) <= 1e-5
+    total = torch.sqrt(sum(w.square().sum() for w in want))
+    for p, w in zip(model.parameters(), want):
+        err = (p.grad.cpu() - w).norm()
+        assert err <= 1e-4 * max(w.norm(), 1e-3 * total)

@@ -1,13 +1,15 @@
-"""The port's plain attention forwards against vit_tpu's Pallas kernels.
+"""The port's plain attention, forward and backward, against vit_tpu's Pallas kernels.
 
-vit_tpu runs its kernels in interpret mode on the CPU, as its own tests do. The
-port's wrappers take their plain versions for these CPU tensors; the CUDA
-kernels are held against the same plain versions on the card by
-chip_smoke.py.
+vit_tpu runs its kernels in interpret mode on the CPU, as its own tests do
+(gradients through its custom_vjp run the Pallas backward kernels K4/K5 or
+K6 the same way). The port's wrappers take their plain versions for these
+CPU tensors; the CUDA kernels are held against the same plain versions on
+the card by chip_smoke.py and tests/test_torch_port_cuda.py.
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -95,7 +97,8 @@ def test_dispatch_rule_is_vit_tpus(t, name, monkeypatch):
     """T rounded up to 128 at most 512 -> short kernel, else streaming."""
     called = []
     for fn in ("short_fwd", "flash_fwd"):
-        monkeypatch.setattr(port, fn, lambda q, k, v, s, fn=fn: (called.append(fn), (q, None))[1])
+        monkeypatch.setattr(port, fn,
+                            lambda q, k, v, s, fn=fn, **kw: (called.append(fn), (q, None))[1])
     q = torch.zeros(1, 1, t, 16)
     port.flash_attention(q, q, q)
     assert called == [name]
@@ -113,8 +116,9 @@ def test_wrappers_validate_inputs():
     with pytest.raises(ValueError):
         port.short_fwd(torch.zeros(1, 513, 16), torch.zeros(1, 513, 16),
                        torch.zeros(1, 513, 16), 0.25)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dropout_seed"):
         port.flash_attention(q[None], q[None], q[None], dropout_rate=0.1)
+    port.flash_attention(q[None], q[None], q[None], dropout_rate=0.1, dropout_seed=-3)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
@@ -123,3 +127,90 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     port.flash_attention(q, q, q)
     port.flash_attention(q[:, :, :100], q[:, :, :100], q[:, :, :100])
     assert {n: k.launches for n, k in KERNELS.items()} == before
+
+
+# Gradients: fp32 within 1e-5 (measured gap at these sizes <= 5e-7 on
+# gradients of size ~1); bf16 by the rule above, four roundings to bf16 of
+# the largest reference value, capped at 2e-2 (measured gap: one bf16 ulp).
+GRAD_CASES = [(t, d, rate) for t in (129, 300, 640) for d in (16, 64) for rate in (0.0, 0.1)]
+
+
+def _jax_vjp(q, k, v, g, rate, seed, dtype):
+    """vit_tpu's O and (dq, dk, dv) for cotangent g, kernels in interpret mode."""
+    args = [jnp.asarray(x, dtype) for x in (q, k, v)]
+    o, vjp = jax.vjp(lambda a, b, c: ref.flash_attention(
+        a, b, c, interpret=True, dropout_rate=rate, dropout_seed=seed), *args)
+    grads = vjp(jnp.asarray(g, dtype))
+    return [np.asarray(x.astype(jnp.float32)) for x in (o, *grads)]
+
+
+def _port_vjp(q, k, v, g, rate, seed, dtype):
+    args = [torch.from_numpy(x).to(dtype).requires_grad_() for x in (q, k, v)]
+    o = port.flash_attention(*args, dropout_rate=rate, dropout_seed=seed)
+    o.backward(torch.from_numpy(g).to(dtype))
+    return [x.detach().float().numpy() for x in (o, *(a.grad for a in args))]
+
+
+@pytest.mark.parametrize("t, d, rate", GRAD_CASES)
+def test_attention_grads_match_pallas_fp32(t, d, rate):
+    q, k, v, g = _qkv(2, 2, t, d, seed=4) + [np.random.default_rng(5).standard_normal(
+        (2, 2, t, d)).astype(np.float32)]
+    want = _jax_vjp(q, k, v, g, rate, -7, jnp.float32)
+    got = _port_vjp(q, k, v, g, rate, -7, torch.float32)
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, b, atol=FP32_TOL, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("t, d, rate", GRAD_CASES)
+def test_attention_grads_match_pallas_bf16(t, d, rate):
+    q, k, v, g = _qkv(1, 2, t, d, seed=6) + [np.random.default_rng(7).standard_normal(
+        (1, 2, t, d)).astype(np.float32)]
+    want = _jax_vjp(q, k, v, g, rate, 2**31 - 1, jnp.bfloat16)
+    got = _port_vjp(q, k, v, g, rate, 2**31 - 1, torch.bfloat16)
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+        tol = min(BF16_TOL, BF16_ROUNDINGS * np.abs(b).max())
+        np.testing.assert_allclose(a, b, atol=tol, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("t, short, rate", [(300, True, 0.0), (300, True, 0.2),
+                                            (640, False, 0.0), (640, False, 0.2)])
+def test_plain_backwards_match_pallas_backwards(t, short, rate):
+    """flash_bwd_plain against ref._flash_bwd (K4 + K5) and short_bwd_plain
+    against ref._short_bwd (K6), called directly on the same lse, with the
+    Pallas side padded to 128 rows and lanes as vit_tpu pads it."""
+    q, k, v, do = (x.reshape(4, t, 64) for x in _qkv(2, 2, t, 64, seed=8) + [
+        np.random.default_rng(9).standard_normal((2, 2, t, 64)).astype(np.float32)])
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    scale = 64**-0.5
+    fwd = port.short_fwd_plain if short else port.flash_fwd_plain
+    o, lse = fwd(tq, tk, tv, scale, rate, 11)
+    t_pad = -(-t // 128) * 128
+    jq, jk, jv, jdo, jo = (_pad(x, t_pad, 128) for x in (q, k, v, do, o.numpy()))
+    jlse = jnp.pad(jnp.asarray(lse.numpy()), ((0, 0), (0, t_pad - t)))[..., None]
+    seed = jnp.full((1,), 11, jnp.int32)
+    if short:
+        want = ref._short_bwd(jq, jk, jv, jo, jlse, jdo, seed, scale, t, rate, interpret=True)
+        got = port.short_bwd_plain(tq, tk, tv, tdo, lse, (tdo * o).sum(-1), scale, rate, 11)
+    else:
+        want = ref._flash_bwd(jq, jk, jv, jo, jlse, jdo, seed, 128, 128, scale, t, rate,
+                              interpret=True)
+        got = port.flash_bwd_plain(tq, tk, tv, tdo, lse, (tdo * o).sum(-1), scale, rate, 11)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b)[:, :t, :64], atol=FP32_TOL, rtol=0,
+                                   err_msg=name)
+
+
+def test_plain_forwards_apply_the_dropout_mask():
+    """With V the identity and Q = 0, O is P*M/keep = M/(keep*T): zero exactly
+    where hash_dropout_mask drops, for both plain forwards."""
+    from vit_tpu_torch.ops.dropout import hash_dropout_mask
+
+    t = d = 128
+    q = torch.zeros(3, t, d)
+    v = torch.eye(t).expand(3, t, d).contiguous()
+    for fwd in (port.short_fwd_plain, port.flash_fwd_plain):
+        for seed in (0, -1, 2**31 - 1):
+            o, _ = fwd(q, q, v, d**-0.5, 0.5, seed)
+            mask = hash_dropout_mask(t, t, torch.arange(3), seed, 0.5)
+            assert torch.equal(o == 0, mask == 0)
+            torch.testing.assert_close(o, mask / t, atol=1e-7, rtol=0)

@@ -1,5 +1,6 @@
 """The port's plain fused MLP against vit_tpu's Pallas kernel (interpret mode)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,5 +80,99 @@ def test_fused_mlp_validates_and_counts_nothing_on_cpu():
     assert KERNELS["fused_mlp_fwd"].launches == before
     with pytest.raises(ValueError):
         port.fused_mlp(x, w1.t(), b1, w2, b2)
+    # the weights are cast to x's dtype; x itself must be fp32 or bf16
+    xb = x.to(torch.bfloat16)
+    y = port.fused_mlp(xb, w1, b1, w2, b2)
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y, port.fused_mlp(xb, *(w.to(torch.bfloat16) for w in (w1, b1, w2, b2))))
     with pytest.raises(TypeError):
-        port.fused_mlp(x.to(torch.bfloat16), w1, b1, w2, b2)
+        port.fused_mlp(x.to(torch.float16), w1, b1, w2, b2)
+
+
+# Backward: dx, dW1, db1, dW2, db2 against jax.vjp through vit_tpu's
+# custom_vjp (its _bwd_kernel in interpret mode). fp32: the weight
+# gradients are sums over every row, taken in another order, so the limit
+# is relative to their largest value (1e-5 of it); dx within FP32_TOL.
+def _vjp_both(r, d, f, dtype, seed=3):
+    x, w1, b1, w2, b2 = _operands(r, d, f, seed=seed)
+    dy = np.random.default_rng(seed + 1).standard_normal((r, d)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+
+    def fn(x_, w1_, b1_, w2_, b2_):  # fp32 weights cast inside, as the model does
+        return ref.fused_mlp(x_, w1_.astype(jdt), b1_.astype(jdt), w2_.astype(jdt),
+                             b2_.astype(jdt), interpret=True)
+
+    _, vjp = jax.vjp(fn, jnp.asarray(x, jdt), *map(jnp.asarray, (w1, b1, w2, b2)))
+    want = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(dy, jdt))]
+    want = [want[0], want[1].T, want[2], want[3].T, want[4]]  # to nn.Linear layout
+
+    tx = torch.from_numpy(x).to(dtype).requires_grad_()
+    ws = [torch.from_numpy(np.ascontiguousarray(a)).requires_grad_()
+          for a in (w1.T, b1, w2.T, b2)]
+    y = port.fused_mlp(tx, *ws)
+    y.backward(torch.from_numpy(dy).to(dtype))
+    got = [tx.grad] + [w.grad for w in ws]
+    assert all(g.dtype == torch.float32 for g in got[1:])  # fp32, unrounded
+    return [g.float().numpy() for g in got], want
+
+
+@pytest.mark.parametrize("r, d, f", [(200, 32, 128), (300, 128, 512), (77, 48, 96)])
+def test_fused_mlp_grads_match_pallas_fp32(r, d, f):
+    got, want = _vjp_both(r, d, f, torch.float32)
+    for name, a, b in zip(("dx", "dW1", "db1", "dW2", "db2"), got, want):
+        tol = FP32_TOL if name == "dx" else 1e-5 * max(1.0, np.abs(b).max())
+        np.testing.assert_allclose(a, b, atol=tol, rtol=0, err_msg=name)
+
+
+# bf16 in: dx by the bf16 rule; the fp32 weight gradients are sums of
+# products of bf16-rounded g and dh, which round alike in both except where
+# an fp32 pre-activation summed in another order sits on a rounding
+# boundary: each such flip moves dW by one bf16 ulp of g or dh times |dy| or
+# |x|. Measured: dW2 4.3e-4 of its largest value, the others <= 7e-6. The
+# limit, 1e-3 of the largest value, lies between that and the 2.0e-3 to
+# 3.3e-3 that rounding the weight gradients to bf16 gives on these inputs.
+K7_BF16_REL = 1e-3
+GRAD_NAMES = ("dx", "dW1", "db1", "dW2", "db2")
+
+
+@pytest.fixture(scope="module")
+def bf16_grads():
+    return _vjp_both(200, 128, 512, torch.bfloat16, seed=5)
+
+
+def _bf16_tol(name, want):
+    return BF16_TOL if name == "dx" else K7_BF16_REL * np.abs(want).max()
+
+
+def test_fused_mlp_grads_match_pallas_bf16(bf16_grads):
+    got, want = bf16_grads
+    for name, a, b in zip(GRAD_NAMES, got, want):
+        np.testing.assert_allclose(a, b, atol=_bf16_tol(name, b), rtol=0, err_msg=name)
+
+
+def test_bf16_weight_gradients_reach_fp32_unrounded(bf16_grads):
+    """The fault to catch: dW rounded through bf16 before it reaches the
+    fp32 parameter. The port's weight gradients carry bits below bf16's, and
+    the same gradients rounded to bf16 and back fail the limit above."""
+    got, want = bf16_grads
+    rounded = [torch.from_numpy(a).bfloat16().float().numpy() for a in got[1:]]
+    for name, a, r in zip(GRAD_NAMES[1:], got[1:], rounded):
+        assert not np.array_equal(a, r), f"{name} is representable in bf16"
+    failed = [name for name, r, b in zip(GRAD_NAMES[1:], rounded, want[1:])
+              if np.abs(r - b).max() > _bf16_tol(name, b)]
+    assert failed == list(GRAD_NAMES[1:])
+
+
+def test_plain_backward_is_the_autograd_backward():
+    x, w1, b1, w2, b2 = _port_operands(*_operands(50, 32, 64, seed=7))
+    dy = torch.randn(50, 32, generator=torch.Generator().manual_seed(8))
+    dx, dw1, db1, dw2, db2 = port.fused_mlp_bwd_plain(x, dy, w1, b1, w2)
+    args = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    port.fused_mlp(*args).backward(dy)
+    for a, b in zip((dx, dw1, db1, dw2, db2), (t.grad for t in args)):
+        assert torch.equal(a, b)
+    # and the same gradients as autograd through the plain forward
+    ref_args = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    port.fused_mlp_plain(*ref_args).backward(dy)
+    for a, b in zip((dx, dw1, db1, dw2, db2), (t.grad for t in ref_args)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)

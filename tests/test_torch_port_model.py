@@ -104,3 +104,89 @@ def test_stride1_width_and_seeded_init():
     for (ka, va), (kb, vb) in zip(a.module.state_dict().items(), b.module.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
     assert float(a.module.vit.embeddings.cls_token.detach().std()) > 0.5  # N(0, 1), not 0.02
+
+
+# -- training mode -----------------------------------------------------------
+def _grads_both(cfg, batch=3, seed=0):
+    """(jax loss, port loss, {key: (port grad, jax grad)}) with dropout off,
+    the 'mae' loss name (which trains MSE in both)."""
+    from vit_tpu.models.vit import compute_loss as jax_loss
+    from vit_tpu_torch.models.vit import compute_loss
+
+    cfg = dict(cfg, loss={"name": "mae"},
+               model=dict(cfg["model"], hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))
+    jb = jax_get_model(dict(cfg, model=dict(cfg["model"])))
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, jb.vit_config.image_size)).astype(np.float32)
+    y = rng.random((batch, 1)).astype(np.float32)
+    params = jb.module.init(jax.random.PRNGKey(seed), x[:1])["params"]
+
+    def loss_fn(p):
+        logits = jb.module.apply({"params": p}, x, deterministic=False,
+                                 rngs={"dropout": jax.random.PRNGKey(1)})
+        return jax_loss(logits, y, "reg", "mae")
+
+    jl, jg = jax.value_and_grad(loss_fn)(params)
+    want = to_torch_state_dict(jax.tree_util.tree_map(np.asarray, jg), jb.vit_config)
+    tb = get_model(dict(cfg, model=dict(cfg["model"])))
+    np_params = jax.tree_util.tree_map(np.asarray, params)
+    tb.module.load_state_dict(from_flax_params(np_params, tb.vit_config), strict=True)
+    tb.module.train()
+    loss = compute_loss(tb.module(torch.from_numpy(x)), torch.from_numpy(y), "reg", "mae")
+    loss.backward()
+    got = {k: p.grad.numpy() for k, p in tb.module.named_parameters()}
+    assert set(got) == set(want)
+    return float(jl), loss.item(), {k: (got[k], np.asarray(want[k])) for k in got}
+
+
+GRAD_CASES = {  # remat "mlp" is held against no remat, dropout on, below
+    "xla": dict(attn_impl="xla"),
+    "flash_fused_mlp": dict(attn_impl="flash", fused_mlp=True),
+    "flash_remat_layer": dict(attn_impl="flash", remat=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_CASES))
+def test_parameter_grads_match_vit_tpu_fp32(name):
+    """Every parameter gradient against jax.grad of vit_tpu's loss. Per
+    tensor, ||port - jax|| <= 1e-4 of the larger of ||jax|| and 1e-3 of the
+    global gradient norm: the floor covers gradients that are zero in exact
+    arithmetic (the key bias: softmax ignores a per-row constant), which
+    both compute as ~1e-12 noise."""
+    jl, pl, grads = _grads_both(_config(**GRAD_CASES[name]))
+    assert abs(jl - pl) <= 1e-6
+    total = np.sqrt(sum(np.sum(w**2) for _, w in grads.values()))
+    for key, (g, w) in grads.items():
+        err = np.linalg.norm(g - w)
+        assert err <= 1e-4 * max(np.linalg.norm(w), 1e-3 * total), (key, err, np.linalg.norm(w))
+
+
+def test_dropout_masks_follow_the_seeds_and_survive_remat():
+    """In training mode the same seeds give the same loss and gradients, with
+    or without activation checkpointing (a recomputed forward draws the same
+    hash masks); other seeds give another loss."""
+    from vit_tpu_torch.models.vit import compute_loss
+
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((4, 256)).astype(np.float32))
+    y = torch.rand(4, 1, generator=torch.Generator().manual_seed(4))
+
+    def run(remat, impl, seeds):
+        m = get_model(_config(attn_impl=impl, fused_mlp=True, remat=remat),
+                      generator=torch.Generator().manual_seed(5)).module.train()
+        loss = compute_loss(m(x, dropout_seeds=seeds), y, "reg", "mae")
+        loss.backward()
+        return loss.item(), [p.grad.clone() for p in m.parameters()]
+
+    m0 = get_model(_config()).module
+    seeds = list(range(100, 100 + m0.num_dropout_sites))
+    assert m0.num_dropout_sites == 1 + 3 * 2
+    for impl in ("flash", "xla"):
+        base = run(False, impl, seeds)
+        for remat in ("mlp", True):
+            other = run(remat, impl, seeds)
+            assert other[0] == base[0]
+            assert all(torch.equal(a, b) for a, b in zip(other[1], base[1]))
+        assert run(False, impl, [s + 1 for s in seeds])[0] != base[0]
+    with pytest.raises(ValueError, match="dropout_seeds"):
+        m0.train()(x)
+    assert m0.eval()(x).shape == (4, 1)  # eval needs no seeds

@@ -49,6 +49,14 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(tmp_path):
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode != 0 and "CUDA is not available" in proc.stderr
+    from vit_tpu_torch.train.loop import Experiment
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Experiment({"model": {}})
+    for cmd in ("run", "test"):
+        proc = subprocess.run([sys.executable, "-m", "vit_tpu_torch", cmd, "-c", "x.yaml"],
+                              cwd=ROOT, capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0 and "CUDA is not available" in proc.stderr
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -73,7 +81,9 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_every_kernel_has_a_source_and_names_its_pallas_kernel():
-    assert sorted(_build.KERNELS) == ["flash_fwd", "fused_mlp_fwd", "short_fwd"]
+    assert sorted(_build.KERNELS) == ["flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
+                                      "fused_mlp_bwd", "fused_mlp_fwd", "short_bwd",
+                                      "short_fwd"]
     for k in _build.KERNELS.values():
         assert os.path.isfile(k.source)
         with open(k.source) as f:
@@ -90,29 +100,47 @@ def test_cpu_tensors_run_the_plain_versions_and_leave_the_counts():
 
     _build.reset_launches()
     g = torch.Generator().manual_seed(0)
-    q = torch.randn(2, 2, 600, 32, generator=g)
-    flash_attention(q, q, q)
-    flash_attention(q[:, :, :50], q[:, :, :50], q[:, :, :50])
-    x = torch.randn(40, 32, generator=g)
+    for t in (600, 50):  # streaming and short kernels, forward and backward
+        q = torch.randn(2, 2, t, 32, generator=g, requires_grad=True)
+        flash_attention(q, q, q, dropout_rate=0.1, dropout_seed=1).sum().backward()
+    x = torch.randn(40, 32, generator=g, requires_grad=True)
     fused_mlp(x, torch.randn(64, 32, generator=g), torch.zeros(64),
-              torch.randn(32, 64, generator=g), torch.zeros(32))
+              torch.randn(32, 64, generator=g), torch.zeros(32)).sum().backward()
     assert {k.launches for k in _build.KERNELS.values()} == {0}
 
 
 def test_training_mode_and_unported_paths_raise():
     from vit_tpu_torch.models.builder import get_model
+    from vit_tpu_torch.train import optim
+    from vit_tpu_torch.train.loop import Experiment
 
     cfg = {"model": {"task_type": "reg", "image_size": 64, "patch_size": 8,
                      "hidden_size": 16, "num_hidden_layers": 1, "num_attention_heads": 2},
            "data": {"param": "log_g"}}
     model = get_model(cfg).module
     x = torch.from_numpy(np.zeros((1, 64), np.float32))
-    with pytest.raises(NotImplementedError, match="eval"):
-        model.train()(x)
+    seeds = list(range(model.num_dropout_sites))
+    assert model.train()(x, dropout_seeds=seeds).shape == (1, 1)  # training is ported
     assert model.eval()(x).shape == (1, 1)
+    slow = get_model(dict(cfg, model=dict(cfg["model"], fast_dropout=False))).module
+    with pytest.raises(NotImplementedError, match="fast_dropout"):
+        slow.train()(x, dropout_seeds=seeds)
     for extra in ({"pos_encoding_type": "rope"}, {"attn_impl": "ring"}, {"name": "vit-s16"},
                   {"moe_experts": 4}):
         with pytest.raises(NotImplementedError):
             get_model(dict(cfg, model=dict(cfg["model"], **extra)))
     with pytest.raises(NotImplementedError):
         get_model(dict(cfg, warmup={"preprocessor": "pca"}))
+    for name in ("rmsprop", "adadelta", "adagrad", "adamax", "lbfgs", "rprop", "asgd",
+                 "sparseadam"):
+        with pytest.raises(NotImplementedError):
+            optim.build_optimizer(optim.OptSpec(opt_type=name), model.parameters())
+    for train in ({"gpus": 4}, {"model_parallel": 2}, {"sequence_parallel": 2},
+                  {"pipeline_parallel": 2}, {"opt_state_sharding": True}, {"log_mfu": True},
+                  {"profile": True}):
+        with pytest.raises(NotImplementedError):
+            Experiment(dict(cfg, train=train), device="cpu")
+    with pytest.raises(NotImplementedError):
+        Experiment(dict(cfg, viz={"enable": True}), device="cpu")
+    with pytest.raises(NotImplementedError):
+        Experiment(cfg, device="cpu", use_wandb=True)

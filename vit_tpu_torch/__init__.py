@@ -1,8 +1,8 @@
-"""PyTorch/CUDA port of ``vit_tpu``: the spectra ViT served on an NVIDIA H100.
+"""PyTorch/CUDA port of ``vit_tpu``: the spectra ViT served and trained on an NVIDIA H100.
 
 The package mirrors ``vit_tpu``'s layout (``config``, ``models``, ``ops``,
 ``train``, ``data``, ``viz``, ``serve``) so each module has a counterpart
-there. Plain tensor code is PyTorch; each Pallas kernel of the serving path
+there. Plain tensor code is PyTorch; each Pallas kernel of ``vit_tpu``
 is a hand-written CUDA C++ kernel under ``csrc/`` (built at first use by
 :mod:`vit_tpu_torch.ops._build`), with a plain PyTorch version of the same
 function beside it that CPU tensors take.
@@ -10,7 +10,8 @@ function beside it that CPU tensors take.
 Entry points run on the card unless the caller passes ``device="cpu"``:
 
 * :class:`vit_tpu_torch.serve.Predictor` (``from_checkpoint(..., device=)``)
-* ``python -m vit_tpu_torch predict ... [--device cuda|cpu]``
+* :class:`vit_tpu_torch.train.loop.Experiment` (``device=``): ``fit``, ``test``, ``run``
+* ``python -m vit_tpu_torch run|test|predict ... [--device cuda|cpu]``
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,17 @@
-"""Command line of the port: ``python -m vit_tpu_torch predict ...``.
+"""Command line of the port: ``python -m vit_tpu_torch run|test|predict ...``.
 
-Batch inference over a torch ``.pt`` checkpoint (mirrors
-``scripts/predict.py``): predict denormalised parameters (regression) or
-classes (classification) for spectra from an HDF5 or ``.npz`` file and write
-them to a ``.npz``. Runs on the card unless ``--device cpu`` is given.
+* ``run`` trains a config and then tests its best checkpoint (mirrors
+  ``scripts/run.py``); ``--ckpt best|last|PATH`` resumes a run.
+* ``test`` evaluates a checkpoint on the test split (``scripts/test.py``).
+* ``predict`` is batch inference over a torch ``.pt`` checkpoint
+  (``scripts/predict.py``): denormalised parameters (regression) or classes
+  (classification) for spectra from an HDF5 or ``.npz`` file, written to a
+  ``.npz``.
 
-Example:
+All run on the card unless ``--device cpu`` is given, and raise without
+one. Examples:
+  python -m vit_tpu_torch run -c configs/exp/att_clp/stride1.yaml --save
+  python -m vit_tpu_torch test -c configs/exp/att_clp/stride1.yaml --ckpt best
   python -m vit_tpu_torch predict -f configs/exp/att_clp/stride1.yaml \\
       --ckpt model.pt --input $TEST_DIR/dataset.h5 --output preds.npz
 """
@@ -58,10 +64,64 @@ def _predict(args: argparse.Namespace) -> int:
     return 0
 
 
+def _experiment_config(args: argparse.Namespace, **train_overrides) -> dict:
+    from vit_tpu_torch.config import load_config
+    from vit_tpu_torch.serve import resolve_device
+    from vit_tpu_torch.utils import seed_everything
+
+    resolve_device(args.device)  # fail before reading any data
+    seed_everything(args.seed)
+    config = load_config(args.config)
+    train = config.setdefault("train", {})
+    if args.gpus is not None:
+        train["gpus"] = args.gpus
+    train.update(train_overrides)
+    return config
+
+
+def _run(args: argparse.Namespace) -> int:
+    from vit_tpu_torch.train.loop import Experiment
+
+    flags = dict(debug=1) if args.debug else {}
+    if args.save:
+        flags["save"] = True
+    config = _experiment_config(args, **flags)
+    Experiment(config, use_wandb=bool(args.wandb), ckpt_path=args.ckpt, seed=args.seed,
+               device=args.device).run()
+    return 0
+
+
+def _test(args: argparse.Namespace) -> int:
+    from vit_tpu_torch.train.loop import Experiment
+
+    config = _experiment_config(args, save=False, debug=args.debug)
+    metrics = Experiment(config, use_wandb=bool(args.wandb), seed=args.seed,
+                         device=args.device).test(ckpt=args.ckpt)
+    print({k: round(v, 6) for k, v in metrics.items()})
+    return 0
+
+
+def _experiment_args(p: argparse.ArgumentParser, ckpt_default, ckpt_help: str) -> None:
+    p.add_argument("-c", "-f", "--config", dest="config", required=True,
+                   help="YAML config path")
+    p.add_argument("--ckpt", default=ckpt_default, help=ckpt_help)
+    p.add_argument("-w", "--wandb", type=int, default=0, help="1 = log to W&B (not ported)")
+    p.add_argument("-g", "--gpus", type=int, default=None, help="device count (1 only)")
+    p.add_argument("-d", "--debug", type=int, nargs="?", const=1, default=0,
+                   help="fast dev run (1 batch)")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m vit_tpu_torch",
                                 description="vit_tpu_torch (PyTorch/CUDA port)")
     sub = p.add_subparsers(dest="command", required=True)
+    pr = sub.add_parser("run", help="train, then test the best checkpoint")
+    _experiment_args(pr, None, "resume from best | last | PATH")
+    pr.add_argument("--save", action="store_true", help="save best/last checkpoints")
+    pt = sub.add_parser("test", help="evaluate a checkpoint on the test split")
+    _experiment_args(pt, "best", "best | last | PATH")
     pp = sub.add_parser("predict", help="batch inference over a torch .pt checkpoint")
     pp.add_argument("-f", "--config", required=True, help="YAML config path")
     pp.add_argument("--ckpt", required=True, help="torch .pt/.pth/.ckpt state dict")
@@ -77,7 +137,7 @@ def main(argv=None) -> int:
                     help="bf16 + tanh GELU + bf16 softmax")
     pp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    return _predict(args)
+    return {"run": _run, "test": _test, "predict": _predict}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -40,6 +40,63 @@ __device__ __forceinline__ float sum16(float x) {
   return x;
 }
 
+// Attention dropout, vit_tpu/ops/flash_attention.py::_hash_bits (:115): a
+// murmur3-finalised hash of the GLOBAL (seed, bh, row, col), so every
+// kernel and every tiling draws the same mask. The host computes the keep
+// threshold and 1/keep (vit_tpu_torch/ops/dropout.py::keep_params) and
+// passes them in; an element is kept when its bits are below the threshold.
+struct Dropout {
+  unsigned seed;       // the int32 seed as uint32
+  unsigned threshold;  // keep iff bits < threshold
+  float inv_keep;      // 1 / (1 - rate)
+  int on;              // rate > 0
+};
+
+__device__ __forceinline__ unsigned fmix32(unsigned x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// seed*H_SEED + bh*H_BH, the part of the hash that is fixed for one head.
+__device__ __forceinline__ unsigned head_term(const Dropout& dr, int bh) {
+  return dr.seed * 0x27D4EB2Fu + static_cast<unsigned>(bh) * 0xC2B2AE35u;
+}
+
+// The keep factor (0 or 1/keep) of element (row, col) of one head.
+__device__ __forceinline__ float keep_factor(const Dropout& dr, unsigned head, int row,
+                                             int col) {
+  const unsigned x = (static_cast<unsigned>(row) * 0x9E3779B1u) ^
+                     (static_cast<unsigned>(col) * 0x85EBCA6Bu);
+  return fmix32(x + head) < dr.threshold ? dr.inv_keep : 0.f;
+}
+
+// Abramowitz & Stegun 7.1.26 erf (max abs err 1.5e-7), as vit_tpu's
+// _erf_f32 (vit_tpu/ops/fused_mlp.py:46), and the exact GELU and its
+// derivative built on it (_gelu_f32, _dgelu_f32), all in fp32.
+__device__ __forceinline__ float erf_as(float x) {
+  const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f;
+  const float a4 = -1.453152027f, a5 = 1.061405429f, p = 0.3275911f;
+  const float ax = fabsf(x);
+  const float t = 1.0f / (1.0f + p * ax);
+  const float poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))));
+  const float sign = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
+  return sign * (1.0f - poly * expf(-ax * ax));
+}
+
+__device__ __forceinline__ float gelu_as(float x) {
+  return 0.5f * x * (1.0f + erf_as(x * 0.7071067811865476f));
+}
+
+__device__ __forceinline__ float dgelu_as(float x) {
+  const float cdf = 0.5f * (1.0f + erf_as(x * 0.7071067811865476f));
+  const float pdf = 0.3989422804014327f * expf(-0.5f * x * x);
+  return cdf + x * pdf;
+}
+
 // Raise the dynamic shared-memory cap of `kernel` to `bytes` (needed above 48 KB).
 template <typename K> inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

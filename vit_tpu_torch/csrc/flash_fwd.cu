@@ -5,7 +5,10 @@
 // with the scale folded into Q in the input dtype, keys at or past T masked
 // to -1e30, an online softmax whose m, l and accumulator are fp32, P cast to
 // the input dtype before P.V, l clamped at 1e-30, and lse = m + log(l) per
-// row. Rate-0 forward only (no dropout).
+// row. With dropout (rate > 0) P is multiplied by the keep mask of the
+// global (seed, bh, row, col) after l has summed the UNMASKED P, and the
+// product P*M/keep is what is rounded to the input dtype before P.V
+// (:389-396).
 //
 // What bounds it on the H100: 4*BH*T^2*d multiply-adds and BH*T^2 exps
 // against only 4*BH*T*d elements moved, so it is bound by operations, not
@@ -37,7 +40,8 @@ template <int D> constexpr size_t smem_floats() {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int t, int n_qt, float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, int t, int n_qt, float scale,
+                 Dropout dr) {
   constexpr int DP = D + 1;   // padded rows: column reads hit distinct banks
   constexpr int PP = BK + 1;
   constexpr int NC = D / 16;  // output columns per thread
@@ -51,6 +55,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int bh = blockIdx.x / n_qt;
   const int q0 = (blockIdx.x % n_qt) * BQ;
   const size_t base = static_cast<size_t>(bh) * t * D;
+  const unsigned head = head_term(dr, bh);
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D, row = q0 + r;
@@ -107,8 +112,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;  // the denominator sums the unrounded probabilities
+        float p = expf(s[i][j] - m_new);
+        rs += p;  // the denominator sums the unrounded, unmasked probabilities
+        if (dr.on) p *= keep_factor(dr, head, q0 + ty + 16 * i, k0 + tx + 16 * j);
         ps[(ty + 16 * i) * PP + tx + 16 * j] = round_to<T>(p);
       }
       const float alpha = expf(m[i] - m_new);
@@ -147,7 +153,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                   int t, float scale, cudaStream_t stream) {
+                   int t, float scale, Dropout dr, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   auto kernel = flash_fwd_kernel<T, D>;
   cudaError_t e = allow_smem(kernel, smem);
@@ -155,18 +161,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
   const int n_qt = (t + BQ - 1) / BQ;
   kernel<<<n_qt * bh, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), t, n_qt, scale);
+      static_cast<T*>(o), static_cast<float*>(lse), t, n_qt, scale, dr);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                     int t, int d, float scale, cudaStream_t s) {
+                     int t, int d, float scale, Dropout dr, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, bh, t, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, t, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, t, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, t, scale, s);
+    case 16: return launch<T, 16>(q, k, v, o, lse, bh, t, scale, dr, s);
+    case 32: return launch<T, 32>(q, k, v, o, lse, bh, t, scale, dr, s);
+    case 64: return launch<T, 64>(q, k, v, o, lse, bh, t, scale, dr, s);
+    case 128: return launch<T, 128>(q, k, v, o, lse, bh, t, scale, dr, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -175,10 +181,14 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, void*
 
 // q, k, v, o: (bh, t, d) contiguous in float32 (is_bf16 = 0) or bfloat16;
 // lse: (bh, t) float32. `scale` is d^-1/2 already rounded to the input dtype.
+// Dropout: `dropout` = rate > 0, `seed` the int32 seed as uint32,
+// `threshold` and `inv_keep` from the host (keep iff hash < threshold).
 // Returns cudaGetLastError() after the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                         int bh, int t, int d, float scale, int is_bf16, void* stream) {
+                         int bh, int t, int d, float scale, int is_bf16, int dropout,
+                         unsigned seed, unsigned threshold, float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, lse, bh, t, d, scale, s)
-                 : launch_d<float>(q, k, v, o, lse, bh, t, d, scale, s);
+  const Dropout dr{seed, threshold, inv_keep, dropout};
+  return is_bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, lse, bh, t, d, scale, dr, s)
+                 : launch_d<float>(q, k, v, o, lse, bh, t, d, scale, dr, s);
 }

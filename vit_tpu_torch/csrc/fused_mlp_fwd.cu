@@ -34,21 +34,6 @@ constexpr int FC = 64;  // F chunk
 constexpr int KC = 32;  // D slice of the first product
 constexpr int THREADS = 256;
 
-__device__ __forceinline__ float erf_as(float x) {
-  // Abramowitz & Stegun 7.1.26 (max abs err 1.5e-7), as vit_tpu's _erf_f32.
-  const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f;
-  const float a4 = -1.453152027f, a5 = 1.061405429f, p = 0.3275911f;
-  const float ax = fabsf(x);
-  const float t = 1.0f / (1.0f + p * ax);
-  const float poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))));
-  const float sign = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
-  return sign * (1.0f - poly * expf(-ax * ax));
-}
-
-__device__ __forceinline__ float gelu_as(float x) {
-  return 0.5f * x * (1.0f + erf_as(x * 0.7071067811865476f));
-}
-
 template <int NC> constexpr size_t smem_floats() {
   return BR * (KC + 1) + KC * (FC + 1) + BR * (FC + 1) + FC * (16 * NC + 1);
 }

@@ -4,7 +4,9 @@
 // launched by _short_fwd (:259). Same function as the streaming kernel, by
 // an exact two-pass softmax with no rescaling: S = (Q*scale) K^T in fp32,
 // keys at or past T masked to -1e30, m = max, P = exp(S - m), l = sum P,
-// lse = m + log(l), O = (P cast to the input dtype) V / l.
+// lse = m + log(l), O = (P cast to the input dtype) V / l. With dropout
+// (rate > 0) P is multiplied by the keep mask of the global (seed, bh, row,
+// col) after l has summed the unmasked P (:213-219), before the cast.
 //
 // What bounds it on the H100: at the baseline serving shape (T=129, d=16,
 // fp32) the 4*BH*T^2*d multiply-adds are few per byte of Q, K, V and O
@@ -36,7 +38,8 @@ template <int D> size_t smem_floats(int t) {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int t, int n_qt, float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, int t, int n_qt, float scale,
+                 Dropout dr) {
   constexpr int DP = D + 1;
   constexpr int NC = D / 16;
   const int tp = (t + BK - 1) / BK * BK;  // score columns held
@@ -50,6 +53,7 @@ short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int bh = blockIdx.x / n_qt;
   const int q0 = (blockIdx.x % n_qt) * BQ;
   const size_t base = static_cast<size_t>(bh) * t * D;
+  const unsigned head = head_term(dr, bh);
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, c = i % D, row = q0 + r;
@@ -96,8 +100,9 @@ short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     mx = max16(mx);
     float sum = 0.f;
     for (int c = tx; c < tp; c += 16) {
-      const float p = expf(row[c] - mx);
-      sum += p;  // the denominator sums the unrounded probabilities
+      float p = expf(row[c] - mx);
+      sum += p;  // the denominator sums the unrounded, unmasked probabilities
+      if (dr.on) p *= keep_factor(dr, head, q0 + ty + 16 * i, c);
       row[c] = round_to<T>(p);
     }
     m[i] = mx;
@@ -140,7 +145,7 @@ short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                   int t, float scale, cudaStream_t stream) {
+                   int t, float scale, Dropout dr, cudaStream_t stream) {
   if (t > T_MAX) return cudaErrorInvalidValue;
   const size_t smem = smem_floats<D>(t) * sizeof(float);
   auto kernel = short_fwd_kernel<T, D>;
@@ -149,18 +154,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
   const int n_qt = (t + BQ - 1) / BQ;
   kernel<<<n_qt * bh, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), t, n_qt, scale);
+      static_cast<T*>(o), static_cast<float*>(lse), t, n_qt, scale, dr);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                     int t, int d, float scale, cudaStream_t s) {
+                     int t, int d, float scale, Dropout dr, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, bh, t, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, t, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, t, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, t, scale, s);
+    case 16: return launch<T, 16>(q, k, v, o, lse, bh, t, scale, dr, s);
+    case 32: return launch<T, 32>(q, k, v, o, lse, bh, t, scale, dr, s);
+    case 64: return launch<T, 64>(q, k, v, o, lse, bh, t, scale, dr, s);
+    case 128: return launch<T, 128>(q, k, v, o, lse, bh, t, scale, dr, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -169,10 +174,13 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, void*
 
 // q, k, v, o: (bh, t, d) contiguous, t <= 512, in float32 (is_bf16 = 0) or
 // bfloat16; lse: (bh, t) float32. `scale` is d^-1/2 rounded to the input
-// dtype. Returns cudaGetLastError() after the launch.
+// dtype. Dropout arguments as for flash_fwd. Returns cudaGetLastError()
+// after the launch.
 extern "C" int short_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                         int bh, int t, int d, float scale, int is_bf16, void* stream) {
+                         int bh, int t, int d, float scale, int is_bf16, int dropout,
+                         unsigned seed, unsigned threshold, float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, lse, bh, t, d, scale, s)
-                 : launch_d<float>(q, k, v, o, lse, bh, t, d, scale, s);
+  const Dropout dr{seed, threshold, inv_keep, dropout};
+  return is_bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, lse, bh, t, d, scale, dr, s)
+                 : launch_d<float>(q, k, v, o, lse, bh, t, d, scale, dr, s);
 }

@@ -11,19 +11,27 @@ in ``vit_tpu``:
 * ``"auto"``  — flash from T >= 1024 with head_dim >= 64, else xla.
 
 Parameter names follow the HF layout the torch bridge writes:
-``attention.{query,key,value}`` and ``output.dense``. Inference only:
-dropout is the identity. ``use_rope``, ``ring`` and ``capture_probs`` are
-not ported yet and raise.
+``attention.{query,key,value}`` and ``output.dense``.
+
+Training (``vit_tpu/models/attention.py:180-281``): given two int32 seeds
+in training mode, the flash path drops probabilities inside the kernels at
+``dropout_rate``; the xla path applies :func:`hash_dropout` to the
+(B, H, T, T) probabilities after their cast to the compute dtype (the 4-D
+coordinate-hash stream, not the kernels' one); the projected output is
+dropped at ``out_dropout_rate`` (HF drops it at the hidden rate). In eval
+mode, or without seeds, dropout is the identity. ``use_rope``, ``ring``
+and ``capture_probs`` are not ported yet and raise.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from vit_tpu_torch.models.layers import DenseHolder, Linear, dense
+from vit_tpu_torch.ops.dropout import hash_dropout
 
 __all__ = ["MultiHeadSelfAttention", "select_attn_impl"]
 
@@ -55,7 +63,8 @@ class MultiHeadSelfAttention(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, impl: str = "auto",
                  dtype: torch.dtype = torch.float32, qkv_bias: bool = True,
                  use_rope: bool = False, softmax_dtype: Optional[str] = None,
-                 fused_qkv: bool = False) -> None:
+                 fused_qkv: bool = False, dropout_rate: float = 0.0, *,
+                 out_dropout_rate: float) -> None:
         super().__init__()
         if hidden_size % num_heads != 0:
             raise ValueError(f"hidden_size {hidden_size} not divisible by num_heads {num_heads}")
@@ -70,10 +79,15 @@ class MultiHeadSelfAttention(nn.Module):
         self.dtype = dtype
         self.softmax_dtype = None if softmax_dtype is None else _SOFTMAX_DTYPES[str(softmax_dtype)]
         self.fused_qkv = fused_qkv
+        self.dropout_rate = float(dropout_rate)
+        self.out_dropout_rate = float(out_dropout_rate)
         self.attention = _QKV(hidden_size, qkv_bias)
         self.output = DenseHolder(hidden_size, hidden_size)
 
-    def forward(self, x: torch.Tensor, capture_probs: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seeds: Optional[Sequence[int]] = None,
+                capture_probs: bool = False) -> torch.Tensor:
+        """``seeds``: (probabilities, output) dropout seeds, used in training
+        mode only."""
         if capture_probs:
             raise NotImplementedError("capture_probs is not ported yet")
         b, t, _ = x.shape
@@ -92,18 +106,27 @@ class MultiHeadSelfAttention(nn.Module):
         else:
             q, k, v = (split_heads(lin(x, dt)) for lin in (p.query, p.key, p.value))
 
+        drop = self.training and seeds is not None
         impl = select_attn_impl(self.impl, t, self.head_dim)
         if impl == "flash":
             from vit_tpu_torch.ops.flash_attention import flash_attention
 
-            context = flash_attention(q, k, v)
+            if drop and self.dropout_rate > 0:
+                context = flash_attention(q, k, v, dropout_rate=self.dropout_rate,
+                                          dropout_seed=seeds[0])
+            else:
+                context = flash_attention(q, k, v)
         elif impl == "xla":
             acc = self.softmax_dtype or torch.float32
             scores = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2))
             probs = torch.softmax(scores * torch.tensor(self.head_dim**-0.5, dtype=acc), dim=-1)
-            context = torch.matmul(probs.to(dt), v)
+            probs = probs.to(dt)
+            if drop:
+                probs = hash_dropout(probs, self.dropout_rate, seeds[0])
+            context = torch.matmul(probs, v)
         else:
             raise ValueError(f"Unknown attention impl '{impl}'")
 
         context = context.transpose(1, 2).reshape(b, t, self.hidden_size)
-        return self.output.dense(context, dt)
+        out = self.output.dense(context, dt)
+        return hash_dropout(out, self.out_dropout_rate, seeds[1]) if drop else out

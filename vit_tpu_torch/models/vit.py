@@ -1,4 +1,4 @@
-"""The spectra ViT (port of ``vit_tpu/models/vit.py``), inference only.
+"""The spectra ViT (port of ``vit_tpu/models/vit.py``), for serving and training.
 
 * ``SpectraEmbeddings`` — SW/C1D/LIN tokenizer + CLS token (N(0, 1) at
   init, the reference quirk) + optional learned positions.
@@ -15,18 +15,27 @@ Module attribute names give exactly the HF state-dict keys that
 cls_token``, ``vit.encoder.layer.{i}.attention.attention.query.weight``,
 ``regressor.weight``, ...), so its ``.pt`` files load with ``strict=True``.
 
-Dropout is the identity at inference; calling the model in training mode
-raises until training is ported. Image inputs, preprocessors and MoE are
+Training mode (``model.train()``) applies the counter-based hash dropout
+of ``vit_tpu`` (``fast_dropout``, the default) at the embeddings, in
+attention (probabilities and output) and after the MLP. Each call site
+draws its mask from its own int32 seed: :meth:`SpecViT.forward` takes
+``dropout_seeds``, :attr:`SpecViT.num_dropout_sites` of them per step, so
+a recomputed forward draws the same masks. ``remat: mlp`` checkpoints the
+MLP sublayer and ``remat: true`` the whole layer
+(``torch.utils.checkpoint``, non-reentrant). :func:`compute_loss` keeps
+the reference quirk that ``loss.name: 'mae'`` trains MSE. ``nn.Dropout``
+streams (``fast_dropout: false``), image inputs, preprocessors and MoE are
 not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vit_tpu_torch.models.attention import MultiHeadSelfAttention
 from vit_tpu_torch.models.layers import DenseHolder, LayerNorm, Linear, dense, init_normal_
@@ -35,8 +44,11 @@ from vit_tpu_torch.models.tokenization import (
     LinearPatchTokenizer,
     SlidingWindowTokenizer,
 )
+from vit_tpu_torch.ops.dropout import hash_dropout
 
-__all__ = ["SpectraEmbeddings", "ViTLayer", "ViTEncoder", "SpecViT"]
+__all__ = ["SpectraEmbeddings", "ViTLayer", "ViTEncoder", "SpecViT", "compute_loss"]
+
+SITES_PER_LAYER = 3  # attention probabilities, attention output, MLP output
 
 
 def _tokenizer(cfg: Any) -> nn.Module:
@@ -97,36 +109,54 @@ class ViTLayer(nn.Module):
             use_rope=cfg.pos_encoding_type == "rope",
             softmax_dtype=cfg.softmax_dtype,
             fused_qkv=cfg.fused_qkv,
+            dropout_rate=cfg.attention_dropout,
+            out_dropout_rate=cfg.hidden_dropout,  # HF ViTSelfOutput drops at the hidden rate
         )
         self.layernorm_after = LayerNorm(cfg.hidden_size, dt)
         self.intermediate = DenseHolder(cfg.hidden_size, cfg.intermediate_size)
         self.output = DenseHolder(cfg.intermediate_size, cfg.hidden_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """``seeds``: this layer's SITES_PER_LAYER dropout seeds (training)."""
+        x = x + self.attention(self.layernorm_before(x), None if seeds is None else seeds[:2])
+        mlp_seed = None if seeds is None else seeds[2]
+        if self.cfg.remat == "mlp" and torch.is_grad_enabled():
+            # vit.py:233-236: the attention residuals stay saved; the MLP
+            # sublayer (and its kernel) runs again in the backward.
+            return checkpoint(self._mlp, x, mlp_seed, use_reentrant=False)
+        return self._mlp(x, mlp_seed)
+
+    def _mlp(self, x: torch.Tensor, seed: Optional[int]) -> torch.Tensor:
+        """LN -> MLP (dense or fused) -> dropout -> residual."""
         cfg = self.cfg
         dt = cfg.dtype
-        x = x + self.attention(self.layernorm_before(x))
         h = self.layernorm_after(x)
         w1, w2 = self.intermediate.dense, self.output.dense
         if cfg.fused_mlp:
             from vit_tpu_torch.ops.fused_mlp import fused_mlp
 
-            h = fused_mlp(h.to(dt), w1.weight.to(dt), w1.bias.to(dt),
-                          w2.weight.to(dt), w2.bias.to(dt))
+            h = fused_mlp(h.to(dt), w1.weight, w1.bias, w2.weight, w2.bias)
         else:
             h = F.gelu(w1(h, dt), approximate="tanh" if cfg.gelu_approximate else "none")
             h = w2(h, dt)
+        if self.training and seed is not None:
+            h = hash_dropout(h, cfg.hidden_dropout, seed)
         return x + h
 
 
 class ViTEncoder(nn.Module):
     def __init__(self, cfg: Any) -> None:
         super().__init__()
+        self.remat_layers = cfg.remat is True  # "mlp" remats inside the layer
         self.layer = nn.ModuleList(ViTLayer(cfg) for _ in range(cfg.num_hidden_layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.layer:
-            x = layer(x)
+    def forward(self, x: torch.Tensor, seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+        for i, layer in enumerate(self.layer):
+            s = None if seeds is None else seeds[SITES_PER_LAYER * i:SITES_PER_LAYER * (i + 1)]
+            if self.remat_layers and torch.is_grad_enabled():
+                x = checkpoint(layer, x, s, use_reentrant=False)  # vit.py:307
+            else:
+                x = layer(x, s)
         return x
 
 
@@ -164,15 +194,55 @@ class SpecViT(nn.Module):
             if isinstance(m, (Linear, LayerNorm, SpectraEmbeddings)):
                 m.init_(g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and (self.cfg.hidden_dropout > 0 or self.cfg.attention_dropout > 0):
-            raise NotImplementedError(
-                "training-mode dropout is not ported yet: call model.eval() first"
-            )
-        cls_token = self.features(x)[:, 0, :]
+    @property
+    def num_dropout_sites(self) -> int:
+        """Seeds one training step draws: the embeddings' and three a layer."""
+        return 1 + SITES_PER_LAYER * self.cfg.num_hidden_layers
+
+    def forward(self, x: torch.Tensor,
+                dropout_seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """(B, L) spectra -> (B, num_labels) fp32 logits. In training mode with
+        any dropout rate above 0, ``dropout_seeds`` holds one int32 per site
+        (:attr:`num_dropout_sites`)."""
+        cls_token = self.features(x, dropout_seeds)[:, 0, :]
         return dense(cls_token.float(), self.head.weight, self.head.bias, torch.float32)
 
-    def features(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor,
+                 dropout_seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
         """The final LayerNorm's output for every token, (B, T, H), in the
         compute dtype: what the head reads its CLS row from."""
-        return self.vit.layernorm(self.vit.encoder(self.vit.embeddings(x)))
+        cfg = self.cfg
+        seeds = None
+        if self.training and (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0):
+            if not cfg.fast_dropout:
+                raise NotImplementedError(
+                    "model.fast_dropout: false (nn.Dropout streams) is not ported yet"
+                )
+            if dropout_seeds is None or len(dropout_seeds) != self.num_dropout_sites:
+                raise ValueError(
+                    f"training-mode dropout needs {self.num_dropout_sites} dropout_seeds"
+                )
+            seeds = [int(s) for s in dropout_seeds]
+        tokens = self.vit.embeddings(x)
+        if seeds is not None:
+            tokens = hash_dropout(tokens, cfg.hidden_dropout, seeds[0])
+        h = self.vit.encoder(tokens, None if seeds is None else seeds[1:])
+        return self.vit.layernorm(h)
+
+
+def compute_loss(logits: torch.Tensor, labels: torch.Tensor, task_type: str,
+                 loss_name: str = "", weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Task loss (``vit_tpu/models/vit.py:353-377``). cls: cross-entropy;
+    reg: L1 iff ``'l1'`` is in ``loss_name``, else MSE, so ``'mae'`` trains
+    MSE (the reference quirk). ``weights``: per-example 0/1 for masked
+    batches."""
+    if task_type == "cls":
+        per_ex = F.cross_entropy(logits.float(), labels.long(), reduction="none")
+    else:
+        diff = logits.float() - labels.float().reshape(logits.shape)
+        per_elem = diff.abs() if "l1" in (loss_name or "l2").lower() else diff**2
+        per_ex = per_elem.mean(dim=-1)
+    if weights is None:
+        return per_ex.mean()
+    w = weights.float()
+    return (per_ex * w).sum() / w.sum().clamp_min(1.0)

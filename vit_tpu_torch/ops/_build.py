@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
 
 
@@ -125,17 +126,29 @@ class Kernel:
         self.launches += 1
 
 
-# (q, k, v, o, lse, bh, t, d, scale, is_bf16, stream)
-_ATTN_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)
+# The dropout tail of the attention kernels: (dropout, seed, threshold,
+# inv_keep, stream).
+_DROP = (_I, _U, _U, _F, _P)
+# (q, k, v, o, lse, bh, t, d, scale, is_bf16, *dropout tail)
+_ATTN_FWD = (_P,) * 5 + (_I, _I, _I, _F, _I) + _DROP
+# (q, k, v, dout, lse, delta, *outputs, bh, t, d, scale, is_bf16, *dropout tail)
+_ATTN_BWD_TAIL = (_I, _I, _I, _F, _I) + _DROP
 # (x, w1, b1, w2, b2, y, rows, d, f, is_bf16, stream)
-_MLP_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+_MLP_FWD = (_P,) * 6 + (_I, _I, _I, _I, _P)
+# (x, dy, w1, b1, w2, dx, g, dh, partials, grads, rows, d, f, n_seg, is_bf16, stream)
+_MLP_BWD = (_P,) * 10 + (_I,) * 5 + (_P,)
 
 KERNELS: Dict[str, Kernel] = {
     k.name: k
     for k in (
-        Kernel("flash_fwd", "vit_tpu/ops/flash_attention.py:359", _ATTN_ARGS),
-        Kernel("short_fwd", "vit_tpu/ops/flash_attention.py:203", _ATTN_ARGS),
-        Kernel("fused_mlp_fwd", "vit_tpu/ops/fused_mlp.py:72", _MLP_ARGS),
+        Kernel("flash_fwd", "vit_tpu/ops/flash_attention.py:359", _ATTN_FWD),
+        Kernel("short_fwd", "vit_tpu/ops/flash_attention.py:203", _ATTN_FWD),
+        Kernel("fused_mlp_fwd", "vit_tpu/ops/fused_mlp.py:72", _MLP_FWD),
+        Kernel("flash_bwd_dq", "vit_tpu/ops/flash_attention.py:459", (_P,) * 7 + _ATTN_BWD_TAIL),
+        Kernel("flash_bwd_dkv", "vit_tpu/ops/flash_attention.py:496",
+               (_P,) * 8 + _ATTN_BWD_TAIL),
+        Kernel("short_bwd", "vit_tpu/ops/flash_attention.py:224", (_P,) * 9 + _ATTN_BWD_TAIL),
+        Kernel("fused_mlp_bwd", "vit_tpu/ops/fused_mlp.py:83", _MLP_BWD),
     )
 }
 

@@ -1,0 +1,139 @@
+"""Counter-based hash dropout, bit for bit as ``vit_tpu`` draws it.
+
+Port of ``vit_tpu/ops/dropout.py`` (``_coord_hash``, ``hash_keep_mask``,
+``hash_dropout``) and of the attention mask of
+``vit_tpu/ops/flash_attention.py`` (``_keep_threshold``, ``_fmix32``,
+``_hash_bits``, ``hash_dropout_mask`` and its constants). A keep-mask is a
+pure function of an int32 seed and each element's coordinates: the same
+seed gives the same mask on the CPU, on the card and in ``vit_tpu``, and
+a recomputed forward (activation checkpointing) draws it again exactly.
+
+torch has no full uint32 arithmetic, so the hash runs in int64 masked to
+32 bits after every step that can carry past bit 31. A product of two
+32-bit values may overflow int64, but it wraps modulo 2**64 and its low 32
+bits, the only ones kept, are those of the uint32 product. A negative int32
+seed becomes ``seed & 0xFFFFFFFF``, as ``convert_element_type`` makes it.
+
+The keep threshold and ``1/keep`` are computed here on the host, once,
+exactly as ``_keep_threshold`` does; the CUDA kernels receive them as
+arguments (:func:`keep_params`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+__all__ = [
+    "hash_dropout",
+    "hash_keep_mask",
+    "hash_dropout_mask",
+    "keep_params",
+    "attention_keep_mask",
+    "seed_u32",
+]
+
+_U32 = 0xFFFFFFFF
+
+# vit_tpu/ops/flash_attention.py:66-72: the attention mask's multipliers.
+_H_ROW = 0x9E3779B1
+_H_COL = 0x85EBCA6B
+_H_BH = 0xC2B2AE35
+_H_SEED = 0x27D4EB2F
+_M1 = 0x85EBCA6B
+_M2 = 0xC2B2AE35
+
+# vit_tpu/ops/dropout.py:37-39: one odd multiplier per axis, and the seed's.
+_AXIS_MULTS = (0x9E3779B1, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F, 0x165667B1, 0xD3A2646D)
+_SEED_MULT = 0x7FEB352D
+
+
+def seed_u32(seed) -> int:
+    """An int32 seed (Python int or 0-d tensor) as the uint32 it becomes."""
+    return int(seed) & _U32
+
+
+def keep_params(rate: float) -> Tuple[int, float]:
+    """(uint32 threshold with P(bits < threshold) = 1 - rate, 1/keep), as
+    ``_keep_threshold`` and ``1.0 / keep`` compute them."""
+    keep = 1.0 - float(rate)
+    return min(_U32, int(round(keep * 2.0**32))), 1.0 / keep
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer on int64 tensors holding uint32 values."""
+    x = x ^ (x >> 16)
+    x = (x * _M1) & _U32
+    x = x ^ (x >> 13)
+    x = (x * _M2) & _U32
+    return x ^ (x >> 16)
+
+
+def _hash_bits(rows, cols, bh, seed) -> torch.Tensor:
+    """uint32 hash of (seed, bh, row, col), held in int64 (``_hash_bits``)."""
+    x = ((rows * _H_ROW) & _U32) ^ ((cols * _H_COL) & _U32)
+    # Python-int terms are reduced mod 2**32 first so no sum leaves int64.
+    bh_term = (bh * _H_BH) & _U32 if isinstance(bh, torch.Tensor) else (int(bh) * _H_BH) & _U32
+    x = (x + bh_term + ((seed_u32(seed) * _H_SEED) & _U32)) & _U32
+    return _fmix32(x)
+
+
+def attention_keep_mask(rows: torch.Tensor, cols: torch.Tensor, bh, seed,
+                        rate: float) -> torch.Tensor:
+    """fp32 keep mask (0 or 1/keep) at broadcast global (rows, cols, bh):
+    what the attention kernels multiply P by."""
+    threshold, inv_keep = keep_params(rate)
+    bits = _hash_bits(rows.long(), cols.long(), bh, seed)
+    return torch.where(bits < threshold, inv_keep, 0.0).to(torch.float32)
+
+
+def hash_dropout_mask(t_q: int, t_k: int, bh, seed, rate: float,
+                      device=None) -> torch.Tensor:
+    """The exact (t_q, t_k) keep-mask the attention kernels draw; ``bh`` a
+    scalar, or a (BH,) tensor that adds a leading dimension."""
+    rows = torch.arange(t_q, dtype=torch.int64, device=device)[:, None]
+    cols = torch.arange(t_k, dtype=torch.int64, device=device)[None, :]
+    if isinstance(bh, torch.Tensor) and bh.dim() == 1:
+        return attention_keep_mask(rows[None], cols[None], bh.long().to(device)[:, None, None],
+                                   seed, rate)
+    return attention_keep_mask(rows, cols, int(bh), seed, rate)
+
+
+def _coord_hash(shape: Sequence[int], seed, offsets: Optional[Sequence] = None,
+                device=None) -> torch.Tensor:
+    """uint32 hash (in int64) of each element's coordinates mixed with
+    ``seed``; ``offsets`` shifts each axis's coordinates (int32 each)."""
+    if len(shape) > len(_AXIS_MULTS):
+        raise ValueError(f"hash_dropout supports up to {len(_AXIS_MULTS)} dims")
+    x = torch.full(tuple(shape), (seed_u32(seed) * _SEED_MULT) & _U32, dtype=torch.int64,
+                   device=device)
+    for axis, mult in zip(range(len(shape)), _AXIS_MULTS):
+        view = [1] * len(shape)
+        view[axis] = shape[axis]
+        idx = torch.arange(shape[axis], dtype=torch.int64, device=device).view(view)
+        if offsets is not None and offsets[axis] is not None:
+            # int32 addition, then the uint32 view: both wrap modulo 2**32
+            idx = idx + int(offsets[axis])
+        x = (x + ((idx & _U32) * mult)) & _U32
+        x = x ^ (x >> 15)
+        x = (x * _M1) & _U32
+    return _fmix32(x)
+
+
+def hash_keep_mask(shape: Sequence[int], rate: float, seed,
+                   offsets: Optional[Sequence] = None, device=None) -> torch.Tensor:
+    """Inverted-dropout keep mask (``1/(1-rate)`` or 0), fp32, for a block
+    at ``offsets`` of a logically larger tensor."""
+    threshold, inv_keep = keep_params(rate)
+    bits = _coord_hash(shape, seed, offsets, device)
+    return torch.where(bits < threshold, inv_keep, 0.0).to(torch.float32)
+
+
+def hash_dropout(x: torch.Tensor, rate: float, seed) -> torch.Tensor:
+    """Inverted dropout with the counter-based mask; ``seed``: an int32."""
+    if rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    return x * hash_keep_mask(x.shape, rate, seed, device=x.device).to(x.dtype)

@@ -1,42 +1,60 @@
-"""Exact softmax attention forward: two CUDA kernels and their plain versions.
+"""Exact softmax attention, forward and backward: CUDA kernels and their plain versions.
 
-Port of ``vit_tpu/ops/flash_attention.py::flash_attention`` (forward, no
-dropout). ``q, k, v`` are (B, H, T, d) in and out, as there. The same
-dispatch rule picks the kernel: T rounded up to 128 at most 512 takes the
-short kernel (``csrc/short_fwd.cu``, replaces ``_short_fwd_kernel``), longer
-sequences the streaming kernel (``csrc/flash_fwd.cu``, replaces
-``_flash_fwd_kernel``). Neither pads: T and d are used as they are, the
-kernels mask the ragged edge themselves, and d is one of 16, 32, 64, 128.
+Port of ``vit_tpu/ops/flash_attention.py::flash_attention`` with its
+``custom_vjp``: in-kernel hash dropout on the probabilities and the flash
+backward. ``q, k, v`` are (B, H, T, d) in and out, as there. The same
+dispatch rule picks the kernels: T rounded up to 128 at most 512 takes the
+short kernels, longer sequences the streaming ones.
 
-Both compute what the Pallas kernels compute: the scale is folded into q in
-the input dtype, scores and softmax statistics are fp32, keys at or past T
-get -1e30, the probabilities are cast to the input dtype before P·V with
-fp32 accumulation, and the per-row logsumexp is returned beside O.
+* K1 forward, ``csrc/flash_fwd.cu``, replaces ``_flash_fwd_kernel``;
+* K2 short forward, ``csrc/short_fwd.cu``, replaces ``_short_fwd_kernel``;
+* K4 dQ, ``csrc/flash_bwd_dq.cu``, replaces ``_flash_bwd_dq_kernel``;
+* K5 dK and dV, ``csrc/flash_bwd_dkv.cu``, replaces ``_flash_bwd_dkv_kernel``;
+* K6 short backward, ``csrc/short_bwd.cu``, replaces ``_short_bwd_kernel``.
+
+None pads: T and d are used as they are, the kernels mask the ragged edge
+themselves, and d is one of 16, 32, 64, 128. They compute what the Pallas
+kernels compute: the scale folded into q in the input dtype, fp32 scores
+and softmax statistics, keys at or past T at -1e30, the (dropped-out)
+probabilities cast to the input dtype before P·V with fp32 accumulation,
+and the per-row logsumexp returned beside O for the backward. Dropout
+multiplies P by the keep mask of the global (seed, bh, row, col)
+(:mod:`vit_tpu_torch.ops.dropout`) after the denominator has summed the
+unmasked P. The backward forms ``delta = rowsum(dO·O)`` in fp32 with plain
+torch, as XLA does outside the kernels, and the kernels re-derive P from
+the lse.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU and
-launches its kernel for a tensor on the card; nothing else switches.
+launches its kernel for a tensor on the card; nothing else switches. The
+plain versions walk the key tiles their kernels walk.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from vit_tpu_torch.ops._build import KERNELS
+from vit_tpu_torch.ops.dropout import attention_keep_mask, keep_params, seed_u32
 
 __all__ = [
     "flash_attention",
     "flash_fwd",
     "short_fwd",
+    "flash_bwd",
+    "short_bwd",
     "flash_fwd_plain",
     "short_fwd_plain",
+    "flash_bwd_plain",
+    "short_bwd_plain",
     "SHORT_T_MAX",
 ]
 
 NEG_INF = -1e30
-SHORT_T_MAX = 512  # padded lengths up to this take the short kernel
+SHORT_T_MAX = 512  # padded lengths up to this take the short kernels
 FLASH_BLOCK_K = 64  # key tile of flash_fwd.cu; the plain version walks the same tiles
+BWD_BLOCK_K = 64  # key tile of attn_bwd.cuh's dQ pass; flash_bwd_plain walks these
 HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -49,17 +67,31 @@ def _scaled_q(q: torch.Tensor, scale: float) -> torch.Tensor:
     return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
 
 
-def short_fwd_plain(q, k, v, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def _keep(bh: int, rows: Tuple[int, int], cols: Tuple[int, int], seed, rate: float,
+          device) -> torch.Tensor:
+    """(BH, rows, cols) fp32 keep factors at global coordinates."""
+    r = torch.arange(*rows, dtype=torch.int64, device=device)[None, :, None]
+    c = torch.arange(*cols, dtype=torch.int64, device=device)[None, None, :]
+    heads = torch.arange(bh, dtype=torch.int64, device=device)[:, None, None]
+    return attention_keep_mask(r, c, heads, seed, rate)
+
+
+def short_fwd_plain(q, k, v, scale: float, rate: float = 0.0,
+                    seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two-pass softmax attention over the whole row: (o (BH,T,d), lse (BH,T))."""
+    bh, t, _ = q.shape
     s = torch.matmul(_scaled_q(q, scale).float(), k.float().transpose(1, 2))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
+    if rate > 0.0:
+        p = p * _keep(bh, (0, t), (0, t), seed, rate, q.device)
     o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
     return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
-def flash_fwd_plain(q, k, v, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_fwd_plain(q, k, v, scale: float, rate: float = 0.0,
+                    seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Online softmax over key tiles of ``FLASH_BLOCK_K``, as the kernel walks
     them: (o (BH,T,d), lse (BH,T))."""
     bh, t, d = q.shape
@@ -68,16 +100,57 @@ def flash_fwd_plain(q, k, v, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     l = torch.zeros((bh, t, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((bh, t, d), dtype=torch.float32, device=q.device)
     for j0 in range(0, t, FLASH_BLOCK_K):
-        s = torch.matmul(qs, k[:, j0 : j0 + FLASH_BLOCK_K].float().transpose(1, 2))
+        j1 = min(t, j0 + FLASH_BLOCK_K)
+        s = torch.matmul(qs, k[:, j0:j1].float().transpose(1, 2))
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        vj = v[:, j0 : j0 + FLASH_BLOCK_K].float()
-        acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), vj)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)  # unmasked P
+        if rate > 0.0:
+            p = p * _keep(bh, (0, t), (j0, j1), seed, rate, q.device)
+        acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), v[:, j0:j1].float())
         m = m_new
     l = l.clamp_min(1e-30)
     return (acc / l).to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, j0, j1):
+    """(P*M/keep, ds) of key columns [j0, j1) for every row, fp32."""
+    s = torch.matmul(_scaled_q(q, scale).float(), k[:, j0:j1].float().transpose(1, 2))
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(do.float(), v[:, j0:j1].float().transpose(1, 2))
+    pm = p
+    if rate > 0.0:
+        keep = _keep(q.shape[0], (0, q.shape[1]), (j0, j1), seed, rate, q.device)
+        pm, dp = p * keep, dp * keep
+    return pm, p * (dp - delta[..., None])
+
+
+def flash_bwd_plain(q, k, v, do, lse, delta, scale: float, rate: float = 0.0,
+                    seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 and K5: (dq, dk, dv) over key tiles of ``BWD_BLOCK_K``. dK is
+    scale * ds^T q with q as it is (``_flash_bwd_dkv_kernel``)."""
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for j0 in range(0, q.shape[1], BWD_BLOCK_K):
+        j1 = min(q.shape[1], j0 + BWD_BLOCK_K)
+        pm, ds = _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, j0, j1)
+        dq_acc = dq_acc + torch.matmul(ds.to(k.dtype).float(), k[:, j0:j1].float())
+        dv[:, j0:j1] = torch.matmul(pm.to(do.dtype).float().transpose(1, 2), do.float())
+        dk[:, j0:j1] = torch.matmul(ds.to(q.dtype).float().transpose(1, 2), q.float()) * scale
+    return (dq_acc * scale).to(q.dtype), dk, dv
+
+
+def short_bwd_plain(q, k, v, do, lse, delta, scale: float, rate: float = 0.0,
+                    seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6 over the whole row: (dq, dk, dv), with dK = ds^T (q*scale rounded)
+    and no final scale (``_short_bwd_kernel``)."""
+    t = q.shape[1]
+    pm, ds = _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, 0, t)
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * scale
+    dv = torch.matmul(pm.to(do.dtype).float().transpose(1, 2), do.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(1, 2), _scaled_q(q, scale).float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_qkv(q, k, v) -> None:
@@ -93,7 +166,29 @@ def _check_qkv(q, k, v) -> None:
         raise ValueError(f"head_dim {q.shape[-1]} is not one of {HEAD_DIMS}")
 
 
-def _launch_attention(name: str, q, k, v, scale: float):
+def _check_bwd(q, do, lse, delta) -> None:
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"dout must match q: {do.shape} {do.dtype}, {q.shape} {q.dtype}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != q.shape[:2] or x.dtype != torch.float32 or x.device != q.device:
+            raise ValueError(f"{name} must be float32 (BH, T) beside q: {x.shape} {x.dtype}")
+    if not (do.is_contiguous() and lse.is_contiguous() and delta.is_contiguous()):
+        raise ValueError("dout, lse and delta must be contiguous")
+
+
+def _dropout_args(rate: float, seed) -> tuple:
+    """(on, seed as uint32, threshold, 1/keep) for the kernels."""
+    if rate <= 0.0:
+        return 0, 0, 0, 1.0
+    threshold, inv_keep = keep_params(rate)
+    return 1, seed_u32(seed), threshold, inv_keep
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch_fwd(name: str, q, k, v, scale: float, rate: float, seed):
     bh, t, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
@@ -101,42 +196,121 @@ def _launch_attention(name: str, q, k, v, scale: float):
         return o, lse
     # The kernels fold scale into q in q's dtype: pass it already rounded there.
     scale_t = float(torch.tensor(scale, dtype=q.dtype))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     KERNELS[name].launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        bh, t, d, scale_t, int(q.dtype == torch.bfloat16), stream,
+        bh, t, d, scale_t, int(q.dtype == torch.bfloat16), *_dropout_args(rate, seed),
+        _stream(q),
     )
     return o, lse
 
 
-def _dispatch(name: str, plain, q, k, v, scale: float):
-    _check_qkv(q, k, v)
+def _launch_bwd(name: str, outs, q, k, v, do, lse, delta, scale: float, rate: float,
+                seed) -> None:
+    bh, t, d = q.shape
+    if q.numel() == 0:
+        return
+    KERNELS[name].launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), *(o.data_ptr() for o in outs), bh, t, d, float(scale),
+        int(q.dtype == torch.bfloat16), *_dropout_args(rate, seed), _stream(q),
+    )
+
+
+def _on_cpu(q) -> bool:
     if q.device.type == "cpu":
-        return plain(q, k, v, scale)
+        return True
     if q.device.type == "cuda":
-        return _launch_attention(name, q, k, v, scale)
+        return False
     raise ValueError(f"no kernel for device {q.device}")
 
 
-def flash_fwd(q, k, v, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_fwd(q, k, v, scale: float, rate: float = 0.0,
+              seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming forward (K1): (BH, T, d) x3 -> (o, lse (BH, T) fp32)."""
-    return _dispatch("flash_fwd", flash_fwd_plain, q, k, v, scale)
+    _check_qkv(q, k, v)
+    if _on_cpu(q):
+        return flash_fwd_plain(q, k, v, scale, rate, seed)
+    return _launch_fwd("flash_fwd", q, k, v, scale, rate, seed)
 
 
-def short_fwd(q, k, v, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def short_fwd(q, k, v, scale: float, rate: float = 0.0,
+              seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Short-sequence forward (K2), for T up to 512: same in and out as
     :func:`flash_fwd`."""
     if q.dim() == 3 and q.shape[1] > SHORT_T_MAX:
         raise ValueError(f"short_fwd takes T <= {SHORT_T_MAX}, got {q.shape[1]}")
-    return _dispatch("short_fwd", short_fwd_plain, q, k, v, scale)
+    _check_qkv(q, k, v)
+    if _on_cpu(q):
+        return short_fwd_plain(q, k, v, scale, rate, seed)
+    return _launch_fwd("short_fwd", q, k, v, scale, rate, seed)
 
 
-def flash_attention(q, k, v, dropout_rate: float = 0.0) -> torch.Tensor:
-    """Exact attention with scale ``d**-0.5``: (B, H, T, d) -> (B, H, T, d)."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError("flash_attention dropout is not ported yet")
+def flash_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed: int = 0):
+    """Streaming backward: K4 (dq) then K5 (dk, dv). ``do`` like q; ``lse``
+    from the forward and ``delta = rowsum(do*o)``, both (BH, T) fp32."""
+    _check_qkv(q, k, v)
+    _check_bwd(q, do, lse, delta)
+    if _on_cpu(q):
+        return flash_bwd_plain(q, k, v, do, lse, delta, scale, rate, seed)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_bwd_dq", (dq,), q, k, v, do, lse, delta, scale, rate, seed)
+    _launch_bwd("flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta, scale, rate, seed)
+    return dq, dk, dv
+
+
+def short_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed: int = 0):
+    """Short-sequence backward (K6), T up to 512: as :func:`flash_bwd`."""
+    if q.dim() == 3 and q.shape[1] > SHORT_T_MAX:
+        raise ValueError(f"short_bwd takes T <= {SHORT_T_MAX}, got {q.shape[1]}")
+    _check_qkv(q, k, v)
+    _check_bwd(q, do, lse, delta)
+    if _on_cpu(q):
+        return short_bwd_plain(q, k, v, do, lse, delta, scale, rate, seed)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("short_bwd", (dq, dk, dv), q, k, v, do, lse, delta, scale, rate, seed)
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """The kernels' forward and backward as one differentiable op on
+    (BH, T, d) tensors; saves q, k, v, o and lse (``_core_fwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, rate: float, seed: int, short: bool):
+        o, lse = (short_fwd if short else flash_fwd)(q, k, v, scale, rate=rate, seed=seed)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.cfg = (scale, rate, seed, short)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        scale, rate, seed, short = ctx.cfg
+        do = do.contiguous()
+        delta = (do.float() * o.float()).sum(dim=-1)  # XLA's D, outside the kernels
+        bwd = short_bwd if short else flash_bwd
+        dq, dk, dv = bwd(q, k, v, do, lse, delta, scale, rate, seed)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, dropout_rate: float = 0.0,
+                    dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """Exact attention with scale ``d**-0.5``: (B, H, T, d) -> (B, H, T, d),
+    differentiable through the backward kernels.
+
+    ``dropout_rate > 0`` drops softmax probabilities in the kernels with the
+    counter-based mask of ``dropout_seed`` (an int32; required then): the
+    same (seed, rate) always draws the same mask, as in ``vit_tpu``.
+    """
+    rate = float(dropout_rate)
+    if rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    seed = 0 if dropout_seed is None else int(dropout_seed)
     b, h, t, d = q.shape
     args = [x.reshape(b * h, t, d).contiguous() for x in (q, k, v)]
-    fwd = short_fwd if _round_up(t, 128) <= SHORT_T_MAX else flash_fwd
-    o, _ = fwd(*args, d**-0.5)
+    short = _round_up(t, 128) <= SHORT_T_MAX
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        o = _Attention.apply(*args, d**-0.5, rate, seed, short)
+    else:
+        o, _ = (short_fwd if short else flash_fwd)(*args, d**-0.5, rate=rate, seed=seed)
     return o.view(b, h, t, d)

@@ -1,16 +1,21 @@
-"""Fused transformer MLP forward: ``gelu(x @ w1.T + b1) @ w2.T + b2``.
+"""Fused transformer MLP: ``gelu(x @ w1.T + b1) @ w2.T + b2``, forward and backward.
 
-Port of ``vit_tpu/ops/fused_mlp.py::fused_mlp`` (forward). The kernel
-(``csrc/fused_mlp_fwd.cu``, replaces ``_fwd_kernel``) keeps the (rows, F)
-intermediate on chip; :func:`fused_mlp_plain` is ``_jnp_mlp``. Both use the
-Abramowitz-Stegun erf of the Pallas kernel (not ``torch.erf``), compute the
-GELU in fp32 and cast it to the input dtype before the second product.
-The weights are in torch's ``nn.Linear`` layout, (out, in): ``w1`` is
-(F, D) and ``w2`` is (D, F), the transposes of the Pallas kernel's.
+Port of ``vit_tpu/ops/fused_mlp.py::fused_mlp`` with its ``custom_vjp``.
+The forward kernel (``csrc/fused_mlp_fwd.cu``, replaces ``_fwd_kernel``)
+keeps the (rows, F) intermediate on chip; :func:`fused_mlp_plain` is
+``_jnp_mlp``. The backward kernel (``csrc/fused_mlp_bwd.cu``, replaces
+``_bwd_kernel``) recomputes the pre-activation and returns dx in the input
+dtype and dW1, db1, dW2, db2 summed in fp32 and returned in fp32;
+:func:`fused_mlp_bwd_plain` is its plain version. All use the
+Abramowitz-Stegun erf of the Pallas kernels (not ``torch.erf``), compute
+the GELU and its derivative in fp32, and cast the GELU output and dh to the
+input dtype before the products that read them. The weights are in torch's
+``nn.Linear`` layout, (out, in): ``w1`` is (F, D) and ``w2`` is (D, F), the
+transposes of the Pallas kernel's.
 
-The wrapper takes the plain version for a tensor on the CPU and launches
-the kernel for a tensor on the card. The kernel tiles over F and over the
-output columns, so it runs at every width.
+The wrappers take the plain versions for tensors on the CPU and launch the
+kernels for tensors on the card. The kernels tile over F and over the
+output columns, so they run at every width.
 """
 
 from __future__ import annotations
@@ -19,9 +24,11 @@ import torch
 
 from vit_tpu_torch.ops._build import KERNELS
 
-__all__ = ["fused_mlp", "fused_mlp_plain", "gelu_as", "erf_as"]
+__all__ = ["fused_mlp", "fused_mlp_plain", "fused_mlp_bwd", "fused_mlp_bwd_plain", "gelu_as",
+           "dgelu_as", "erf_as"]
 
 _SQRT_HALF = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
 
 
 def erf_as(x: torch.Tensor) -> torch.Tensor:
@@ -38,11 +45,29 @@ def gelu_as(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + erf_as(x * _SQRT_HALF))
 
 
+def dgelu_as(x: torch.Tensor) -> torch.Tensor:
+    """GELU's derivative on :func:`erf_as`, fp32 (``_dgelu_f32``)."""
+    cdf = 0.5 * (1.0 + erf_as(x * _SQRT_HALF))
+    pdf = _INV_SQRT_2PI * torch.exp(-0.5 * x * x)
+    return cdf + x * pdf
+
+
 def fused_mlp_plain(x, w1, b1, w2, b2) -> torch.Tensor:
     """(R, D) rows -> (R, D), the math of ``_jnp_mlp``."""
     pre = torch.matmul(x.float(), w1.float().t()) + b1.float()
     h = gelu_as(pre).to(x.dtype)
     return (torch.matmul(h.float(), w2.float().t()) + b2.float()).to(x.dtype)
+
+
+def fused_mlp_bwd_plain(x, dy, w1, b1, w2):
+    """``_bwd_kernel`` on (R, D) rows: (dx in x's dtype, then dW1 (F, D),
+    db1 (F), dW2 (D, F), db2 (D) in fp32)."""
+    xf, dyf = x.float(), dy.float()
+    pre = torch.matmul(xf, w1.float().t()) + b1.float()
+    g = gelu_as(pre).to(x.dtype).float()
+    dh = (torch.matmul(dyf, w2.float()) * dgelu_as(pre)).to(x.dtype).float()
+    dx = torch.matmul(dh, w1.float()).to(x.dtype)
+    return dx, dh.t() @ xf, dh.sum(0), dyf.t() @ g, dyf.sum(0)
 
 
 def _check(x, w1, b1, w2, b2) -> None:
@@ -73,17 +98,86 @@ def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
     return y
 
 
-def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
-    """``x``: (..., D); ``w1``: (F, D); ``w2``: (D, F); biases (F,) / (D,)."""
-    shape = x.shape
-    x2, w1, b1, w2, b2 = (
-        t.contiguous() for t in (x.reshape(-1, shape[-1]), w1, b1, w2, b2)
-    )
+def _on_cpu(x) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {x.device}")
+
+
+def _fwd(x2, w1, b1, w2, b2) -> torch.Tensor:
     _check(x2, w1, b1, w2, b2)
-    if x2.device.type == "cpu":
-        y = fused_mlp_plain(x2, w1, b1, w2, b2)
-    elif x2.device.type == "cuda":
-        y = _launch(x2, w1, b1, w2, b2)
+    return fused_mlp_plain(x2, w1, b1, w2, b2) if _on_cpu(x2) else _launch(x2, w1, b1, w2, b2)
+
+
+def _segments(r: int, d: int, f: int) -> int:
+    """Row segments of K7's weight-gradient partials: enough CTAs for two
+    waves of 132 SMs, each segment at least 128 rows."""
+    tiles = -(-f // 64) * -(-d // 64)
+    return max(1, min(-(-264 // tiles), -(-r // 128)))
+
+
+def fused_mlp_bwd(x, dy, w1, b1, w2):
+    """The backward (K7) of :func:`fused_mlp` on (R, D) rows, operands as
+    there: (dx, dW1, db1, dW2, db2), the weight gradients fp32."""
+    _check(x, w1, b1, w2, torch.empty(x.shape[1], dtype=x.dtype, device=x.device))
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must match x: {dy.shape} {dy.dtype}, {x.shape} {x.dtype}")
+    if _on_cpu(x):
+        return fused_mlp_bwd_plain(x, dy, w1, b1, w2)
+    r, d = x.shape
+    f = w1.shape[0]
+    dx = torch.empty_like(x)
+    n = 2 * f * d + f + d
+    grads = torch.zeros(n, dtype=torch.float32, device=x.device)
+    if r > 0:
+        n_seg = _segments(r, d, f)
+        g = torch.empty((r, f), dtype=x.dtype, device=x.device)
+        dh = torch.empty_like(g)
+        part = torch.empty((n_seg, n), dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        KERNELS["fused_mlp_bwd"].launch(
+            x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            dx.data_ptr(), g.data_ptr(), dh.data_ptr(), part.data_ptr(), grads.data_ptr(),
+            r, d, f, n_seg, int(x.dtype == torch.bfloat16), stream,
+        )
+    dw1, db1, dw2, db2 = torch.split(grads, [f * d, f, d * f, d])
+    return dx, dw1.view(f, d), db1, dw2.view(d, f), db2
+
+
+def _cast(x2, *ws):
+    return tuple(w.to(x2.dtype).contiguous() for w in ws)
+
+
+class _FusedMLP(torch.autograd.Function):
+    """K3 forward, K7 backward (``_core_fwd`` / ``_core_bwd``). The weights
+    are cast to x's dtype here, so the kernel's fp32 weight gradients reach
+    fp32 parameters unrounded, as vit_tpu's fp32 ``_bwd_kernel`` outputs
+    reach its parameters through ``astype`` (autograd casts them to a
+    parameter's own dtype where that differs)."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2):
+        ws = _cast(x2, w1, b1, w2, b2)
+        ctx.save_for_backward(x2, *ws[:3])
+        return _fwd(x2, *ws)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w1, b1, w2 = ctx.saved_tensors
+        return fused_mlp_bwd(x2, dy.contiguous(), w1, b1, w2)
+
+
+def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
+    """``x``: (..., D) in fp32 or bf16; ``w1``: (F, D); ``w2``: (D, F);
+    biases (F,) / (D,), cast to x's dtype inside. Differentiable through the
+    backward kernel; the weights' gradients come back in fp32, unrounded,
+    for fp32 weights (the model's mixed-precision path)."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1]).contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x2, w1, b1, w2, b2)):
+        y = _FusedMLP.apply(x2, w1, b1, w2, b2)
     else:
-        raise ValueError(f"no kernel for device {x2.device}")
+        y = _fwd(x2, *_cast(x2, w1, b1, w2, b2))
     return y.reshape(shape)

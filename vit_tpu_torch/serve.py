@@ -93,7 +93,8 @@ class Predictor:
         device: Union[str, torch.device] = "cuda",
     ) -> "Predictor":
         """Build from a YAML config (path or dict) and a torch ``.pt``/``.pth``/
-        ``.ckpt`` state dict on ``device``.
+        ``.ckpt`` state dict, or ``"best"``/``"last"`` of the port's own
+        training run under ``$CKPT_DIR/<model_name>/``, on ``device``.
 
         ``precision``: compute dtype override (e.g. ``"bf16"``); parameters
         stay fp32. ``perf_preset=True``: bf16 (unless ``precision`` is given)
@@ -101,11 +102,17 @@ class Predictor:
         """
         from vit_tpu_torch.config import load_config
         from vit_tpu_torch.models.builder import get_model
-        from vit_tpu_torch.train.checkpoint import ORBAX_HINT, default_ckpt_dir, read_meta
+        from vit_tpu_torch.train.checkpoint import (
+            ORBAX_HINT,
+            CheckpointManager,
+            default_ckpt_dir,
+            read_meta,
+        )
         from vit_tpu_torch.train.torch_bridge import load_torch_checkpoint
 
         dev = resolve_device(device)
-        if not str(ckpt).endswith((".pt", ".pth", ".ckpt")):
+        own = str(ckpt) in ("best", "last")
+        if not own and not str(ckpt).endswith((".pt", ".pth", ".ckpt")):
             raise ValueError(f"ckpt={ckpt!r}: {ORBAX_HINT}")
         cfg = load_config(config) if isinstance(config, str) else dict(config)
         if perf_preset:
@@ -121,6 +128,12 @@ class Predictor:
             cfg = dict(cfg, model=dict(cfg["model"], attn_impl="xla"))
         bundle = get_model(cfg)
         meta = read_meta(default_ckpt_dir(), bundle.model_name)
+        if own:
+            try:
+                ckpt = CheckpointManager(default_ckpt_dir(), bundle.model_name,
+                                         enabled=False).resolve(str(ckpt))
+            except FileNotFoundError as e:  # e.g. an orbax run of vit_tpu
+                raise ValueError(f"ckpt={ckpt!r}: {e}; {ORBAX_HINT}") from None
         bundle.module.load_state_dict(load_torch_checkpoint(str(ckpt)), strict=True)
         return cls(
             bundle.module.to(dev),

@@ -1,23 +1,44 @@
-"""Checkpoint locations and metadata (port of part of
-``vit_tpu/train/checkpoint.py``).
+"""Checkpoints: best/last torch files with atomic pointers, and their
+metadata (port of ``vit_tpu/train/checkpoint.py``).
 
-``vit_tpu`` writes ``<ckpt_dir>/<model_name>/meta.yaml`` beside its orbax
-``best``/``last`` checkpoints; the port reads that file for the label
-normalisation statistics. Orbax checkpoints themselves cannot be read
-without orbax: convert one to a ``.pt`` with ``scripts/convert.py --export``.
+Layout, as ``vit_tpu`` lays out its orbax checkpoints::
+
+    <ckpt_dir>/<model_name>/
+        best        symlink -> .versions/best-<n>
+        last        symlink -> .versions/last-<n>
+        .versions/  one directory per save, holding ``state.pt``
+        meta.yaml   monitor name/mode, best value/epoch, last epoch, config,
+                    label-norm stats, plateau and early-stop states
+
+Every save lands in a fresh version directory (written to a temporary name
+and renamed into place), and only then does the ``best``/``last`` symlink
+flip to it with ``os.replace``, one atomic rename; the superseded version
+is deleted after the pointer has moved off it. A crash at any point leaves
+the previous pointer and its target whole, so ``--ckpt last`` always finds
+a complete file.
+
+``state.pt`` holds the model's state dict under ``state_dict`` (the HF keys,
+so :class:`vit_tpu_torch.serve.Predictor` serves it) beside the training
+state: optimizer state, step, ``plateau_scale``, the plateau and
+early-stop states and the dropout and noise generators' states. Orbax
+checkpoints of ``vit_tpu`` cannot be read without orbax: convert one to a
+``.pt`` with ``scripts/convert.py --export``.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+from typing import Any, Dict, Optional
 
-__all__ = ["default_ckpt_dir", "read_meta", "ORBAX_HINT"]
+__all__ = ["CheckpointManager", "default_ckpt_dir", "read_meta", "ORBAX_HINT", "STATE_FILE"]
 
 ORBAX_HINT = (
-    "vit_tpu_torch reads torch .pt/.pth/.ckpt state dicts only; convert an "
-    "orbax checkpoint first: python scripts/convert.py -f CONFIG --export "
-    "--ckpt best --out model.pt"
+    "vit_tpu_torch reads torch .pt/.pth/.ckpt state dicts and its own best/last "
+    "checkpoints only; convert an orbax checkpoint first: python scripts/convert.py "
+    "-f CONFIG --export --ckpt best --out model.pt"
 )
+STATE_FILE = "state.pt"
 
 
 def default_ckpt_dir() -> str:
@@ -35,3 +56,124 @@ def read_meta(ckpt_dir: str, model_name: str) -> dict:
 
     with open(path) as f:
         return yaml.safe_load(f) or {}
+
+
+class CheckpointManager:
+    """best + last checkpoints keyed on a monitored metric."""
+
+    def __init__(self, root_dir: str, model_name: str, monitor: str = "mae", mode: str = "min",
+                 enabled: bool = True) -> None:
+        self.root_dir = root_dir
+        self.model_name = model_name
+        self.dir = os.path.abspath(os.path.join(root_dir, model_name))
+        self.monitor = monitor
+        self.mode = mode
+        self.enabled = enabled
+        # Best is tracked in memory per run; --ckpt resume seeds it from meta.
+        self.best_value: Optional[float] = None
+        self.best_epoch: Optional[int] = None
+        self._counter = 0
+        if enabled:
+            os.makedirs(self.dir, exist_ok=True)
+            self._counter = self._scan_version_counter()
+
+    @property
+    def best_path(self) -> str:
+        return os.path.join(self.dir, "best")
+
+    @property
+    def last_path(self) -> str:
+        return os.path.join(self.dir, "last")
+
+    def _meta_path(self) -> str:
+        return os.path.join(self.dir, "meta.yaml")
+
+    def _version_root(self) -> str:
+        return os.path.join(self.dir, ".versions")
+
+    def _scan_version_counter(self) -> int:
+        """Continue numbering past any version already on disk."""
+        n = 0
+        if os.path.isdir(self._version_root()):
+            for name in os.listdir(self._version_root()):
+                tail = name.rsplit("-", 1)[-1]
+                if tail.isdigit():
+                    n = max(n, int(tail))
+        return n
+
+    def load_best_from_meta(self) -> None:
+        """Seed the best tracker from a previous run's meta (resume only)."""
+        meta = self.read_meta()
+        self.best_value = meta.get("best_value")
+        self.best_epoch = meta.get("best_epoch")
+
+    def read_meta(self) -> dict:
+        return read_meta(self.root_dir, self.model_name)
+
+    def _write_meta(self, epoch: int, config: Optional[dict], extra: Optional[dict]) -> None:
+        import yaml
+
+        meta = {"monitor": f"val_{self.monitor}", "mode": self.mode,
+                "best_value": self.best_value, "best_epoch": self.best_epoch,
+                "last_epoch": epoch}
+        if config is not None:
+            meta["config"] = config
+        if extra:
+            meta.update(extra)
+        tmp = f"{self._meta_path()}.tmp"
+        with open(tmp, "w") as f:
+            yaml.safe_dump(meta, f, sort_keys=False)
+        os.replace(tmp, self._meta_path())
+
+    def _save(self, pointer: str, state: Dict[str, Any]) -> None:
+        import torch
+
+        os.makedirs(self._version_root(), exist_ok=True)
+        self._counter += 1
+        version = os.path.join(self._version_root(),
+                               f"{os.path.basename(pointer)}-{self._counter:08d}")
+        tmp_dir = f"{version}.tmp"
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+        os.makedirs(tmp_dir)
+        torch.save(state, os.path.join(tmp_dir, STATE_FILE))
+        os.replace(tmp_dir, version)  # the version is whole before anything names it
+        old = os.path.realpath(pointer) if os.path.islink(pointer) else None
+        link_tmp = f"{pointer}.lnk-{self._counter:08d}"
+        if os.path.lexists(link_tmp):
+            os.remove(link_tmp)
+        os.symlink(version, link_tmp)
+        os.replace(link_tmp, pointer)  # atomic pointer flip
+        if old and old != version and os.path.exists(old):
+            shutil.rmtree(old, ignore_errors=True)
+
+    def _improved(self, value: Optional[float]) -> bool:
+        if value is None:
+            return False
+        if self.best_value is None:
+            return True
+        return value < self.best_value if self.mode == "min" else value > self.best_value
+
+    def on_epoch_end(self, state: Dict[str, Any], epoch: int, metric_value: Optional[float],
+                     config: Optional[dict] = None, extra: Optional[dict] = None) -> bool:
+        """Save ``last`` (and ``best`` when the monitor improved); returns
+        whether this epoch became the new best. Tracks best when disabled."""
+        improved = self._improved(metric_value)
+        if improved:
+            self.best_value, self.best_epoch = metric_value, epoch
+        if not self.enabled:
+            return improved
+        self._save(self.last_path, state)
+        if improved:
+            self._save(self.best_path, state)
+        self._write_meta(epoch, config, extra)
+        return improved
+
+    def resolve(self, spec: str) -> str:
+        """``'best' | 'last' | <path>`` -> the checkpoint file (a directory
+        argument means its ``state.pt``)."""
+        path = {"best": self.best_path, "last": self.last_path}.get(spec, os.path.abspath(spec))
+        if os.path.isdir(path):
+            path = os.path.join(path, STATE_FILE)
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"Checkpoint not found: {path}")
+        return path
