@@ -7,7 +7,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Print the card (``nvidia-smi --query-gpu=name,power.limit``), build every
    CUDA kernel from ``vit_tpu_torch/csrc`` (one nvcc each, in parallel) and
-   print the build seconds and ptxas' register/shared-memory report.
+   print the build seconds and ptxas' register/shared-memory report, and
+   the tensor-core instructions (HGMMA, HMMA) of each function of K4's and
+   K5's libraries in ``cuobjdump --dump-sass``: the run fails unless every
+   bf16 instantiation (``attn_bwd_tc``) holds some.
 2. Hold each kernel against its plain PyTorch version on the same inputs on
    the card, at the serving and training shapes and a few others, forward
    kernels with and without dropout; one JSON line each with the error, the
@@ -28,7 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    identity (T = d = 128, fp32, 32 heads, rate 0.5, seeds 0, -1, 2**31-1)
    give O = M/(keep*T), zero exactly where ``hash_dropout_mask`` drops, so a
    single wrong mask bit fails (a tolerance on O at T = 4066 is blind to
-   one dropped element).
+   one dropped element); and K4 and K5 in bf16 with lse = log T and
+   delta = 0 passed in: K4 with Q = 0, K = V = I, dO = 1 gives
+   dQ = scale*M/(keep*T), K5 with Q = K = 0, dO = I gives
+   dV[j, c] = M[c, j]/(keep*T), both exact in bf16 and held bit for bit.
 3. Serve the main path through ``Predictor.from_checkpoint(..., device=
    "cuda")`` three times, each from a ``.pt`` written from a port model
    initialised from a seeded ``torch.Generator``: (a) stride1 in bf16
@@ -365,24 +371,64 @@ def mlp_bwd_case(r, d, f, dtype, g, sfu_rate, kernels):
 
 def mask_check(kernels) -> dict:
     """K1 and K2 with Q = 0 and V the identity: O = M/(keep*T), so O is zero
-    exactly where hash_dropout_mask drops."""
+    exactly where hash_dropout_mask drops. K4 and K5 in bf16 with lse = log T
+    and delta = 0 (P = 1/T): K4 with Q = 0, K = V = I, dO = 1 gives
+    dQ = scale*M/(keep*T); K5 with Q = K = 0, dO = I gives dV[j, c] =
+    M[c, j]/(keep*T). Every value is exact in bf16: held bit for bit."""
     from vit_tpu_torch.ops.dropout import hash_dropout_mask
-    from vit_tpu_torch.ops.flash_attention import flash_fwd, short_fwd
+    from vit_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd, short_fwd
 
     t = d = 128
-    bh = 32
+    bh, scale = 32, d**-0.5
     q = torch.zeros(bh, t, d, device="cuda")
     v = torch.eye(t, device="cuda").expand(bh, t, d).contiguous()
+    zeros, eye = q.bfloat16(), v.bfloat16()
+    lse = torch.full((bh, t), float(torch.log(torch.tensor(float(t)))), device="cuda")
+    delta = torch.zeros(bh, t, device="cuda")
     out = {}
-    for name, fwd in (("short_fwd", short_fwd), ("flash_fwd", flash_fwd)):
-        for seed in MASK_SEEDS:
-            o, _ = fwd(q, q, v, d**-0.5, 0.5, seed)
-            mask = hash_dropout_mask(t, t, torch.arange(bh), seed, 0.5).cuda()
-            wrong = int(((o == 0) != (mask == 0)).sum().item())
+    for seed in MASK_SEEDS:
+        mask = hash_dropout_mask(t, t, torch.arange(bh), seed, 0.5).cuda()  # 0 or 1/keep
+        got = {name: fwd(q, q, v, scale, 0.5, seed)[0]
+               for name, fwd in (("short_fwd", short_fwd), ("flash_fwd", flash_fwd))}
+        want = {"short_fwd": mask / t, "flash_fwd": mask / t}
+        got["flash_bwd_dq"] = flash_bwd(zeros, eye, eye, torch.ones_like(zeros), lse, delta,
+                                        scale, 0.5, seed)[0]
+        want["flash_bwd_dq"] = (mask / t * scale).bfloat16()
+        got["flash_bwd_dkv"] = flash_bwd(zeros, zeros, zeros, eye, lse, delta, scale, 0.5,
+                                         seed)[2]
+        want["flash_bwd_dkv"] = (mask / t).transpose(1, 2).bfloat16()
+        for name, o in got.items():
+            ref = want[name]
+            wrong = int(((o == 0) != (ref == 0)).sum().item())
             check(wrong == 0, f"{name} seed {seed}: {wrong} mask bits differ from hash_dropout_mask")
+            if name.startswith("flash_bwd"):
+                check(torch.equal(o, ref), f"{name} seed {seed}: values differ from "
+                      "M/(keep*T), which is exact in bf16")
             out[f"{name}/{seed}"] = dict(wrong_bits=wrong, dropped=float((o == 0).float().mean()))
     emit(dict(phase="mask_check", T=t, d=d, heads=bh, rate=0.5, results=out))
     return out
+
+
+def tensor_core_instructions(lib: str) -> dict:
+    """{function: {"HGMMA": n, "HMMA": n}} from ``cuobjdump --dump-sass`` of a
+    built library."""
+    import re
+
+    from vit_tpu_torch.ops._build import find_nvcc
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                counts[fn][op] += bool(re.search(rf"\b{op}\.", line))
+    return counts
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor, floor: float) -> float:
@@ -573,7 +619,7 @@ def main() -> int:
         return 2
     from vit_tpu_torch.ops import _build
     from vit_tpu_torch.ops.flash_attention import (
-        flash_fwd, flash_fwd_plain, short_fwd, short_fwd_plain,
+        HEAD_DIMS, flash_fwd, flash_fwd_plain, short_fwd, short_fwd_plain,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -590,7 +636,13 @@ def main() -> int:
     seconds, logs = _build.build_all()
     ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for n, log in logs.items()}
-    emit(dict(phase="build", seconds=seconds, ptxas=ptxas))
+    mma = {n: tensor_core_instructions(_build.KERNELS[n].lib_path)
+           for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+    emit(dict(phase="build", seconds=seconds, ptxas=ptxas, sass_tensor_core_instructions=mma))
+    for n, funcs in mma.items():
+        tc = [c["HGMMA"] + c["HMMA"] for f, c in funcs.items() if "attn_bwd_tc" in f]
+        check(len(tc) == len(HEAD_DIMS) and min(tc) > 0,
+              f"{n}: a bf16 instantiation holds no tensor-core instruction: {funcs}")
     kernels = _build.KERNELS
 
     g = torch.Generator(device="cuda").manual_seed(0)

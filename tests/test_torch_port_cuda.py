@@ -158,10 +158,30 @@ def _check_backward(bwd, plain, q, k, v, rate, seed=7, names=()):
 @pytest.mark.parametrize("rate", RATES)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
-@pytest.mark.parametrize("t", [1, 63, 64, 65, 513, 1000])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 129, 513, 1000])
 def test_flash_bwd_matches_plain(gen, t, d, dtype, rate):
     _check_backward(fa.flash_bwd, fa.flash_bwd_plain, *_qkv(gen, 3, t, d, dtype), rate,
                     names=("flash_bwd_dq", "flash_bwd_dkv"))
+
+
+@pytest.mark.parametrize("rate", RATES)
+def test_flash_bwd_matches_plain_at_the_stride1_shape(gen, rate):
+    """T = 4066 = 63*64 + 34, the main path's ragged edge, in bf16."""
+    _check_backward(fa.flash_bwd, fa.flash_bwd_plain, *_qkv(gen, 4, 4066, 64, torch.bfloat16),
+                    rate, names=("flash_bwd_dq", "flash_bwd_dkv"))
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("t", [65, 1000])
+def test_flash_bwd_bf16_is_bit_repeatable(gen, t, d):
+    """Each output row is summed in one CTA and written once (no atomics)."""
+    q, k, v = _qkv(gen, 3, t, d, torch.bfloat16)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    o, lse = fa.flash_fwd(q, k, v, d**-0.5, 0.1, 3)
+    delta = (do.float() * o.float()).sum(-1)
+    first = fa.flash_bwd(q, k, v, do, lse, delta, d**-0.5, 0.1, 3)
+    again = fa.flash_bwd(q, k, v, do, lse, delta, d**-0.5, 0.1, 3)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.parametrize("rate", RATES)
@@ -200,6 +220,30 @@ def test_kernel_dropout_mask_is_hash_dropout_mask(gen, short, seed):
     o, _ = (fa.short_fwd if short else fa.flash_fwd)(q, q, v, d**-0.5, 0.5, seed)
     mask = hash_dropout_mask(t, t, torch.arange(32), seed, 0.5).cuda()
     assert torch.equal(o == 0, mask == 0)
+
+
+@pytest.mark.parametrize("seed", [0, -1, 2**31 - 1])
+def test_bf16_backward_dropout_mask_is_hash_dropout_mask(gen, seed):
+    """K4 and K5 in bf16 with lse = log T and delta = 0, so P = 1/T and every
+    value below is exact in bf16. K4: Q = 0, K = V = I, dO = 1 give
+    dQ = scale * M/(keep*T). K5: Q = K = 0, dO = I give dV[j, c] =
+    M[c, j]/(keep*T). Each is zero exactly where hash_dropout_mask drops."""
+    from vit_tpu_torch.ops.dropout import hash_dropout_mask
+
+    t = d = 128
+    bh, scale, bf = 32, d**-0.5, torch.bfloat16
+    zeros = torch.zeros(bh, t, d, device="cuda", dtype=bf)
+    eye = torch.eye(t, device="cuda", dtype=bf).expand(bh, t, d).contiguous()
+    lse = torch.full((bh, t), float(torch.log(torch.tensor(float(t)))), device="cuda")
+    delta = torch.zeros(bh, t, device="cuda")
+    mask = hash_dropout_mask(t, t, torch.arange(bh), seed, 0.5).cuda()  # 0 or 1/keep
+    dq, _, _ = fa.flash_bwd(zeros, eye, eye, torch.ones_like(zeros), lse, delta, scale, 0.5,
+                            seed)
+    _, _, dv = fa.flash_bwd(zeros, zeros, zeros, eye, lse, delta, scale, 0.5, seed)
+    assert torch.equal(dq == 0, mask == 0)
+    assert torch.equal(dq, (mask / t * scale).to(bf))
+    assert torch.equal(dv == 0, mask.transpose(1, 2) == 0)
+    assert torch.equal(dv, (mask / t).transpose(1, 2).to(bf))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -214,3 +214,29 @@ def test_plain_forwards_apply_the_dropout_mask():
             mask = hash_dropout_mask(t, t, torch.arange(3), seed, 0.5)
             assert torch.equal(o == 0, mask == 0)
             torch.testing.assert_close(o, mask / t, atol=1e-7, rtol=0)
+
+
+@pytest.mark.parametrize("seed", [0, -1, 2**31 - 1, 12345])
+def test_plain_backward_dropout_mask_constructions(seed):
+    """The algebra of chip_smoke.py's bf16 K4/K5 mask check, on the CPU: with
+    lse = log T and delta = 0, P = 1/T. K4: Q = 0, K = V = I, dO = 1 give
+    dQ = scale * M/(keep*T); K5: Q = K = 0, dO = I give dV[j, c] =
+    M[c, j]/(keep*T); both exact in bf16, zero exactly where
+    hash_dropout_mask drops."""
+    from vit_tpu_torch.ops.dropout import hash_dropout_mask
+
+    t = d = 32
+    bh, scale, bf = 3, d**-0.5, torch.bfloat16
+    zeros = torch.zeros(bh, t, d, dtype=bf)
+    eye = torch.eye(t, dtype=bf).expand(bh, t, d).contiguous()
+    lse = torch.full((bh, t), float(np.log(np.float32(t))))
+    delta = torch.zeros(bh, t)
+    mask = hash_dropout_mask(t, t, torch.arange(bh), seed, 0.5)
+    dq, _, _ = port.flash_bwd_plain(zeros, eye, eye, torch.ones_like(zeros), lse, delta, scale,
+                                    0.5, seed)
+    _, _, dv = port.flash_bwd_plain(zeros, zeros, zeros, eye, lse, delta, scale, 0.5, seed)
+    assert 0 < int((mask == 0).sum()) < mask.numel()
+    assert torch.equal(dq == 0, mask == 0)
+    assert torch.equal(dq, (mask / t * scale).to(bf))
+    assert torch.equal(dv == 0, mask.transpose(1, 2) == 0)
+    assert torch.equal(dv, (mask / t).transpose(1, 2).to(bf))

@@ -1,0 +1,749 @@
+// The bf16 passes of the streaming attention backward (K4, K5) on Hopper's
+// tensor cores. They compute what attn_bwd.cuh's passes compute, with every
+// cast of its header comment in the same place:
+//   S  = (Q * bf16(scale) rounded to bf16) K^T, fp32 sums;
+//   P  = exp(S - lse), 0 for rows and keys at or past T;
+//   dS = P (dP * M/keep - delta) with dP = dO V^T, rounded to bf16;
+//   dQ = bf16(scale * sum_k dS K)                              (K4)
+//   dV = bf16(sum_q bf16(P * M/keep)^T dO)                     (K5)
+//   dK = bf16(scale * sum_q dS^T Q), Q as it is                (K5)
+// attn_bwd.cuh keeps the fp32 instantiations (tensor cores in fp32 would
+// be TF32) and K6.
+//
+// Design. One warpgroup (128 threads) per CTA owns 64 rows of the output
+// and walks 64-row tiles of the other side:
+// * K4, one CTA per (bh, 64 queries): S = Qs K^T and dP = dO V^T as
+//   wgmma m64n64k16 with both operands in shared memory (K-major); P, the
+//   keep mask and dS in registers; dS rounded to bf16 is repacked in place
+//   as the A operand (the fp32 accumulator fragment of m64nN is the A
+//   fragment of the next product, two columns per 32-bit register) of
+//   dQ += dS K, a wgmma with B = the K tile read transposed (MN-major).
+// * K5, one CTA per (bh, 64 keys), in the transposed orientation so that
+//   P~^T and dS^T come out of the accumulators as A operands:
+//   S^T = K Qs^T, dP^T = V dO^T; dV += bf16(P~^T) dO; dK += bf16(dS^T) Q.
+//   lse and delta are per column there.
+// * Tiles are bf16 in shared memory in the swizzled layout that TMA writes
+//   and wgmma reads (rows of min(d, 64) * 2 bytes, 32/64/128-byte swizzle;
+//   d = 128 is two 64-column halves). The walked tiles are double-buffered:
+//   TMA (cp.async.bulk.tensor) loads tile j + 1 into the other stage while
+//   tile j is computed, and completes on an mbarrier. TMA fills rows at or
+//   past T with zeros, so the products need no row masks; P is masked.
+// * The exps and the dropout hash run on the CUDA cores between the
+//   products; several CTAs share an SM (four of K4's, three of K5's at
+//   d = 64), so one CTA's elementwise work runs while another's wgmma is on
+//   the tensor cores. Within a CTA the loop is serial: issuing tile j + 1's
+//   S and dP before tile j's elementwise work, into a second set of
+//   accumulators and a three-stage ring, was built for K4 and ran slower
+//   on the card (202 registers at d = 64: two CTAs an SM).
+// * The elementwise work is the cost at the main shape, so it is kept
+//   short: exp2 on the special-function unit with lse pre-multiplied by
+//   log2(e); the ragged-edge masks only in the last tile; and where
+//   bf16(scale) is a power of two (d = 16, 64) K5 multiplies the Q tile as
+//   it is and puts the scale into the exponent, which gives the same bits
+//   as the scaled copy it otherwise makes of each Q tile.
+// * Each output row is summed in one CTA's registers and written once: no
+//   atomics, two calls give equal bits.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "attn_bwd.cuh"
+#include "common.cuh"
+
+namespace vtt {
+namespace attn_bwd_tc {
+
+constexpr int TILE_ROWS = 64;  // rows of every tile, and of a warpgroup's product
+constexpr int THREADS = 128;   // one warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared-memory geometry of a 64 x D bf16 tile.
+template <int D> struct Tile {
+  static constexpr int ROW_BYTES = (D < 64 ? D : 64) * 2;  // = the swizzle width
+  static constexpr int SUB = TILE_ROWS * ROW_BYTES;        // one 64-column half
+  static constexpr int NSUB = D < 64 ? 1 : D / 64;
+  static constexpr int BYTES = TILE_ROWS * D * 2;
+  // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64, 3 = 32.
+  static constexpr uint64_t LAYOUT = ROW_BYTES == 128 ? 1 : (ROW_BYTES == 64 ? 2 : 3);
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarrier and TMA --------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of `bar` with the given parity. A phase that never
+// completes (a copy that was never issued) traps after 2^24 polls, so the
+// launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 24)) __trap();
+  }
+}
+
+// Box (c0, c1, c2) of a 3-D tensor map into shared memory at `dst`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Rows [row0, row0 + 64) of head bh of a (bh, t, D) tensor: one box per
+// 64-column half.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int row0, int bh) {
+#pragma unroll
+  for (int h = 0; h < Tile<D>::NSUB; ++h)
+    tma_load_3d(dst + h * Tile<D>::SUB, map, bar, 64 * h, row0, bh);
+}
+
+// Generic-proxy writes to shared memory made visible to wgmma and TMA.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- wgmma -------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of a register that an
+// in-flight wgmma uses across the wait.
+template <int N> __device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void hold(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle layout.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// K-major operand (the 64 rows of a tile, 16 of its D columns at step kk):
+// rows 8 apart are 8 swizzled rows (SBO) apart; the step moves 32 bytes
+// along the row, into the second half for d = 128.
+template <int D> __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  using L = Tile<D>;
+  const uint32_t addr = tile + (kk * 16 / 64) * L::SUB + (kk * 16 % 64) * 2;
+  return make_desc(addr, 16, 8 * L::ROW_BYTES, L::LAYOUT);
+}
+
+// MN-major operand (rows 16kk..16kk+15 of a tile as the k dimension, its D
+// columns as N): 8-row groups SBO apart, 64-column halves LBO apart.
+template <int D> __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  using L = Tile<D>;
+  return make_desc(tile + kk * 16 * L::ROW_BYTES, L::SUB, 8 * L::ROW_BYTES, L::LAYOUT);
+}
+
+// d (+)= A B^T over one k16 step, A and B K-major in shared memory;
+// `accumulate` 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B over one k16 step: A (64 x 16) in registers as four packed
+// bf16x2, B (16 x N) MN-major in shared memory (read transposed).
+template <int N> struct WgmmaRS;
+
+template <> struct WgmmaRS<16> {
+  __device__ __forceinline__ static void mma(float (&d)[8], const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <> struct WgmmaRS<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16], const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <> struct WgmmaRS<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <> struct WgmmaRS<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64], const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+// ---- elementwise helpers -----------------------------------------------
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// dst = bf16(src * s), element for element over one tile. Both tiles have
+// the same swizzled layout, so the position of an element does not matter.
+template <int D>
+__device__ __forceinline__ void scale_tile(uint8_t* dst, const uint8_t* src, float s) {
+  for (int i = threadIdx.x; i < Tile<D>::BYTES / 16; i += THREADS) {
+    uint4 v = reinterpret_cast<const uint4*>(src)[i];
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      h[e] = __floats2bfloat162_rn(f.x * s, f.y * s);
+    }
+    reinterpret_cast<uint4*>(dst)[i] = v;
+  }
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to 0 (a P
+// that small adds nothing a bf16 sum can hold).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// K4's elementwise step on one 64 x 64 tile: accumulator element
+// 4j + 2h + e is row row[h], key k0 + 8j + 2c + e. a[2j + h] receives
+// dS = P (dP * M/keep - delta) of that row's two keys, rounded to bf16 and
+// packed as the A operand of dS K. EDGE masks keys at or past t (only the
+// last key tile has any).
+template <bool EDGE>
+__device__ __forceinline__ void dq_ds(const float (&s)[32], const float (&dp)[32],
+                                      uint32_t (&a)[16], const int (&row)[2],
+                                      const float (&lse2)[2], const float (&del)[2], int k0,
+                                      int c, int t, const Dropout& dr, unsigned head) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * h + e, col = k0 + 8 * j + 2 * c + e;
+        float p = exp2_ftz(fmaf(s[i], LOG2E, -lse2[h]));
+        if (EDGE && col >= t) p = 0.f;
+        float d = dp[i];
+        if (dr.on) d *= keep_factor(dr, head, row[h], col);
+        ds[e] = p * (d - del[h]);
+      }
+      a[2 * j + h] = pack_bf16(ds[0], ds[1]);  // dS rounded to K's dtype
+    }
+  }
+}
+
+// K5's elementwise step, transposed: accumulator element 4j + 2h + e is
+// key key[h], query q0 + 8j + 2c + e; stats holds that tile's lse * log2(e)
+// (64) then delta (64). ap/as receive P~ = P * M/keep and dS, rounded to
+// bf16 and packed as A operands. `s_mul` is log2(e), times the Q scale
+// when S was formed from Q unscaled. EDGE masks keys and queries at or past
+// t. The keep mask is hashed once for both P~ and dP.
+template <bool EDGE>
+__device__ __forceinline__ void dkv_pds(const float (&s)[32], const float (&dp)[32],
+                                        uint32_t (&ap)[16], uint32_t (&as)[16],
+                                        const int (&key)[2], const float* stats, float s_mul,
+                                        int q0, int c, int t, const Dropout& dr,
+                                        unsigned head) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int ql = 8 * j + 2 * c;
+    const float2 l2 = *reinterpret_cast<const float2*>(stats + ql);
+    const float2 d2 = *reinterpret_cast<const float2*>(stats + TILE_ROWS + ql);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float pt[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * h + e, qrow = q0 + ql + e;
+        float p = exp2_ftz(fmaf(s[i], s_mul, -(e ? l2.y : l2.x)));
+        if (EDGE && (key[h] >= t || qrow >= t)) p = 0.f;
+        const float m = dr.on ? keep_factor(dr, head, qrow, key[h]) : 1.f;
+        pt[e] = p * m;
+        ds[e] = p * (dp[i] * m - (e ? d2.y : d2.x));
+      }
+      ap[2 * j + h] = pack_bf16(pt[0], pt[1]);  // P~ rounded to dO's dtype
+      as[2 * j + h] = pack_bf16(ds[0], ds[1]);  // dS rounded to Q's dtype
+    }
+  }
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// ---- K4: dQ ------------------------------------------------------------
+
+// Shared memory of the dQ pass: Q (scaled in place) and dO, then two
+// stages of (K, V); three mbarriers.
+template <int D> struct DqSmem {
+  static constexpr int T = Tile<D>::BYTES;
+  static constexpr int Q = 0, DO = T, K = 2 * T, V = 3 * T, STAGE = 2 * T;
+  static constexpr int BARS = 6 * T;
+  static constexpr int BYTES = BARS + 64 + 1024;  // + slack to align the base to 1024
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, D == 128 ? 2 : 3)
+dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          __nv_bfloat16* __restrict__ dq, int t, int n_qt, float scale, Dropout dr) {
+  using L = Tile<D>;
+  using S = DqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  const uint32_t base = smem_u32(sm);
+  const uint32_t bar_q = base + S::BARS, bar_kv = bar_q + 8;  // stage s: bar_kv + 8s
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int bh = blockIdx.x / n_qt, q0 = (blockIdx.x % n_qt) * TILE_ROWS;
+  const int n_kt = (t + TILE_ROWS - 1) / TILE_ROWS;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_kv, 1);
+    mbar_init(bar_kv + 8, 1);
+    fence_proxy_async();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, 2 * L::BYTES);
+    load_tile<D>(base + S::Q, &tq, bar_q, q0, bh);
+    load_tile<D>(base + S::DO, &tdo, bar_q, q0, bh);
+    for (int st = 0; st < 2 && st < n_kt; ++st) {
+      mbar_expect_tx(bar_kv + 8 * st, 2 * L::BYTES);
+      load_tile<D>(base + S::K + st * S::STAGE, &tk, bar_kv + 8 * st, st * TILE_ROWS, bh);
+      load_tile<D>(base + S::V + st * S::STAGE, &tv, bar_kv + 8 * st, st * TILE_ROWS, bh);
+    }
+  }
+  __syncwarp();
+
+  // This thread's two rows of every accumulator: 16*warp + g and 8 below.
+  int row[2];
+  float lse2[2], del[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = q0 + 16 * warp + g + 8 * h;
+    const size_t i = static_cast<size_t>(bh) * t + row[h];
+    lse2[h] = row[h] < t ? lse[i] * LOG2E : 0.f;
+    del[h] = row[h] < t ? delta[i] : 0.f;
+  }
+  const unsigned head = head_term(dr, bh);
+
+  mbar_wait(bar_q, 0);
+  scale_tile<D>(sm + S::Q, sm + S::Q, round_to<__nv_bfloat16>(scale));
+  fence_proxy_async();
+  __syncthreads();
+
+  float acc[D / 2], s[32], dp[32];
+  uint32_t a[16];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1;
+    const uint32_t k_tile = base + S::K + st * S::STAGE, v_tile = base + S::V + st * S::STAGE;
+    mbar_wait(bar_kv + 8 * st, (kt >> 1) & 1);
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_k<D>(base + S::Q, kk), desc_k<D>(k_tile, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, desc_k<D>(base + S::DO, kk), desc_k<D>(v_tile, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(s);
+    hold(dp);
+
+    const int k0 = kt * TILE_ROWS;
+    if (k0 + TILE_ROWS <= t)
+      dq_ds<false>(s, dp, a, row, lse2, del, k0, c, t, dr, head);
+    else
+      dq_ds<true>(s, dp, a, row, lse2, del, k0, c, t, dr, head);
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) WgmmaRS<D>::mma(acc, a + 4 * kk, desc_mn<D>(k_tile, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(acc);
+    hold(a);
+
+    __syncthreads();  // every warp is done with this stage: refill it
+    if (tid == 0 && kt + 2 < n_kt) {
+      mbar_expect_tx(bar_kv + 8 * st, 2 * L::BYTES);
+      load_tile<D>(k_tile, &tk, bar_kv + 8 * st, (kt + 2) * TILE_ROWS, bh);
+      load_tile<D>(v_tile, &tv, bar_kv + 8 * st, (kt + 2) * TILE_ROWS, bh);
+    }
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= t) continue;
+    __nv_bfloat16* out = dq + (static_cast<size_t>(bh) * t + row[h]) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + 2 * c) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
+  }
+}
+
+// ---- K5: dK and dV -----------------------------------------------------
+
+// Shared memory of the dK/dV pass: K, V, the scaled copy of the current Q
+// tile, two stages of (Q, dO), two of (lse, delta) of the tile's 64 query
+// rows; three mbarriers.
+template <int D> struct DkvSmem {
+  static constexpr int T = Tile<D>::BYTES;
+  static constexpr int K = 0, V = T, QS = 2 * T, Q = 3 * T, DO = 4 * T, STAGE = 2 * T;
+  static constexpr int STATS = 7 * T;  // stage s: 64 lse then 64 delta, 512 bytes each
+  static constexpr int BARS = STATS + 1024;
+  static constexpr int BYTES = BARS + 64 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, D == 128 ? 1 : 2)
+dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int t, int n_kt,
+           float scale, Dropout dr) {
+  using L = Tile<D>;
+  using S = DkvSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  const uint32_t base = smem_u32(sm);
+  const uint32_t bar_kv = base + S::BARS, bar_q = bar_kv + 8;  // stage s: bar_q + 8s
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int bh = blockIdx.x / n_kt, k0 = (blockIdx.x % n_kt) * TILE_ROWS;
+  const int n_qt = n_kt;
+  // Thread tid stages lse * log2(e) of query row tid (tid < 64) or delta of
+  // row tid - 64 of each query tile with plain loads, issued a tile ahead
+  // (a flat 1-D TMA box over lse faulted on the card once T was not a
+  // multiple of 64). 0 past T.
+  float* stats = reinterpret_cast<float*>(sm + S::STATS);  // stage s at stats + 128s
+  const float* stat_src = (tid < TILE_ROWS ? lse : delta) + static_cast<size_t>(bh) * t;
+  const float stat_mul = tid < TILE_ROWS ? LOG2E : 1.f;
+  auto stat = [&](int qt) {
+    const int r = qt * TILE_ROWS + (tid & (TILE_ROWS - 1));
+    return r < t ? stat_src[r] * stat_mul : 0.f;
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    mbar_init(bar_q, 1);
+    mbar_init(bar_q + 8, 1);
+    fence_proxy_async();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_kv, 2 * L::BYTES);
+    load_tile<D>(base + S::K, &tk, bar_kv, k0, bh);
+    load_tile<D>(base + S::V, &tv, bar_kv, k0, bh);
+    for (int st = 0; st < 2 && st < n_qt; ++st) {
+      const uint32_t bar = bar_q + 8 * st;
+      mbar_expect_tx(bar, 2 * L::BYTES);
+      load_tile<D>(base + S::Q + st * S::STAGE, &tq, bar, st * TILE_ROWS, bh);
+      load_tile<D>(base + S::DO + st * S::STAGE, &tdo, bar, st * TILE_ROWS, bh);
+    }
+  }
+  __syncwarp();
+  for (int st = 0; st < 2 && st < n_qt; ++st) stats[128 * st + tid] = stat(st);
+
+  // This thread's two keys of every accumulator: 16*warp + g and 8 below.
+  int key[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) key[h] = k0 + 16 * warp + g + 8 * h;
+  const unsigned head = head_term(dr, bh);
+  const float qscale = round_to<__nv_bfloat16>(scale);
+  // A power-of-two scale (d = 16, 64) rounds nothing: S = (Q K^T) * qscale
+  // holds the same bits as (Q * qscale) K^T, so S^T is formed from the Q
+  // tile as it is and the scale joins log2(e) in the exponent. Otherwise
+  // (d = 32, 128) each Q tile is first copied scaled and rounded into QS.
+  const bool q_unscaled = (__float_as_uint(qscale) & 0x7FFFFFu) == 0;
+  const float s_mul = q_unscaled ? qscale * LOG2E : LOG2E;
+
+  float dk_acc[D / 2], dv_acc[D / 2], s[32], dp[32];
+  uint32_t ap[16], as[16];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+
+  __syncthreads();  // the first two stages' stats
+  mbar_wait(bar_kv, 0);
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const int st = qt & 1;
+    const uint32_t q_tile = base + S::Q + st * S::STAGE, do_tile = base + S::DO + st * S::STAGE;
+    const float next_stat = qt + 2 < n_qt ? stat(qt + 2) : 0.f;  // in flight over the tile
+    mbar_wait(bar_q + 8 * st, (qt >> 1) & 1);
+    if (!q_unscaled) {
+      scale_tile<D>(sm + S::QS, sm + S::Q + st * S::STAGE, qscale);
+      fence_proxy_async();
+      __syncthreads();
+    }
+    const uint32_t qs_tile = q_unscaled ? q_tile : base + S::QS;
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_k<D>(base + S::K, kk), desc_k<D>(qs_tile, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, desc_k<D>(base + S::V, kk), desc_k<D>(do_tile, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(s);
+    hold(dp);
+
+    const int q0 = qt * TILE_ROWS;
+    if (k0 + TILE_ROWS <= t && q0 + TILE_ROWS <= t)
+      dkv_pds<false>(s, dp, ap, as, key, stats + 128 * st, s_mul, q0, c, t, dr, head);
+    else
+      dkv_pds<true>(s, dp, ap, as, key, stats + 128 * st, s_mul, q0, c, t, dr, head);
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) WgmmaRS<D>::mma(dv_acc, ap + 4 * kk, desc_mn<D>(do_tile, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) WgmmaRS<D>::mma(dk_acc, as + 4 * kk, desc_mn<D>(q_tile, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(dv_acc);
+    hold(dk_acc);
+    hold(ap);
+    hold(as);
+
+    __syncthreads();  // every warp is done with this stage and with QS: refill
+    if (tid == 0 && qt + 2 < n_qt) {
+      const uint32_t bar = bar_q + 8 * st;
+      mbar_expect_tx(bar, 2 * L::BYTES);
+      load_tile<D>(q_tile, &tq, bar, (qt + 2) * TILE_ROWS, bh);
+      load_tile<D>(do_tile, &tdo, bar, (qt + 2) * TILE_ROWS, bh);
+    }
+    __syncwarp();
+    if (qt + 2 < n_qt) stats[128 * st + tid] = next_stat;
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key[h] >= t) continue;
+    const size_t off = (static_cast<size_t>(bh) * t + key[h]) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * h;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j + 2 * c) =
+          __floats2bfloat162_rn(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j + 2 * c) =
+          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+// ---- host side ---------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, found through the runtime so that the
+// library needs no link against libcuda.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A (bh, t, D) bf16 tensor as 64-row boxes of min(D, 64) columns, swizzled
+// as the tiles are; rows at or past t read as zeros.
+template <int D> cudaError_t map_rows(CUtensorMap* m, const void* x, int bh, int t) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  constexpr int RB = Tile<D>::ROW_BYTES;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(t) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(RB / 2), TILE_ROWS, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D> cudaError_t launch_dq(const attn_bwd::Args& a, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t e;
+  if ((e = map_rows<D>(&tq, a.q, a.bh, a.t)) != cudaSuccess ||
+      (e = map_rows<D>(&tk, a.k, a.bh, a.t)) != cudaSuccess ||
+      (e = map_rows<D>(&tv, a.v, a.bh, a.t)) != cudaSuccess ||
+      (e = map_rows<D>(&tdo, a.dout, a.bh, a.t)) != cudaSuccess)
+    return e;
+  constexpr size_t smem = DqSmem<D>::BYTES;
+  auto kernel = dq_kernel<D>;
+  if ((e = allow_smem(kernel, smem)) != cudaSuccess) return e;
+  const int n_qt = (a.t + TILE_ROWS - 1) / TILE_ROWS;
+  kernel<<<n_qt * a.bh, THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<__nv_bfloat16*>(a.dq), a.t, n_qt, a.scale, a.dr);
+  return cudaGetLastError();
+}
+
+template <int D> cudaError_t launch_dkv(const attn_bwd::Args& a, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t e;
+  if ((e = map_rows<D>(&tq, a.q, a.bh, a.t)) != cudaSuccess ||
+      (e = map_rows<D>(&tk, a.k, a.bh, a.t)) != cudaSuccess ||
+      (e = map_rows<D>(&tv, a.v, a.bh, a.t)) != cudaSuccess ||
+      (e = map_rows<D>(&tdo, a.dout, a.bh, a.t)) != cudaSuccess)
+    return e;
+  constexpr size_t smem = DkvSmem<D>::BYTES;
+  auto kernel = dkv_kernel<D>;
+  if ((e = allow_smem(kernel, smem)) != cudaSuccess) return e;
+  const int n_kt = (a.t + TILE_ROWS - 1) / TILE_ROWS;
+  kernel<<<n_kt * a.bh, THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv), a.t, n_kt, a.scale,
+      a.dr);
+  return cudaGetLastError();
+}
+
+}  // namespace attn_bwd_tc
+}  // namespace vtt

@@ -9,7 +9,9 @@ short kernels, longer sequences the streaming ones.
 * K1 forward, ``csrc/flash_fwd.cu``, replaces ``_flash_fwd_kernel``;
 * K2 short forward, ``csrc/short_fwd.cu``, replaces ``_short_fwd_kernel``;
 * K4 dQ, ``csrc/flash_bwd_dq.cu``, replaces ``_flash_bwd_dq_kernel``;
-* K5 dK and dV, ``csrc/flash_bwd_dkv.cu``, replaces ``_flash_bwd_dkv_kernel``;
+* K5 dK and dV, ``csrc/flash_bwd_dkv.cu``, replaces ``_flash_bwd_dkv_kernel``
+  (K4 and K5 run their products on the tensor cores in bf16,
+  ``csrc/attn_bwd_tc.cuh``, and on the fp32 FMA units in fp32);
 * K6 short backward, ``csrc/short_bwd.cu``, replaces ``_short_bwd_kernel``.
 
 None pads: T and d are used as they are, the kernels mask the ragged edge
@@ -54,7 +56,7 @@ __all__ = [
 NEG_INF = -1e30
 SHORT_T_MAX = 512  # padded lengths up to this take the short kernels
 FLASH_BLOCK_K = 64  # key tile of flash_fwd.cu; the plain version walks the same tiles
-BWD_BLOCK_K = 64  # key tile of attn_bwd.cuh's dQ pass; flash_bwd_plain walks these
+BWD_BLOCK_K = 64  # key tile of the dQ pass (both dtypes); flash_bwd_plain walks these
 HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -184,6 +186,12 @@ def _dropout_args(rate: float, seed) -> tuple:
     return 1, seed_u32(seed), threshold, inv_keep
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it if its data is not 16-byte aligned (the bf16
+    backward reads its inputs through TMA, which needs that)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -252,6 +260,7 @@ def flash_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed: in
     _check_bwd(q, do, lse, delta)
     if _on_cpu(q):
         return flash_bwd_plain(q, k, v, do, lse, delta, scale, rate, seed)
+    q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _launch_bwd("flash_bwd_dq", (dq,), q, k, v, do, lse, delta, scale, rate, seed)
     _launch_bwd("flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta, scale, rate, seed)
