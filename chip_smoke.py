@@ -7,15 +7,23 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Print the card (``nvidia-smi --query-gpu=name,power.limit``), build every
    CUDA kernel from ``vit_tpu_torch/csrc`` (one nvcc each, in parallel) and
-   print the build seconds and ptxas' register/shared-memory report, and
-   the tensor-core instructions (HGMMA, HMMA) of each function of K4's and
-   K5's libraries in ``cuobjdump --dump-sass``: the run fails unless every
-   bf16 instantiation (``attn_bwd_tc``) holds some.
+   print the build seconds, ptxas' registers and spills per function, and
+   the tensor-core instructions (HGMMA, HMMA) of each function of the
+   attention libraries (K1, K2, K4, K5) in ``cuobjdump --dump-sass``. The
+   run fails unless every bf16 instantiation of K1 and K2
+   (``attn_fwd_tc``) holds HGMMA and their fp32 instantiations none, and
+   K4's and K5's bf16 instantiations (``attn_bwd_tc``) hold exactly their
+   HGMMA counts (K4 6, 8, 12, 20 and K5 10, 12, 16, 24 at d = 16, 32, 64,
+   128: the wgmma the source issues, so a drift in the shared header
+   shows) and their fp32 ones none.
 2. Hold each kernel against its plain PyTorch version on the same inputs on
    the card, at the serving and training shapes and a few others, forward
    kernels with and without dropout; one JSON line each with the error, the
-   kernel's, the plain version's and the library's median times, and the
-   card's bound for the work. The library call is SDPA for the forward
+   kernel's, the plain version's and the library's device times (``ms``:
+   calls back to back behind a spin kernel, so the card never waits for the
+   host), the kernel's per-call time (``call_ms``: the median CUDA-event
+   time of single calls, host launch overhead included), and the card's
+   bound for the work. The library call is SDPA for the forward
    kernels and SDPA's backward (forward+backward minus forward, no
    dropout) for K4/K5/K6; K4 and K5 are timed one by one, but their plain
    and library times are of the whole backward (dq, dk, dv together).
@@ -28,10 +36,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    |x| or |dy|; dW rounded to bf16 would be off by up to 2**-9 of it). The typical reference value is printed beside the limit: at
    the stride-1 attention shape |O| is ~0.02, so a fixed 2e-2 would be
    blind. Then the dropout mask check: K1 and K2 with Q = 0 and V the
-   identity (T = d = 128, fp32, 32 heads, rate 0.5, seeds 0, -1, 2**31-1)
-   give O = M/(keep*T), zero exactly where ``hash_dropout_mask`` drops, so a
+   identity (T = d = 128, 32 heads, rate 0.5, seeds 0, -1, 2**31-1) give
+   O = M/(keep*T), zero exactly where ``hash_dropout_mask`` drops, so a
    single wrong mask bit fails (a tolerance on O at T = 4066 is blind to
-   one dropped element); and K4 and K5 in bf16 with lse = log T and
+   one dropped element): in fp32, and in bf16, where O is exact and held
+   bit for bit; and K4 and K5 in bf16 with lse = log T and
    delta = 0 passed in: K4 with Q = 0, K = V = I, dO = 1 gives
    dQ = scale*M/(keep*T), K5 with Q = K = 0, dO = I gives
    dV[j, c] = M[c, j]/(keep*T), both exact in bf16 and held bit for bit.
@@ -105,6 +114,7 @@ LSE_TOL = 1e-3  # lse is fp32 in both; sums taken in another order
 # stride1 in bf16 against fp32 differed by 0.053 at most.
 BF16_FEATURE_TOL = 0.125
 DISTINCT = 10  # probes' features must lie this many tolerances apart
+SPIN_HZ = 2.0e9  # spin cycles a second for time_ms (the H100's SM clock is at most 1.98 GHz)
 
 # The configurations of configs/exp/att_clp/stride1.yaml and baseline.yaml
 # (model, train.batch_size/precision, data.param), copied so no YAML parser
@@ -142,6 +152,14 @@ K7_BF16_REL = 1e-3  # the same with bf16 inputs; rounding dW to bf16 moves it ~2
 GRAD_FLOOR = 1e-3  # per-tensor gradient norms are floored at this share of the global norm
 TRAIN_GRAD_TOL = {"d_stride1_bf16": 2e-2, "e_baseline_flash_fused_fp32": 1e-4}
 MASK_SEEDS = (0, -1, 2**31 - 1)
+# HGMMA in each bf16 instantiation of K4 and K5 by head dim: the wgmma their
+# source issues per tile (S and dP, d/16 k-steps each; then dS K, or P~^T dO
+# and dS^T Q, four each).
+BWD_HGMMA = {"flash_bwd_dq": {16: 6, 32: 8, 64: 12, 128: 20},
+             "flash_bwd_dkv": {16: 10, 32: 12, 64: 16, 128: 24}}
+# The attention libraries' bf16 instantiations live in these namespaces.
+TC_NAMESPACE = {"flash_fwd": "attn_fwd_tc", "short_fwd": "attn_fwd_tc",
+                "flash_bwd_dq": "attn_bwd_tc", "flash_bwd_dkv": "attn_bwd_tc"}
 DROPOUT_SEED = -123456789  # the kernel rows' dropout seed (any int32)
 
 
@@ -155,8 +173,10 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event times after warm-up."""
+def call_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median of per-call CUDA-event times after warm-up: what a caller waits
+    for one call, the host's launch overhead included where the kernel is
+    shorter than it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -168,6 +188,33 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3, groups: int = 3) -> float:
+    """Device time of one call: ``reps`` calls back to back behind a spin
+    kernel (``torch.cuda._sleep``) that lasts longer than the host takes to
+    enqueue them, CUDA events around the calls, elapsed over ``reps``; the
+    median of ``groups`` such runs. The card never waits for the host, so a
+    kernel shorter than its launch overhead shows its own time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(groups):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(min(1.5 * host_s + 1e-3, 0.5) * SPIN_HZ))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -234,6 +281,8 @@ def attention_case(name, fwd, plain, b, h, t, d, dtype, g, sfu_rate, kernels, ra
     ms = time_ms(lambda: fwd(q, k, v, scale, rate, DROPOUT_SEED))
     plain_ms = time_ms(lambda: plain(q, k, v, scale, rate, DROPOUT_SEED), reps=5)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+    per_call = dict(kernel_call_ms=call_ms(lambda: fwd(q, k, v, scale, rate, DROPOUT_SEED)),
+                    library_call_ms=call_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)))
     item = torch.finfo(dtype).bits // 8
     bms, by = bound(4.0 * b * h * t * t * d, float(b * h * t * t),
                     4.0 * b * h * t * d * item + 4.0 * b * h * t, dtype, sfu_rate)
@@ -242,7 +291,7 @@ def attention_case(name, fwd, plain, b, h, t, d, dtype, g, sfu_rate, kernels, ra
                mean_abs_ref=o_ref.float().abs().mean().item(),
                max_abs_ref=o_ref.float().abs().max().item(), kernel_ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-               launches=kernels[name].launches)
+               launches=kernels[name].launches, **per_call)
     emit(row)
     return row
 
@@ -266,14 +315,15 @@ def mlp_case(r, d, f, dtype, g, sfu_rate, kernels):
     check(torch.isfinite(y.float()).all().item(), f"{name} gave non-finite output")
     check(err <= tol, f"{name} {(r, d, f)} {dtype}: max|y err| {err} (tol {tol})")
     ms = time_ms(lambda: fused_mlp(x, w1, b1, w2, b2))
+    kernel_call_ms = call_ms(lambda: fused_mlp(x, w1, b1, w2, b2))
     plain_ms = time_ms(lambda: fused_mlp_plain(x, w1, b1, w2, b2), reps=5)
     item = torch.finfo(dtype).bits // 8
     bms, by = bound(4.0 * r * d * f, float(r * f),
                     (2.0 * r * d + 2.0 * d * f + f + d) * item, dtype, sfu_rate)
     row = dict(phase="kernel", kernel=name, shape=dict(R=r, D=d, F=f), dtype=str(dtype),
                max_abs_err=err, tol=tol, mean_abs_ref=y_ref.float().abs().mean().item(),
-               max_abs_ref=y_ref.float().abs().max().item(), kernel_ms=ms, plain_ms=plain_ms,
-               library_ms=None,
+               max_abs_ref=y_ref.float().abs().max().item(), kernel_ms=ms,
+               kernel_call_ms=kernel_call_ms, plain_ms=plain_ms, library_ms=None,
                bound_ms=bms, bound_by=by, launches=kernels[name].launches)
     emit(row)
     return row
@@ -320,13 +370,15 @@ def attention_bwd_case(short, b, h, t, d, dtype, rate, g, sfu_rate, kernels):
               f"{name} {(b, h, t, d)} {dtype} rate {rate}: errors {errs} (tols {tols})")
         bufs = [torch.empty_like(q) for _ in outs]
         ms = time_ms(lambda: fa._launch_bwd(name, bufs, *args))
+        kernel_call_ms = call_ms(lambda: fa._launch_bwd(name, bufs, *args))
         bms, by = bound(2.0 * products * b * h * t * t * d, float(b * h * t * t),
                         tensors * b * h * t * d * item + 2.0 * 4 * b * h * t, dtype, sfu_rate)
         rows[name] = dict(
             phase="kernel", kernel=name, shape=dict(B=b, H=h, T=t, d=d), dtype=str(dtype),
             dropout=rate, max_abs_err=max(errs), errs=errs, tol=min(tols),
             max_abs_ref=max(want[i].float().abs().max().item() for i in outs),
-            kernel_ms=ms, plain_ms=plain_ms, plain_computes="dq, dk, dv",
+            kernel_ms=ms, kernel_call_ms=kernel_call_ms, plain_ms=plain_ms,
+            plain_computes="dq, dk, dv",
             library_ms=sdpa_fb - sdpa_fwd, library="SDPA backward (fwd+bwd - fwd), no dropout",
             bound_ms=bms, bound_by=by)
         emit(rows[name])
@@ -355,6 +407,7 @@ def mlp_bwd_case(r, d, f, dtype, g, sfu_rate, kernels):
     again = fused_mlp_bwd(x, dy, w1, b1, w2)
     check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{name} is not bit-repeatable")
     ms = time_ms(lambda: fused_mlp_bwd(x, dy, w1, b1, w2))
+    kernel_call_ms = call_ms(lambda: fused_mlp_bwd(x, dy, w1, b1, w2))
     plain_ms = time_ms(lambda: fused_mlp_bwd_plain(x, dy, w1, b1, w2), reps=5)
     item = torch.finfo(dtype).bits // 8
     bms, by = bound(10.0 * r * d * f, 2.0 * r * f,
@@ -363,7 +416,8 @@ def mlp_bwd_case(r, d, f, dtype, g, sfu_rate, kernels):
     row = dict(phase="kernel", kernel=name, shape=dict(R=r, D=d, F=f), dtype=str(dtype),
                max_abs_err=max(errs), errs=dict(zip(("dx", "dW1", "db1", "dW2", "db2"), errs)),
                tols=tols, max_abs_ref=[w.float().abs().max().item() for w in want],
-               bit_repeatable=True, kernel_ms=ms, plain_ms=plain_ms, library_ms=None,
+               bit_repeatable=True, kernel_ms=ms, kernel_call_ms=kernel_call_ms,
+               plain_ms=plain_ms, library_ms=None,
                bound_ms=bms, bound_by=by)
     emit(row)
     return row
@@ -371,7 +425,8 @@ def mlp_bwd_case(r, d, f, dtype, g, sfu_rate, kernels):
 
 def mask_check(kernels) -> dict:
     """K1 and K2 with Q = 0 and V the identity: O = M/(keep*T), so O is zero
-    exactly where hash_dropout_mask drops. K4 and K5 in bf16 with lse = log T
+    exactly where hash_dropout_mask drops (fp32 and bf16; in bf16 every value
+    is exact and held bit for bit). K4 and K5 in bf16 with lse = log T
     and delta = 0 (P = 1/T): K4 with Q = 0, K = V = I, dO = 1 gives
     dQ = scale*M/(keep*T); K5 with Q = K = 0, dO = I gives dV[j, c] =
     M[c, j]/(keep*T). Every value is exact in bf16: held bit for bit."""
@@ -388,9 +443,12 @@ def mask_check(kernels) -> dict:
     out = {}
     for seed in MASK_SEEDS:
         mask = hash_dropout_mask(t, t, torch.arange(bh), seed, 0.5).cuda()  # 0 or 1/keep
-        got = {name: fwd(q, q, v, scale, 0.5, seed)[0]
-               for name, fwd in (("short_fwd", short_fwd), ("flash_fwd", flash_fwd))}
-        want = {"short_fwd": mask / t, "flash_fwd": mask / t}
+        got, want = {}, {}
+        for name, fwd in (("short_fwd", short_fwd), ("flash_fwd", flash_fwd)):
+            got[name] = fwd(q, q, v, scale, 0.5, seed)[0]
+            want[name] = mask / t
+            got[f"{name}_bf16"] = fwd(zeros, zeros, eye, scale, 0.5, seed)[0]
+            want[f"{name}_bf16"] = (mask / t).bfloat16()
         got["flash_bwd_dq"] = flash_bwd(zeros, eye, eye, torch.ones_like(zeros), lse, delta,
                                         scale, 0.5, seed)[0]
         want["flash_bwd_dq"] = (mask / t * scale).bfloat16()
@@ -401,7 +459,7 @@ def mask_check(kernels) -> dict:
             ref = want[name]
             wrong = int(((o == 0) != (ref == 0)).sum().item())
             check(wrong == 0, f"{name} seed {seed}: {wrong} mask bits differ from hash_dropout_mask")
-            if name.startswith("flash_bwd"):
+            if ref.dtype == torch.bfloat16:
                 check(torch.equal(o, ref), f"{name} seed {seed}: values differ from "
                       "M/(keep*T), which is exact in bf16")
             out[f"{name}/{seed}"] = dict(wrong_bits=wrong, dropped=float((o == 0).float().mean()))
@@ -429,6 +487,60 @@ def tensor_core_instructions(lib: str) -> dict:
             for op in ("HGMMA", "HMMA"):
                 counts[fn][op] += bool(re.search(rf"\b{op}\.", line))
     return counts
+
+
+def demangle(names) -> dict:
+    """{mangled: "ns::kernel<args>"} through c++filt where it exists."""
+    import shutil
+
+    names = list(names)
+    if not names or shutil.which("c++filt") is None:
+        return {n: n for n in names}
+    out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
+                         timeout=60, check=True).stdout.splitlines()
+    return {n: d.replace("(anonymous namespace)", "anon").split("(")[0].replace("void ", "")
+            for n, d in zip(names, out)}
+
+
+def ptxas_report(log: str) -> dict:
+    """{mangled function: {"registers": n, "spill_stores": bytes}} from nvcc's
+    ``-Xptxas -v`` output."""
+    import re
+
+    out, fn, spill = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            out[fn] = {"registers": int(m.group(1)), "spill_stores": spill}
+    return out
+
+
+def check_tensor_cores(mma: dict) -> None:
+    """Every bf16 instantiation of K1, K2, K4 and K5 holds HGMMA (K4 and K5
+    exactly BWD_HGMMA's counts), and no fp32 instantiation holds any
+    tensor-core instruction."""
+    import re
+
+    from vit_tpu_torch.ops.flash_attention import HEAD_DIMS
+
+    for lib, funcs in mma.items():
+        tc = {f: c for f, c in funcs.items() if TC_NAMESPACE[lib] in f}
+        plain = {f: c for f, c in funcs.items() if TC_NAMESPACE[lib] not in f}
+        check(len(tc) == len(HEAD_DIMS) and all(c["HGMMA"] > 0 for c in tc.values()),
+              f"{lib}: a bf16 instantiation holds no HGMMA: {funcs}")
+        check(plain and all(c["HGMMA"] + c["HMMA"] == 0 for c in plain.values()),
+              f"{lib}: an fp32 instantiation holds tensor-core instructions: {funcs}")
+        if lib in BWD_HGMMA:
+            by_d = {int(re.search(r"ILi(\d+)E", f).group(1)): c["HGMMA"] for f, c in tc.items()}
+            check(by_d == BWD_HGMMA[lib],
+                  f"{lib}: HGMMA by head dim {by_d}, expected {BWD_HGMMA[lib]}")
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor, floor: float) -> float:
@@ -619,7 +731,7 @@ def main() -> int:
         return 2
     from vit_tpu_torch.ops import _build
     from vit_tpu_torch.ops.flash_attention import (
-        HEAD_DIMS, flash_fwd, flash_fwd_plain, short_fwd, short_fwd_plain,
+        flash_fwd, flash_fwd_plain, short_fwd, short_fwd_plain,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -634,15 +746,14 @@ def main() -> int:
               tf32_matmul=False, tf32_cudnn=False))
 
     seconds, logs = _build.build_all()
-    ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-             for n, log in logs.items()}
-    mma = {n: tensor_core_instructions(_build.KERNELS[n].lib_path)
-           for n in ("flash_bwd_dq", "flash_bwd_dkv")}
-    emit(dict(phase="build", seconds=seconds, ptxas=ptxas, sass_tensor_core_instructions=mma))
-    for n, funcs in mma.items():
-        tc = [c["HGMMA"] + c["HMMA"] for f, c in funcs.items() if "attn_bwd_tc" in f]
-        check(len(tc) == len(HEAD_DIMS) and min(tc) > 0,
-              f"{n}: a bf16 instantiation holds no tensor-core instruction: {funcs}")
+    ptxas = {n: ptxas_report(log) for n, log in logs.items()}
+    mma = {n: tensor_core_instructions(_build.KERNELS[n].lib_path) for n in TC_NAMESPACE}
+    names = demangle({f for per in (*ptxas.values(), *mma.values()) for f in per})
+    emit(dict(phase="build", seconds=seconds,
+              ptxas={n: {names[f]: r for f, r in per.items()} for n, per in ptxas.items()},
+              sass_tensor_core_instructions={n: {names[f]: c for f, c in per.items()}
+                                             for n, per in mma.items()}))
+    check_tensor_cores(mma)
     kernels = _build.KERNELS
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -666,6 +777,8 @@ def main() -> int:
     attention_case("flash_fwd", flash_fwd, flash_fwd_plain, 16, 2, 4066, 64, torch.bfloat16,
                    g, sfu_rate, kernels, rate=0.1)
     attention_case("short_fwd", short_fwd, short_fwd_plain, 16, 2, 129, 16, torch.float32,
+                   g, sfu_rate, kernels, rate=0.1)
+    attention_case("short_fwd", short_fwd, short_fwd_plain, 16, 12, 197, 64, torch.bfloat16,
                    g, sfu_rate, kernels, rate=0.1)
     main_rows.update(attention_bwd_case(False, 16, 2, 4066, 64, torch.bfloat16, 0.1, g,
                                         sfu_rate, kernels))

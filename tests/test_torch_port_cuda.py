@@ -30,6 +30,7 @@ FP32_TOL = 1e-4
 BF16_TOL = 2e-2
 LSE_TOL = 1e-3
 DTYPES = [torch.float32, torch.bfloat16]
+RATES = [0.0, 0.1]
 
 
 def _tol(ref):
@@ -71,9 +72,34 @@ def test_short_fwd_matches_plain(gen, t, d, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
-@pytest.mark.parametrize("t", [1, 63, 64, 65, 513, 1000])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 129, 513, 1000, 4066])
 def test_flash_fwd_matches_plain(gen, t, d, dtype):
     _check_attention("flash_fwd", fa.flash_fwd, fa.flash_fwd_plain, *_qkv(gen, 3, t, d, dtype))
+
+
+@pytest.mark.parametrize("rate", RATES)
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("t, short", [(65, True), (197, True), (65, False), (1000, False)])
+def test_fwd_bf16_is_bit_repeatable(gen, t, short, d, rate):
+    """K1 and K2 in bf16 sum each output row in one CTA and write it once."""
+    q, k, v = _qkv(gen, 3, t, d, torch.bfloat16)
+    fwd = fa.short_fwd if short else fa.flash_fwd
+    first = fwd(q, k, v, d**-0.5, rate, 3)
+    again = fwd(q, k, v, d**-0.5, rate, 3)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("short", [True, False])
+def test_fwd_bf16_takes_unaligned_inputs(gen, short):
+    """The bf16 kernels read through TMA, which needs 16-byte aligned bases:
+    the wrapper copies q, k, v that start 2 bytes off."""
+    t, d = 129, 64
+    q, k, v = (x.flatten() for x in _qkv(gen, 3, t, d, torch.bfloat16))
+    views = [torch.cat([x[:1], x])[1:].view(3, t, d) for x in (q, k, v)]
+    assert all(x.data_ptr() % 16 != 0 for x in views)
+    kernel, plain = ((fa.short_fwd, fa.short_fwd_plain) if short
+                     else (fa.flash_fwd, fa.flash_fwd_plain))
+    _check_attention("short_fwd" if short else "flash_fwd", kernel, plain, *views)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -130,9 +156,6 @@ def test_model_on_the_card_matches_the_cpu(gen, fused_mlp, attn_impl):
         want = model(x)
         got = model.cuda()(x.cuda()).cpu()
     assert (got - want).abs().max().item() <= 1e-4
-
-
-RATES = [0.0, 0.1]
 
 
 def _check_backward(bwd, plain, q, k, v, rate, seed=7, names=()):
@@ -220,6 +243,22 @@ def test_kernel_dropout_mask_is_hash_dropout_mask(gen, short, seed):
     o, _ = (fa.short_fwd if short else fa.flash_fwd)(q, q, v, d**-0.5, 0.5, seed)
     mask = hash_dropout_mask(t, t, torch.arange(32), seed, 0.5).cuda()
     assert torch.equal(o == 0, mask == 0)
+
+
+@pytest.mark.parametrize("short", [True, False])
+@pytest.mark.parametrize("seed", [0, -1, 2**31 - 1])
+def test_bf16_kernel_dropout_mask_is_hash_dropout_mask(gen, short, seed):
+    """As above in bf16: P = 1 (S = 0), l = T, and O = M/(keep*T) is exact in
+    bf16, so O is held bit for bit."""
+    from vit_tpu_torch.ops.dropout import hash_dropout_mask
+
+    t = d = 128
+    q = torch.zeros(32, t, d, device="cuda", dtype=torch.bfloat16)
+    v = torch.eye(t, device="cuda", dtype=torch.bfloat16).expand(32, t, d).contiguous()
+    o, _ = (fa.short_fwd if short else fa.flash_fwd)(q, q, v, d**-0.5, 0.5, seed)
+    mask = hash_dropout_mask(t, t, torch.arange(32), seed, 0.5).cuda()
+    assert torch.equal(o == 0, mask == 0)
+    assert torch.equal(o, (mask / t).to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("seed", [0, -1, 2**31 - 1])

@@ -105,6 +105,34 @@ def test_dispatch_rule_is_vit_tpus(t, name, monkeypatch):
     assert (-(-t // 128) * 128 <= ref._SHORT_T_MAX) == (name == "short_fwd")
 
 
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_scaled_q_rounds_nothing_where_the_scale_is_a_power_of_two(d):
+    """bf16(d**-0.5) is a power of two at d = 16 and 64, so q * bf16(scale)
+    rounds nothing there: ``_scaled_q`` equals q.float() * bf16(scale) bit for
+    bit, which is why K5 may multiply Q as it is and fold the scale into the
+    exponent (``csrc/attn_bwd_tc.cuh``). At d = 32 and 128 it rounds, and the
+    kernels scale a copy of Q instead."""
+    q = torch.from_numpy(np.random.default_rng(d).standard_normal((3, 50, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    scale = torch.tensor(d**-0.5, dtype=torch.bfloat16).float()
+    power_of_two = d in (16, 64)
+    assert (scale.item() in (0.25, 0.125)) == power_of_two
+    got = port._scaled_q(q, d**-0.5)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.float(), q.float() * scale) == power_of_two
+
+
+def test_aligned_copies_only_unaligned_tensors():
+    """The bf16 kernels read q, k, v (and dO) through TMA, which needs
+    16-byte aligned bases."""
+    x = torch.arange(4 * 64, dtype=torch.float32).to(torch.bfloat16)
+    assert x.data_ptr() % 16 == 0 and port._aligned(x) is x
+    y = x[1:]
+    z = port._aligned(y)
+    assert y.data_ptr() % 16 != 0 and z.data_ptr() % 16 == 0
+    assert z is not y and torch.equal(z, y)
+
+
 def test_wrappers_validate_inputs():
     q = torch.zeros(2, 8, 16)
     with pytest.raises(ValueError):

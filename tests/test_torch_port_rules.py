@@ -144,3 +144,66 @@ def test_training_mode_and_unported_paths_raise():
         Experiment(dict(cfg, viz={"enable": True}), device="cpu")
     with pytest.raises(NotImplementedError):
         Experiment(cfg, device="cpu", use_wandb=True)
+
+
+_PTXAS = """ptxas info    : Compiling entry function '_ZN3vtt11attn_fwd_tc12flash_kernelILi64EEEvv' for 'sm_90a'
+ptxas info    : Function properties for _ZN3vtt11attn_fwd_tc12flash_kernelILi64EEEvv
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers, 512 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi64EEEvv' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers"""
+
+
+def test_chip_smoke_reads_ptxas_registers_and_spills():
+    import chip_smoke
+
+    assert chip_smoke.ptxas_report(_PTXAS) == {
+        "_ZN3vtt11attn_fwd_tc12flash_kernelILi64EEEvv": {"registers": 90, "spill_stores": 8},
+        "_ZN12_GLOBAL__N_116flash_fwd_kernelIfLi64EEEvv": {"registers": 64, "spill_stores": 0},
+    }
+
+
+def _sass_counts():
+    """Per-function tensor-core instruction counts as chip_smoke reads them
+    from cuobjdump, for the four attention libraries built as intended."""
+    def counts(ns, name, hgmma):
+        tc = {f"_ZN3vtt{len(ns)}{ns}{len(name)}{name}ILi{d}EEEvv": {"HGMMA": n, "HMMA": 0}
+              for d, n in hgmma.items()}
+        fp32 = {f"_ZN12_GLOBAL__N_1fp32_{name}IfLi{d}EEEvv": {"HGMMA": 0, "HMMA": 0}
+                for d in hgmma}
+        return {**tc, **fp32}
+
+    fwd = {16: 5, 32: 6, 64: 8, 128: 12}
+    return {"flash_fwd": counts("attn_fwd_tc", "flash_kernel", fwd),
+            "short_fwd": counts("attn_fwd_tc", "short_kernel", fwd),
+            "flash_bwd_dq": counts("attn_bwd_tc", "dq_kernel", {16: 6, 32: 8, 64: 12, 128: 20}),
+            "flash_bwd_dkv": counts("attn_bwd_tc", "dkv_kernel",
+                                    {16: 10, 32: 12, 64: 16, 128: 24})}
+
+
+@pytest.mark.parametrize("fault", [None, "fp32 holds HGMMA", "bf16 holds none",
+                                   "K4 count drifts", "K5 count drifts",
+                                   "instantiation missing"])
+def test_chip_smoke_sass_check_catches_each_fault(fault):
+    """chip_smoke's build phase fails unless every bf16 instantiation of
+    K1/K2/K4/K5 holds HGMMA (K4/K5 their exact counts) and no fp32 one holds
+    any tensor-core instruction."""
+    import chip_smoke
+
+    mma = _sass_counts()
+    if fault == "fp32 holds HGMMA":
+        mma["short_fwd"]["_ZN12_GLOBAL__N_1fp32_short_kernelIfLi32EEEvv"]["HMMA"] = 2
+    elif fault == "bf16 holds none":
+        mma["flash_fwd"]["_ZN3vtt11attn_fwd_tc12flash_kernelILi128EEEvv"]["HGMMA"] = 0
+    elif fault == "K4 count drifts":
+        mma["flash_bwd_dq"]["_ZN3vtt11attn_bwd_tc9dq_kernelILi64EEEvv"]["HGMMA"] = 16
+    elif fault == "K5 count drifts":
+        mma["flash_bwd_dkv"]["_ZN3vtt11attn_bwd_tc10dkv_kernelILi16EEEvv"]["HGMMA"] = 8
+    elif fault == "instantiation missing":
+        del mma["short_fwd"]["_ZN3vtt11attn_fwd_tc12short_kernelILi16EEEvv"]
+    if fault is None:
+        chip_smoke.check_tensor_cores(mma)
+    else:
+        with pytest.raises(SystemExit, match="FAILED"):
+            chip_smoke.check_tensor_cores(mma)

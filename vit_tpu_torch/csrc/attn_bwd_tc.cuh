@@ -28,6 +28,8 @@
 //   TMA (cp.async.bulk.tensor) loads tile j + 1 into the other stage while
 //   tile j is computed, and completes on an mbarrier. TMA fills rows at or
 //   past T with zeros, so the products need no row masks; P is masked.
+//   These pieces (tiles, TMA, mbarriers, wgmma) are in hopper.cuh, shared
+//   with the bf16 forwards (attn_fwd_tc.cuh).
 // * The exps and the dropout hash run on the CUDA cores between the
 //   products; several CTAs share an SM (four of K4's, three of K5's at
 //   d = 64), so one CTA's elementwise work runs while another's wgmma is on
@@ -50,273 +52,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "attn_bwd.cuh"
 #include "common.cuh"
 
 namespace vtt {
 namespace attn_bwd_tc {
 
-constexpr int TILE_ROWS = 64;  // rows of every tile, and of a warpgroup's product
-constexpr int THREADS = 128;   // one warpgroup
-constexpr float LOG2E = 1.4426950408889634f;
-
-// Shared-memory geometry of a 64 x D bf16 tile.
-template <int D> struct Tile {
-  static constexpr int ROW_BYTES = (D < 64 ? D : 64) * 2;  // = the swizzle width
-  static constexpr int SUB = TILE_ROWS * ROW_BYTES;        // one 64-column half
-  static constexpr int NSUB = D < 64 ? 1 : D / 64;
-  static constexpr int BYTES = TILE_ROWS * D * 2;
-  // wgmma descriptor layout: 1 = 128-byte swizzle, 2 = 64, 3 = 32.
-  static constexpr uint64_t LAYOUT = ROW_BYTES == 128 ? 1 : (ROW_BYTES == 64 ? 2 : 3);
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarrier and TMA --------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for the phase of `bar` with the given parity. A phase that never
-// completes (a copy that was never issued) traps after 2^24 polls, so the
-// launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 24)) __trap();
-  }
-}
-
-// Box (c0, c1, c2) of a 3-D tensor map into shared memory at `dst`.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// Rows [row0, row0 + 64) of head bh of a (bh, t, D) tensor: one box per
-// 64-column half.
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                          int row0, int bh) {
-#pragma unroll
-  for (int h = 0; h < Tile<D>::NSUB; ++h)
-    tma_load_3d(dst + h * Tile<D>::SUB, map, bar, 64 * h, row0, bh);
-}
-
-// Generic-proxy writes to shared memory made visible to wgmma and TMA.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// ---- wgmma -------------------------------------------------------------
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of a register that an
-// in-flight wgmma uses across the wait.
-template <int N> __device__ __forceinline__ void hold(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N> __device__ __forceinline__ void hold(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units) and the swizzle layout.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-// K-major operand (the 64 rows of a tile, 16 of its D columns at step kk):
-// rows 8 apart are 8 swizzled rows (SBO) apart; the step moves 32 bytes
-// along the row, into the second half for d = 128.
-template <int D> __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  using L = Tile<D>;
-  const uint32_t addr = tile + (kk * 16 / 64) * L::SUB + (kk * 16 % 64) * 2;
-  return make_desc(addr, 16, 8 * L::ROW_BYTES, L::LAYOUT);
-}
-
-// MN-major operand (rows 16kk..16kk+15 of a tile as the k dimension, its D
-// columns as N): 8-row groups SBO apart, 64-column halves LBO apart.
-template <int D> __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  using L = Tile<D>;
-  return make_desc(tile + kk * 16 * L::ROW_BYTES, L::SUB, 8 * L::ROW_BYTES, L::LAYOUT);
-}
-
-// d (+)= A B^T over one k16 step, A and B K-major in shared memory;
-// `accumulate` 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A B over one k16 step: A (64 x 16) in registers as four packed
-// bf16x2, B (16 x N) MN-major in shared memory (read transposed).
-template <int N> struct WgmmaRS;
-
-template <> struct WgmmaRS<16> {
-  __device__ __forceinline__ static void mma(float (&d)[8], const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <> struct WgmmaRS<32> {
-  __device__ __forceinline__ static void mma(float (&d)[16], const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <> struct WgmmaRS<64> {
-  __device__ __forceinline__ static void mma(float (&d)[32], const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <> struct WgmmaRS<128> {
-  __device__ __forceinline__ static void mma(float (&d)[64], const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-// ---- elementwise helpers -----------------------------------------------
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// dst = bf16(src * s), element for element over one tile. Both tiles have
-// the same swizzled layout, so the position of an element does not matter.
-template <int D>
-__device__ __forceinline__ void scale_tile(uint8_t* dst, const uint8_t* src, float s) {
-  for (int i = threadIdx.x; i < Tile<D>::BYTES / 16; i += THREADS) {
-    uint4 v = reinterpret_cast<const uint4*>(src)[i];
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h[e]);
-      h[e] = __floats2bfloat162_rn(f.x * s, f.y * s);
-    }
-    reinterpret_cast<uint4*>(dst)[i] = v;
-  }
-}
-
-// 2^x on the special-function unit; results below 2^-126 flush to 0 (a P
-// that small adds nothing a bf16 sum can hold).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using namespace hopper;
 
 // K4's elementwise step on one 64 x 64 tile: accumulator element
 // 4j + 2h + e is row row[h], key k0 + 8j + 2c + e. a[2j + h] receives
@@ -380,10 +123,6 @@ __device__ __forceinline__ void dkv_pds(const float (&s)[32], const float (&dp)[
       as[2 * j + h] = pack_bf16(ds[0], ds[1]);  // dS rounded to Q's dtype
     }
   }
-}
-
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
 
 // ---- K4: dQ ------------------------------------------------------------
@@ -662,51 +401,6 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
 }
 
 // ---- host side ---------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, found through the runtime so that the
-// library needs no link against libcuda.
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A (bh, t, D) bf16 tensor as 64-row boxes of min(D, 64) columns, swizzled
-// as the tiles are; rows at or past t read as zeros.
-template <int D> cudaError_t map_rows(CUtensorMap* m, const void* x, int bh, int t) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorNotSupported;
-  constexpr int RB = Tile<D>::ROW_BYTES;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(t),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(t) * D * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(RB / 2), TILE_ROWS, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle sw = RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                           : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
-                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
 
 template <int D> cudaError_t launch_dq(const attn_bwd::Args& a, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;

@@ -14,15 +14,20 @@
 // against only 4*BH*T*d elements moved, so it is bound by operations, not
 // bytes (at the stride-1 serving shape, BH=32, T=4066, d=64: 135 GFLOP).
 //
-// What this simple design does about it: one CTA of 256 threads per
-// (bh, 64-row query tile); K and V go through shared memory in 64-key tiles,
-// and the 64x64 score tile, the softmax statistics and the output
-// accumulator never leave the SM, so device memory sees Q, K, V, O and lse
-// once per query tile and no T x T tensor. The products run on the fp32
-// FMA units from shared memory (each thread a 4x4 score block and a
-// 4 x d/16 output block), not on the tensor cores, so it sits far above the
-// tensor-core bound; moving both products to mma/wgmma is later work. T and
-// d are not padded: the ragged key tile and query tile are masked here.
+// What the design does about it: the 64x64 score tile, the softmax
+// statistics and the output accumulator of a 64-row query tile never leave
+// the SM, so device memory sees Q, K, V, O and lse once per query tile and
+// no T x T tensor. bf16 runs attn_fwd_tc.cuh: both products as wgmma on the
+// tensor cores (bf16 operands, fp32 sums) from TMA-loaded, double-buffered
+// 64-key tiles, the exps and the hash on the CUDA cores between them. fp32
+// runs the body below on the FMA units (tensor cores would mean TF32): one
+// CTA of 256 threads per (bh, 64-row query tile), K and V through shared
+// memory in 64-key tiles, each thread a 4x4 score block and a 4 x d/16
+// output block. T and d are not padded: the ragged key tile and query tile
+// are masked here.
+#include <type_traits>
+
+#include "attn_fwd_tc.cuh"
 #include "common.cuh"
 
 using namespace vtt;
@@ -154,15 +159,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                    int t, float scale, Dropout dr, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const int n_qt = (t + BQ - 1) / BQ;
-  kernel<<<n_qt * bh, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), t, n_qt, scale, dr);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return attn_fwd_tc::launch<D>(attn_fwd_tc::flash_kernel<D>,
+                                  {q, k, v, o, lse, bh, t, scale, dr}, stream);
+  } else {
+    const size_t smem = smem_floats<D>() * sizeof(float);
+    auto kernel = flash_fwd_kernel<T, D>;
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    const int n_qt = (t + BQ - 1) / BQ;
+    kernel<<<n_qt * bh, THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), static_cast<float*>(lse), t, n_qt, scale, dr);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

@@ -13,12 +13,18 @@
 // (about 2*T/3 = 86 FLOP per 4-byte element): under the H100's balance
 // point even for fp32 CUDA-core math, so bytes and the launch bound it.
 //
-// What this simple design does about it: one CTA per (bh, 32-row query
-// tile) holds the whole 32 x T score block in shared memory (T <= 512),
-// so the T x T tensor never reaches device memory, and reads K and V in
-// 64-key tiles, once per query tile. The softmax is exact, two passes over
-// the block in shared memory. Products on the fp32 FMA units; T and d are
-// not padded, the ragged edges are masked here.
+// What the design does about it: the T x T tensor never reaches device
+// memory. bf16 runs attn_fwd_tc.cuh: one warpgroup per (bh, 64 query rows)
+// walks the <= 8 key tiles twice (row max, then P and P~ V), the products
+// as wgmma on the tensor cores from TMA-loaded tiles. fp32 runs the body
+// below on the FMA units (tensor cores would mean TF32): one CTA per
+// (bh, 32-row query tile) holds the whole 32 x T score block in shared
+// memory (T <= 512) and reads K and V in 64-key tiles, once per query
+// tile; the softmax is exact, two passes over the block in shared memory.
+// T and d are not padded, the ragged edges are masked here.
+#include <type_traits>
+
+#include "attn_fwd_tc.cuh"
 #include "common.cuh"
 
 using namespace vtt;
@@ -147,15 +153,20 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                    int t, float scale, Dropout dr, cudaStream_t stream) {
   if (t > T_MAX) return cudaErrorInvalidValue;
-  const size_t smem = smem_floats<D>(t) * sizeof(float);
-  auto kernel = short_fwd_kernel<T, D>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const int n_qt = (t + BQ - 1) / BQ;
-  kernel<<<n_qt * bh, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), t, n_qt, scale, dr);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return attn_fwd_tc::launch<D>(attn_fwd_tc::short_kernel<D>,
+                                  {q, k, v, o, lse, bh, t, scale, dr}, stream);
+  } else {
+    const size_t smem = smem_floats<D>(t) * sizeof(float);
+    auto kernel = short_fwd_kernel<T, D>;
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    const int n_qt = (t + BQ - 1) / BQ;
+    kernel<<<n_qt * bh, THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), static_cast<float*>(lse), t, n_qt, scale, dr);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

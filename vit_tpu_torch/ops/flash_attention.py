@@ -7,11 +7,12 @@ dispatch rule picks the kernels: T rounded up to 128 at most 512 takes the
 short kernels, longer sequences the streaming ones.
 
 * K1 forward, ``csrc/flash_fwd.cu``, replaces ``_flash_fwd_kernel``;
-* K2 short forward, ``csrc/short_fwd.cu``, replaces ``_short_fwd_kernel``;
+* K2 short forward, ``csrc/short_fwd.cu``, replaces ``_short_fwd_kernel``
+  (K1 and K2 run their products on the tensor cores in bf16,
+  ``csrc/attn_fwd_tc.cuh``, and on the fp32 FMA units in fp32);
 * K4 dQ, ``csrc/flash_bwd_dq.cu``, replaces ``_flash_bwd_dq_kernel``;
 * K5 dK and dV, ``csrc/flash_bwd_dkv.cu``, replaces ``_flash_bwd_dkv_kernel``
-  (K4 and K5 run their products on the tensor cores in bf16,
-  ``csrc/attn_bwd_tc.cuh``, and on the fp32 FMA units in fp32);
+  (K4 and K5 likewise, ``csrc/attn_bwd_tc.cuh``);
 * K6 short backward, ``csrc/short_bwd.cu``, replaces ``_short_bwd_kernel``.
 
 None pads: T and d are used as they are, the kernels mask the ragged edge
@@ -188,7 +189,7 @@ def _dropout_args(rate: float, seed) -> tuple:
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
     """x, or a copy of it if its data is not 16-byte aligned (the bf16
-    backward reads its inputs through TMA, which needs that)."""
+    kernels read their inputs through TMA, which needs that)."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
@@ -202,6 +203,7 @@ def _launch_fwd(name: str, q, k, v, scale: float, rate: float, seed):
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
+    q, k, v = (_aligned(x) for x in (q, k, v))
     # The kernels fold scale into q in q's dtype: pass it already rounded there.
     scale_t = float(torch.tensor(scale, dtype=q.dtype))
     KERNELS[name].launch(
