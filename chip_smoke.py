@@ -8,14 +8,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Print the card (``nvidia-smi --query-gpu=name,power.limit``), build every
    CUDA kernel from ``vit_tpu_torch/csrc`` (one nvcc each, in parallel) and
    print the build seconds, ptxas' registers and spills per function, and
-   the tensor-core instructions (HGMMA, HMMA) of each function of the
-   attention libraries (K1, K2, K4, K5) in ``cuobjdump --dump-sass``. The
-   run fails unless every bf16 instantiation of K1 and K2
-   (``attn_fwd_tc``) holds HGMMA and their fp32 instantiations none, and
-   K4's and K5's bf16 instantiations (``attn_bwd_tc``) hold exactly their
-   HGMMA counts (K4 6, 8, 12, 20 and K5 10, 12, 16, 24 at d = 16, 32, 64,
-   128: the wgmma the source issues, so a drift in the shared header
-   shows) and their fp32 ones none.
+   the tensor-core instructions (HGMMA, HMMA) of each function of K1-K6 in
+   ``cuobjdump --dump-sass``. The run fails unless every bf16 tensor-core
+   instantiation of K1, K2 (``attn_fwd_tc``) and K3 (``fused_mlp_tc``)
+   holds HGMMA, the bf16 dQ and dK/dV passes (``attn_bwd_tc``) of K4, K5
+   and K6 hold exactly their HGMMA counts (dQ 6, 8, 12, 20 and dK/dV 10,
+   12, 16, 24 at d = 16, 32, 64, 128: the wgmma in the source, so a
+   drift in the shared header shows), and no other instantiation (fp32,
+   K3's bf16 FMA body) holds any.
 2. Hold each kernel against its plain PyTorch version on the same inputs on
    the card, at the serving and training shapes and a few others, forward
    kernels with and without dropout; one JSON line each with the error, the
@@ -26,7 +26,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    bound for the work. The library call is SDPA for the forward
    kernels and SDPA's backward (forward+backward minus forward, no
    dropout) for K4/K5/K6; K4 and K5 are timed one by one, but their plain
-   and library times are of the whole backward (dq, dk, dv together).
+   and library times are of the whole backward (dq, dk, dv together). K3
+   has no library call; its rows add ``unfused_ms``, F.linear, exact-erf
+   GELU and F.linear in the same dtype, and hold it bit-repeatable.
    Tolerances: fp32 max-abs 1e-4 with TF32 off for matmuls and cuDNN;
    bf16 on O, y, dq, dk, dv and dx the smaller of 2e-2 and four roundings
    to bf16 (4 * 2**-8) of the largest reference value, since the two round
@@ -40,10 +42,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    O = M/(keep*T), zero exactly where ``hash_dropout_mask`` drops, so a
    single wrong mask bit fails (a tolerance on O at T = 4066 is blind to
    one dropped element): in fp32, and in bf16, where O is exact and held
-   bit for bit; and K4 and K5 in bf16 with lse = log T and
-   delta = 0 passed in: K4 with Q = 0, K = V = I, dO = 1 gives
-   dQ = scale*M/(keep*T), K5 with Q = K = 0, dO = I gives
-   dV[j, c] = M[c, j]/(keep*T), both exact in bf16 and held bit for bit.
+   bit for bit; and K4, K5 and K6 in bf16 with lse = log T and
+   delta = 0 passed in: K4 and K6 with Q = 0, K = V = I, dO = 1 give
+   dQ = scale*M/(keep*T), K5 and K6 with Q = K = 0, dO = I give
+   dV[j, c] = M[c, j]/(keep*T), K6 with Q = K6_Q*I, K = 0, V = I, dO = 1
+   gives dK[j, c] = M[c, j]/(keep*T) * bf16(K6_Q*bf16(scale)), all exact in
+   bf16 and held bit for bit.
 3. Serve the main path through ``Predictor.from_checkpoint(..., device=
    "cuda")`` three times, each from a ``.pt`` written from a port model
    initialised from a seeded ``torch.Generator``: (a) stride1 in bf16
@@ -60,12 +64,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    features of the probes are what tells one input from another; the run
    fails unless the probes' features lie at least 10 tolerances apart.
 4. Train the main path through ``Experiment(config, device="cuda",
-   datamodule=...).fit()`` twice, one epoch of 64 synthetic spectra
+   datamodule=...).fit()`` three times, one epoch of 64 synthetic spectra
    (``make_dummy_spectra``, seed 1, held in memory: the card's machine has
    no h5py) at batch 16: (d) stride1.yaml as it stands (bf16, remat: mlp,
    dropout 0.1/0.1: K1 with dropout, K4, K5), (e) baseline.yaml with
    ``attn_impl: flash`` and ``fused_mlp: true`` (fp32: K2 with dropout, K6,
-   K3, K7). Counts are set to 0 just before ``fit`` and read just after,
+   K3, K7), (f) as (e) in bf16 (K2, K6 and K3 on the tensor cores). Counts
+   are set to 0 just before ``fit`` and read just after,
    and must equal layers x (train steps + val batches) for the forward
    kernels and layers x train steps for the backward ones (remat: mlp runs
    the MLP again in the backward, and (d) has no MLP kernel). Each run
@@ -76,7 +81,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    step in fp32 on the CPU: relative L2 error per tensor, against the
    larger of the tensor's norm and 1e-3 of the global norm (gradients that
    are zero in exact arithmetic, as the key bias's, are noise in both),
-   at most 1e-4 for (e) in fp32 and 2e-2 for (d) in bf16; and, as in the
+   at most 1e-4 for (e) in fp32 and 2e-2 for (d) and (f) in bf16; and, as in the
    serving runs, a probe batch (four standard-normal spectra with uniform
    random labels) must move the CPU gradients at least 10 limits away.
 5. Print the kernels' summary, the card line again, and last
@@ -144,22 +149,37 @@ BASELINE_TRAIN = {"project": "vit-viz",
                   "train": {"batch_size": 16, "ep": 1, "debug": 0, "save": False},
                   "loss": {"name": "mae"}, "opt": _OPT, "data": _DATA,
                   "noise": {"noise_level": 0}, "viz": {"enable": False}}
+BASELINE_BF16_TRAIN = dict(BASELINE_TRAIN,
+                           train=dict(BASELINE_TRAIN["train"], precision="bf16"))
 N_INPUTS = 64
 BATCH = 16
 SERVE_REPEATS = 9  # timed passes over the N_INPUTS spectra; all over their total time
 K7_FP32_REL = 1e-5  # K7 weight gradients against their largest value, fp32 inputs
 K7_BF16_REL = 1e-3  # the same with bf16 inputs; rounding dW to bf16 moves it ~2e-3
 GRAD_FLOOR = 1e-3  # per-tensor gradient norms are floored at this share of the global norm
-TRAIN_GRAD_TOL = {"d_stride1_bf16": 2e-2, "e_baseline_flash_fused_fp32": 1e-4}
+TRAIN_GRAD_TOL = {"d_stride1_bf16": 2e-2, "e_baseline_flash_fused_fp32": 1e-4,
+                  "f_baseline_flash_fused_bf16": 2e-2}
 MASK_SEEDS = (0, -1, 2**31 - 1)
-# HGMMA in each bf16 instantiation of K4 and K5 by head dim: the wgmma their
-# source issues per tile (S and dP, d/16 k-steps each; then dS K, or P~^T dO
-# and dS^T Q, four each).
-BWD_HGMMA = {"flash_bwd_dq": {16: 6, 32: 8, 64: 12, 128: 20},
-             "flash_bwd_dkv": {16: 10, 32: 12, 64: 16, 128: 24}}
-# The attention libraries' bf16 instantiations live in these namespaces.
+# Q = K6_Q * I in K6's dK mask check: a bf16 value where bf16(K6_Q *
+# bf16(scale)) (K6) and bf16(K6_Q * scale) (K5) differ at d = 32 and 128.
+K6_Q = 1.046875
+# HGMMA in each bf16 instantiation of the attention backward's dQ pass and
+# dK/dV pass by head dim: the wgmma in their source per tile (S and dP,
+# d/16 k-steps each; then dS K, or P~^T dO and dS^T Q, four each). K4 is
+# the dQ pass, K5 the dK/dV pass, K6 runs both.
+DQ_HGMMA = {16: 6, 32: 8, 64: 12, 128: 20}
+DKV_HGMMA = {16: 10, 32: 12, 64: 16, 128: 24}
+BWD_HGMMA = {"flash_bwd_dq": {"dq_kernel": DQ_HGMMA},
+             "flash_bwd_dkv": {"dkv_kernel": DKV_HGMMA},
+             "short_bwd": {"dq_kernel": DQ_HGMMA, "dkv_kernel": DKV_HGMMA}}
+# The libraries' bf16 tensor-core instantiations live in these namespaces,
+# one per head dim and pass (K3: per column tile of 16, 32, 64 or 128 and
+# one or two warpgroups).
 TC_NAMESPACE = {"flash_fwd": "attn_fwd_tc", "short_fwd": "attn_fwd_tc",
-                "flash_bwd_dq": "attn_bwd_tc", "flash_bwd_dkv": "attn_bwd_tc"}
+                "fused_mlp_fwd": "fused_mlp_tc", "flash_bwd_dq": "attn_bwd_tc",
+                "flash_bwd_dkv": "attn_bwd_tc", "short_bwd": "attn_bwd_tc"}
+TC_INSTANTIATIONS = {"flash_fwd": 4, "short_fwd": 4, "fused_mlp_fwd": 8, "flash_bwd_dq": 4,
+                     "flash_bwd_dkv": 4, "short_bwd": 8}
 DROPOUT_SEED = -123456789  # the kernel rows' dropout seed (any int32)
 
 
@@ -297,6 +317,11 @@ def attention_case(name, fwd, plain, b, h, t, d, dtype, g, sfu_rate, kernels, ra
 
 
 def mlp_case(r, d, f, dtype, g, sfu_rate, kernels):
+    """K3 against its plain version; beside its times, ``unfused_ms``: the
+    unfused path it exists to beat (F.linear, exact-erf GELU, F.linear in
+    the same dtype), timed here and called nowhere in the port."""
+    import torch.nn.functional as F
+
     from vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
 
     x = torch.randn(r, d, generator=g, device="cuda").to(dtype)
@@ -317,6 +342,9 @@ def mlp_case(r, d, f, dtype, g, sfu_rate, kernels):
     ms = time_ms(lambda: fused_mlp(x, w1, b1, w2, b2))
     kernel_call_ms = call_ms(lambda: fused_mlp(x, w1, b1, w2, b2))
     plain_ms = time_ms(lambda: fused_mlp_plain(x, w1, b1, w2, b2), reps=5)
+    unfused_ms = time_ms(lambda: F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2))
+    again = fused_mlp(x, w1, b1, w2, b2)
+    check(torch.equal(y, again), f"{name} {(r, d, f)} {dtype} is not bit-repeatable")
     item = torch.finfo(dtype).bits // 8
     bms, by = bound(4.0 * r * d * f, float(r * f),
                     (2.0 * r * d + 2.0 * d * f + f + d) * item, dtype, sfu_rate)
@@ -324,7 +352,8 @@ def mlp_case(r, d, f, dtype, g, sfu_rate, kernels):
                max_abs_err=err, tol=tol, mean_abs_ref=y_ref.float().abs().mean().item(),
                max_abs_ref=y_ref.float().abs().max().item(), kernel_ms=ms,
                kernel_call_ms=kernel_call_ms, plain_ms=plain_ms, library_ms=None,
-               bound_ms=bms, bound_by=by, launches=kernels[name].launches)
+               unfused_ms=unfused_ms, bound_ms=bms, bound_by=by,
+               launches=kernels[name].launches)
     emit(row)
     return row
 
@@ -426,12 +455,15 @@ def mlp_bwd_case(r, d, f, dtype, g, sfu_rate, kernels):
 def mask_check(kernels) -> dict:
     """K1 and K2 with Q = 0 and V the identity: O = M/(keep*T), so O is zero
     exactly where hash_dropout_mask drops (fp32 and bf16; in bf16 every value
-    is exact and held bit for bit). K4 and K5 in bf16 with lse = log T
-    and delta = 0 (P = 1/T): K4 with Q = 0, K = V = I, dO = 1 gives
-    dQ = scale*M/(keep*T); K5 with Q = K = 0, dO = I gives dV[j, c] =
-    M[c, j]/(keep*T). Every value is exact in bf16: held bit for bit."""
+    is exact and held bit for bit). K4, K5 and K6 in bf16 with lse = log T
+    and delta = 0 (P = 1/T): K4 (and K6) with Q = 0, K = V = I, dO = 1 gives
+    dQ = scale*M/(keep*T); K5 (and K6) with Q = K = 0, dO = I gives dV[j, c]
+    = M[c, j]/(keep*T); K6 with Q = K6_Q * I, K = 0, V = I, dO = 1 gives
+    dK[j, c] = M[c, j]/(keep*T) * bf16(K6_Q * bf16(scale)), K6's rounding of
+    Q*scale (K5's would round K6_Q * scale). Every value is exact in bf16:
+    held bit for bit."""
     from vit_tpu_torch.ops.dropout import hash_dropout_mask
-    from vit_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd, short_fwd
+    from vit_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd, short_bwd, short_fwd
 
     t = d = 128
     bh, scale = 32, d**-0.5
@@ -440,6 +472,8 @@ def mask_check(kernels) -> dict:
     zeros, eye = q.bfloat16(), v.bfloat16()
     lse = torch.full((bh, t), float(torch.log(torch.tensor(float(t)))), device="cuda")
     delta = torch.zeros(bh, t, device="cuda")
+    ones, q_k6 = torch.ones_like(zeros), (K6_Q * eye).contiguous()
+    qs_k6 = float((K6_Q * torch.tensor(scale, dtype=torch.bfloat16).float()).bfloat16())
     out = {}
     for seed in MASK_SEEDS:
         mask = hash_dropout_mask(t, t, torch.arange(bh), seed, 0.5).cuda()  # 0 or 1/keep
@@ -455,6 +489,12 @@ def mask_check(kernels) -> dict:
         got["flash_bwd_dkv"] = flash_bwd(zeros, zeros, zeros, eye, lse, delta, scale, 0.5,
                                          seed)[2]
         want["flash_bwd_dkv"] = (mask / t).transpose(1, 2).bfloat16()
+        got["short_bwd_dq"] = short_bwd(zeros, eye, eye, ones, lse, delta, scale, 0.5, seed)[0]
+        want["short_bwd_dq"] = want["flash_bwd_dq"]
+        got["short_bwd_dv"] = short_bwd(zeros, zeros, zeros, eye, lse, delta, scale, 0.5, seed)[2]
+        want["short_bwd_dv"] = want["flash_bwd_dkv"]
+        got["short_bwd_dk"] = short_bwd(q_k6, zeros, eye, ones, lse, delta, scale, 0.5, seed)[1]
+        want["short_bwd_dk"] = ((mask / t).transpose(1, 2) * qs_k6).bfloat16()
         for name, o in got.items():
             ref = want[name]
             wrong = int(((o == 0) != (ref == 0)).sum().item())
@@ -523,24 +563,27 @@ def ptxas_report(log: str) -> dict:
 
 
 def check_tensor_cores(mma: dict) -> None:
-    """Every bf16 instantiation of K1, K2, K4 and K5 holds HGMMA (K4 and K5
-    exactly BWD_HGMMA's counts), and no fp32 instantiation holds any
+    """Every bf16 tensor-core instantiation of K1-K6 holds HGMMA (K4, K5 and
+    K6's passes exactly BWD_HGMMA's counts), and no other instantiation (fp32,
+    and K3's bf16 FMA body for widths not a multiple of 16) holds any
     tensor-core instruction."""
     import re
-
-    from vit_tpu_torch.ops.flash_attention import HEAD_DIMS
 
     for lib, funcs in mma.items():
         tc = {f: c for f, c in funcs.items() if TC_NAMESPACE[lib] in f}
         plain = {f: c for f, c in funcs.items() if TC_NAMESPACE[lib] not in f}
-        check(len(tc) == len(HEAD_DIMS) and all(c["HGMMA"] > 0 for c in tc.values()),
-              f"{lib}: a bf16 instantiation holds no HGMMA: {funcs}")
+        check(len(tc) == TC_INSTANTIATIONS[lib] and all(c["HGMMA"] > 0 for c in tc.values()),
+              f"{lib}: a bf16 instantiation is missing or holds no HGMMA: {funcs}")
         check(plain and all(c["HGMMA"] + c["HMMA"] == 0 for c in plain.values()),
               f"{lib}: an fp32 instantiation holds tensor-core instructions: {funcs}")
         if lib in BWD_HGMMA:
-            by_d = {int(re.search(r"ILi(\d+)E", f).group(1)): c["HGMMA"] for f, c in tc.items()}
-            check(by_d == BWD_HGMMA[lib],
-                  f"{lib}: HGMMA by head dim {by_d}, expected {BWD_HGMMA[lib]}")
+            got = {}
+            for f, c in tc.items():
+                kind, d = re.search(r"(dq_kernel|dkv_kernel)ILi(\d+)E", f).groups()
+                got[kind, int(d)] = c["HGMMA"]
+            want = {(kind, d): n for kind, by_d in BWD_HGMMA[lib].items()
+                    for d, n in by_d.items()}
+            check(got == want, f"{lib}: HGMMA by pass and head dim {got}, expected {want}")
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor, floor: float) -> float:
@@ -773,6 +816,7 @@ def main() -> int:
     mlp_case(1000, 384, 1536, torch.float32, g, sfu_rate, kernels)
     mlp_case(1000, 384, 1536, torch.bfloat16, g, sfu_rate, kernels)
     mlp_case(16 * 129, 32, 128, torch.float32, g, sfu_rate, kernels)  # (e)'s shape
+    mlp_case(16 * 129, 32, 128, torch.bfloat16, g, sfu_rate, kernels)  # (f)'s shape
     # The training slice: forward kernels with dropout, then the backward ones.
     attention_case("flash_fwd", flash_fwd, flash_fwd_plain, 16, 2, 4066, 64, torch.bfloat16,
                    g, sfu_rate, kernels, rate=0.1)
@@ -788,6 +832,7 @@ def main() -> int:
                                         kernels))
     attention_bwd_case(True, 16, 2, 129, 16, torch.float32, 0.1, g, sfu_rate, kernels)
     attention_bwd_case(True, 16, 12, 197, 64, torch.bfloat16, 0.1, g, sfu_rate, kernels)
+    attention_bwd_case(True, 16, 2, 129, 16, torch.bfloat16, 0.1, g, sfu_rate, kernels)  # (f)'s
     main_rows["fused_mlp_bwd"] = mlp_bwd_case(16 * 4066, 128, 512, torch.bfloat16, g,
                                               sfu_rate, kernels)
     mlp_bwd_case(16 * 129, 32, 128, torch.float32, g, sfu_rate, kernels)
@@ -830,10 +875,12 @@ def main() -> int:
         runs["d_stride1_bf16"] = train_run(
             "d_stride1_bf16", STRIDE1_TRAIN,
             dict(none, flash_fwd=fwd, flash_bwd_dq=bwd, flash_bwd_dkv=bwd), kernels)
+        short_fused = dict(none, short_fwd=fwd, short_bwd=bwd, fused_mlp_fwd=fwd,
+                           fused_mlp_bwd=bwd)
         runs["e_baseline_flash_fused_fp32"] = train_run(
-            "e_baseline_flash_fused_fp32", BASELINE_TRAIN,
-            dict(none, short_fwd=fwd, short_bwd=bwd, fused_mlp_fwd=fwd, fused_mlp_bwd=bwd),
-            kernels)
+            "e_baseline_flash_fused_fp32", BASELINE_TRAIN, short_fused, kernels)
+        runs["f_baseline_flash_fused_bf16"] = train_run(
+            "f_baseline_flash_fused_bf16", BASELINE_BF16_TRAIN, short_fused, kernels)
 
     summary = []
     for name, k in kernels.items():

@@ -119,6 +119,47 @@ def test_fused_mlp_fwd_matches_plain(gen, r, d, f, dtype):
     assert (y.float() - want.float()).abs().max().item() <= _tol(want)
 
 
+def _mlp_operands(gen, r, d, f, dtype=torch.bfloat16):
+    x = torch.randn(r, d, generator=gen, device="cuda").to(dtype)
+    w1 = (torch.randn(f, d, generator=gen, device="cuda") / d**0.5).to(dtype)
+    b1 = (0.1 * torch.randn(f, generator=gen, device="cuda")).to(dtype)
+    w2 = (torch.randn(d, f, generator=gen, device="cuda") / f**0.5).to(dtype)
+    b2 = (0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+    return x, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("r", [65, 1000, 2064, 65056])
+@pytest.mark.parametrize("d", [32, 64, 128, 384])
+def test_fused_mlp_tc_matches_plain_and_repeats(gen, r, d):
+    """K3's tensor-core body (bf16, D and F multiples of 16) at the widths
+    the repo configures, F = 4D: within the bf16 limit of the plain version,
+    equal bits on a second call (no atomics) and from an x that starts 2
+    bytes off (the wrapper copies it for TMA)."""
+    x, w1, b1, w2, b2 = _mlp_operands(gen, r, d, 4 * d)
+    before = KERNELS["fused_mlp_fwd"].launches
+    y = fm.fused_mlp(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert KERNELS["fused_mlp_fwd"].launches == before + 1
+    want = fm.fused_mlp_plain(x, w1, b1, w2, b2)
+    assert (y.float() - want.float()).abs().max().item() <= _tol(want)
+    assert torch.equal(y, fm.fused_mlp(x, w1, b1, w2, b2))
+    off = torch.cat([x.flatten()[:1], x.flatten()])[1:].view(r, d)
+    assert off.data_ptr() % 16 != 0
+    assert torch.equal(y, fm.fused_mlp(off, w1, b1, w2, b2))
+
+
+def test_fused_mlp_bf16_width_off_the_tensor_core_rule_keeps_the_fma_body(gen):
+    """D = 40 is not a multiple of 16: the bf16 forward runs the FMA body,
+    still one launch of K3, within the same limit."""
+    x, w1, b1, w2, b2 = _mlp_operands(gen, 300, 40, 160)
+    before = KERNELS["fused_mlp_fwd"].launches
+    y = fm.fused_mlp(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert KERNELS["fused_mlp_fwd"].launches == before + 1
+    want = fm.fused_mlp_plain(x, w1, b1, w2, b2)
+    assert (y.float() - want.float()).abs().max().item() <= _tol(want)
+
+
 def test_flash_attention_dispatches_to_the_kernels(gen):
     before = {n: k.launches for n, k in KERNELS.items()}
     q = torch.randn(2, 2, 600, 64, generator=gen, device="cuda")
@@ -178,6 +219,25 @@ def _check_backward(bwd, plain, q, k, v, rate, seed=7, names=()):
         assert (a.float() - b.float()).abs().max().item() <= max(_tol(b), FP32_TOL)
 
 
+@pytest.mark.parametrize("short", [True, False])
+def test_bwd_bf16_takes_unaligned_inputs(gen, short):
+    """The bf16 backward kernels read q, k, v and dO through TMA as well:
+    the wrappers copy the ones that start 2 bytes off."""
+    t, d = 129, 64
+    views = [torch.cat([x[:1], x])[1:].view(3, t, d) for x in (
+        torch.randn(3 * t * d, generator=gen, device="cuda").bfloat16() for _ in range(4))]
+    assert all(x.data_ptr() % 16 != 0 for x in views)
+    q, k, v, do = views
+    fwd, bwd, plain = ((fa.short_fwd, fa.short_bwd, fa.short_bwd_plain) if short
+                       else (fa.flash_fwd, fa.flash_bwd, fa.flash_bwd_plain))
+    o, lse = fwd(q, k, v, d**-0.5)
+    delta = (do.float() * o.float()).sum(-1)
+    got = bwd(q, k, v, do, lse, delta, d**-0.5)
+    want = plain(q, k, v, do, lse, delta, d**-0.5)
+    for a, b in zip(got, want):
+        assert (a.float() - b.float()).abs().max().item() <= _tol(b)
+
+
 @pytest.mark.parametrize("rate", RATES)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
@@ -214,6 +274,22 @@ def test_flash_bwd_bf16_is_bit_repeatable(gen, t, d):
 def test_short_bwd_matches_plain(gen, t, d, dtype, rate):
     _check_backward(fa.short_bwd, fa.short_bwd_plain, *_qkv(gen, 3, t, d, dtype), rate,
                     names=("short_bwd",))
+
+
+@pytest.mark.parametrize("rate", RATES)
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("t", [65, 129, 197, 512])
+def test_short_bwd_bf16_matches_plain_and_repeats(gen, t, d, rate):
+    """K6 in bf16 on the tensor cores (K4's dQ pass and K5's dK/dV pass with
+    K6's dK rounding): within the bf16 limit, equal bits on a second call."""
+    q, k, v = _qkv(gen, 4, t, d, torch.bfloat16)
+    _check_backward(fa.short_bwd, fa.short_bwd_plain, q, k, v, rate, names=("short_bwd",))
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    o, lse = fa.short_fwd(q, k, v, d**-0.5, rate, 3)
+    delta = (do.float() * o.float()).sum(-1)
+    first = fa.short_bwd(q, k, v, do, lse, delta, d**-0.5, rate, 3)
+    again = fa.short_bwd(q, k, v, do, lse, delta, d**-0.5, rate, 3)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -337,3 +413,32 @@ def test_training_step_on_the_card_matches_the_cpu(gen, fused_mlp, attn_impl, t_
     for p, w in zip(model.parameters(), want):
         err = (p.grad.cpu() - w).norm()
         assert err <= 1e-4 * max(w.norm(), 1e-3 * total)
+
+
+@pytest.mark.parametrize("seed", [0, -1, 2**31 - 1])
+def test_bf16_short_backward_dropout_mask_is_hash_dropout_mask(gen, seed):
+    """K6 in bf16 with lse = log T and delta = 0 (P = 1/T): dQ and dV by K4's
+    and K5's constructions above, and dK with Q = K6_Q * I, K = 0, V = I,
+    dO = 1, which gives dK[j, c] = M[c, j]/(keep*T) * bf16(K6_Q *
+    bf16(scale)) (K6's rounding of Q*scale; K5's would give other bits).
+    All exact in bf16, held bit for bit."""
+    from chip_smoke import K6_Q
+    from vit_tpu_torch.ops.dropout import hash_dropout_mask
+
+    t = d = 128
+    bh, scale, bf = 32, d**-0.5, torch.bfloat16
+    zeros = torch.zeros(bh, t, d, device="cuda", dtype=bf)
+    eye = torch.eye(t, device="cuda", dtype=bf).expand(bh, t, d).contiguous()
+    ones = torch.ones_like(zeros)
+    lse = torch.full((bh, t), float(torch.log(torch.tensor(float(t)))), device="cuda")
+    delta = torch.zeros(bh, t, device="cuda")
+    mask = hash_dropout_mask(t, t, torch.arange(bh), seed, 0.5).cuda()
+    dq = fa.short_bwd(zeros, eye, eye, ones, lse, delta, scale, 0.5, seed)[0]
+    dv = fa.short_bwd(zeros, zeros, zeros, eye, lse, delta, scale, 0.5, seed)[2]
+    dk = fa.short_bwd((K6_Q * eye).contiguous(), zeros, eye, ones, lse, delta, scale, 0.5,
+                      seed)[1]
+    qs = float((K6_Q * torch.tensor(scale, dtype=bf).float()).to(bf))
+    assert torch.equal(dq, (mask / t * scale).to(bf))
+    assert torch.equal(dv, (mask / t).transpose(1, 2).to(bf))
+    assert torch.equal(dk == 0, mask.transpose(1, 2) == 0)
+    assert torch.equal(dk, ((mask / t).transpose(1, 2) * qs).to(bf))

@@ -268,3 +268,35 @@ def test_plain_backward_dropout_mask_constructions(seed):
     assert torch.equal(dq, (mask / t * scale).to(bf))
     assert torch.equal(dv == 0, mask.transpose(1, 2) == 0)
     assert torch.equal(dv, (mask / t).transpose(1, 2).to(bf))
+
+
+@pytest.mark.parametrize("seed", [0, -1, 2**31 - 1, 12345])
+def test_plain_short_backward_dropout_mask_constructions(seed):
+    """The algebra of chip_smoke.py's bf16 K6 mask check, on the CPU, with
+    lse = log T and delta = 0 (P = 1/T): dQ and dV by K4's and K5's
+    constructions, and dK with Q = K6_Q * I, K = 0, V = I, dO = 1:
+    dK[j, c] = M[c, j]/(keep*T) * bf16(K6_Q * bf16(scale)), K6's rounding of
+    Q*scale. K6_Q is chosen so that K5's rounding, bf16(K6_Q * scale), gives
+    other bits: the check tells the two dK formulas apart."""
+    import chip_smoke
+    from vit_tpu_torch.ops.dropout import hash_dropout_mask
+
+    t = d = 32
+    bh, scale, bf = 3, d**-0.5, torch.bfloat16
+    zeros = torch.zeros(bh, t, d, dtype=bf)
+    eye = torch.eye(t, dtype=bf).expand(bh, t, d).contiguous()
+    ones = torch.ones_like(zeros)
+    lse = torch.full((bh, t), float(np.log(np.float32(t))))
+    delta = torch.zeros(bh, t)
+    mask = hash_dropout_mask(t, t, torch.arange(bh), seed, 0.5)
+    dq = port.short_bwd_plain(zeros, eye, eye, ones, lse, delta, scale, 0.5, seed)[0]
+    dv = port.short_bwd_plain(zeros, zeros, zeros, eye, lse, delta, scale, 0.5, seed)[2]
+    q = (chip_smoke.K6_Q * eye).contiguous()
+    dk = port.short_bwd_plain(q, zeros, eye, ones, lse, delta, scale, 0.5, seed)[1]
+    k6 = float((chip_smoke.K6_Q * torch.tensor(scale, dtype=bf).float()).to(bf))
+    k5 = float(torch.tensor(chip_smoke.K6_Q * scale, dtype=torch.float32).to(bf))
+    assert k6 != k5
+    assert torch.equal(dq, (mask / t * scale).to(bf))
+    assert torch.equal(dv, (mask / t).transpose(1, 2).to(bf))
+    assert torch.equal(dk == 0, mask.transpose(1, 2) == 0)
+    assert torch.equal(dk, ((mask / t).transpose(1, 2) * k6).to(bf))

@@ -53,6 +53,22 @@ def test_fused_mlp_matches_pallas_bf16():
                                atol=BF16_TOL, rtol=0)
 
 
+def test_plain_forward_matches_jnp_mlp_bf16_at_the_stride1_width():
+    """fused_mlp_plain against vit_tpu's _jnp_mlp at the stride-1 MLP (D128
+    F512) in bf16, R = 1000 rows (not a multiple of the kernels' 64-row
+    tiles). h and y are rounded to bf16 in both; an fp32 sum in another
+    order can move a value across a rounding boundary: one bf16 ulp of h
+    times |W2| in y, and one ulp (2**-8 relative) of y itself, so the limit
+    is 2**-7 of the largest |y| (measured: 0.0039 against 0.025)."""
+    ops = _operands(1000, 128, 512, seed=4, scale=1.0)
+    want = np.asarray(ref._jnp_mlp(*(jnp.asarray(x, jnp.bfloat16) for x in ops)).astype(
+        jnp.float32))
+    got = port.fused_mlp_plain(*_port_operands(*ops, dtype=torch.bfloat16))
+    assert got.dtype == torch.bfloat16 and got.shape == (1000, 128)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2**-7 * np.abs(want).max(),
+                               rtol=0)
+
+
 def test_fused_mlp_keeps_leading_dims():
     x, w1, b1, w2, b2 = _operands(2 * 37, 32, 64, seed=2)
     want = np.asarray(ref.fused_mlp(jnp.asarray(x.reshape(2, 37, 32)), *map(jnp.asarray, (w1, b1, w2, b2)),

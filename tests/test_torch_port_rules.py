@@ -166,29 +166,46 @@ def test_chip_smoke_reads_ptxas_registers_and_spills():
 
 def _sass_counts():
     """Per-function tensor-core instruction counts as chip_smoke reads them
-    from cuobjdump, for the four attention libraries built as intended."""
-    def counts(ns, name, hgmma):
-        tc = {f"_ZN3vtt{len(ns)}{ns}{len(name)}{name}ILi{d}EEEvv": {"HGMMA": n, "HMMA": 0}
+    from cuobjdump, for the six tensor-core libraries built as intended."""
+    def name(ns, kernel, args):
+        return f"_ZN3vtt{len(ns)}{ns}{len(kernel)}{kernel}I{args}EEvv"
+
+    def counts(ns, kernel, hgmma, flag=""):
+        tc = {name(ns, kernel, f"Li{d}E{flag}"): {"HGMMA": n, "HMMA": 0}
               for d, n in hgmma.items()}
-        fp32 = {f"_ZN12_GLOBAL__N_1fp32_{name}IfLi{d}EEEvv": {"HGMMA": 0, "HMMA": 0}
+        fp32 = {f"_ZN12_GLOBAL__N_1fp32_{kernel}IfLi{d}EEEvv": {"HGMMA": 0, "HMMA": 0}
                 for d in hgmma}
         return {**tc, **fp32}
 
     fwd = {16: 5, 32: 6, 64: 8, 128: 12}
+    dq, dkv = {16: 6, 32: 8, 64: 12, 128: 20}, {16: 10, 32: 12, 64: 16, 128: 24}
+    mlp = {**counts("fused_mlp_tc", "fwd_kernel", {16: 5, 32: 6, 64: 8, 128: 16}, "Li1E"),
+           **counts("fused_mlp_tc", "fwd_kernel", {16: 5, 32: 6, 64: 8, 128: 16}, "Li2E")}
+    mlp["_ZN12_GLOBAL__N_120fused_mlp_fwd_kernelI13__nv_bfloat16Li2EEEvv"] = {"HGMMA": 0,
+                                                                             "HMMA": 0}
     return {"flash_fwd": counts("attn_fwd_tc", "flash_kernel", fwd),
             "short_fwd": counts("attn_fwd_tc", "short_kernel", fwd),
-            "flash_bwd_dq": counts("attn_bwd_tc", "dq_kernel", {16: 6, 32: 8, 64: 12, 128: 20}),
-            "flash_bwd_dkv": counts("attn_bwd_tc", "dkv_kernel",
-                                    {16: 10, 32: 12, 64: 16, 128: 24})}
+            "fused_mlp_fwd": mlp,
+            "flash_bwd_dq": counts("attn_bwd_tc", "dq_kernel", dq),
+            "flash_bwd_dkv": counts("attn_bwd_tc", "dkv_kernel", dkv, "Lb0E"),
+            "short_bwd": {**counts("attn_bwd_tc", "dq_kernel", dq),
+                          **counts("attn_bwd_tc", "dkv_kernel", dkv, "Lb1E")}}
+
+
+_K6_DKV64 = "_ZN3vtt11attn_bwd_tc10dkv_kernelILi64ELb1EEEvv"
 
 
 @pytest.mark.parametrize("fault", [None, "fp32 holds HGMMA", "bf16 holds none",
                                    "K4 count drifts", "K5 count drifts",
-                                   "instantiation missing"])
+                                   "instantiation missing", "K3 bf16 holds none",
+                                   "K3 FMA body holds HMMA", "K6 dq count drifts",
+                                   "K6 dkv count drifts", "K6 pass missing",
+                                   "K6 fp32 holds HGMMA"])
 def test_chip_smoke_sass_check_catches_each_fault(fault):
-    """chip_smoke's build phase fails unless every bf16 instantiation of
-    K1/K2/K4/K5 holds HGMMA (K4/K5 their exact counts) and no fp32 one holds
-    any tensor-core instruction."""
+    """chip_smoke's build phase fails unless every bf16 tensor-core
+    instantiation of K1-K6 holds HGMMA (the dQ and dK/dV passes of K4, K5 and
+    K6 their exact counts) and no other instantiation holds any tensor-core
+    instruction."""
     import chip_smoke
 
     mma = _sass_counts()
@@ -199,9 +216,22 @@ def test_chip_smoke_sass_check_catches_each_fault(fault):
     elif fault == "K4 count drifts":
         mma["flash_bwd_dq"]["_ZN3vtt11attn_bwd_tc9dq_kernelILi64EEEvv"]["HGMMA"] = 16
     elif fault == "K5 count drifts":
-        mma["flash_bwd_dkv"]["_ZN3vtt11attn_bwd_tc10dkv_kernelILi16EEEvv"]["HGMMA"] = 8
+        mma["flash_bwd_dkv"]["_ZN3vtt11attn_bwd_tc10dkv_kernelILi16ELb0EEEvv"]["HGMMA"] = 8
     elif fault == "instantiation missing":
         del mma["short_fwd"]["_ZN3vtt11attn_fwd_tc12short_kernelILi16EEEvv"]
+    elif fault == "K3 bf16 holds none":
+        mma["fused_mlp_fwd"]["_ZN3vtt12fused_mlp_tc10fwd_kernelILi128ELi2EEEvv"]["HGMMA"] = 0
+    elif fault == "K3 FMA body holds HMMA":
+        mma["fused_mlp_fwd"]["_ZN12_GLOBAL__N_120fused_mlp_fwd_kernelI13__nv_bfloat16Li2EEEvv"][
+            "HMMA"] = 4
+    elif fault == "K6 dq count drifts":
+        mma["short_bwd"]["_ZN3vtt11attn_bwd_tc9dq_kernelILi32EEEvv"]["HGMMA"] = 12
+    elif fault == "K6 dkv count drifts":
+        mma["short_bwd"][_K6_DKV64]["HGMMA"] = 12
+    elif fault == "K6 pass missing":
+        del mma["short_bwd"][_K6_DKV64]
+    elif fault == "K6 fp32 holds HGMMA":
+        mma["short_bwd"]["_ZN12_GLOBAL__N_1fp32_dkv_kernelIfLi128EEEvv"]["HGMMA"] = 24
     if fault is None:
         chip_smoke.check_tensor_cores(mma)
     else:

@@ -1,14 +1,16 @@
-// The bf16 passes of the streaming attention backward (K4, K5) on Hopper's
-// tensor cores. They compute what attn_bwd.cuh's passes compute, with every
-// cast of its header comment in the same place:
+// The bf16 passes of the attention backward (K4, K5, and K6 as both) on
+// Hopper's tensor cores. They compute what attn_bwd.cuh's passes compute,
+// with every cast of its header comment in the same place:
 //   S  = (Q * bf16(scale) rounded to bf16) K^T, fp32 sums;
 //   P  = exp(S - lse), 0 for rows and keys at or past T;
 //   dS = P (dP * M/keep - delta) with dP = dO V^T, rounded to bf16;
-//   dQ = bf16(scale * sum_k dS K)                              (K4)
-//   dV = bf16(sum_q bf16(P * M/keep)^T dO)                     (K5)
+//   dQ = bf16(scale * sum_k dS K)                              (K4, K6)
+//   dV = bf16(sum_q bf16(P * M/keep)^T dO)                     (K5, K6)
 //   dK = bf16(scale * sum_q dS^T Q), Q as it is                (K5)
+//   dK = bf16(sum_q dS^T bf16(Q * bf16(scale))), no final scale (K6)
+// K6 (short_bwd.cu) runs the dQ pass and the dK/dV pass with QS_IN_DK.
 // attn_bwd.cuh keeps the fp32 instantiations (tensor cores in fp32 would
-// be TF32) and K6.
+// be TF32).
 //
 // Design. One warpgroup (128 threads) per CTA owns 64 rows of the output
 // and walks 64-row tiles of the other side:
@@ -260,7 +262,8 @@ template <int D> struct DkvSmem {
   static constexpr int BYTES = BARS + 64 + 1024;
 };
 
-template <int D>
+// QS_IN_DK (K6): dK is summed from the scaled Q and written unscaled.
+template <int D, bool QS_IN_DK = false>
 __global__ void __launch_bounds__(THREADS, D == 128 ? 1 : 2)
 dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -320,8 +323,14 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   // holds the same bits as (Q * qscale) K^T, so S^T is formed from the Q
   // tile as it is and the scale joins log2(e) in the exponent. Otherwise
   // (d = 32, 128) each Q tile is first copied scaled and rounded into QS.
+  // K6's dK = sum dS^T bf16(Q * qscale) then reads QS too, and is written
+  // without the final scale. Where Q is left unscaled, K5's dK already has
+  // K6's bits: a power-of-two scale rounds nothing, so sum dS^T (Q * qscale)
+  // = qscale * sum dS^T Q exactly, and qscale is `scale` there.
   const bool q_unscaled = (__float_as_uint(qscale) & 0x7FFFFFu) == 0;
   const float s_mul = q_unscaled ? qscale * LOG2E : LOG2E;
+  const bool dk_from_qs = QS_IN_DK && !q_unscaled;
+  const float dk_mul = dk_from_qs ? 1.f : scale;
 
   float dk_acc[D / 2], dv_acc[D / 2], s[32], dp[32];
   uint32_t ap[16], as[16];
@@ -366,7 +375,8 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) WgmmaRS<D>::mma(dv_acc, ap + 4 * kk, desc_mn<D>(do_tile, kk));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) WgmmaRS<D>::mma(dk_acc, as + 4 * kk, desc_mn<D>(q_tile, kk));
+    for (int kk = 0; kk < 4; ++kk)
+      WgmmaRS<D>::mma(dk_acc, as + 4 * kk, desc_mn<D>(dk_from_qs ? qs_tile : q_tile, kk));
     wgmma_commit();
     wgmma_wait_all();
     hold(dv_acc);
@@ -393,7 +403,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     for (int j = 0; j < D / 8; ++j) {
       const int i = 4 * j + 2 * h;
       *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j + 2 * c) =
-          __floats2bfloat162_rn(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+          __floats2bfloat162_rn(dk_acc[i] * dk_mul, dk_acc[i + 1] * dk_mul);
       *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j + 2 * c) =
           __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
     }
@@ -420,7 +430,8 @@ template <int D> cudaError_t launch_dq(const attn_bwd::Args& a, cudaStream_t str
   return cudaGetLastError();
 }
 
-template <int D> cudaError_t launch_dkv(const attn_bwd::Args& a, cudaStream_t stream) {
+template <int D, bool QS_IN_DK = false>
+cudaError_t launch_dkv(const attn_bwd::Args& a, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t e;
   if ((e = map_rows<D>(&tq, a.q, a.bh, a.t)) != cudaSuccess ||
@@ -429,7 +440,7 @@ template <int D> cudaError_t launch_dkv(const attn_bwd::Args& a, cudaStream_t st
       (e = map_rows<D>(&tdo, a.dout, a.bh, a.t)) != cudaSuccess)
     return e;
   constexpr size_t smem = DkvSmem<D>::BYTES;
-  auto kernel = dkv_kernel<D>;
+  auto kernel = dkv_kernel<D, QS_IN_DK>;
   if ((e = allow_smem(kernel, smem)) != cudaSuccess) return e;
   const int n_kt = (a.t + TILE_ROWS - 1) / TILE_ROWS;
   kernel<<<n_kt * a.bh, THREADS, smem, stream>>>(

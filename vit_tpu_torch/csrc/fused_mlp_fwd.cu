@@ -10,20 +10,27 @@
 // stride-1 shape, D=128, F=512): bound by operations, just past the bf16
 // tensor-core balance point, and far past the fp32 one.
 //
-// What this simple design does about it: the (R, F) intermediate never
-// reaches device memory. One CTA of 256 threads per (64-row block, output
-// column tile of up to 128) loops over F in chunks of 64: it computes the
-// chunk's pre-activation from x and W1 staged through shared memory in
-// 32-wide slices of D, applies the GELU, stages h in shared memory, and adds
-// h times the chunk's W2 columns into fp32 registers. The weights are read in
-// torch's nn.Linear layout, (out, in), so the model passes its parameters
-// as they are; each tile is loaded along the contiguous `in` axis and
-// transposed on its way into (padded) shared memory. Nothing stays resident
-// across F or D, so the kernel runs at every width (the TPU kernel's VMEM
-// limit does not carry over); for D > 128 each column tile recomputes h.
-// Products on the fp32 FMA units; moving them to the tensor cores is later
-// work.
+// Two bodies, chosen by a static rule on dtype and width (not a fallback:
+// a refused launch raises either way):
+// * bf16 with D and F multiples of 16 and D <= 1024 (every width the repo
+//   configures) runs fused_mlp_tc.cuh: both products as wgmma on the tensor
+//   cores from TMA-loaded tiles, the GELU on the accumulator fragment, h
+//   handed to the second product in registers.
+// * fp32 (tensor cores would mean TF32) and any other bf16 width run the
+//   FMA kernel below. The (R, F) intermediate never reaches device memory.
+//   One CTA of 256 threads per (64-row block, output column tile of up to
+//   128) loops over F in chunks of 64: it computes the chunk's
+//   pre-activation from x and W1 staged through shared memory in 32-wide
+//   slices of D, applies the GELU, stages h in shared memory, and adds h
+//   times the chunk's W2 columns into fp32 registers. The weights are read
+//   in torch's nn.Linear layout, (out, in), so the model passes its
+//   parameters as they are; each tile is loaded along the contiguous `in`
+//   axis and transposed on its way into (padded) shared memory. Nothing
+//   stays resident across F or D, so the kernel runs at every width (the
+//   TPU kernel's VMEM limit does not carry over); for D > 128 each column
+//   tile recomputes h.
 #include "common.cuh"
+#include "fused_mlp_tc.cuh"
 
 using namespace vtt;
 
@@ -161,13 +168,15 @@ cudaError_t launch_w(const void* x, const void* w1, const void* b1, const void* 
 }  // namespace
 
 // x, y: (r, d); w1: (f, d); b1: (f); w2: (d, f); b2: (d); all contiguous in
-// float32 (is_bf16 = 0) or bfloat16. Returns cudaGetLastError() after the
-// launch.
+// float32 (is_bf16 = 0) or bfloat16, and in bfloat16 16-byte aligned (TMA).
+// Returns cudaGetLastError() after the launch.
 extern "C" int fused_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2,
                              const void* b2, void* y, int r, int d, int f, int is_bf16,
                              void* stream) {
   if (r <= 0 || d <= 0 || f <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && fused_mlp_tc::takes(d, f))
+    return fused_mlp_tc::launch(x, w1, b1, w2, b2, y, r, d, f, s);
   return is_bf16 ? launch_w<__nv_bfloat16>(x, w1, b1, w2, b2, y, r, d, f, s)
                  : launch_w<float>(x, w1, b1, w2, b2, y, r, d, f, s);
 }

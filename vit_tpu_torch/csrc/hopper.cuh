@@ -1,17 +1,19 @@
-// Hopper building blocks shared by the tensor-core attention kernels
-// (attn_fwd_tc.cuh: K1, K2 in bf16; attn_bwd_tc.cuh: K4, K5 in bf16).
+// Hopper building blocks shared by the tensor-core kernels (attn_fwd_tc.cuh:
+// K1, K2 in bf16; attn_bwd_tc.cuh: K4, K5, K6 in bf16; fused_mlp_tc.cuh: K3
+// in bf16).
 //
 // * Tiles of 64 rows of a (bh, t, D) bf16 tensor live in shared memory in
 //   the swizzled layout that TMA writes and wgmma reads: rows of
 //   min(D, 64) * 2 bytes with a 32/64/128-byte swizzle, d = 128 as two
-//   64-column halves.
+//   64-column halves. K3 cuts its (rows, cols) matrices the same way
+//   (map_matrix), in as many 64-column boxes as the width needs.
 // * TMA (cp.async.bulk.tensor) loads a tile with one thread's request and
 //   completes on an mbarrier; rows at or past t read as zeros.
 // * wgmma: S = A B^T with both operands K-major in shared memory
 //   (m64n64k16), and d += A B with A as packed bf16x2 registers and B read
-//   transposed (MN-major) from a tile, for N = 16..128. The m64nN fp32
-//   accumulator fragment of a thread, two columns per 32-bit register after
-//   rounding to bf16, is the A fragment of the next product.
+//   from a tile transposed (MN-major) or, for K3, K-major, for N = 16..128.
+//   The m64nN fp32 accumulator fragment of a thread, two columns per 32-bit
+//   register after rounding to bf16, is the A fragment of the next product.
 #pragma once
 
 #include <cuda.h>
@@ -82,6 +84,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Box (c0, c1) of a 2-D tensor map into shared memory at `dst`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -172,40 +184,42 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
 }
 
 // d += A B over one k16 step: A (64 x 16) in registers as four packed
-// bf16x2, B (16 x N) MN-major in shared memory (read transposed).
-template <int N> struct WgmmaRS;
+// bf16x2. B (16 x N) in shared memory is MN-major (read transposed) for
+// TRANS_B = 1, as the attention kernels use it, or K-major (the N rows of a
+// tile, 16 of its columns) for TRANS_B = 0, as K3 reads W2.
+template <int N, int TRANS_B = 1> struct WgmmaRS;
 
-template <> struct WgmmaRS<16> {
+template <int TRANS_B> struct WgmmaRS<16, TRANS_B> {
   __device__ __forceinline__ static void mma(float (&d)[8], const uint32_t* a, uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
         "{"
         "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TRANS_B));
   }
 };
 
-template <> struct WgmmaRS<32> {
+template <int TRANS_B> struct WgmmaRS<32, TRANS_B> {
   __device__ __forceinline__ static void mma(float (&d)[16], const uint32_t* a, uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TRANS_B));
   }
 };
 
-template <> struct WgmmaRS<64> {
+template <int TRANS_B> struct WgmmaRS<64, TRANS_B> {
   __device__ __forceinline__ static void mma(float (&d)[32], const uint32_t* a, uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -213,7 +227,7 @@ template <> struct WgmmaRS<64> {
         "{"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -222,11 +236,11 @@ template <> struct WgmmaRS<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TRANS_B));
   }
 };
 
-template <> struct WgmmaRS<128> {
+template <int TRANS_B> struct WgmmaRS<128, TRANS_B> {
   __device__ __forceinline__ static void mma(float (&d)[64], const uint32_t* a, uint64_t db) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -236,7 +250,7 @@ template <> struct WgmmaRS<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -253,7 +267,7 @@ template <> struct WgmmaRS<128> {
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TRANS_B));
   }
 };
 
@@ -285,6 +299,14 @@ __device__ __forceinline__ void scale_tile(uint8_t* dst, const uint8_t* src, flo
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 1/x on the special-function unit (rcp.approx: within an ulp of 1/x;
+// subnormal results flush to 0).
+__device__ __forceinline__ float rcp_ftz(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 
@@ -330,6 +352,29 @@ template <int D> cudaError_t map_rows(CUtensorMap* m, const void* x, int bh, int
                                 : RB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                            : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A (rows, cols) row-major bf16 matrix as boxes of box_rows x box_cols,
+// swizzled by the box's row of box_cols * 2 bytes (32, 64 or 128); elements
+// past either edge read as zeros. cols * 2 must be a multiple of 16.
+inline cudaError_t map_matrix(CUtensorMap* m, const void* x, int rows, int cols, int box_cols,
+                              int box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const int rb = box_cols * 2;
+  if (rb != 32 && rb != 64 && rb != 128) return cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUtensorMapSwizzle sw = rb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : rb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims,
                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

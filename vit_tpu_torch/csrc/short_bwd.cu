@@ -6,14 +6,26 @@
 // with no final scale (:255-256), where K5 scales ds^T Q at the end. dQ =
 // scale * ds K and dV = (P * M/keep)^T dO as in K4/K5.
 //
-// What bounds it on the H100: 10*BH*T^2*d operations over BH*T*d*8
-// elements moved; at the baseline training shape (B64 H2 T129 d16 fp32)
-// about 2*T*10/8 = 320 operations per 4-byte element moved: past the fp32
-// balance point, so operations, and at these sizes the launch. The TPU
-// kernel holds a whole (heads, T, T) block in VMEM; here two passes, a dQ
-// pass and a dK/dV pass (attn_bwd.cuh), each keep 64 x 64 tiles on chip.
-// One entry call launches both and counts as one launch.
+// What bounds it on the H100: 10*BH*T^2*d operations (five T x T x d
+// products, S and dP counted in both passes make seven) against
+// BH*T*d*7 elements moved. In bf16 at B16 H12 T197 d64 that is 0.0048 ms
+// of products at 989 TFLOP/s against 0.0102 ms of bytes at 3.35 TB/s:
+// bound by bytes; in fp32 at the baseline training shape (B64 H2 T129 d16)
+// by operations on the FMA units, and at these sizes by the launch.
+// Design. The TPU kernel holds a whole (heads, T, T) block in VMEM; here
+// two passes, a dQ pass and a dK/dV pass, each keep 64 x 64 tiles on chip:
+// * bf16 runs the tensor-core passes of attn_bwd_tc.cuh, K4's dQ pass and
+//   K5's dK/dV pass with QS_IN_DK, which sums dK from the scaled, rounded
+//   copy of each Q tile that the pass already makes for S (d = 32, 128) and
+//   drops the final scale; at d = 16, 64 the scale is a power of two and
+//   K5's dK has K6's bits as it is. Same wgmma counts as K4 and K5.
+// * fp32 runs attn_bwd.cuh's FMA passes with QS_IN_DK (tensor cores would
+//   mean TF32).
+// One entry call launches both passes and counts as one launch.
+#include <type_traits>
+
 #include "attn_bwd.cuh"
+#include "attn_bwd_tc.cuh"
 
 using namespace vtt;
 
@@ -23,9 +35,15 @@ constexpr int T_MAX = 512;
 
 template <typename T, int D> struct ShortBwd {
   static cudaError_t run(const attn_bwd::Args& a, cudaStream_t s) {
-    cudaError_t e = attn_bwd::launch_dq<T, D>(a, s);
-    if (e != cudaSuccess) return e;
-    return attn_bwd::launch_dkv<T, D, /*QS_IN_DK=*/true>(a, s);
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      cudaError_t e = attn_bwd_tc::launch_dq<D>(a, s);
+      if (e != cudaSuccess) return e;
+      return attn_bwd_tc::launch_dkv<D, /*QS_IN_DK=*/true>(a, s);
+    } else {
+      cudaError_t e = attn_bwd::launch_dq<T, D>(a, s);
+      if (e != cudaSuccess) return e;
+      return attn_bwd::launch_dkv<T, D, /*QS_IN_DK=*/true>(a, s);
+    }
   }
 };
 

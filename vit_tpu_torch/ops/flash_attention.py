@@ -277,6 +277,7 @@ def short_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed: in
     _check_bwd(q, do, lse, delta)
     if _on_cpu(q):
         return short_bwd_plain(q, k, v, do, lse, delta, scale, rate, seed)
+    q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _launch_bwd("short_bwd", (dq, dk, dv), q, k, v, do, lse, delta, scale, rate, seed)
     return dq, dk, dv

@@ -15,7 +15,11 @@ transposes of the Pallas kernel's.
 
 The wrappers take the plain versions for tensors on the CPU and launch the
 kernels for tensors on the card. The kernels tile over F and over the
-output columns, so they run at every width.
+output columns, so they run at every width. The forward kernel picks its
+body by a fixed rule, not on failure: bf16 with D and F multiples of 16
+and D at most 1024 (every width the repo configures) runs its products on
+the tensor cores (``csrc/fused_mlp_tc.cuh``); fp32, where tensor cores
+would mean TF32, and other bf16 widths run on the fp32 FMA units.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from vit_tpu_torch.ops._build import KERNELS
+from vit_tpu_torch.ops.flash_attention import _aligned
 
 __all__ = ["fused_mlp", "fused_mlp_plain", "fused_mlp_bwd", "fused_mlp_bwd_plain", "gelu_as",
            "dgelu_as", "erf_as"]
@@ -90,6 +95,8 @@ def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
     y = torch.empty_like(x)
     if r == 0:
         return y
+    if x.dtype == torch.bfloat16:  # the tensor-core body reads through TMA
+        x, w1, b1, w2, b2 = (_aligned(t) for t in (x, w1, b1, w2, b2))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     KERNELS["fused_mlp_fwd"].launch(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
