@@ -8,14 +8,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Print the card (``nvidia-smi --query-gpu=name,power.limit``), build every
    CUDA kernel from ``vit_tpu_torch/csrc`` (one nvcc each, in parallel) and
    print the build seconds, ptxas' registers and spills per function, and
-   the tensor-core instructions (HGMMA, HMMA) of each function of K1-K6 in
+   the tensor-core instructions (HGMMA, HMMA) of each function of K1-K7 in
    ``cuobjdump --dump-sass``. The run fails unless every bf16 tensor-core
-   instantiation of K1, K2 (``attn_fwd_tc``) and K3 (``fused_mlp_tc``)
-   holds HGMMA, the bf16 dQ and dK/dV passes (``attn_bwd_tc``) of K4, K5
-   and K6 hold exactly their HGMMA counts (dQ 6, 8, 12, 20 and dK/dV 10,
+   instantiation of K1, K2 (``attn_fwd_tc``), K3 (``fused_mlp_tc``) and K7
+   (``fused_mlp_bwd_tc``: its dx and weight-gradient passes) holds HGMMA,
+   the bf16 dQ and dK/dV passes (``attn_bwd_tc``) of K4, K5 and K6 hold
+   exactly their HGMMA counts (dQ 6, 8, 12, 20 and dK/dV 10,
    12, 16, 24 at d = 16, 32, 64, 128: the wgmma in the source, so a
    drift in the shared header shows), and no other instantiation (fp32,
-   K3's bf16 FMA body) holds any.
+   K3's and K7's bf16 FMA bodies) holds any.
 2. Hold each kernel against its plain PyTorch version on the same inputs on
    the card, at the serving and training shapes and a few others, forward
    kernels with and without dropout; one JSON line each with the error, the
@@ -27,8 +28,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernels and SDPA's backward (forward+backward minus forward, no
    dropout) for K4/K5/K6; K4 and K5 are timed one by one, but their plain
    and library times are of the whole backward (dq, dk, dv together). K3
-   has no library call; its rows add ``unfused_ms``, F.linear, exact-erf
-   GELU and F.linear in the same dtype, and hold it bit-repeatable.
+   and K7 have no library call; their rows add ``unfused_ms``, F.linear,
+   exact-erf GELU and F.linear in the same dtype (for K7 its autograd
+   backward: forward+backward minus forward), and hold the kernel
+   bit-repeatable. K7's rows also hold its device memory beyond dx, the
+   gradients and the partials: below one (R, F) tensor on the tensor-core
+   body (g and dh stay on chip), at least two on the FMA body.
    Tolerances: fp32 max-abs 1e-4 with TF32 off for matmuls and cuDNN;
    bf16 on O, y, dq, dk, dv and dx the smaller of 2e-2 and four roundings
    to bf16 (4 * 2**-8) of the largest reference value, since the two round
@@ -69,11 +74,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    no h5py) at batch 16: (d) stride1.yaml as it stands (bf16, remat: mlp,
    dropout 0.1/0.1: K1 with dropout, K4, K5), (e) baseline.yaml with
    ``attn_impl: flash`` and ``fused_mlp: true`` (fp32: K2 with dropout, K6,
-   K3, K7), (f) as (e) in bf16 (K2, K6 and K3 on the tensor cores). Counts
-   are set to 0 just before ``fit`` and read just after,
-   and must equal layers x (train steps + val batches) for the forward
-   kernels and layers x train steps for the backward ones (remat: mlp runs
-   the MLP again in the backward, and (d) has no MLP kernel). Each run
+   K3, K7), (f) as (e) in bf16 (K2, K6, K3 and K7 on the tensor cores),
+   (g) as (d) with ``fused_mlp: true`` (K1 with dropout, K3, K4, K5, K7 in
+   bf16 at the stride-1 width). Counts are set to 0 just before ``fit`` and
+   read just after, and must equal layers x (train steps + val batches) for
+   the forward kernels and layers x train steps for the backward ones, and
+   for K3 in (g) layers x (2 x train steps + val batches): remat: mlp runs
+   the MLP again in the backward ((d) has no MLP kernel). Each run
    prints its per-step losses (all finite), steps/s and ms/step (smoke
    figures), peak memory and torch.profiler's split of one further step.
    Before it, on a batch of 4 with fixed dropout seeds, the first step's
@@ -81,7 +88,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    step in fp32 on the CPU: relative L2 error per tensor, against the
    larger of the tensor's norm and 1e-3 of the global norm (gradients that
    are zero in exact arithmetic, as the key bias's, are noise in both),
-   at most 1e-4 for (e) in fp32 and 2e-2 for (d) and (f) in bf16; and, as in the
+   at most 1e-4 for (e) in fp32 and 2e-2 for (d), (f) and (g) in bf16; and, as in the
    serving runs, a probe batch (four standard-normal spectra with uniform
    random labels) must move the CPU gradients at least 10 limits away.
 5. Print the kernels' summary, the card line again, and last
@@ -151,6 +158,7 @@ BASELINE_TRAIN = {"project": "vit-viz",
                   "noise": {"noise_level": 0}, "viz": {"enable": False}}
 BASELINE_BF16_TRAIN = dict(BASELINE_TRAIN,
                            train=dict(BASELINE_TRAIN["train"], precision="bf16"))
+STRIDE1_FUSED_TRAIN = dict(STRIDE1_TRAIN, model=dict(STRIDE1_MODEL, fused_mlp=True))
 N_INPUTS = 64
 BATCH = 16
 SERVE_REPEATS = 9  # timed passes over the N_INPUTS spectra; all over their total time
@@ -158,7 +166,7 @@ K7_FP32_REL = 1e-5  # K7 weight gradients against their largest value, fp32 inpu
 K7_BF16_REL = 1e-3  # the same with bf16 inputs; rounding dW to bf16 moves it ~2e-3
 GRAD_FLOOR = 1e-3  # per-tensor gradient norms are floored at this share of the global norm
 TRAIN_GRAD_TOL = {"d_stride1_bf16": 2e-2, "e_baseline_flash_fused_fp32": 1e-4,
-                  "f_baseline_flash_fused_bf16": 2e-2}
+                  "f_baseline_flash_fused_bf16": 2e-2, "g_stride1_bf16_fused_mlp": 2e-2}
 MASK_SEEDS = (0, -1, 2**31 - 1)
 # Q = K6_Q * I in K6's dK mask check: a bf16 value where bf16(K6_Q *
 # bf16(scale)) (K6) and bf16(K6_Q * scale) (K5) differ at d = 32 and 128.
@@ -174,12 +182,14 @@ BWD_HGMMA = {"flash_bwd_dq": {"dq_kernel": DQ_HGMMA},
              "short_bwd": {"dq_kernel": DQ_HGMMA, "dkv_kernel": DKV_HGMMA}}
 # The libraries' bf16 tensor-core instantiations live in these namespaces,
 # one per head dim and pass (K3: per column tile of 16, 32, 64 or 128 and
-# one or two warpgroups).
+# one or two warpgroups; K7: its dx and weight-gradient passes per box width
+# 16, 32, 64 and column tile of 64 or 128).
 TC_NAMESPACE = {"flash_fwd": "attn_fwd_tc", "short_fwd": "attn_fwd_tc",
                 "fused_mlp_fwd": "fused_mlp_tc", "flash_bwd_dq": "attn_bwd_tc",
-                "flash_bwd_dkv": "attn_bwd_tc", "short_bwd": "attn_bwd_tc"}
+                "flash_bwd_dkv": "attn_bwd_tc", "short_bwd": "attn_bwd_tc",
+                "fused_mlp_bwd": "fused_mlp_bwd_tc"}
 TC_INSTANTIATIONS = {"flash_fwd": 4, "short_fwd": 4, "fused_mlp_fwd": 8, "flash_bwd_dq": 4,
-                     "flash_bwd_dkv": 4, "short_bwd": 8}
+                     "flash_bwd_dkv": 4, "short_bwd": 8, "fused_mlp_bwd": 8}
 DROPOUT_SEED = -123456789  # the kernel rows' dropout seed (any int32)
 
 
@@ -415,7 +425,13 @@ def attention_bwd_case(short, b, h, t, d, dtype, rate, g, sfu_rate, kernels):
 
 
 def mlp_bwd_case(r, d, f, dtype, g, sfu_rate, kernels):
-    from vit_tpu_torch.ops.fused_mlp import fused_mlp_bwd, fused_mlp_bwd_plain
+    """K7 against its plain version; beside its times, ``unfused_ms``: the
+    backward of the unfused path (F.linear, exact-erf GELU, F.linear in the
+    same dtype; forward and autograd backward, less the forward, as the SDPA
+    rows), timed here and called nowhere in the port."""
+    import torch.nn.functional as F
+
+    from vit_tpu_torch.ops.fused_mlp import bwd_plan, fused_mlp_bwd, fused_mlp_bwd_plain
 
     x, dy = (torch.randn(r, d, generator=g, device="cuda").to(dtype) for _ in range(2))
     w1 = (torch.randn(f, d, generator=g, device="cuda") / d**0.5).to(dtype)
@@ -423,9 +439,23 @@ def mlp_bwd_case(r, d, f, dtype, g, sfu_rate, kernels):
     w2 = (torch.randn(d, f, generator=g, device="cuda") / f**0.5).to(dtype)
     name = "fused_mlp_bwd"
     kernels[name].launches = 0
+    tensor_cores, n_seg = bwd_plan(r, d, f, dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     got = fused_mlp_bwd(x, dy, w1, b1, w2)
     torch.cuda.synchronize()
     check(kernels[name].launches == 1, f"{name} did not launch")
+    # Device memory the call held beyond dx, the fp32 gradients and the
+    # partials: the tensor-core body keeps g and dh on chip, so less than one
+    # (R, F) tensor; the FMA body moves both through device memory.
+    n = 2 * f * d + f + d
+    item = torch.finfo(dtype).bits // 8
+    scratch = (torch.cuda.max_memory_allocated() - base
+               - (r * d * item + n * 4 + n_seg * n * 4))
+    check(scratch < r * f * item if tensor_cores else scratch >= 2 * r * f * item,
+          f"{name} {(r, d, f)} {dtype}: {scratch} bytes of scratch on the "
+          f"{'tensor-core' if tensor_cores else 'FMA'} body")
     want = fused_mlp_bwd_plain(x, dy, w1, b1, w2)
     rel = K7_FP32_REL if dtype == torch.float32 else K7_BF16_REL
     tols = [kernel_tol(want[0])] + [rel * max(1.0, w.abs().max().item()) for w in want[1:]]
@@ -438,15 +468,21 @@ def mlp_bwd_case(r, d, f, dtype, g, sfu_rate, kernels):
     ms = time_ms(lambda: fused_mlp_bwd(x, dy, w1, b1, w2))
     kernel_call_ms = call_ms(lambda: fused_mlp_bwd(x, dy, w1, b1, w2))
     plain_ms = time_ms(lambda: fused_mlp_bwd_plain(x, dy, w1, b1, w2), reps=5)
-    item = torch.finfo(dtype).bits // 8
+    leaves = [t.detach().requires_grad_() for t in (x, w1, b1, w2, torch.zeros_like(x[0]))]
+    unfused = lambda: F.linear(F.gelu(F.linear(leaves[0], leaves[1], leaves[2])),  # noqa: E731
+                               leaves[3], leaves[4])
+    unfused_ms = (time_ms(lambda: torch.autograd.grad(unfused(), leaves, dy))
+                  - time_ms(unfused))
+    passes = device_profile(lambda: fused_mlp_bwd(x, dy, w1, b1, w2))["top"]  # K7's launches
     bms, by = bound(10.0 * r * d * f, 2.0 * r * f,
                     (3.0 * r * d + 2.0 * d * f + f) * item + (2.0 * d * f + f + d) * 4, dtype,
                     sfu_rate)
     row = dict(phase="kernel", kernel=name, shape=dict(R=r, D=d, F=f), dtype=str(dtype),
                max_abs_err=max(errs), errs=dict(zip(("dx", "dW1", "db1", "dW2", "db2"), errs)),
                tols=tols, max_abs_ref=[w.float().abs().max().item() for w in want],
+               tensor_cores=tensor_cores, segments=n_seg, scratch_bytes=scratch,
                bit_repeatable=True, kernel_ms=ms, kernel_call_ms=kernel_call_ms,
-               plain_ms=plain_ms, library_ms=None,
+               plain_ms=plain_ms, library_ms=None, unfused_ms=unfused_ms, passes=passes,
                bound_ms=bms, bound_by=by)
     emit(row)
     return row
@@ -835,7 +871,8 @@ def main() -> int:
     attention_bwd_case(True, 16, 2, 129, 16, torch.bfloat16, 0.1, g, sfu_rate, kernels)  # (f)'s
     main_rows["fused_mlp_bwd"] = mlp_bwd_case(16 * 4066, 128, 512, torch.bfloat16, g,
                                               sfu_rate, kernels)
-    mlp_bwd_case(16 * 129, 32, 128, torch.float32, g, sfu_rate, kernels)
+    mlp_bwd_case(16 * 129, 32, 128, torch.float32, g, sfu_rate, kernels)  # (e)'s shape
+    mlp_bwd_case(16 * 129, 32, 128, torch.bfloat16, g, sfu_rate, kernels)  # (f)'s shape
     mlp_bwd_case(1000, 384, 1536, torch.float32, g, sfu_rate, kernels)
     mlp_bwd_case(1000, 384, 1536, torch.bfloat16, g, sfu_rate, kernels)
     mask_check(kernels)
@@ -881,6 +918,11 @@ def main() -> int:
             "e_baseline_flash_fused_fp32", BASELINE_TRAIN, short_fused, kernels)
         runs["f_baseline_flash_fused_bf16"] = train_run(
             "f_baseline_flash_fused_bf16", BASELINE_BF16_TRAIN, short_fused, kernels)
+        # (d) with the fused MLP: remat: mlp runs K3 again in each backward.
+        runs["g_stride1_bf16_fused_mlp"] = train_run(
+            "g_stride1_bf16_fused_mlp", STRIDE1_FUSED_TRAIN,
+            dict(none, flash_fwd=fwd, flash_bwd_dq=bwd, flash_bwd_dkv=bwd,
+                 fused_mlp_fwd=fwd + bwd, fused_mlp_bwd=bwd), kernels)
 
     summary = []
     for name, k in kernels.items():

@@ -192,3 +192,49 @@ def test_plain_backward_is_the_autograd_backward():
     port.fused_mlp_plain(*ref_args).backward(dy)
     for a, b in zip((dx, dw1, db1, dw2, db2), (t.grad for t in ref_args)):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+# K7's body and scratch, decided on the host by bwd_plan / _bwd_scratch (the
+# kernels themselves run only on the card: tests/test_torch_port_cuda.py).
+@pytest.mark.parametrize("d, f", [(16, 64), (32, 128), (64, 256), (128, 512), (384, 1536),
+                                  (512, 2048), (48, 96)])
+def test_bwd_plan_takes_the_tensor_cores_for_bf16_at_k3s_widths(d, f):
+    """bf16 with D and F multiples of 16 (K3's rule) and D <= 512 takes the
+    tensor cores; the same widths in fp32 keep the FMA body. Segments are
+    whole 64-row blocks and none is empty."""
+    r = 4097
+    tc, n_seg = port.bwd_plan(r, d, f, torch.bfloat16)
+    assert tc
+    blocks = -(-r // 64)
+    per_seg = -(-blocks // n_seg)
+    assert 1 <= n_seg <= blocks and (n_seg - 1) * per_seg < blocks
+    assert not port.bwd_plan(r, d, f, torch.float32)[0]
+
+
+@pytest.mark.parametrize("d, f", [(40, 160), (100, 30), (128, 520), (1024, 4096)])
+def test_bwd_plan_keeps_the_fma_body_off_the_rule(d, f):
+    assert not port.bwd_plan(300, d, f, torch.bfloat16)[0]
+
+
+def test_bwd_plan_fills_two_waves_at_the_stride1_shape():
+    """R 65056 (16 x 4066 tokens), D 128, F 512: 8 F chunks x 33 segments of
+    31 blocks = 264 weight-gradient CTAs, two waves of 132 SMs."""
+    assert port.bwd_plan(65056, 128, 512, torch.bfloat16) == (True, 33)
+    assert port.bwd_plan(1, 16, 32, torch.bfloat16) == (True, 1)
+
+
+@pytest.mark.parametrize("dtype, r, d, f", [(torch.bfloat16, 4097, 128, 512),
+                                            (torch.bfloat16, 2064, 32, 128),
+                                            (torch.float32, 4097, 128, 512),
+                                            (torch.bfloat16, 300, 100, 30)])
+def test_bwd_scratch_holds_no_rf_tensor_on_the_tensor_cores(dtype, r, d, f):
+    """The tensor-core body keeps g and dh on chip: its only scratch is the
+    (n_seg, 2FD + F + D) fp32 partials. The FMA body adds g and dh, (R, F)
+    each in the input dtype."""
+    tc, n_seg, g, dh, part = port._bwd_scratch(r, d, f, dtype, "cpu")
+    assert (tc, n_seg) == port.bwd_plan(r, d, f, dtype)
+    assert part.shape == (n_seg, 2 * f * d + f + d) and part.dtype == torch.float32
+    if tc:
+        assert g is None and dh is None
+    else:
+        assert g.shape == dh.shape == (r, f) and g.dtype == dh.dtype == dtype

@@ -166,7 +166,7 @@ def test_chip_smoke_reads_ptxas_registers_and_spills():
 
 def _sass_counts():
     """Per-function tensor-core instruction counts as chip_smoke reads them
-    from cuobjdump, for the six tensor-core libraries built as intended."""
+    from cuobjdump, for the seven tensor-core libraries built as intended."""
     def name(ns, kernel, args):
         return f"_ZN3vtt{len(ns)}{ns}{len(kernel)}{kernel}I{args}EEvv"
 
@@ -183,16 +183,28 @@ def _sass_counts():
            **counts("fused_mlp_tc", "fwd_kernel", {16: 5, 32: 6, 64: 8, 128: 16}, "Li2E")}
     mlp["_ZN12_GLOBAL__N_120fused_mlp_fwd_kernelI13__nv_bfloat16Li2EEEvv"] = {"HGMMA": 0,
                                                                              "HMMA": 0}
+    # K7: its dx and weight passes per (box width, boxes a tile); the FMA
+    # body's kernels beside them.
+    widths = ((16, 1), (32, 1), (64, 1), (64, 2))
+    mlp_bwd = {name("fused_mlp_bwd_tc", "dx_kernel", f"Li{bw}ELi{nb}E"):
+               {"HGMMA": 4 + 2 * bw // 16, "HMMA": 0} for bw, nb in widths}
+    mlp_bwd.update({name("fused_mlp_bwd_tc", "wgt_kernel", f"Li{bw}ELi{nb}E"):
+                    {"HGMMA": 8 + 2 * bw // 16, "HMMA": 0} for bw, nb in widths})
+    for fma in ("act_kernelIf", "act_kernelI13__nv_bfloat16", "dx_kernelIf",
+                "tn_partial_kernelI13__nv_bfloat16"):
+        mlp_bwd[f"_ZN12_GLOBAL__N_1{len(fma.split('I')[0])}{fma}EEvv"] = {"HGMMA": 0, "HMMA": 0}
     return {"flash_fwd": counts("attn_fwd_tc", "flash_kernel", fwd),
             "short_fwd": counts("attn_fwd_tc", "short_kernel", fwd),
             "fused_mlp_fwd": mlp,
             "flash_bwd_dq": counts("attn_bwd_tc", "dq_kernel", dq),
             "flash_bwd_dkv": counts("attn_bwd_tc", "dkv_kernel", dkv, "Lb0E"),
             "short_bwd": {**counts("attn_bwd_tc", "dq_kernel", dq),
-                          **counts("attn_bwd_tc", "dkv_kernel", dkv, "Lb1E")}}
+                          **counts("attn_bwd_tc", "dkv_kernel", dkv, "Lb1E")},
+            "fused_mlp_bwd": mlp_bwd}
 
 
 _K6_DKV64 = "_ZN3vtt11attn_bwd_tc10dkv_kernelILi64ELb1EEEvv"
+_K7_DX = "_ZN3vtt16fused_mlp_bwd_tc9dx_kernelILi64ELi2EEEvv"
 
 
 @pytest.mark.parametrize("fault", [None, "fp32 holds HGMMA", "bf16 holds none",
@@ -200,10 +212,11 @@ _K6_DKV64 = "_ZN3vtt11attn_bwd_tc10dkv_kernelILi64ELb1EEEvv"
                                    "instantiation missing", "K3 bf16 holds none",
                                    "K3 FMA body holds HMMA", "K6 dq count drifts",
                                    "K6 dkv count drifts", "K6 pass missing",
-                                   "K6 fp32 holds HGMMA"])
+                                   "K6 fp32 holds HGMMA", "K7 bf16 holds none",
+                                   "K7 FMA body holds HGMMA", "K7 pass missing"])
 def test_chip_smoke_sass_check_catches_each_fault(fault):
     """chip_smoke's build phase fails unless every bf16 tensor-core
-    instantiation of K1-K6 holds HGMMA (the dQ and dK/dV passes of K4, K5 and
+    instantiation of K1-K7 holds HGMMA (the dQ and dK/dV passes of K4, K5 and
     K6 their exact counts) and no other instantiation holds any tensor-core
     instruction."""
     import chip_smoke
@@ -232,6 +245,12 @@ def test_chip_smoke_sass_check_catches_each_fault(fault):
         del mma["short_bwd"][_K6_DKV64]
     elif fault == "K6 fp32 holds HGMMA":
         mma["short_bwd"]["_ZN12_GLOBAL__N_1fp32_dkv_kernelIfLi128EEEvv"]["HGMMA"] = 24
+    elif fault == "K7 bf16 holds none":
+        mma["fused_mlp_bwd"][_K7_DX]["HGMMA"] = 0
+    elif fault == "K7 FMA body holds HGMMA":
+        mma["fused_mlp_bwd"]["_ZN12_GLOBAL__N_110act_kernelI13__nv_bfloat16EEvv"]["HGMMA"] = 3
+    elif fault == "K7 pass missing":
+        del mma["fused_mlp_bwd"]["_ZN3vtt16fused_mlp_bwd_tc10wgt_kernelILi32ELi1EEEvv"]
     if fault is None:
         chip_smoke.check_tensor_cores(mma)
     else:

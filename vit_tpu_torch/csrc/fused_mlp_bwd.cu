@@ -14,21 +14,30 @@
 // products, counting the recomputed pre-activation) and 2*R*F exps against
 // x, dy, dx, the weights and the fp32 weight gradients: bound by operations.
 //
-// What this simple design does about the TPU's sequential grid: the TPU
-// carries dW1/db1/dW2/db2 in VMEM across row blocks; CTAs here run in
-// parallel in no order, so the weight gradients are summed as per-segment
-// fp32 partials (each CTA owns a 64 x 64 tile and a fixed segment of rows)
-// and reduced in a fixed order by a last pass: no float atomics, so a step
-// is bit-repeatable. Five launches per call (counted once):
+// What the designs do about the TPU's sequential grid: the TPU carries
+// dW1/db1/dW2/db2 in VMEM across row blocks; CTAs here run in parallel in
+// no order, so the weight gradients are summed as per-segment fp32
+// partials (each CTA owns a tile of the weight gradients and a fixed
+// segment of rows) and reduced in a fixed order by a last pass: no float
+// atomics, so a step is bit-repeatable. Two bodies, chosen by the caller
+// (`tensor_cores`) by a static rule on dtype and width, not on failure:
+// * bf16 with D and F multiples of 16 and D <= 512 (every width the repo
+//   configures) runs fused_mlp_bwd_tc.cuh: every product as wgmma on the
+//   tensor cores, g and dh kept in registers (no (R, F) tensor in device
+//   memory); a dx pass, a weight-gradient pass, then the sum of partials.
+// * fp32 (tensor cores would mean TF32) and other bf16 widths run the FMA
+//   kernels below, five launches per call:
 //   1. act:      g and dh for a 64-row x 64-column tile of (R, F), written
-//                to scratch in the input dtype (the one place this design
+//                to scratch in the input dtype (the one place this body
 //                moves an (R, F) tensor through device memory);
 //   2. dx:       dh W1^T, 64 x 64 output tiles;
 //   3./4. dW1, dW2 partials, with the column sums db1 / db2 beside them;
 //   5. reduce:   every partial, summed over the segments in order.
-// All products on the fp32 FMA units from shared memory; T and widths are
-// not padded, ragged tiles are masked here.
+//   All products on the fp32 FMA units from shared memory; T and widths are
+//   not padded, ragged tiles are masked here.
+// A call counts as one launch of K7 whichever body runs.
 #include "common.cuh"
+#include "fused_mlp_bwd_tc.cuh"
 
 using namespace vtt;
 
@@ -205,14 +214,28 @@ tn_partial_kernel(const T* __restrict__ a, const T* __restrict__ b, float* __res
 }
 
 // Pass 5: out[i] = sum over segments s = 0, 1, ... of part[s * ld + i].
+// With w2_t (the tensor-core body) the dW2 block of the partials is dW2^T,
+// (f, d), and is written to out as (d, f).
 __global__ void reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
-                              size_t ld, int n_seg) {
+                              size_t ld, int n_seg, int f, int d, int w2_t) {
+  const size_t fd = static_cast<size_t>(f) * d, w2 = fd + f;
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < ld;
        i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float s = 0.f;
     for (int z = 0; z < n_seg; ++z) s += part[static_cast<size_t>(z) * ld + i];
-    out[i] = s;
+    size_t o = i;
+    if (w2_t && i >= w2 && i < w2 + fd) o = w2 + ((i - w2) % d) * f + (i - w2) / d;
+    out[o] = s;
   }
+}
+
+cudaError_t reduce(void* part, void* grads, int f, int d, int n_seg, int w2_t, cudaStream_t s) {
+  const size_t ld = 2 * static_cast<size_t>(f) * d + f + d;
+  const size_t want = (ld + 255) / 256;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  reduce_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(part),
+                                       static_cast<float*>(grads), ld, n_seg, f, d, w2_t);
+  return cudaGetLastError();
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -242,26 +265,33 @@ cudaError_t run(const void* x, const void* dy, const void* w1, const void* b1, c
   tn_partial_kernel<T><<<dim3(cdiv(d, BC), cdiv(f, BC), n_seg), THREADS, 0, s>>>(
       dyt, gt, p + w2_off, p + w2_off + static_cast<size_t>(d) * f, ld, r, d, f, seg_rows);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const size_t want = (ld + 255) / 256;
-  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  reduce_kernel<<<blocks, 256, 0, s>>>(p, static_cast<float*>(grads), ld, n_seg);
-  return cudaGetLastError();
+  return reduce(part, grads, f, d, n_seg, 0, s);
 }
 
 }  // namespace
 
-// x, dy, dx, g, dh: (r, d) / (r, f) scratch in float32 (is_bf16 = 0) or
-// bfloat16; w1 (f, d), b1 (f), w2 (d, f) in the same dtype. part: fp32
-// scratch of n_seg * (2*f*d + f + d); grads: fp32 (2*f*d + f + d), written
-// as [dW1 (f, d) | db1 (f) | dW2 (d, f) | db2 (d)]. The rows split into
-// n_seg segments of whole 32-row slices. Returns the first non-zero
-// cudaGetLastError() of the five launches.
+// x, dy, dx: (r, d), w1 (f, d), b1 (f), w2 (d, f), in float32 (is_bf16 = 0)
+// or bfloat16. tensor_cores = 1 takes the tensor-core body (bf16 and
+// fused_mlp_bwd_tc::takes(d, f), else cudaErrorInvalidValue; bf16 inputs
+// 16-byte aligned for TMA; g and dh unused, may be null); 0 the FMA body,
+// with g and dh (r, f) scratch in the input dtype. part: fp32 scratch of
+// n_seg * (2*f*d + f + d); grads: fp32 (2*f*d + f + d), written as
+// [dW1 (f, d) | db1 (f) | dW2 (d, f) | db2 (d)]. The rows split into n_seg
+// segments (FMA: of whole 32-row slices; tensor cores: of whole 64-row
+// blocks, none empty when n_seg = ceil(blocks / ceil(blocks / n_seg))).
+// Returns the first non-zero cudaGetLastError() of the launches.
 extern "C" int fused_mlp_bwd(const void* x, const void* dy, const void* w1, const void* b1,
                              const void* w2, void* dx, void* g, void* dh, void* part,
                              void* grads, int r, int d, int f, int n_seg, int is_bf16,
-                             void* stream) {
+                             int tensor_cores, void* stream) {
   if (r <= 0 || d <= 0 || f <= 0 || n_seg <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) {
+    if (!is_bf16 || !fused_mlp_bwd_tc::takes(d, f)) return cudaErrorInvalidValue;
+    const cudaError_t e = fused_mlp_bwd_tc::launch(x, dy, w1, b1, w2, dx, part, r, d, f, n_seg, s);
+    return e != cudaSuccess ? e : reduce(part, grads, f, d, n_seg, 1, s);
+  }
+  if (g == nullptr || dh == nullptr) return cudaErrorInvalidValue;
   return is_bf16 ? run<__nv_bfloat16>(x, dy, w1, b1, w2, dx, g, dh, part, grads, r, d, f,
                                       n_seg, s)
                  : run<float>(x, dy, w1, b1, w2, dx, g, dh, part, grads, r, d, f, n_seg, s);

@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the tensor-core kernels (attn_fwd_tc.cuh:
 // K1, K2 in bf16; attn_bwd_tc.cuh: K4, K5, K6 in bf16; fused_mlp_tc.cuh: K3
-// in bf16).
+// in bf16; fused_mlp_bwd_tc.cuh: K7 in bf16).
 //
 // * Tiles of 64 rows of a (bh, t, D) bf16 tensor live in shared memory in
 //   the swizzled layout that TMA writes and wgmma reads: rows of
@@ -161,7 +161,9 @@ template <int D> __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int 
 }
 
 // d (+)= A B^T over one k16 step, A and B K-major in shared memory;
-// `accumulate` 0 overwrites d.
+// `accumulate` 0 overwrites d. TRANS_A / TRANS_B = 1 read A / B MN-major
+// (transposed) instead, as K7 reads W2 (desc_mn's layout).
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                              int accumulate) {
   asm volatile(
@@ -171,7 +173,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -180,7 +182,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d += A B over one k16 step: A (64 x 16) in registers as four packed

@@ -135,8 +135,9 @@ _ATTN_FWD = (_P,) * 5 + (_I, _I, _I, _F, _I) + _DROP
 _ATTN_BWD_TAIL = (_I, _I, _I, _F, _I) + _DROP
 # (x, w1, b1, w2, b2, y, rows, d, f, is_bf16, stream)
 _MLP_FWD = (_P,) * 6 + (_I, _I, _I, _I, _P)
-# (x, dy, w1, b1, w2, dx, g, dh, partials, grads, rows, d, f, n_seg, is_bf16, stream)
-_MLP_BWD = (_P,) * 10 + (_I,) * 5 + (_P,)
+# (x, dy, w1, b1, w2, dx, g, dh, partials, grads, rows, d, f, n_seg, is_bf16,
+#  tensor_cores, stream); g and dh are the FMA body's scratch, null on the tensor cores
+_MLP_BWD = (_P,) * 10 + (_I,) * 6 + (_P,)
 
 KERNELS: Dict[str, Kernel] = {
     k.name: k

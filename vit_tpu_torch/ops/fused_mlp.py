@@ -15,22 +15,26 @@ transposes of the Pallas kernel's.
 
 The wrappers take the plain versions for tensors on the CPU and launch the
 kernels for tensors on the card. The kernels tile over F and over the
-output columns, so they run at every width. The forward kernel picks its
-body by a fixed rule, not on failure: bf16 with D and F multiples of 16
-and D at most 1024 (every width the repo configures) runs its products on
-the tensor cores (``csrc/fused_mlp_tc.cuh``); fp32, where tensor cores
-would mean TF32, and other bf16 widths run on the fp32 FMA units.
+output columns, so they run at every width. Each kernel picks its body by
+a fixed rule, not on failure: bf16 with D and F multiples of 16 and D at
+most 1024 (forward) or 512 (backward, :func:`bwd_plan`), which covers every
+width the repo configures, runs its products on the tensor cores
+(``csrc/fused_mlp_tc.cuh``, ``csrc/fused_mlp_bwd_tc.cuh``); fp32, where
+tensor cores would mean TF32, and other bf16 widths run on the fp32 FMA
+units.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from vit_tpu_torch.ops._build import KERNELS
 from vit_tpu_torch.ops.flash_attention import _aligned
 
-__all__ = ["fused_mlp", "fused_mlp_plain", "fused_mlp_bwd", "fused_mlp_bwd_plain", "gelu_as",
-           "dgelu_as", "erf_as"]
+__all__ = ["fused_mlp", "fused_mlp_plain", "fused_mlp_bwd", "fused_mlp_bwd_plain", "bwd_plan",
+           "gelu_as", "dgelu_as", "erf_as"]
 
 _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
@@ -118,16 +122,48 @@ def _fwd(x2, w1, b1, w2, b2) -> torch.Tensor:
     return fused_mlp_plain(x2, w1, b1, w2, b2) if _on_cpu(x2) else _launch(x2, w1, b1, w2, b2)
 
 
-def _segments(r: int, d: int, f: int) -> int:
-    """Row segments of K7's weight-gradient partials: enough CTAs for two
-    waves of 132 SMs, each segment at least 128 rows."""
-    tiles = -(-f // 64) * -(-d // 64)
-    return max(1, min(-(-264 // tiles), -(-r // 128)))
+_WAVES = 2 * 132  # CTAs that fill two waves of the H100's 132 SMs
+_BWD_TC_D_MAX = 512  # csrc/fused_mlp_bwd_tc.cuh::D_MAX
+
+
+def bwd_plan(r: int, d: int, f: int, dtype: torch.dtype) -> Tuple[bool, int]:
+    """K7's body and row segments for (R, D) rows and F hidden units:
+    ``(tensor_cores, n_seg)``.
+
+    bf16 with D and F multiples of 16 and D at most 512 takes the tensor
+    cores (``fused_mlp_bwd_tc.cuh::takes``); fp32 and other widths the FMA
+    body. Either way the weight-gradient CTAs (one per F chunk of 64 and
+    column tile of D) are repeated over ``n_seg`` segments of rows, enough
+    for about two waves of 132 SMs; each segment writes 2FD + F + D fp32
+    partials. Tensor cores: segments of whole 64-row blocks and D tiles of
+    128, none empty. FMA: 64 x 64 tiles, each segment at least 128 rows."""
+    tc = (dtype == torch.bfloat16 and d % 16 == 0 and f % 16 == 0 and d <= _BWD_TC_D_MAX)
+    if not tc:
+        tiles = -(-f // 64) * -(-d // 64)
+        return False, max(1, min(-(-_WAVES // tiles), -(-r // 128)))
+    blocks = max(1, -(-r // 64))
+    tiles = -(-f // 64) * -(-d // 128)
+    per_seg = -(-blocks // min(-(-_WAVES // tiles), blocks))
+    return True, -(-blocks // per_seg)
+
+
+def _bwd_scratch(r: int, d: int, f: int, dtype: torch.dtype, device):
+    """K7's plan and scratch: (tensor_cores, n_seg, g, dh, partials). g and
+    dh are the FMA body's (R, F) intermediates in the input dtype, None on
+    the tensor cores; the partials are (n_seg, 2FD + F + D) fp32."""
+    tc, n_seg = bwd_plan(r, d, f, dtype)
+    g = dh = None
+    if not tc:
+        g = torch.empty((r, f), dtype=dtype, device=device)
+        dh = torch.empty_like(g)
+    part = torch.empty((n_seg, 2 * f * d + f + d), dtype=torch.float32, device=device)
+    return tc, n_seg, g, dh, part
 
 
 def fused_mlp_bwd(x, dy, w1, b1, w2):
     """The backward (K7) of :func:`fused_mlp` on (R, D) rows, operands as
-    there: (dx, dW1, db1, dW2, db2), the weight gradients fp32."""
+    there: (dx, dW1, db1, dW2, db2), the weight gradients fp32. Only the
+    FMA body allocates (R, F) scratch (g and dh)."""
     _check(x, w1, b1, w2, torch.empty(x.shape[1], dtype=x.dtype, device=x.device))
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy must match x: {dy.shape} {dy.dtype}, {x.shape} {x.dtype}")
@@ -136,18 +172,20 @@ def fused_mlp_bwd(x, dy, w1, b1, w2):
     r, d = x.shape
     f = w1.shape[0]
     dx = torch.empty_like(x)
-    n = 2 * f * d + f + d
-    grads = torch.zeros(n, dtype=torch.float32, device=x.device)
+    # Every element is written by the kernel's last pass; with no rows, the
+    # gradients are zeros.
+    grads = (torch.empty if r > 0 else torch.zeros)(2 * f * d + f + d, dtype=torch.float32,
+                                                    device=x.device)
     if r > 0:
-        n_seg = _segments(r, d, f)
-        g = torch.empty((r, f), dtype=x.dtype, device=x.device)
-        dh = torch.empty_like(g)
-        part = torch.empty((n_seg, n), dtype=torch.float32, device=x.device)
+        tc, n_seg, g, dh, part = _bwd_scratch(r, d, f, x.dtype, x.device)
+        if tc:  # the tensor-core body reads through TMA
+            x, dy, w1, b1, w2 = (_aligned(t) for t in (x, dy, w1, b1, w2))
         stream = torch.cuda.current_stream(x.device).cuda_stream
         KERNELS["fused_mlp_bwd"].launch(
             x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            dx.data_ptr(), g.data_ptr(), dh.data_ptr(), part.data_ptr(), grads.data_ptr(),
-            r, d, f, n_seg, int(x.dtype == torch.bfloat16), stream,
+            dx.data_ptr(), None if tc else g.data_ptr(), None if tc else dh.data_ptr(),
+            part.data_ptr(), grads.data_ptr(), r, d, f, n_seg, int(x.dtype == torch.bfloat16),
+            int(tc), stream,
         )
     dw1, db1, dw2, db2 = torch.split(grads, [f * d, f, d * f, d])
     return dx, dw1.view(f, d), db1, dw2.view(d, f), db2
