@@ -91,7 +91,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    at most 1e-4 for (e) in fp32 and 2e-2 for (d), (f) and (g) in bf16; and, as in the
    serving runs, a probe batch (four standard-normal spectra with uniform
    random labels) must move the CPU gradients at least 10 limits away.
-5. Print the kernels' summary, the card line again, and last
+5. Run the reference's default ``run`` and the long sequence with its
+   diagnostics, each reading its YAML file as a user's run does, with
+   ``use_wandb=True`` over the same 64 spectra. The card's machine has
+   wandb but no network, so the script hides wandb (an import of it
+   raises) and the run must print the console-fallback line: (h) baseline.yaml as it
+   stands (fp32, ``viz.enable`` with its GIFs, the full test report) with
+   batch 16, three epochs, ``train.save`` into a temporary ``CKPT_DIR``:
+   a SIGTERM sent to this process after the first step of epoch 1 must stop
+   ``fit`` at the end of epoch 1 with ``last`` saved, and a resume from
+   ``last`` must start at epoch 2; (i) stride1.yaml with baseline's ``viz``
+   block, ``compute_cka``, ``train.log_mfu`` against the H100's dense bf16
+   peak (989 TFLOP/s) and ``train.profile``, two epochs: the capture batch
+   is capped at 3 (``capture_batch_cap(4066, 2, 512, 512 MB)``), the Chrome
+   trace of epoch 1 must name K1's, K4's and K5's kernels, and 0 < mfu <=
+   1.05. Both run ``.run()`` (fit, then test with its report). Every
+   capture is counted (only calls that return count): one an epoch, so the
+   loop's "diagnostics skipped" guard cannot hide a failed capture. The
+   last capture is held against the same capture of the same weights on
+   the same spectra by the port on the CPU at the config's precision, and
+   a probe set (standard-normal spectra) is captured on the card and the
+   CPU by a direct call: relative L2 per captured tensor (attention
+   probabilities, MLP stats and samples, CLS states; the activation
+   shares as shares of all elements) at most 1e-4 (h) and 2e-2 (i); the
+   CKA monitor's layer-by-layer CKA matrix of the probe capture within
+   1e-6 (h) and 1e-2 (i), and of the served one reported (the synthetic
+   spectra's CLS states differ by ~1e-5 of their norm, too little for a
+   CKA to be held); the probes' activation samples at least 10 limits from
+   the served ones. Launch counts exact (a capture launches
+   no kernel: flash takes the xla math under capture). Without matplotlib
+   on the machine a line says rendering is not exercised there, and only
+   "skipped" lines naming matplotlib are allowed; with it, the GIFs, the
+   CKA report and the report PNGs must be written.
+6. Print the kernels' summary, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
@@ -99,6 +131,7 @@ Needs torch with CUDA, nvcc and one card; exits non-zero without them.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import statistics
@@ -140,8 +173,8 @@ BASELINE_MODEL = dict(name="vit", task_type="reg", image_size=4096, patch_size=3
 LOGG_STATS = {"label_min": [0.0], "label_max": [5.0]}  # log_g range of the synthetic set
 # The training sections of the two YAML files; the runs cut ep to 1 and
 # baseline's batch to 16, and (e) turns on flash and the fused MLP and
-# turns off viz (diagnostics capture is not ported). The data paths are
-# unused: the spectra come from memory.
+# turns off viz (run (h) drives it). The data paths are unused: the spectra
+# come from memory.
 _DATA = {"file_path": "in-memory", "val_path": "in-memory", "test_path": "in-memory",
          "num_samples": 10000, "num_test_samples": 512, "param": "log_g",
          "label_norm": "minmax"}
@@ -191,6 +224,12 @@ TC_NAMESPACE = {"flash_fwd": "attn_fwd_tc", "short_fwd": "attn_fwd_tc",
 TC_INSTANTIATIONS = {"flash_fwd": 4, "short_fwd": 4, "fused_mlp_fwd": 8, "flash_bwd_dq": 4,
                      "flash_bwd_dkv": 4, "short_bwd": 8, "fused_mlp_bwd": 8}
 DROPOUT_SEED = -123456789  # the kernel rows' dropout seed (any int32)
+# Runs (h) and (i): the last diagnostics capture on the card against the
+# port on the CPU at the config's precision (relative L2 per tensor; the
+# training checks' limits), and the CKA matrix of its representations.
+CAPTURE_TOL = {"h_baseline_default_run": 1e-4, "i_stride1_diagnostics": 2e-2}
+CKA_TOL = {"h_baseline_default_run": 1e-6, "i_stride1_diagnostics": 1e-2}
+SHARES = ("sparsity", "dead_frac", "sat_frac")  # activation stats that are shares of elements
 
 
 def emit(obj) -> None:
@@ -687,7 +726,6 @@ def train_run(tag, cfg, expect, kernels) -> dict:
     from vit_tpu_torch.data.synthetic import make_dummy_spectra
     from vit_tpu_torch.ops._build import reset_launches
     from vit_tpu_torch.train.loop import Experiment
-    from vit_tpu_torch.train.optim import OptSpec, schedule_scale
 
     data = make_dummy_spectra(n=N_INPUTS, length=cfg["model"]["image_size"], seed=1)
     dm = SpecDataModule(cfg, source=data)
@@ -709,9 +747,7 @@ def train_run(tag, cfg, expect, kernels) -> dict:
     check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
     check(len(losses) == steps and all(np.isfinite(losses)), f"{tag}: step losses {losses}")
 
-    spec = OptSpec.from_config(exp.config, steps, monitor_metric=exp.monitor)
-    batch = {k: torch.from_numpy(dm.train.arrays()[k][:BATCH]).cuda() for k in ("x", "label")}
-    prof = device_profile(lambda: exp.train_step(batch, spec, schedule_scale(spec)))
+    prof = step_profile(exp)
     vc = exp.bundle.vit_config
     step_ms = metrics["epoch_time_s"] * 1e3 / steps
     row = dict(phase="train", run=tag, T=vc.seq_len, layers=vc.num_hidden_layers,
@@ -801,6 +837,373 @@ def serve_run(tag, cfg, expect, tol, feat_tol, ckpt_dir, kernels):
                device_busy_share=prof["device_ms"] / batch_ms, top_device_ops=prof["top"])
     emit(row)
     return row
+
+
+class Tee(io.TextIOBase):
+    """Standard output that is also kept, to hold a run to what it printed."""
+
+    def __init__(self, out) -> None:
+        self.out, self.parts = out, []
+
+    def write(self, text: str) -> int:
+        self.out.write(text)
+        self.parts.append(text)
+        return len(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    @property
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def count_captures(exp, record: dict) -> None:
+    """Wrap the Experiment's capture: count the calls that return, keep the
+    last one's result, inputs and weights, and the capture's own peak device
+    memory above what was allocated before it (the run's peak is kept
+    aside, since the capture resets the counter)."""
+    import numpy as np
+
+    capture = exp._run_capture_eval
+
+    def counted(dataset, num_samples):
+        torch.cuda.synchronize()
+        record["run_peak_bytes"] = max(record["run_peak_bytes"],
+                                       torch.cuda.max_memory_allocated())
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = capture(dataset, num_samples)
+        record["capture_peak_bytes"] = max(record["capture_peak_bytes"],
+                                           torch.cuda.max_memory_allocated() - before)
+        record["captures"] += 1
+        record["last"] = out
+        record["x"] = np.asarray(dataset.arrays()["x"][:len(out[0])])
+        record["state"] = {k: v.detach().cpu().clone() for k, v in exp.module.state_dict().items()}
+        return out
+
+    exp._run_capture_eval = counted
+
+
+def flat_diag(diag: dict) -> dict:
+    """{name: float64 tensor} of every captured number."""
+    out = {f"attn/layer_{i}": a for i, a in enumerate(diag["attn"])}
+    for layer, stats in diag["mlp"].items():
+        out.update({f"mlp/{layer}/{k}": v for k, v in stats.items()})
+    out.update({f"cls_hidden/{k}": v for k, v in diag["cls_hidden"].items()})
+    out["cls_embedding"] = diag["cls_embedding"]
+    return {k: torch.as_tensor(v).double().reshape(-1) for k, v in out.items()}
+
+
+def capture_check(tag: str, cfg: dict, record: dict, tol: float, cka_tol: float) -> dict:
+    """The run's last capture on the card against the same capture of the
+    same weights on the same spectra, run by the port on the CPU at the
+    config's own precision: relative L2 per captured tensor within ``tol``.
+    The three activation shares (sparsity, dead and saturated fractions)
+    count elements on either side of a threshold; they are held as shares
+    of all elements (their norm floored at 1, as the training checks floor
+    near-zero gradients), since in bf16 a pre-activation one rounding away
+    from a threshold moves a count of a few elements by a large relative
+    amount. A probe set (standard-normal spectra) is captured on both too,
+    by a direct call: its per-token captures, the MLP activation samples,
+    must lie DISTINCT limits from the served ones, and its captures within
+    ``tol`` of the CPU's. The CKA monitor's layer-by-layer CKA matrix is
+    held within ``cka_tol`` on the probe capture. On the served capture it
+    is reported only: the synthetic spectra's CLS states differ by ~1e-5
+    of their norm at these weights (``rep_spread``), so rounding at 1e-7
+    already moves its entries by ~1e-5."""
+    import copy
+
+    import numpy as np
+
+    from vit_tpu_torch.models.builder import get_model
+    from vit_tpu_torch.viz.diagnostics import CKAMonitor, capture_diagnostics, cka_matrix
+
+    rate = float(cfg["viz"].get("sample_rate", 0.15))
+    models = {}
+    for device in ("cpu", "cuda"):
+        models[device] = get_model(copy.deepcopy(cfg)).module.to(device)
+        models[device].load_state_dict(record["state"], strict=True)
+    x = torch.from_numpy(record["x"])
+    probe = torch.randn(x.shape, generator=torch.Generator().manual_seed(2))
+    diags = {"served": (record["last"][2], capture_diagnostics(models["cpu"], x, rate)[1]),
+             "probes": (capture_diagnostics(models["cuda"], probe.cuda(), rate)[1],
+                        capture_diagnostics(models["cpu"], probe, rate)[1])}
+    out = dict(capture_samples=len(x), capture_tol=tol, cka_tol=cka_tol)
+    monitor = CKAMonitor()
+    for name, (card, cpu) in diags.items():
+        card_t, cpu_t = flat_diag(card), flat_diag(cpu)
+        check(card_t.keys() == cpu_t.keys(),
+              f"{tag}: {name} captured {sorted(card_t)} vs CPU {sorted(cpu_t)}")
+        errs = {k: rel_l2(card_t[k], cpu_t[k], 1.0 if k.split("/")[-1] in SHARES else 1e-30)
+                for k in cpu_t}
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= tol, f"{tag}: {name} capture {worst} differs from the CPU's by "
+              f"relative L2 {errs[worst]} (tol {tol})")
+        reps_card, reps_cpu = monitor._reps(card), monitor._reps(cpu)
+        cka_card, cka_cpu = cka_matrix(reps_card, reps_card), cka_matrix(reps_cpu, reps_cpu)
+        cka_err = float(abs(cka_card - cka_cpu).max())
+        spread = {k: float(np.linalg.norm(v - v.mean(0)) / np.linalg.norm(v))
+                  for k, v in reps_cpu.items()}
+        out[name] = dict(rel_l2_max=errs[worst], rel_l2_worst=worst,
+                         rel_l2_median=statistics.median(errs.values()),
+                         cka_matrix=cka_card.tolist(), cka_max_abs_err=cka_err,
+                         rep_spread=spread)
+        check(name == "served" or cka_err <= cka_tol, f"{tag}: {name} CKA matrix differs "
+              f"from the CPU's by {cka_err} (tol {cka_tol}); spread of the representations "
+              f"{spread}")
+    samples = [k for k in flat_diag(diags["served"][1]) if k.endswith("/sample")]
+    served, probes = flat_diag(diags["served"][1]), flat_diag(diags["probes"][1])
+    apart = rel_l2(torch.cat([probes[k] for k in samples]),
+                   torch.cat([served[k] for k in samples]), 1e-30)
+    check(apart >= DISTINCT * tol, f"{tag}: the probes' activation samples only {apart} apart "
+          f"(relative L2): the check cannot tell inputs apart at tol {tol}")
+    out.update(probe_samples_apart=apart, probe_samples_apart_min=DISTINCT * tol)
+    return out
+
+
+def rendering_check(tag: str, text: str, viz_dir: str, plot_dir: str, model_name: str) -> bool:
+    """With matplotlib, the GIFs, the CKA report and the test report must be
+    written and nothing skipped; without it (the card's machine), the only
+    lines that may say "skipped" are those naming matplotlib."""
+    import importlib.util
+
+    skipped = [ln for ln in text.splitlines() if "skipped" in ln]
+    if importlib.util.find_spec("matplotlib") is None:
+        check(all("matplotlib" in ln for ln in skipped), f"{tag}: {skipped}")
+        return False
+    check(not skipped, f"{tag}: {skipped}")
+    gifs = os.path.join(viz_dir, model_name)
+    for key in ("distribution", "activation", "attention", "attention_analytics",
+                "embedding", "collinearity"):
+        check(os.path.isfile(os.path.join(gifs, f"{key}.gif")), f"{tag}: no {key}.gif")
+    check(os.path.isfile(os.path.join(gifs, "cka_report.png")), f"{tag}: no cka_report.png")
+    for fig in ("pred_vs_true", "residual_hist", "error_vs_true", "metric_bars",
+                "qq_residuals", "summary"):
+        check(os.path.isfile(os.path.join(plot_dir, model_name, f"{fig}.png")),
+              f"{tag}: no {fig}.png")
+    return True
+
+
+def viz_experiment(cfg: dict, record: dict, **kw):
+    """An Experiment over N_INPUTS in-memory spectra with W&B asked for, its
+    captures counted and its epoch lines kept."""
+    import copy
+
+    from vit_tpu_torch.data.datasets import SpecDataModule
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+    from vit_tpu_torch.train.loop import Experiment
+
+    data = make_dummy_spectra(n=N_INPUTS, length=cfg["model"]["image_size"], seed=1)
+    exp = Experiment(copy.deepcopy(cfg), use_wandb=True, device="cuda",
+                     datamodule=SpecDataModule(cfg, source=data), **kw)
+    count_captures(exp, record)
+    log_epoch = exp.logger.log_epoch
+
+    def kept(epoch, metrics, step=None):
+        record["epochs"].append((epoch, dict(metrics)))
+        log_epoch(epoch, metrics, step)
+
+    exp.logger.log_epoch = kept
+    return exp
+
+
+def new_record() -> dict:
+    return dict(captures=0, run_peak_bytes=0, capture_peak_bytes=0, epochs=[])
+
+
+def step_profile(exp) -> dict:
+    """torch.profiler's device time of one further training step."""
+    from vit_tpu_torch.train.optim import OptSpec, schedule_scale
+
+    steps = -(-N_INPUTS // BATCH)
+    spec = OptSpec.from_config(exp.config, steps, monitor_metric=exp.monitor)
+    arrays = exp.datamodule.train.arrays()
+    batch = {k: torch.from_numpy(arrays[k][:BATCH]).cuda() for k in ("x", "label")}
+    return device_profile(lambda: exp.train_step(batch, spec, schedule_scale(spec)))
+
+
+def default_run(cfg: dict, expect: dict, kernels) -> dict:
+    """(h) baseline.yaml as ``./launch.sh run`` trains it, with W&B asked for
+    and the diagnostics on, for three epochs; a SIGTERM after the first step
+    of epoch 1 must stop it at the end of epoch 1 with ``last`` saved, and a
+    resume from ``last`` must start at epoch 2."""
+    import contextlib
+    import signal
+
+    from vit_tpu_torch.ops._build import reset_launches
+
+    tag = "h_baseline_default_run"
+    steps = -(-N_INPUTS // BATCH)
+    first, resumed = new_record(), new_record()
+    tee = Tee(sys.stdout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with contextlib.redirect_stdout(tee):
+        exp = viz_experiment(cfg, first)
+        train_step = exp.train_step
+
+        def step_then_sigterm(*args):
+            out = train_step(*args)
+            if exp.step == steps + 1:  # the first step of epoch 1
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+
+        exp.train_step = step_then_sigterm
+        t0 = time.perf_counter()
+        exp.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        first["run_peak_bytes"] = max(first["run_peak_bytes"], torch.cuda.max_memory_allocated())
+        first_text, first_meta = tee.text, exp.ckpt.read_meta()
+        exp2 = viz_experiment(cfg, resumed, ckpt_path="last")
+        exp2.run()
+    launches = {n: k.launches for n, k in kernels.items()}
+    text = tee.text
+    check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
+    check("[logger] wandb not installed — console logging only" in first_text,
+          f"{tag}: no console-fallback line")
+    check("[preempt] signal 15 received" in first_text
+          and "[experiment] preemption stop at epoch 1 (resume with --ckpt last)" in first_text,
+          f"{tag}: the SIGTERM did not stop the run at the end of epoch 1")
+    check(exp.step == 2 * steps and first_meta.get("last_epoch") == 1,
+          f"{tag}: stopped at step {exp.step}, last epoch {first_meta.get('last_epoch')}")
+    check(first["captures"] == 2 and [e for e, _ in first["epochs"]] == [0, 1, -1],
+          f"{tag}: {first['captures']} captures, epochs {[e for e, _ in first['epochs']]}")
+    check("[experiment] resumed from last at epoch 2" in text and exp2.step == 3 * steps
+          and resumed["captures"] == 1, f"{tag}: the resume ran to step {exp2.step} with "
+          f"{resumed['captures']} captures")
+    rendered = rendering_check(tag, text, cfg["viz"]["save_dir"], os.environ["PLOT_DIR"],
+                               exp.bundle.model_name)
+    held = capture_check(tag, cfg, first, CAPTURE_TOL[tag], CKA_TOL[tag])
+    epoch1 = first["epochs"][1][1]
+    step_ms = epoch1["epoch_time_s"] * 1e3 / steps
+    prof = step_profile(exp2)
+    vc = exp.bundle.vit_config
+    row = dict(phase="train", run=tag, T=vc.seq_len, layers=vc.num_hidden_layers,
+               dtype=str(vc.dtype), batch=BATCH, inputs=N_INPUTS, steps=steps,
+               epochs_run=[e for e, _ in first["epochs"] + resumed["epochs"]],
+               train_loss=epoch1["train_loss"], val_mae=epoch1.get("val_mae"),
+               cka_mean=epoch1.get("cka/mean"), smoke_ms_per_step=step_ms,
+               smoke_spectra_per_s=BATCH * 1e3 / step_ms, run_seconds=run_s,
+               peak_mem_bytes=first["run_peak_bytes"],
+               capture_peak_bytes=first["capture_peak_bytes"],
+               captures=[first["captures"], resumed["captures"]], launches=launches,
+               expected_launches=expect, preempted_at_epoch=1, resumed_at_epoch=2,
+               rendered=rendered, device_ms_per_step=prof["device_ms"],
+               device_busy_share=prof["device_ms"] / step_ms, top_device_ops=prof["top"],
+               **held)
+    emit(row)
+    return row
+
+
+def diagnostics_run(cfg: dict, expect: dict, kernels, cap: int) -> dict:
+    """(i) stride1.yaml with baseline's diagnostics, CKA, log_mfu against the
+    H100's bf16 peak and a profiler trace of the steady-state epoch."""
+    import contextlib
+    import json as _json
+
+    from vit_tpu_torch.ops._build import reset_launches
+
+    tag = "i_stride1_diagnostics"
+    steps = -(-N_INPUTS // BATCH)
+    record = new_record()
+    tee = Tee(sys.stdout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with contextlib.redirect_stdout(tee):
+        exp = viz_experiment(cfg, record)
+        t0 = time.perf_counter()
+        exp.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    record["run_peak_bytes"] = max(record["run_peak_bytes"], torch.cuda.max_memory_allocated())
+    launches = {n: k.launches for n, k in kernels.items()}
+    text = tee.text
+    check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
+    check(record["captures"] == cfg["train"]["ep"] and len(record["x"]) == cap,
+          f"{tag}: {record['captures']} captures of {len(record['x'])} spectra")
+    check(f"[viz] capture batch capped at {cap} by token count "
+          f"(T={exp.bundle.vit_config.seq_len}, budget=512 MB)" in text,
+          f"{tag}: no capture-cap line for {cap}")
+    trace = os.path.join(cfg["train"]["profile"], f"{exp.bundle.model_name}_epoch1.json")
+    check(f"[experiment] profiler trace written to {trace}\n" in text and os.path.isfile(trace),
+          f"{tag}: no trace of epoch 1 at {trace}")
+    with open(trace) as f:
+        names = {e.get("name", "") for e in _json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    traced = {k: sorted(n for n in names if pat in n) for k, pat in
+              (("flash_fwd", "flash_kernel"), ("flash_bwd_dq", "dq_kernel"),
+               ("flash_bwd_dkv", "dkv_kernel"))}
+    check(all(traced.values()), f"{tag}: the trace names no kernel for {traced}")
+    mfus = [(m["tflops_per_s"], m["mfu"]) for e, m in record["epochs"] if e >= 0]
+    check(len(mfus) == 2 and all(0 < mfu <= 1.05 for _, mfu in mfus), f"{tag}: mfu {mfus}")
+    rendered = rendering_check(tag, text, cfg["viz"]["save_dir"], os.environ["PLOT_DIR"],
+                               exp.bundle.model_name)
+    held = capture_check(tag, cfg, record, CAPTURE_TOL[tag], CKA_TOL[tag])
+    epochs = [m for e, m in record["epochs"] if e >= 0]
+    prof = step_profile(exp)
+    step_ms = [m["epoch_time_s"] * 1e3 / steps for m in epochs]
+    vc = exp.bundle.vit_config
+    row = dict(phase="train", run=tag, T=vc.seq_len, layers=vc.num_hidden_layers,
+               dtype=str(vc.dtype), batch=BATCH, inputs=N_INPUTS, steps=steps,
+               train_loss=epochs[-1]["train_loss"], val_mae=epochs[-1].get("val_mae"),
+               cka_mean=epochs[-1].get("cka/mean"),
+               smoke_ms_per_step_by_epoch=step_ms,
+               smoke_ms_per_step_note="epoch 0 includes warm-up, epoch 1 the profiler",
+               tflops_per_s_by_epoch=[t for t, _ in mfus], mfu_by_epoch=[m for _, m in mfus],
+               peak_tflops=cfg["train"]["peak_tflops"], run_seconds=run_s,
+               peak_mem_bytes=record["run_peak_bytes"],
+               capture_peak_bytes=record["capture_peak_bytes"], captures=record["captures"],
+               launches=launches, expected_launches=expect, trace=os.path.basename(trace),
+               traced_kernels=traced, rendered=rendered, device_ms_per_step=prof["device_ms"],
+               device_busy_share=prof["device_ms"] / min(step_ms), top_device_ops=prof["top"],
+               **held)
+    emit(row)
+    return row
+
+
+def viz_runs(work: str, none: dict, kernels) -> dict:
+    """Runs (h) and (i), which read the YAML files themselves as a user's run
+    does; checkpoints, GIFs, reports and the trace go under ``work``."""
+    import copy
+    import importlib.util
+
+    from vit_tpu_torch.config import load_config
+    from vit_tpu_torch.viz.diagnostics import capture_batch_cap
+
+    if importlib.util.find_spec("wandb") is not None:
+        sys.modules["wandb"] = None  # no network here: wandb.init must never try
+    if importlib.util.find_spec("matplotlib") is None:
+        print("chip_smoke: matplotlib is absent on this machine: GIF and plot rendering "
+              "are not exercised here (the CPU tests hold it); runs (h) and (i) hold the "
+              "captured numbers only", flush=True)
+    os.environ["PLOT_DIR"] = os.path.join(work, "plots")
+    configs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs/exp/att_clp")
+    baseline_yaml = load_config(os.path.join(configs, "baseline.yaml"))
+    default = copy.deepcopy(baseline_yaml)
+    default["train"].update(batch_size=BATCH, ep=3, save=True)
+    default["viz"]["save_dir"] = os.path.join(work, "viz_h")
+    runs = {"h_baseline_default_run": default_run(default, none, kernels)}
+
+    long_viz = load_config(os.path.join(configs, "stride1.yaml"))
+    long_viz["viz"] = dict(copy.deepcopy(baseline_yaml["viz"]), compute_cka=True,
+                           save_local=True, save_dir=os.path.join(work, "viz_i"))
+    long_viz["train"].update(ep=2, log_mfu=True, peak_tflops=PEAK_BF16 / 1e12,
+                             profile=os.path.join(work, "profile"))
+    cap = capture_batch_cap(4066, 2, 512, 512 * 1024**2)
+    check(cap == 3, f"capture_batch_cap(4066, 2, 512, 512 MB) = {cap}, not 3")
+    # Two epochs of train steps and val batches, then test and its report,
+    # each a pass over the spectra in batches; the captures launch no K1.
+    steps = -(-N_INPUTS // BATCH)
+    layers = STRIDE1_MODEL["num_hidden_layers"]
+    k1 = layers * (2 * (steps + steps) + 2 * steps)
+    runs["i_stride1_diagnostics"] = diagnostics_run(
+        long_viz, dict(none, flash_fwd=k1, flash_bwd_dq=2 * layers * steps,
+                       flash_bwd_dkv=2 * layers * steps), kernels, cap)
+    return runs
 
 
 def main() -> int:
@@ -923,6 +1326,8 @@ def main() -> int:
             "g_stride1_bf16_fused_mlp", STRIDE1_FUSED_TRAIN,
             dict(none, flash_fwd=fwd, flash_bwd_dq=bwd, flash_bwd_dkv=bwd,
                  fused_mlp_fwd=fwd + bwd, fused_mlp_bwd=bwd), kernels)
+
+        runs.update(viz_runs(ckpt_dir, none, kernels))
 
     summary = []
     for name, k in kernels.items():

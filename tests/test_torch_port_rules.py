@@ -109,7 +109,11 @@ def test_cpu_tensors_run_the_plain_versions_and_leave_the_counts():
     assert {k.launches for k in _build.KERNELS.values()} == {0}
 
 
-def test_training_mode_and_unported_paths_raise():
+def test_training_mode_and_unported_paths_raise(tmp_path, monkeypatch, capsys):
+    """What is ported runs (training, diagnostics, W&B with its console
+    fallback, log_mfu, profile); what is not raises."""
+    from vit_tpu_torch.data.datasets import SpecDataModule
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
     from vit_tpu_torch.models.builder import get_model
     from vit_tpu_torch.train import optim
     from vit_tpu_torch.train.loop import Experiment
@@ -136,14 +140,22 @@ def test_training_mode_and_unported_paths_raise():
         with pytest.raises(NotImplementedError):
             optim.build_optimizer(optim.OptSpec(opt_type=name), model.parameters())
     for train in ({"gpus": 4}, {"model_parallel": 2}, {"sequence_parallel": 2},
-                  {"pipeline_parallel": 2}, {"opt_state_sharding": True}, {"log_mfu": True},
-                  {"profile": True}):
+                  {"pipeline_parallel": 2}, {"opt_state_sharding": True}):
         with pytest.raises(NotImplementedError):
             Experiment(dict(cfg, train=train), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Experiment(dict(cfg, viz={"enable": True}), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Experiment(cfg, device="cpu", use_wandb=True)
+    monkeypatch.setenv("CKPT_DIR", str(tmp_path / "ckpt"))
+    monkeypatch.setitem(sys.modules, "wandb", None)  # not installed
+    ported = dict(cfg, data={"param": "log_g", "num_samples": 16},
+                  train={"batch_size": 8, "ep": 1, "log_mfu": True, "peak_tflops": 989,
+                              "profile": str(tmp_path / "prof")},
+                  viz={"enable": True, "save_local": True, "save_dir": str(tmp_path / "viz"),
+                       "embedding_method": "pca"})
+    dm = SpecDataModule(ported, source=make_dummy_spectra(n=16, length=64, seed=0))
+    metrics = Experiment(ported, device="cpu", use_wandb=True, datamodule=dm).fit()
+    out = capsys.readouterr().out
+    assert "wandb not installed" in out and "skipped" not in out
+    assert {"tflops_per_s", "mfu", "cka/mean"} <= set(metrics)
+    assert os.listdir(tmp_path / "prof") and os.listdir(tmp_path / "viz")
 
 
 _PTXAS = """ptxas info    : Compiling entry function '_ZN3vtt11attn_fwd_tc12flash_kernelILi64EEEvv' for 'sm_90a'

@@ -105,7 +105,8 @@ def _experiment_args(p: argparse.ArgumentParser, ckpt_default, ckpt_help: str) -
     p.add_argument("-c", "-f", "--config", dest="config", required=True,
                    help="YAML config path")
     p.add_argument("--ckpt", default=ckpt_default, help=ckpt_help)
-    p.add_argument("-w", "--wandb", type=int, default=0, help="1 = log to W&B (not ported)")
+    p.add_argument("-w", "--wandb", type=int, default=0,
+                   help="1 = log to W&B (the console only, when wandb is absent)")
     p.add_argument("-g", "--gpus", type=int, default=None, help="device count (1 only)")
     p.add_argument("-d", "--debug", type=int, nargs="?", const=1, default=0,
                    help="fast dev run (1 batch)")

@@ -19,8 +19,13 @@ in training mode, the flash path drops probabilities inside the kernels at
 (B, H, T, T) probabilities after their cast to the compute dtype (the 4-D
 coordinate-hash stream, not the kernels' one); the projected output is
 dropped at ``out_dropout_rate`` (HF drops it at the hidden rate). In eval
-mode, or without seeds, dropout is the identity. ``use_rope``, ``ring``
-and ``capture_probs`` are not ported yet and raise.
+mode, or without seeds, dropout is the identity.
+
+Diagnostics capture (``vit_tpu/models/attention.py:182-186,245-261``): given
+a ``capture`` dict, the forward stores the batch-mean probabilities
+``(H, T, T)`` in fp32 under ``attention_probs``. The flash path has no
+probabilities to give, so under capture it takes the xla math, as in
+``vit_tpu``. ``use_rope`` and ``ring`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -85,11 +90,9 @@ class MultiHeadSelfAttention(nn.Module):
         self.output = DenseHolder(hidden_size, hidden_size)
 
     def forward(self, x: torch.Tensor, seeds: Optional[Sequence[int]] = None,
-                capture_probs: bool = False) -> torch.Tensor:
+                capture: Optional[dict] = None) -> torch.Tensor:
         """``seeds``: (probabilities, output) dropout seeds, used in training
-        mode only."""
-        if capture_probs:
-            raise NotImplementedError("capture_probs is not ported yet")
+        mode only. ``capture``: a dict that receives ``attention_probs``."""
         b, t, _ = x.shape
         dt = self.dtype
         p = self.attention
@@ -108,7 +111,7 @@ class MultiHeadSelfAttention(nn.Module):
 
         drop = self.training and seeds is not None
         impl = select_attn_impl(self.impl, t, self.head_dim)
-        if impl == "flash":
+        if impl == "flash" and capture is None:
             from vit_tpu_torch.ops.flash_attention import flash_attention
 
             if drop and self.dropout_rate > 0:
@@ -116,10 +119,14 @@ class MultiHeadSelfAttention(nn.Module):
                                           dropout_seed=seeds[0])
             else:
                 context = flash_attention(q, k, v)
-        elif impl == "xla":
+        elif impl in ("xla", "flash"):
             acc = self.softmax_dtype or torch.float32
             scores = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2))
             probs = torch.softmax(scores * torch.tensor(self.head_dim**-0.5, dtype=acc), dim=-1)
+            if capture is not None:
+                # Batch mean on the device: one layer's (B, H, T, T) is live
+                # at a time, and fp32 under any softmax dtype.
+                capture["attention_probs"] = probs.mean(0).float()
             probs = probs.to(dt)
             if drop:
                 probs = hash_dropout(probs, self.dropout_rate, seeds[0])

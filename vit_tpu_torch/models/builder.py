@@ -3,7 +3,8 @@
 
 ``get_vit_config`` and ``build_model_name`` follow ``vit_tpu`` field for
 field, so a config resolves to the same shapes and the same checkpoint
-directory name in both packages. ``get_model`` builds the model without a
+directory name in both packages. ``step_matmul_flops`` is ``vit_tpu``'s
+count of a step's matmul work (``train.log_mfu``). ``get_model`` builds the model without a
 preprocessor; covariance preprocessors and the image family are not ported
 yet and raise.
 """
@@ -11,6 +12,7 @@ yet and raise.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Union
 
 import torch
@@ -25,6 +27,7 @@ __all__ = [
     "get_vit_config",
     "get_model",
     "build_model_name",
+    "step_matmul_flops",
     "IMAGE_VIT_PRESETS",
 ]
 
@@ -116,6 +119,31 @@ class VitConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+
+def step_matmul_flops(vc: VitConfig, batch_size: int, train: bool = True) -> float:
+    """Analytic matmul FLOPs of one step (a multiply-add is 2 FLOPs):
+    patch embedding, per-layer QKV and output projections, the two T x T
+    attention products, the MLP pair and the head, for one batch; ``train``
+    applies the fwd+bwd factor 3. Elementwise work (LayerNorm, GELU,
+    softmax, dropout) is left out, so this is a lower bound: the numerator
+    of ``tflops_per_s`` and ``mfu`` (``train.log_mfu``)."""
+    T, H, L = vc.seq_len, vc.hidden_size, vc.num_hidden_layers
+    inter = vc.intermediate_size
+    patch_in = vc.patch_size**2 * vc.num_channels if vc.input_kind == "image" else vc.patch_size
+    embed = 2.0 * vc.num_patches * patch_in * H
+    if vc.moe_experts > 1:
+        # Experts process E * C slot-tokens a row (C: the per-row capacity,
+        # vit_tpu's moe_capacity) instead of T, plus the (T, H) @ (H, E) router.
+        capacity = max(1, int(math.ceil(vc.moe_top_k * T * vc.moe_capacity_factor
+                                        / vc.moe_experts)))
+        mlp = 4.0 * vc.moe_experts * capacity * H * inter + 2.0 * T * H * vc.moe_experts
+    else:
+        mlp = 4.0 * T * H * inter
+    per_layer = 8.0 * T * H * H + 4.0 * T * T * H + mlp
+    head = 2.0 * H * vc.num_labels
+    fwd = batch_size * (L * per_layer + embed + head)
+    return 3.0 * fwd if train else fwd
 
 
 @dataclasses.dataclass

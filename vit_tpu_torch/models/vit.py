@@ -26,6 +26,15 @@ MLP sublayer and ``remat: true`` the whole layer
 the reference quirk that ``loss.name: 'mae'`` trains MSE. ``nn.Dropout``
 streams (``fast_dropout: false``), image inputs, preprocessors and MoE are
 not ported yet.
+
+Diagnostics capture (``vit_tpu/models/vit.py:231-345``): ``forward`` takes
+an optional ``capture`` dict and fills it with ``vit_tpu``'s tree of
+intermediates: ``encoder/layer_{i}/attention/attention_probs`` (batch mean,
+fp32), ``encoder/layer_{i}/mlp_activation`` (post-GELU, (B, T, I)),
+``encoder/cls_hidden_{i}`` (the CLS row after layer i) and
+``cls_embedding`` (after the final LayerNorm). Under capture the flash
+attention takes the xla math and the fused MLP its dense path, as in
+``vit_tpu``, and nothing is rematerialised.
 """
 
 from __future__ import annotations
@@ -116,28 +125,35 @@ class ViTLayer(nn.Module):
         self.intermediate = DenseHolder(cfg.hidden_size, cfg.intermediate_size)
         self.output = DenseHolder(cfg.intermediate_size, cfg.hidden_size)
 
-    def forward(self, x: torch.Tensor, seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
-        """``seeds``: this layer's SITES_PER_LAYER dropout seeds (training)."""
-        x = x + self.attention(self.layernorm_before(x), None if seeds is None else seeds[:2])
+    def forward(self, x: torch.Tensor, seeds: Optional[Sequence[int]] = None,
+                capture: Optional[dict] = None) -> torch.Tensor:
+        """``seeds``: this layer's SITES_PER_LAYER dropout seeds (training).
+        ``capture``: this layer's dict of intermediates."""
+        attn_capture = None if capture is None else capture.setdefault("attention", {})
+        x = x + self.attention(self.layernorm_before(x), None if seeds is None else seeds[:2],
+                               attn_capture)
         mlp_seed = None if seeds is None else seeds[2]
-        if self.cfg.remat == "mlp" and torch.is_grad_enabled():
+        if self.cfg.remat == "mlp" and torch.is_grad_enabled() and capture is None:
             # vit.py:233-236: the attention residuals stay saved; the MLP
             # sublayer (and its kernel) runs again in the backward.
             return checkpoint(self._mlp, x, mlp_seed, use_reentrant=False)
-        return self._mlp(x, mlp_seed)
+        return self._mlp(x, mlp_seed, capture)
 
-    def _mlp(self, x: torch.Tensor, seed: Optional[int]) -> torch.Tensor:
+    def _mlp(self, x: torch.Tensor, seed: Optional[int],
+             capture: Optional[dict] = None) -> torch.Tensor:
         """LN -> MLP (dense or fused) -> dropout -> residual."""
         cfg = self.cfg
         dt = cfg.dtype
         h = self.layernorm_after(x)
         w1, w2 = self.intermediate.dense, self.output.dense
-        if cfg.fused_mlp:
+        if cfg.fused_mlp and capture is None:
             from vit_tpu_torch.ops.fused_mlp import fused_mlp
 
             h = fused_mlp(h.to(dt), w1.weight, w1.bias, w2.weight, w2.bias)
         else:
             h = F.gelu(w1(h, dt), approximate="tanh" if cfg.gelu_approximate else "none")
+            if capture is not None:
+                capture["mlp_activation"] = h
             h = w2(h, dt)
         if self.training and seed is not None:
             h = hash_dropout(h, cfg.hidden_dropout, seed)
@@ -150,10 +166,14 @@ class ViTEncoder(nn.Module):
         self.remat_layers = cfg.remat is True  # "mlp" remats inside the layer
         self.layer = nn.ModuleList(ViTLayer(cfg) for _ in range(cfg.num_hidden_layers))
 
-    def forward(self, x: torch.Tensor, seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seeds: Optional[Sequence[int]] = None,
+                capture: Optional[dict] = None) -> torch.Tensor:
         for i, layer in enumerate(self.layer):
             s = None if seeds is None else seeds[SITES_PER_LAYER * i:SITES_PER_LAYER * (i + 1)]
-            if self.remat_layers and torch.is_grad_enabled():
+            if capture is not None:
+                x = layer(x, s, capture.setdefault(f"layer_{i}", {}))
+                capture[f"cls_hidden_{i}"] = x[:, 0, :]
+            elif self.remat_layers and torch.is_grad_enabled():
                 x = checkpoint(layer, x, s, use_reentrant=False)  # vit.py:307
             else:
                 x = layer(x, s)
@@ -199,16 +219,19 @@ class SpecViT(nn.Module):
         """Seeds one training step draws: the embeddings' and three a layer."""
         return 1 + SITES_PER_LAYER * self.cfg.num_hidden_layers
 
-    def forward(self, x: torch.Tensor,
-                dropout_seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_seeds: Optional[Sequence[int]] = None,
+                capture: Optional[dict] = None) -> torch.Tensor:
         """(B, L) spectra -> (B, num_labels) fp32 logits. In training mode with
         any dropout rate above 0, ``dropout_seeds`` holds one int32 per site
-        (:attr:`num_dropout_sites`)."""
-        cls_token = self.features(x, dropout_seeds)[:, 0, :]
+        (:attr:`num_dropout_sites`). ``capture``: a dict that receives the
+        diagnostics tree (module doc)."""
+        cls_token = self.features(x, dropout_seeds, capture)[:, 0, :]
+        if capture is not None:
+            capture["cls_embedding"] = cls_token
         return dense(cls_token.float(), self.head.weight, self.head.bias, torch.float32)
 
-    def features(self, x: torch.Tensor,
-                 dropout_seeds: Optional[Sequence[int]] = None) -> torch.Tensor:
+    def features(self, x: torch.Tensor, dropout_seeds: Optional[Sequence[int]] = None,
+                 capture: Optional[dict] = None) -> torch.Tensor:
         """The final LayerNorm's output for every token, (B, T, H), in the
         compute dtype: what the head reads its CLS row from."""
         cfg = self.cfg
@@ -226,7 +249,8 @@ class SpecViT(nn.Module):
         tokens = self.vit.embeddings(x)
         if seeds is not None:
             tokens = hash_dropout(tokens, cfg.hidden_dropout, seeds[0])
-        h = self.vit.encoder(tokens, None if seeds is None else seeds[1:])
+        h = self.vit.encoder(tokens, None if seeds is None else seeds[1:],
+                             None if capture is None else capture.setdefault("encoder", {}))
         return self.vit.layernorm(h)
 
 

@@ -22,18 +22,37 @@ fixed-size batches, steps ReduceLROnPlateau and early stopping (patience
 500, 100 in a sweep) on ``val_<monitor>``, and writes best/last
 checkpoints; ``--ckpt`` resumes the optimizer, step, plateau scale,
 generators and host scheduler states. ``test`` evaluates a checkpoint on
-the test split.
+the test split and, with ``viz.enable``, writes the regression report.
+
+Around the steps, as in ``vit_tpu`` (``loop.py:1210-1224,1444-1702``):
+
+* the preemption guard (``train.handle_preemption``, default on): the
+  first SIGTERM stops the run at the end of its epoch, after ``last`` is
+  saved; the flag is read once an epoch, with no host sync;
+* diagnostics (``viz.enable``): every ``viz.log_every_n_epochs`` epochs
+  (or ``log_every_n_steps`` steps) an eval forward with capture over the
+  first validation spectra, capped by ``capture_batch_cap``, feeds the
+  GIF frames and the CKA monitor; GIFs and the CKA report are written at
+  train end. A failure there is printed and skipped, never fatal;
+* ``train.log_mfu``: ``tflops_per_s`` from ``step_matmul_flops`` over the
+  epoch's wall clock, and ``mfu`` against ``train.peak_tflops`` (the H100's
+  dense bf16 peak is 989);
+* ``train.profile``: a torch.profiler Chrome trace of the steady-state
+  epoch (the second of the run when there is one) under that directory,
+  ``./results/profile`` for ``true``;
+* W&B logging and checkpoint artifacts through :class:`MetricLogger`.
 
 Runs on the card unless ``device="cpu"`` is given. ``fused_epoch``,
 ``epochs_per_dispatch`` and ``epoch_gather`` are TPU dispatch strategies
 that equal this per-step path by ``vit_tpu``'s own invariant (:242-246),
 so they are ignored with a note. Multi-device training, model/sequence/
-pipeline parallelism, optimizer-state sharding, ``log_mfu``/``profile``,
-diagnostics capture (``viz.enable``), MoE and preprocessors raise.
+pipeline parallelism, optimizer-state sharding, MoE and preprocessors
+raise.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -42,7 +61,7 @@ import torch
 
 from vit_tpu_torch.data.datasets import RegSpecDataset, SpecDataModule, parse_param_list
 from vit_tpu_torch.data.pipeline import Batcher, prefetch_to_device
-from vit_tpu_torch.models.builder import get_model
+from vit_tpu_torch.models.builder import get_model, step_matmul_flops
 from vit_tpu_torch.models.vit import compute_loss
 from vit_tpu_torch.serve import resolve_device
 from vit_tpu_torch.train.checkpoint import CheckpointManager, default_ckpt_dir
@@ -62,7 +81,10 @@ from vit_tpu_torch.train.optim import (
     schedule_scale,
     set_learning_rate,
 )
+from vit_tpu_torch.train.preempt import PreemptionGuard
 from vit_tpu_torch.utils import count_params, seed_everything
+from vit_tpu_torch.viz.callback_factory import create_viz_callbacks
+from vit_tpu_torch.viz.diagnostics import capture_batch_cap, capture_diagnostics
 
 __all__ = ["Experiment", "loss_and_grads", "draw_seeds"]
 
@@ -118,7 +140,20 @@ def _host_loss(logits: np.ndarray, labels: np.ndarray, task: str, loss_name: str
     return float((diff**2).mean())
 
 
-def _reject_unported(config: dict, use_wandb: bool, num_devices: Optional[int]) -> None:
+def _dataset_label_bounds(ds) -> Optional[list]:
+    """Fixed denormalised axis bounds from a RegSpecDataset's minmax label
+    stats (the original parameter ranges); None lets the viz fall back to
+    the first epoch's data ranges."""
+    if (getattr(ds, "label_norm", None) == "minmax"
+            and getattr(ds, "label_min", None) is not None
+            and getattr(ds, "label_max", None) is not None):
+        lo = np.ravel(np.asarray(ds.label_min, np.float64))
+        hi = np.ravel(np.asarray(ds.label_max, np.float64))
+        return [(float(a), float(b)) for a, b in zip(lo, hi)]
+    return None
+
+
+def _reject_unported(config: dict, num_devices: Optional[int]) -> None:
     t = config.get("train", {}) or {}
     gpus = num_devices if num_devices is not None else t.get("gpus")
     asked = {
@@ -127,10 +162,6 @@ def _reject_unported(config: dict, use_wandb: bool, num_devices: Optional[int]) 
         "train.sequence_parallel": int(t.get("sequence_parallel", 1) or 1) > 1,
         "train.pipeline_parallel": int(t.get("pipeline_parallel", 1) or 1) > 1,
         "train.opt_state_sharding": bool(t.get("opt_state_sharding", False)),
-        "train.log_mfu": bool(t.get("log_mfu", False)),
-        "train.profile": bool(t.get("profile")),
-        "viz.enable (diagnostics capture)": bool((config.get("viz", {}) or {}).get("enable")),
-        "W&B logging": bool(use_wandb),
     }
     for what, on in asked.items():
         if on:
@@ -149,7 +180,7 @@ class Experiment:
                  seed: int = 42, device="cuda",
                  datamodule: Optional[SpecDataModule] = None) -> None:
         self.device = resolve_device(device)
-        _reject_unported(config, use_wandb, num_devices)
+        _reject_unported(config, num_devices)
         self.config = config
         self.sweep = sweep
         self.ckpt_path = ckpt_path
@@ -173,6 +204,10 @@ class Experiment:
             raise ValueError(f"train.batch_size {self.batch_size} must divide by "
                              f"train.accumulate_steps {self.accum_steps}")
         self.prefetch_depth = max(1, min(8, int(train_cfg.get("num_workers", 2) or 2)))
+        profile = train_cfg.get("profile")
+        self.profile_dir: Optional[str] = None
+        if profile:
+            self.profile_dir = profile if isinstance(profile, str) else "./results/profile"
         self.monitor, self.monitor_mode = monitor_for_task(self.bundle.vit_config.task_type)
         self.logger = MetricLogger(project=config.get("project", "vit-tpu"),
                                    name=self.bundle.model_name, use_wandb=use_wandb,
@@ -275,8 +310,50 @@ class Experiment:
     def _eval_metrics(self, dataset, prefix: str, batch_size: int) -> Dict[str, float]:
         return self._metrics_from_arrays(*self._run_eval(dataset, batch_size), prefix)
 
+    def _run_capture_eval(self, dataset, num_samples: int):
+        """Eval of the first spectra with diagnostics captured (attention
+        probabilities, MLP activations, CLS states): ``(logits, labels,
+        diag)`` on the host. The reduction runs on the device; the batch is
+        capped by token count (``viz.capture_memory_mb``, default 512) so
+        stride-1 (~4k token) configs fit."""
+        vc = self.bundle.vit_config
+        viz_cfg = self.config.get("viz", {}) or {}
+        budget = int(float(viz_cfg.get("capture_memory_mb", 512)) * 1024**2)
+        cap = capture_batch_cap(vc.seq_len, vc.num_attention_heads, vc.intermediate_size,
+                                budget)
+        n = min(num_samples, len(dataset), cap)
+        if n < min(num_samples, len(dataset)):
+            print(f"[viz] capture batch capped at {n} by token count "
+                  f"(T={vc.seq_len}, budget={budget // 1024**2} MB)")
+        # Only x goes to the device; labels stay on the host.
+        arrays = dataset.arrays()
+        labels = arrays.get("label")
+        labels_host = np.asarray(labels[:n]) if labels is not None else None
+        x = torch.from_numpy(np.ascontiguousarray(arrays["x"][:n])).to(self.device)
+        logits, diag = capture_diagnostics(self.module, x,
+                                           float(viz_cfg.get("sample_rate", 0.15)))
+        return logits, labels_host, diag
+
+    def _capture_into(self, viz, cka, label: int, dataset, num_samples: int):
+        """One capture fed to the GIF frames and the CKA monitor; the CKA
+        metrics (empty without a monitor)."""
+        logits, labels, diag = self._run_capture_eval(dataset, num_samples)
+        viz.on_validation_epoch(label, logits, labels, diag)
+        return cka.on_validation_epoch(label, diag) if cka is not None else {}
+
     # -- fit ---------------------------------------------------------------
     def fit(self) -> Dict[str, float]:
+        """Train for ``train.ep`` epochs. The preemption guard lives as long
+        as this call: the first SIGTERM stops the run at the end of its
+        epoch, after its checkpoint."""
+        enabled = bool((self.config.get("train", {}) or {}).get("handle_preemption", True))
+        self._preempt = PreemptionGuard(enabled=enabled).install()
+        try:
+            return self._fit_impl()
+        finally:
+            self._preempt.uninstall()
+
+    def _fit_impl(self) -> Dict[str, float]:
         self.datamodule.setup("fit")
         train_ds = self.datamodule.train
         steps_per_epoch = max(1, -(-len(train_ds) // self.batch_size))
@@ -291,9 +368,17 @@ class Experiment:
         self.plateau = (PlateauScheduler(spec.plateau_factor, spec.plateau_patience,
                                          mode=spec.plateau_mode or self.monitor_mode)
                         if spec.scheduler == "plateau" else None)
+        train_cfg = self.config.get("train", {}) or {}
         self.early = EarlyStopping(
             patience=100 if self.sweep else 500, mode=self.monitor_mode,
-            divergence_threshold=(self.config.get("train", {}) or {}).get("divergence_threshold"))
+            divergence_threshold=train_cfg.get("divergence_threshold"))
+        # Achieved TFLOP/s: analytic matmul FLOPs a step over the epoch's
+        # wall clock, host dispatch included; mfu against peak_tflops.
+        flops_per_step = peak_tflops = None
+        if train_cfg.get("log_mfu"):
+            flops_per_step = step_matmul_flops(self.bundle.vit_config, self.batch_size,
+                                               train=True)
+            peak_tflops = train_cfg.get("peak_tflops")
 
         start_epoch = 0
         if self.ckpt_path:
@@ -317,25 +402,55 @@ class Experiment:
             ckpt_extra = {"label_norm": train_ds.label_norm,
                           "label_norm_stats": {k: (None if v is None else np.asarray(v).tolist())
                                                for k, v in train_ds.norm_stats().items()}}
+        viz, cka, viz_every, viz_every_steps = create_viz_callbacks(
+            self.config.get("viz"), save_enabled=self.save,
+            model_name=self.bundle.model_name,
+            param_names=parse_param_list((self.config.get("data", {}) or {}).get("param")),
+            denormalize=train_ds.denormalize if isinstance(train_ds, RegSpecDataset) else None,
+            label_bounds=_dataset_label_bounds(train_ds))
+        num_viz_samples = int((self.config.get("viz", {}) or {}).get("num_viz_samples", 256))
 
         epoch_metrics: Dict[str, float] = {}
+        profiled = False
         self.module.train()
         for epoch in range(start_epoch, max_epochs):
             batcher.set_epoch(epoch)
+            # Trace the first epoch after the start (steady state), or the
+            # start epoch when it is the run's only one.
+            prof = None
+            if (self.profile_dir is not None and not profiled
+                    and (epoch > start_epoch or epoch + 1 >= max_epochs)):
+                prof = self._start_profile()
             t0 = time.perf_counter()
             losses, last_lr = [], spec.lr
             for i, batch in enumerate(prefetch_to_device(iter(batcher), self.device,
                                                          self.prefetch_depth)):
                 loss, last_lr = self.train_step(batch, spec, schedule)
                 losses.append(loss)
+                gstep = epoch * steps_per_epoch + i + 1
+                if viz is not None and viz_every_steps > 0 and has_val \
+                        and gstep % viz_every_steps == 0:
+                    try:
+                        self.logger.log(self._capture_into(viz, cka, gstep, self.datamodule.val,
+                                                           num_viz_samples), step=gstep)
+                    except Exception as e:  # diagnostics never fail training
+                        print(f"[viz] step diagnostics skipped: {e}")
                 if self.debug and i == 0:
                     break
             self.epoch_losses = torch.stack(losses).float().cpu().numpy()  # per step
             train_loss = float(np.mean(self.epoch_losses))
             dt = time.perf_counter() - t0
+            if prof is not None:
+                self._stop_profile(prof, epoch, includes_warmup=epoch == start_epoch)
+                profiled = True
             epoch_metrics = {"train_loss": train_loss, "lr": float(last_lr),
                              "epoch_time_s": dt,
                              "samples_per_s": len(losses) * self.batch_size / max(dt, 1e-9)}
+            if flops_per_step is not None:
+                tflops = len(losses) * flops_per_step / max(dt, 1e-9) / 1e12
+                epoch_metrics["tflops_per_s"] = tflops
+                if peak_tflops:
+                    epoch_metrics["mfu"] = tflops / float(peak_tflops)  # one device
             mon, stop = None, False
             if has_val:
                 val = self._eval_metrics(self.datamodule.val, "val",
@@ -344,6 +459,12 @@ class Experiment:
                 mon = val.get(monitor_key)
                 if self.plateau is not None:
                     self.plateau_scale = self.plateau.step(mon)
+                if viz is not None and viz_every_steps == 0 and epoch % viz_every == 0:
+                    try:
+                        epoch_metrics.update(self._capture_into(
+                            viz, cka, epoch, self.datamodule.val, num_viz_samples))
+                    except Exception as e:  # diagnostics never fail training
+                        print(f"[viz] epoch diagnostics skipped: {e}")
                 stop = self.early.step(mon)
             extra = dict(ckpt_extra, early_stop_state=self.early.state_dict())
             if self.plateau is not None:
@@ -353,19 +474,81 @@ class Experiment:
             if stop:
                 print(f"[experiment] early stopping at epoch {epoch}")
                 break
+            if self._preempt.triggered:
+                hint = ("resume with --ckpt last" if self.save
+                        else "train.save is off: nothing was persisted")
+                print(f"[experiment] preemption stop at epoch {epoch} ({hint})")
+                break
+
+        if viz is not None:
+            try:
+                viz.on_train_end(self.logger)
+                if cka is not None:
+                    cka.on_train_end(viz.save_dir if viz.save_enabled else None, self.logger)
+            except Exception as e:
+                print(f"[viz] train-end artifacts skipped: {e}")
+        if self.save:  # W&B model artifacts at train end
+            meta = {"monitor": monitor_key, "best_value": self.ckpt.best_value,
+                    "best_epoch": self.ckpt.best_epoch}
+            self.logger.log_checkpoint(self.ckpt.best_path, "best", metadata=meta)
+            self.logger.log_checkpoint(self.ckpt.last_path, "last", metadata=meta)
         self.callback_metrics = dict(epoch_metrics)
         return epoch_metrics
 
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, epoch: int, includes_warmup: bool) -> str:
+        """Stop the trace and write it as a Chrome trace; its path."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(self.profile_dir, f"{self.bundle.model_name}_epoch{epoch}.json")
+        prof.export_chrome_trace(path)
+        note = " (includes warm-up)" if includes_warmup else ""
+        print(f"[experiment] profiler trace written to {path}{note}")
+        return path
+
     # -- test ----------------------------------------------------------------
     def test(self, ckpt: Optional[str] = None) -> Dict[str, float]:
-        """Metrics on the test split, of ``ckpt`` (``best | last | path``) if given."""
+        """Metrics on the test split, of ``ckpt`` (``best | last | path``) if
+        given, and the regression report when ``viz.enable``."""
         self.datamodule.setup("test")
         if ckpt:
             self._restore(ckpt, training=False)
         metrics = self._eval_metrics(self.datamodule.test, "test", self.batch_size)
         self.logger.log_epoch(-1, metrics)
         self.callback_metrics.update(metrics)
+        try:
+            self._test_report()
+        except Exception as e:  # plots must never fail the eval entry point
+            print(f"[experiment] test report skipped: {e}")
         return metrics
+
+    def _test_report(self) -> None:
+        """The denormalised prediction report of the test split."""
+        ds = self.datamodule.test
+        if self.bundle.vit_config.task_type != "reg" or not isinstance(ds, RegSpecDataset):
+            return
+        if not (self.config.get("viz", {}) or {}).get("enable", False):
+            return
+        from vit_tpu_torch.viz.plotter import RegressionPlotter
+
+        logits, labels = self._run_eval(ds, self.batch_size)
+        quick = bool((self.config.get("plotting", {}) or {}).get("quick_mode", False))
+        plotter = RegressionPlotter(
+            param_names=parse_param_list((self.config.get("data", {}) or {}).get("param")),
+            denormalize=ds.denormalize, model_name=self.bundle.model_name,
+            quick_mode=quick, label_bounds=_dataset_label_bounds(ds))
+        plotter.generate_all_plots(logits, labels, logger=self.logger)
 
     def run(self) -> Dict[str, float]:
         """``fit`` then ``test`` of the best checkpoint when one was saved."""
