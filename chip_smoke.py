@@ -123,7 +123,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the machine a line says rendering is not exercised there, and only
    "skipped" lines naming matplotlib are allowed; with it, the GIFs, the
    CKA report and the report PNGs must be written.
-6. Print the kernels' summary, the card line again, and last
+6. Runs (j)-(o), the options the port adds to that path, each at its
+   config's full width and depth on the same synthetic spectra, launch
+   counts exact: (j) stride1 with RoPE (bf16, one epoch: K1 with dropout,
+   K4, K5; the first step against fp32 on the CPU to 2e-2), then its
+   trained weights served in bf16 (held as (a)), and in fp32 the same
+   weights without RoPE must move the per-token features at least 10 fp32
+   limits; (k) baseline with flash, the fused MLP and RoPE (fp32, one
+   epoch: K2, K6, K3, K7; first step to 1e-4); (l) the port's covariance
+   statistics of 8192 spectra of 4096 pixels (seed 2) on the card, held
+   against the CPU (mean, covariance 1e-5 relative L2; eigenvalues and the
+   ZCA matrix 1e-4; ``zca_self_check`` passes), written to a ``.npz``, then
+   stride1 behind that ZCA preprocessor (shrinkage 0.1, freeze_epochs 1),
+   two epochs with async checkpoints: the first step's gradients, the
+   preprocessor's included, against the CPU to 2e-2, the preprocessor
+   bit-unchanged through epoch 0 and moved in epoch 1,
+   ``preprocessor_frozen`` 1.0 then 0.0, and a fresh Experiment's test of
+   ``best`` equal to the run's; (m) stride1 served in bf16 behind PCA (r
+   2048, T 2018) and attention (r 1024, T 994, flash) preprocessors, the
+   builder's lines vit_tpu's, held as (a); (n) each optimizer three steps
+   on the card and the CPU at (e)'s shape, the parameters within 1e-5
+   relative L2 (bf16 first moments 2e-2), adamw's state bytes with fp32
+   and bf16 moments; (o) (e) with ``fast_dropout: false`` and ``remat:
+   true``: K2 and K6 keep the hash mask, the stream sites keep 0.9 of
+   their elements within 4 standard deviations, a repeated step and the
+   step without remat give the same gradients. ``--only jklmno`` runs the
+   build and the named runs alone, for iterating, and prints no result.
+7. Print the kernels' summary, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
@@ -133,6 +159,7 @@ from __future__ import annotations
 
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -199,7 +226,12 @@ K7_FP32_REL = 1e-5  # K7 weight gradients against their largest value, fp32 inpu
 K7_BF16_REL = 1e-3  # the same with bf16 inputs; rounding dW to bf16 moves it ~2e-3
 GRAD_FLOOR = 1e-3  # per-tensor gradient norms are floored at this share of the global norm
 TRAIN_GRAD_TOL = {"d_stride1_bf16": 2e-2, "e_baseline_flash_fused_fp32": 1e-4,
-                  "f_baseline_flash_fused_bf16": 2e-2, "g_stride1_bf16_fused_mlp": 2e-2}
+                  "f_baseline_flash_fused_bf16": 2e-2, "g_stride1_bf16_fused_mlp": 2e-2,
+                  "j_stride1_rope_bf16": 2e-2, "k_baseline_rope_fp32": 1e-4,
+                  "l_stride1_zca_train": 2e-2}
+# Run (l)'s covariance: more spectra than pixels, so the centred covariance
+# of the 4096-pixel spectra has full rank (rank <= samples - 1).
+COV_SAMPLES = 8192
 MASK_SEEDS = (0, -1, 2**31 - 1)
 # Q = K6_Q * I in K6's dK mask check: a bf16 value where bf16(K6_Q *
 # bf16(scale)) (K6) and bf16(K6_Q * scale) (K5) differ at d = 32 and 128.
@@ -716,8 +748,9 @@ def first_step_check(tag, exp, cfg, tol) -> dict:
                 grad_batches_apart=apart, grad_batches_apart_min=DISTINCT * tol)
 
 
-def train_run(tag, cfg, expect, kernels) -> dict:
-    """One epoch of Experiment.fit on the card over in-memory spectra."""
+def train_run(tag, cfg, expect, kernels, after=None) -> dict:
+    """One epoch of Experiment.fit on the card over in-memory spectra;
+    ``after(exp)`` adds its dict of further checks to the row."""
     import copy
 
     import numpy as np
@@ -757,6 +790,8 @@ def train_run(tag, cfg, expect, kernels) -> dict:
                peak_mem_bytes=peak, launches=launches, expected_launches=expect,
                device_ms_per_step=prof["device_ms"], device_busy_share=prof["device_ms"] / step_ms,
                top_device_ops=prof["top"], **grads)
+    if after is not None:
+        row.update(after(exp))
     emit(row)
     return row
 
@@ -767,10 +802,13 @@ def max_span(feats: torch.Tensor) -> float:
     return min((feats[i] - feats[j]).abs().max().item() for i in range(n) for j in range(i))
 
 
-def serve_run(tag, cfg, expect, tol, feat_tol, ckpt_dir, kernels):
+def serve_run(tag, cfg, expect, tol, feat_tol, ckpt_dir, kernels, module=None):
     """Serve N_INPUTS spectra on the card; check launches, finiteness, and
     the logits and per-token features of two served spectra and two probes
-    against the same weights in fp32 on the CPU."""
+    against the same weights in fp32 on the CPU. ``module``: the weights to
+    serve (default: the config's model initialised from seed 0)."""
+    import copy
+
     import numpy as np
 
     from vit_tpu_torch.data.synthetic import make_dummy_spectra
@@ -780,11 +818,13 @@ def serve_run(tag, cfg, expect, tol, feat_tol, ckpt_dir, kernels):
     from vit_tpu_torch.train.torch_bridge import save_torch_checkpoint
 
     pt = os.path.join(ckpt_dir, f"{tag}.pt")
-    save_torch_checkpoint(get_model(cfg, generator=torch.Generator().manual_seed(0)).module, pt)
+    if module is None:  # a copy: a preprocessor's builder adjusts model.image_size
+        module = get_model(copy.deepcopy(cfg), generator=torch.Generator().manual_seed(0)).module
+    save_torch_checkpoint(module, pt)
     loaded = Predictor.from_checkpoint(cfg, ckpt=pt, batch_size=BATCH, device="cuda")
     pred = Predictor(loaded.module, loaded.vit_config, label_norm="minmax",
                      label_norm_stats=LOGG_STATS, batch_size=BATCH)
-    length = cfg["model"]["image_size"]
+    length = pred.input_length  # the raw spectra, before any preprocessor
     x = make_dummy_spectra(n=N_INPUTS, length=length, seed=1)["flux"]
     pred.predict(x[:BATCH])  # warm-up: cuBLAS handles, allocator
     torch.cuda.reset_peak_memory_stats()
@@ -1206,7 +1246,456 @@ def viz_runs(work: str, none: dict, kernels) -> dict:
     return runs
 
 
-def main() -> int:
+def rope_serve_check(exp, ckpt_dir: str, none: dict, kernels) -> dict:
+    """(j) after training: serve the trained RoPE weights in bf16 (as run (a)
+    is held), then the probe: in fp32 on the card, the same weights with
+    ``pos_encoding_type`` unset must move the per-token features at least
+    DISTINCT fp32 limits, while the card's RoPE features stay within one
+    limit of the CPU's. At these weights (std-0.02 init, four steps) the
+    scores q.k/sqrt(d) are ~0.05, so attention is nearly uniform and RoPE
+    moves the logits by ~2e-4 (a CPU rehearsal), below the bf16 logit limit:
+    the per-token features in fp32 are where a missing rotation shows."""
+    import copy
+
+    cfg = {"model": dict(STRIDE1_MODEL, pos_encoding_type="rope"),
+           "train": {"batch_size": BATCH, "precision": "bf16"}, "data": {"param": "log_g"},
+           "noise": {"noise_level": 0}}
+    calls = STRIDE1_MODEL["num_hidden_layers"] * (N_INPUTS // BATCH)
+    served = serve_run("j_stride1_rope_serve_bf16", cfg, dict(none, flash_fwd=calls), 1e-2,
+                       BF16_FEATURE_TOL, ckpt_dir, kernels, module=exp.module)
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+    from vit_tpu_torch.models.builder import get_model
+
+    state = {k: v.detach().cpu() for k, v in exp.module.state_dict().items()}
+    # two served spectra and two standard-normal probes, as serve_run's: the
+    # synthetic spectra alone differ too little for their tokens to tell
+    # positions apart at these weights
+    x = torch.cat([torch.from_numpy(make_dummy_spectra(n=2, length=4096, seed=1)["flux"]),
+                   torch.randn(2, 4096, generator=torch.Generator().manual_seed(2))])
+    feats = {}
+    for pos, device in (("rope", "cuda"), ("rope", "cpu"), (None, "cuda")):
+        c = copy.deepcopy(cfg)
+        c["model"]["pos_encoding_type"] = pos
+        c["train"]["precision"] = "float32"
+        m = get_model(c).module.to(device).eval()
+        m.load_state_dict(state, strict=True)
+        with torch.no_grad():
+            feats[pos, device] = m.features(x.to(device)).float().cpu()
+    err = (feats["rope", "cuda"] - feats["rope", "cpu"]).abs().max().item()
+    moved = (feats[None, "cuda"] - feats["rope", "cuda"]).abs().max().item()
+    check(err <= FP32_TOL, f"j: fp32 RoPE features differ from the CPU's by {err}")
+    check(moved >= DISTINCT * FP32_TOL, f"j: without RoPE the features move only {moved}")
+    return dict(serve=dict((k, served[k]) for k in (
+        "smoke_spectra_per_s", "batch_ms", "device_ms_per_batch", "launches",
+        "max_abs_logit_err_vs_cpu_fp32", "max_abs_feature_err_vs_cpu_fp32",
+        "feature_span_probes")),
+        rope_probe=dict(fp32_feature_err_vs_cpu=err, features_moved_without_rope=moved,
+                        limit=FP32_TOL, min_moved=DISTINCT * FP32_TOL))
+
+
+def covariance_stats_check(data) -> tuple:
+    """(l) the port's covariance statistics on the card against the CPU over
+    the same spectra: mean and covariance within 1e-5 relative L2 (fp32
+    products summed in another order), eigenvalues within 1e-4, the ZCA
+    matrix (shrinkage 0.1, eps 1e-5) within 1e-4; eigenvectors are not
+    compared (signs and order inside near-degenerate clusters are
+    arbitrary). ``zca_self_check`` passes on the card's statistics (its
+    gate holds for the unshrunk matrix). Returns (stats, row)."""
+    import numpy as np
+
+    from vit_tpu_torch.models.preprocessor import compute_zca_matrix
+    from vit_tpu_torch.prepca.stats import compute_covariance_stats, zca_self_check
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = compute_covariance_stats(data, device="cuda")
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = compute_covariance_stats(data, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    errs = {k: rel(getattr(card, k), getattr(cpu, k)) for k in ("mean", "cov", "eigvals")}
+    zca = [compute_zca_matrix(st.eigvecs, st.eigvals, eps=1e-5, shrinkage=0.1)
+           for st in (card, cpu)]
+    errs["zca"] = rel(*zca)
+    tols = {"mean": 1e-5, "cov": 1e-5, "eigvals": 1e-4, "zca": 1e-4}
+    for k, tol in tols.items():
+        check(errs[k] <= tol, f"l: {k} on the card differs from the CPU's by relative L2 "
+              f"{errs[k]} (tol {tol})")
+    P0 = compute_zca_matrix(card.eigvecs, card.eigvals, eps=1e-5, shrinkage=0.0)
+    rel_err, cond_before, cond_after = zca_self_check(P0, card.cov, eps=1e-5)
+    row = dict(samples=int(data.shape[0]), pixels=int(data.shape[1]), rel_l2=errs, tol=tols,
+               card_seconds=card_s, cpu_seconds=cpu_s,
+               eigval_min=float(card.eigvals.min()), eigval_max=float(card.eigvals.max()),
+               zca_self_check=dict(rel=rel_err, cond_before=cond_before,
+                                   cond_after=cond_after))
+    return card, row
+
+
+def zca_train_run(work: str, none: dict, kernels) -> dict:
+    """(l) stride1.yaml with a ZCA preprocessor built from the port's own
+    statistics, two epochs with freeze_epochs: 1, train.save and async
+    checkpoints, then test of best; a fresh Experiment's test of best
+    reproduces the run's test metrics exactly."""
+    import copy
+
+    import numpy as np
+
+    from vit_tpu_torch.data.datasets import SpecDataModule
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+    from vit_tpu_torch.models.preprocessor import compute_zca_matrix
+    from vit_tpu_torch.ops._build import reset_launches
+    from vit_tpu_torch.train.loop import Experiment
+    from vit_tpu_torch.utils import save_cov_stats
+
+    tag = "l_stride1_zca_train"
+    flux = make_dummy_spectra(n=COV_SAMPLES, length=4096, seed=2)["flux"]
+    stats, stats_row = covariance_stats_check(flux)
+    del flux
+    cov_path = save_cov_stats(stats.as_dict(), os.path.join(work, "cov.npz"))
+    cfg = copy.deepcopy(STRIDE1_TRAIN)
+    cfg["train"].update(ep=2, save=True, async_ckpt=True)
+    cfg["warmup"] = {"preprocessor": "zca", "cov_path": cov_path, "shrinkage": 0.1,
+                     "freeze_epochs": 1}
+    data = make_dummy_spectra(n=N_INPUTS, length=4096, seed=1)
+    exp = Experiment(copy.deepcopy(cfg), device="cuda", datamodule=SpecDataModule(cfg, source=data))
+    name, length = exp.bundle.model_name, exp.module.input_length
+    check(name == "ZCA_fz1_s1_ViT_p32_h128_l3_a2_s1_pSW" and length == 4096,
+          f"{tag}: model {name}, input length {length}")
+    p0 = compute_zca_matrix(stats.eigvecs, stats.eigvals, eps=1e-5, shrinkage=0.1)
+    weight = exp.module.preprocessor.linear.weight
+    check(torch.equal(weight.detach().cpu(), torch.from_numpy(p0)), f"{tag}: not prefilled")
+    exp.datamodule.setup("fit")
+    grads = first_step_check(tag, exp, cfg, TRAIN_GRAD_TOL[tag])
+    epochs, kept = [], []
+    log_epoch = exp.logger.log_epoch
+
+    def record(epoch, metrics, step=None):
+        epochs.append((epoch, dict(metrics)))
+        if epoch >= 0:
+            kept.append(weight.detach().cpu().clone())
+        log_epoch(epoch, metrics, step)
+
+    exp.logger.log_epoch = record
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    test_metrics = exp.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    steps, layers = -(-N_INPUTS // BATCH), STRIDE1_MODEL["num_hidden_layers"]
+    # two epochs of train steps and val batches, then the test batches
+    expect = dict(none, flash_fwd=layers * (2 * (steps + steps) + steps),
+                  flash_bwd_dq=2 * layers * steps, flash_bwd_dkv=2 * layers * steps)
+    check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
+    frozen = [m.get("preprocessor_frozen") for e, m in epochs if e >= 0]
+    check(frozen == [1.0, 0.0], f"{tag}: preprocessor_frozen {frozen}")
+    check(torch.equal(kept[0], torch.from_numpy(p0)), f"{tag}: the preprocessor moved in epoch 0")
+    moved = (kept[1] - kept[0]).abs().max().item()
+    check(moved > 0, f"{tag}: the preprocessor did not move in epoch 1")
+    fresh = Experiment(copy.deepcopy(cfg), device="cuda",
+                       datamodule=SpecDataModule(cfg, source=data))
+    again = fresh.test(ckpt="best")
+    check(again == test_metrics, f"{tag}: test of best {again} vs in-run {test_metrics}")
+    prof = step_profile(exp)
+    train = [m for e, m in epochs if e >= 0]
+    step_ms = [m["epoch_time_s"] * 1e3 / steps for m in train]
+    row = dict(phase="train", run=tag, T=exp.bundle.vit_config.seq_len, layers=layers,
+               dtype=str(exp.bundle.vit_config.dtype), batch=BATCH, inputs=N_INPUTS,
+               steps=steps, epochs=2, model_name=exp.bundle.model_name,
+               covariance=stats_row, losses_by_epoch=[m["train_loss"] for m in train],
+               preprocessor_frozen=frozen, preprocessor_moved_in_epoch_1=moved,
+               test_metrics=test_metrics, fresh_test_equal=True, run_seconds=run_s,
+               smoke_ms_per_step_by_epoch=step_ms, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches, expected_launches=expect,
+               device_ms_per_step=prof["device_ms"],
+               device_busy_share=prof["device_ms"] / min(step_ms), top_device_ops=prof["top"],
+               **grads)
+    emit(row)
+    return row
+
+
+def preprocessor_serve_runs(cov_path: str, ckpt_dir: str, none: dict, kernels) -> dict:
+    """(m) serve stride1 in bf16 behind a PCA (r 2048) and an attention (r
+    1024) preprocessor: the builder's printed image_size and model name are
+    vit_tpu's (tests/test_torch_port_preprocessor.py holds the port's lines
+    equal to vit_tpu's), T = 2018 and 994, K1 three launches a batch (the
+    attention one sets ``attn_impl: flash``: ``auto`` takes xla below 1024
+    tokens)."""
+    import contextlib
+    import copy
+
+    from vit_tpu_torch.models.builder import get_model
+
+    calls = STRIDE1_MODEL["num_hidden_layers"] * (N_INPUTS // BATCH)
+    cases = {
+        "m_stride1_pca2048_serve_bf16": (
+            {"preprocessor": "pca", "r": 2048}, {}, 2018,
+            ["[builder] Auto-adjusting image_size: 4096 -> 2048",
+             "[builder] Created PCA with r=2048, bias=True preprocessor -> "
+             "PCA2048_fz0_ViT_p32_h128_l3_a2_s1_pSW"]),
+        "m_stride1_attn1024_serve_bf16": (
+            {"preprocessor": "attention", "r": 1024}, {"attn_impl": "flash"}, 994,
+            ["[builder] Auto-adjusting image_size: 4096 -> 1024",
+             "[builder] Created Attention preprocessor with r=1024, scale_by_eigvals=True "
+             "preprocessor -> Attn1024_scaled_fz0_ViT_p32_h128_l3_a2_s1_pSW"]),
+    }
+    runs = {}
+    for tag, (warmup, model, seq_len, lines) in cases.items():
+        cfg = {"model": dict(STRIDE1_MODEL, **model),
+               "train": {"batch_size": BATCH, "precision": "bf16"}, "data": {"param": "log_g"},
+               "noise": {"noise_level": 0}, "warmup": dict(warmup, cov_path=cov_path)}
+        out = io.StringIO()
+        built = copy.deepcopy(cfg)
+        with contextlib.redirect_stdout(out):
+            bundle = get_model(built, generator=torch.Generator().manual_seed(0))
+        printed = out.getvalue().splitlines()
+        check(printed == lines and bundle.vit_config.seq_len == seq_len,
+              f"{tag}: printed {printed}, T {bundle.vit_config.seq_len}")
+        row = serve_run(tag, cfg, dict(none, flash_fwd=calls), 1e-2, BF16_FEATURE_TOL,
+                        ckpt_dir, kernels, module=bundle.module)
+        runs[tag] = dict(row, image_size=built["model"]["image_size"], printed=printed)
+    return runs
+
+
+def optimizer_runs(kernels) -> dict:
+    """(n) each optimizer three steps on the card and on the CPU from the same
+    weights, batches and dropout seeds at run (e)'s shape (baseline, flash,
+    fused MLP, fp32), optax's clip and learning-rate injection as the
+    training step applies them. The parameters after step 3 must agree
+    within 1e-5 relative L2 (adam and adamw with bf16 first moments 2e-2),
+    over every parameter but the attention key biases: their gradients are
+    zero in exact arithmetic, rounding noise on each side, which rprop's
+    sign steps and adamax's and adam's normalised steps turn into moves of
+    up to ~lr per element that differ between the two; they are held to
+    stay within 10 * lr * steps of each other and reported."""
+    import copy
+
+    import numpy as np
+
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+    from vit_tpu_torch.models.builder import get_model
+    from vit_tpu_torch.ops._build import reset_launches
+    from vit_tpu_torch.train.loop import loss_and_grads
+    from vit_tpu_torch.train.optim import (
+        OptSpec, build_optimizer, clip_by_global_norm, set_learning_rate, state_bytes,
+    )
+
+    cfg = copy.deepcopy(BASELINE_TRAIN)
+    base = get_model(copy.deepcopy(cfg), generator=torch.Generator().manual_seed(0))
+    vc = base.vit_config
+    data = make_dummy_spectra(n=3 * BATCH, length=4096, seed=1)
+    labels = torch.from_numpy((data["params"]["log_g"] / 5.0).astype(np.float32)).view(-1, 1)
+    batches = [{"x": torch.from_numpy(data["flux"][i * BATCH:(i + 1) * BATCH]),
+                "label": labels[i * BATCH:(i + 1) * BATCH]} for i in range(3)]
+    seeds = [[list(range(100 * i, 100 * i + base.module.num_dropout_sites))] for i in range(3)]
+    lr, steps = 1e-3, 3
+    cases = [(n, None, 1e-5) for n in ("rmsprop", "adadelta", "adagrad", "adamax", "lbfgs",
+                                        "rprop", "asgd", "sparseadam")]
+    cases += [("adam", "bf16", 2e-2), ("adamw", "bf16", 2e-2)]
+    out, launches = {}, {n: 0 for n in kernels}
+    for name, moment, tol in cases:
+        params = {}
+        for device in ("cuda", "cpu"):
+            m = get_model(copy.deepcopy(cfg)).module.to(device).train()
+            m.load_state_dict(base.module.state_dict(), strict=True)
+            opt = build_optimizer(OptSpec(lr=lr, opt_type=name, weight_decay=0.01,
+                                          moment_dtype=moment), m.parameters())
+            reset_launches()
+            for b, sd in zip(batches, seeds):
+                loss_and_grads(m, {k: v.to(device) for k, v in b.items()}, vc.task_type,
+                               base.loss_name, sd)
+                clip_by_global_norm([p.grad for p in m.parameters()], 0.5)
+                set_learning_rate(opt, lr)
+                opt.step()
+            if device == "cuda":
+                torch.cuda.synchronize()
+                for n, k in kernels.items():
+                    launches[n] += k.launches
+            params[device] = {k: v.detach().float().cpu() for k, v in m.named_parameters()}
+        keys = [k for k in params["cpu"] if not k.endswith("attention.key.bias")]
+        diff = torch.sqrt(sum((params["cuda"][k] - params["cpu"][k]).square().sum() for k in keys))
+        norm = torch.sqrt(sum(params["cpu"][k].square().sum() for k in keys))
+        rel = (diff / norm).item()
+        key_bias = max((params["cuda"][k] - params["cpu"][k]).abs().max().item()
+                       for k in params["cpu"] if k.endswith("attention.key.bias"))
+        finite = all(torch.isfinite(v).all() for v in params["cuda"].values())
+        label = name if moment is None else f"{name}_{moment}"
+        check(finite and rel <= tol, f"n: {label}: parameters after {steps} steps differ from "
+              f"the CPU's by relative L2 {rel} (tol {tol})")
+        check(key_bias <= 10 * lr * steps, f"n: {label}: key biases apart by {key_bias}")
+        out[label] = dict(rel_l2=rel, tol=tol, key_bias_max_abs_diff=key_bias)
+    sizes = {}
+    for moment in (None, "bf16"):
+        m = get_model(copy.deepcopy(cfg)).module.cuda().train()
+        opt = build_optimizer(OptSpec(lr=lr, opt_type="adamw", moment_dtype=moment),
+                              m.parameters())
+        loss_and_grads(m, {k: v.cuda() for k, v in batches[0].items()}, vc.task_type,
+                       base.loss_name, seeds[0])
+        opt.step()
+        sizes["fp32" if moment is None else moment] = state_bytes(opt)
+    check(sizes["bf16"] < sizes["fp32"], f"n: adamw state bytes {sizes}")
+    reset_launches()
+    row = dict(phase="train", run="n_optimizers", shape="(e)", steps=steps, lr=lr,
+               weight_decay=0.01, results=out, adamw_state_bytes=sizes,
+               parameters=sum(p.numel() for p in base.module.parameters()), launches=launches)
+    emit(row)
+    return row
+
+
+def stream_dropout_run(none: dict, kernels) -> dict:
+    """(o) run (e) with ``fast_dropout: false`` and ``remat: true``: one epoch
+    (K2 and K6 launch with their hash mask, K2 and K3 twice a step as the
+    layers are recomputed); the stream sites' keep share within 4 standard
+    deviations of 0.9; a step repeated from the same state and seeds gives
+    bit-identical gradients, and the same step without remat the same ones
+    (the recompute drew the same masks); the flash route's output is the
+    same with fast_dropout true and false (the probabilities keep the hash)."""
+    import copy
+
+    from vit_tpu_torch.data.datasets import SpecDataModule
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+    from vit_tpu_torch.models.attention import MultiHeadSelfAttention
+    from vit_tpu_torch.models.builder import get_model
+    from vit_tpu_torch.ops._build import reset_launches
+    from vit_tpu_torch.ops.dropout import stream_dropout
+    from vit_tpu_torch.train.loop import Experiment, loss_and_grads
+
+    tag = "o_baseline_stream_dropout_remat"
+    cfg = copy.deepcopy(BASELINE_TRAIN)
+    cfg["model"].update(fast_dropout=False, remat=True)
+    data = make_dummy_spectra(n=N_INPUTS, length=4096, seed=1)
+    exp = Experiment(copy.deepcopy(cfg), device="cuda", datamodule=SpecDataModule(cfg, source=data))
+    exp.datamodule.setup("fit")
+    arrays = exp.datamodule.train.arrays()
+    batch = {k: torch.from_numpy(arrays[k][:BATCH]).cuda() for k in ("x", "label")}
+    vc = exp.bundle.vit_config
+    seeds = [list(range(500, 500 + exp.module.num_dropout_sites))]
+
+    def grads(module):
+        loss_and_grads(module, batch, vc.task_type, exp.bundle.loss_name, seeds)
+        return [p.grad.clone() for p in module.parameters()]
+
+    first, second = grads(exp.module.train()), grads(exp.module)
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          f"{tag}: a repeated step gave other gradients")
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg["model"]["remat"] = False
+    plain = get_model(plain_cfg).module.cuda().train()
+    plain.load_state_dict(exp.module.state_dict(), strict=True)
+    no_remat = grads(plain)
+    remat_rel = max(rel_l2(a, b, 1e-30) for a, b in zip(first, no_remat))
+    check(remat_rel <= 1e-6, f"{tag}: remat and no remat differ by relative L2 {remat_rel}")
+    shape = (BATCH, vc.seq_len, vc.hidden_size)
+    ones = torch.ones(shape, device="cuda")
+    stream_seeds = [seeds[0][0]] + [seeds[0][1 + 3 * i + j] for i in range(vc.num_hidden_layers)
+                                    for j in (1, 2)]
+    kept = sum(int((stream_dropout(ones, vc.hidden_dropout, s) != 0).sum()) for s in stream_seeds)
+    n = len(stream_seeds) * ones.numel()
+    keep = 1.0 - vc.hidden_dropout
+    share, sigma = kept / n, (keep * (1 - keep) / n) ** 0.5
+    check(abs(share - keep) <= 4 * sigma, f"{tag}: keep share {share} (sigma {sigma})")
+    x = torch.randn(BATCH, vc.seq_len, vc.hidden_size, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    outs = []
+    for fast in (True, False):
+        attn = MultiHeadSelfAttention(vc.hidden_size, vc.num_attention_heads, impl="flash",
+                                      dropout_rate=vc.attention_dropout, out_dropout_rate=0.0,
+                                      fast_dropout=fast).cuda()
+        attn.load_state_dict(exp.module.vit.encoder.layer[0].attention.state_dict())
+        with torch.no_grad():
+            outs.append(attn.train()(x, seeds=(seeds[0][1], seeds[0][2])))
+    check(torch.equal(*outs), f"{tag}: the flash route's probabilities are not the hash mask's")
+    for p in exp.module.parameters():
+        p.grad = None
+
+    steps, layers = -(-N_INPUTS // BATCH), BASELINE_MODEL["num_hidden_layers"]
+    expect = dict(none, short_fwd=layers * (2 * steps + steps), short_bwd=layers * steps,
+                  fused_mlp_fwd=layers * (2 * steps + steps), fused_mlp_bwd=layers * steps)
+    torch.cuda.synchronize()
+    reset_launches()
+    metrics = exp.fit()
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
+    losses = [float(v) for v in exp.epoch_losses]
+    check(all(math.isfinite(v) for v in losses), f"{tag}: losses {losses}")
+    prof = step_profile(exp)
+    step_ms = metrics["epoch_time_s"] * 1e3 / steps
+    row = dict(phase="train", run=tag, T=vc.seq_len, layers=layers, dtype=str(vc.dtype),
+               batch=BATCH, steps=steps, losses=losses, keep_share=share, keep_sigma=sigma,
+               stream_elements=n, repeated_step_bit_identical=True,
+               remat_vs_no_remat_rel_l2=remat_rel, flash_hash_mask_kept=True,
+               smoke_ms_per_step=step_ms, launches=launches, expected_launches=expect,
+               device_ms_per_step=prof["device_ms"],
+               device_busy_share=prof["device_ms"] / step_ms, top_device_ops=prof["top"])
+    emit(row)
+    return row
+
+
+def option_runs(work: str, none: dict, kernels, only=None) -> dict:
+    """Runs (j)-(o): RoPE, the covariance preprocessors with their freeze
+    schedule, the optimizers and the nn.Dropout streams; ``only``: the
+    letters to run (all by default; (m) needs (l)'s statistics)."""
+    import copy
+
+    want = set("jklmno") if only is None else set(only)
+    t0 = time.perf_counter()
+
+    def timed(letter):  # each run's wall-clock seconds, CPU references included
+        nonlocal t0
+        emit(dict(phase="run_seconds", run=letter, seconds=time.perf_counter() - t0))
+        t0 = time.perf_counter()
+
+    steps = -(-N_INPUTS // BATCH)
+    fwd = STRIDE1_MODEL["num_hidden_layers"] * 2 * steps  # train steps + val batches
+    bwd = STRIDE1_MODEL["num_hidden_layers"] * steps
+    runs = {}
+    if "j" in want:
+        rope_long = copy.deepcopy(STRIDE1_TRAIN)
+        rope_long["model"]["pos_encoding_type"] = "rope"
+        runs["j_stride1_rope_bf16"] = train_run(
+            "j_stride1_rope_bf16", rope_long,
+            dict(none, flash_fwd=fwd, flash_bwd_dq=bwd, flash_bwd_dkv=bwd), kernels,
+            after=lambda exp: rope_serve_check(exp, work, none, kernels))
+        timed("j")
+    if "k" in want:
+        rope_short = copy.deepcopy(BASELINE_TRAIN)
+        rope_short["model"]["pos_encoding_type"] = "rope"
+        runs["k_baseline_rope_fp32"] = train_run(
+            "k_baseline_rope_fp32", rope_short,
+            dict(none, short_fwd=fwd, short_bwd=bwd, fused_mlp_fwd=fwd, fused_mlp_bwd=bwd),
+            kernels)
+        timed("k")
+    if "l" in want or "m" in want:
+        runs["l_stride1_zca_train"] = zca_train_run(work, none, kernels)
+        timed("l")
+    if "m" in want:
+        runs.update(preprocessor_serve_runs(os.path.join(work, "cov.npz"), work, none, kernels))
+        timed("m")
+    if "n" in want:
+        runs["n_optimizers"] = optimizer_runs(kernels)
+        timed("n")
+    if "o" in want:
+        runs["o_baseline_stream_dropout_remat"] = stream_dropout_run(none, kernels)
+        timed("o")
+    return runs
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", default=None,
+                        help="letters of runs (j)-(o) to run after the build, e.g. 'jkl', "
+                             "skipping the kernel phases and runs (a)-(i); prints no result")
+    args = parser.parse_args(argv)
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one NVIDIA card",
               file=sys.stderr)
@@ -1237,6 +1726,12 @@ def main() -> int:
                                              for n, per in mma.items()}))
     check_tensor_cores(mma)
     kernels = _build.KERNELS
+    if args.only is not None:  # a partial run for iterating on runs (j)-(o)
+        with tempfile.TemporaryDirectory() as work:
+            os.environ["CKPT_DIR"] = work
+            option_runs(work, {n: 0 for n in kernels}, kernels, only=args.only)
+        print("chip_smoke: partial run (--only): no result line", flush=True)
+        return 0
 
     g = torch.Generator(device="cuda").manual_seed(0)
     main_rows = {
@@ -1328,6 +1823,7 @@ def main() -> int:
                  fused_mlp_fwd=fwd + bwd, fused_mlp_bwd=bwd), kernels)
 
         runs.update(viz_runs(ckpt_dir, none, kernels))
+        runs.update(option_runs(ckpt_dir, none, kernels))
 
     summary = []
     for name, k in kernels.items():
@@ -1339,6 +1835,7 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["kernel_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))
+    emit(dict(phase="script_seconds", seconds=time.perf_counter() - started))
     emit({"kernels": summary})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

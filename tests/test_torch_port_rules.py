@@ -111,7 +111,8 @@ def test_cpu_tensors_run_the_plain_versions_and_leave_the_counts():
 
 def test_training_mode_and_unported_paths_raise(tmp_path, monkeypatch, capsys):
     """What is ported runs (training, diagnostics, W&B with its console
-    fallback, log_mfu, profile); what is not raises."""
+    fallback, log_mfu, profile, RoPE, the covariance preprocessors, the
+    nn.Dropout streams, every optimizer); what is not raises."""
     from vit_tpu_torch.data.datasets import SpecDataModule
     from vit_tpu_torch.data.synthetic import make_dummy_spectra
     from vit_tpu_torch.models.builder import get_model
@@ -127,18 +128,29 @@ def test_training_mode_and_unported_paths_raise(tmp_path, monkeypatch, capsys):
     assert model.train()(x, dropout_seeds=seeds).shape == (1, 1)  # training is ported
     assert model.eval()(x).shape == (1, 1)
     slow = get_model(dict(cfg, model=dict(cfg["model"], fast_dropout=False))).module
-    with pytest.raises(NotImplementedError, match="fast_dropout"):
-        slow.train()(x, dropout_seeds=seeds)
-    for extra in ({"pos_encoding_type": "rope"}, {"attn_impl": "ring"}, {"name": "vit-s16"},
-                  {"moe_experts": 4}):
+    assert slow.train()(x, dropout_seeds=seeds).shape == (1, 1)  # nn.Dropout streams
+    rope = get_model(dict(cfg, model=dict(cfg["model"], pos_encoding_type="rope"))).module
+    assert rope.train()(x, dropout_seeds=seeds).shape == (1, 1)
+    for extra in ({"attn_impl": "ring"}, {"name": "vit-s16"}, {"moe_experts": 4}):
         with pytest.raises(NotImplementedError):
             get_model(dict(cfg, model=dict(cfg["model"], **extra)))
-    with pytest.raises(NotImplementedError):
-        get_model(dict(cfg, warmup={"preprocessor": "pca"}))
+    from vit_tpu_torch.prepca.stats import compute_covariance_stats
+
+    cov = str(tmp_path / "cov.npz")
+    compute_covariance_stats(np.random.default_rng(0).standard_normal((80, 64)), save_path=cov,
+                             device="cpu")
+    pca = get_model(dict(cfg, model=dict(cfg["model"]), warmup={"preprocessor": "pca",
+                                                                 "cov_path": cov, "r": 32}))
+    assert pca.module.train()(x, dropout_seeds=seeds).shape == (1, 1)
+    with pytest.raises(NotImplementedError):  # the image family's patch PCA
+        get_model(dict(cfg, model=dict(cfg["model"], input_kind="image"),
+                       warmup={"preprocessor": "pca", "cov_path": cov}))
     for name in ("rmsprop", "adadelta", "adagrad", "adamax", "lbfgs", "rprop", "asgd",
                  "sparseadam"):
-        with pytest.raises(NotImplementedError):
-            optim.build_optimizer(optim.OptSpec(opt_type=name), model.parameters())
+        opt = optim.build_optimizer(optim.OptSpec(opt_type=name), model.parameters())
+        for p in model.parameters():
+            p.grad = torch.zeros_like(p)
+        opt.step()
     for train in ({"gpus": 4}, {"model_parallel": 2}, {"sequence_parallel": 2},
                   {"pipeline_parallel": 2}, {"opt_state_sharding": True}):
         with pytest.raises(NotImplementedError):

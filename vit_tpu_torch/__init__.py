@@ -12,6 +12,8 @@ Entry points run on the card unless the caller passes ``device="cpu"``:
 * :class:`vit_tpu_torch.serve.Predictor` (``from_checkpoint(..., device=)``)
 * :class:`vit_tpu_torch.train.loop.Experiment` (``device=``): ``fit``, ``test``, ``run``
 * ``python -m vit_tpu_torch run|test|predict ... [--device cuda|cpu]``
+* :func:`vit_tpu_torch.prepca.stats.compute_covariance_stats` (``device=``):
+  the statistics a ``warmup.preprocessor`` reads from ``warmup.cov_path``
 """
 
 __version__ = "0.1.0"

@@ -25,7 +25,18 @@ Diagnostics capture (``vit_tpu/models/attention.py:182-186,245-261``): given
 a ``capture`` dict, the forward stores the batch-mean probabilities
 ``(H, T, T)`` in fp32 under ``attention_probs``. The flash path has no
 probabilities to give, so under capture it takes the xla math, as in
-``vit_tpu``. ``use_rope`` and ``ring`` are not ported yet and raise.
+``vit_tpu``. ``ring`` is not ported yet and raises.
+
+RoPE (``use_rope``, ``vit_tpu/models/attention.py:175-178``): q and k are
+rotated after the head split and before the route is chosen, so the flash
+kernels, the xla math, ``fused_qkv`` and the capture all see rotated q and
+k. Positions count the CLS token as position 0; the tables are cast to q's
+dtype first (:mod:`vit_tpu_torch.models.rope`).
+
+``fast_dropout: false`` (``attention.py:283-289``): the output and the xla
+route's probabilities take ``nn.Dropout`` masks from their sites' seeds
+(:func:`stream_dropout`); the flash route keeps its in-kernel hash mask,
+as in ``vit_tpu`` whatever ``fast_dropout`` says.
 """
 
 from __future__ import annotations
@@ -36,7 +47,8 @@ import torch
 from torch import nn
 
 from vit_tpu_torch.models.layers import DenseHolder, Linear, dense
-from vit_tpu_torch.ops.dropout import hash_dropout
+from vit_tpu_torch.models.rope import apply_rope, rope_tables
+from vit_tpu_torch.ops.dropout import site_dropout
 
 __all__ = ["MultiHeadSelfAttention", "select_attn_impl"]
 
@@ -69,12 +81,11 @@ class MultiHeadSelfAttention(nn.Module):
                  dtype: torch.dtype = torch.float32, qkv_bias: bool = True,
                  use_rope: bool = False, softmax_dtype: Optional[str] = None,
                  fused_qkv: bool = False, dropout_rate: float = 0.0, *,
-                 out_dropout_rate: float) -> None:
+                 out_dropout_rate: float, rope_base: float = 10000.0,
+                 fast_dropout: bool = True) -> None:
         super().__init__()
         if hidden_size % num_heads != 0:
             raise ValueError(f"hidden_size {hidden_size} not divisible by num_heads {num_heads}")
-        if use_rope:
-            raise NotImplementedError("RoPE attention is not ported yet")
         if impl == "ring":
             raise NotImplementedError("attn_impl='ring' is not ported yet")
         self.hidden_size = hidden_size
@@ -82,6 +93,9 @@ class MultiHeadSelfAttention(nn.Module):
         self.head_dim = hidden_size // num_heads
         self.impl = impl
         self.dtype = dtype
+        self.use_rope = use_rope
+        self.rope_base = float(rope_base)
+        self.fast_dropout = fast_dropout
         self.softmax_dtype = None if softmax_dtype is None else _SOFTMAX_DTYPES[str(softmax_dtype)]
         self.fused_qkv = fused_qkv
         self.dropout_rate = float(dropout_rate)
@@ -108,6 +122,10 @@ class MultiHeadSelfAttention(nn.Module):
             q, k, v = (split_heads(y) for y in dense(x, w, bias, dt).split(self.hidden_size, -1))
         else:
             q, k, v = (split_heads(lin(x, dt)) for lin in (p.query, p.key, p.value))
+        if self.use_rope:
+            cos, sin = rope_tables(t, self.head_dim, base=self.rope_base, dtype=q.dtype,
+                                   device=q.device)
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
         drop = self.training and seeds is not None
         impl = select_attn_impl(self.impl, t, self.head_dim)
@@ -129,11 +147,13 @@ class MultiHeadSelfAttention(nn.Module):
                 capture["attention_probs"] = probs.mean(0).float()
             probs = probs.to(dt)
             if drop:
-                probs = hash_dropout(probs, self.dropout_rate, seeds[0])
+                probs = site_dropout(probs, self.dropout_rate, seeds[0], self.fast_dropout)
             context = torch.matmul(probs, v)
         else:
             raise ValueError(f"Unknown attention impl '{impl}'")
 
         context = context.transpose(1, 2).reshape(b, t, self.hidden_size)
         out = self.output.dense(context, dt)
-        return hash_dropout(out, self.out_dropout_rate, seeds[1]) if drop else out
+        if drop:
+            out = site_dropout(out, self.out_dropout_rate, seeds[1], self.fast_dropout)
+        return out

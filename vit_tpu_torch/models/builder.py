@@ -4,9 +4,15 @@
 ``get_vit_config`` and ``build_model_name`` follow ``vit_tpu`` field for
 field, so a config resolves to the same shapes and the same checkpoint
 directory name in both packages. ``step_matmul_flops`` is ``vit_tpu``'s
-count of a step's matmul work (``train.log_mfu``). ``get_model`` builds the model without a
-preprocessor; covariance preprocessors and the image family are not ported
-yet and raise.
+count of a step's matmul work (``train.log_mfu``). ``get_model`` builds the model and, for spectra,
+its covariance preprocessor (``warmup.preprocessor: zca|pca|attention``
+with ``warmup.cov_path``, ``vit_tpu/models/builder.py:344-413,483-548``):
+it checks the eigenvector rows against ``model.image_size``, adjusts
+``config['model']['image_size']`` in place to the preprocessor's output
+dimension, and prefixes the model name (``ZCA{r}_fz{fz}{_s..}{_nobias}``,
+``PCA{r}_fz..``, ``Attn{r}{_scaled}_fz..``), which names the checkpoint
+directory. The image family (with or without its patch PCA) is not ported
+yet and raises.
 """
 
 from __future__ import annotations
@@ -152,6 +158,9 @@ class ModelBundle:
     vit_config: VitConfig
     model_name: str
     loss_name: str
+    freeze_epochs: int = 0
+    has_preprocessor: bool = False
+    preprocessor_desc: str = ""
 
 
 def build_model_name(cfg: VitConfig, model_prefix: str = "ViT",
@@ -262,9 +271,83 @@ def get_vit_config(config: dict) -> VitConfig:
     )
 
 
+def _get_freeze_suffix(freeze_epochs: int) -> str:
+    return "perm" if freeze_epochs == -1 else str(freeze_epochs)
+
+
+def _build_preprocessor(preproc_type: str, warmup_cfg: dict, stats: dict, input_dim: int):
+    """(module, output_dim, name_prefix, desc) from covariance stats."""
+    from vit_tpu_torch.models.preprocessor import (
+        LinearPreprocessor,
+        PrefilledAttention,
+        compute_pca_matrix,
+        compute_zca_matrix,
+    )
+
+    eigvecs = stats["eigvecs"]
+    mean = stats.get("mean")
+    r = warmup_cfg.get("r")
+    fz = _get_freeze_suffix(int(warmup_cfg.get("freeze_epochs", 0) or 0))
+
+    if preproc_type == "zca":
+        eps = warmup_cfg.get("eps", 1e-5)
+        shrinkage = warmup_cfg.get("shrinkage", 0.0)
+        use_bias = warmup_cfg.get("bias", True)
+        P = compute_zca_matrix(eigvecs, stats["eigvals"], eps=eps, r=r, shrinkage=shrinkage)
+        bias = (-(mean @ P.T)).astype("float32") if (use_bias and mean is not None) else None
+        rank_str = f"ZCA{r}" if r is not None else "ZCA"
+        shrink_str = f"_s{int(shrinkage * 10)}" if shrinkage > 0 else ""
+        bias_str = "" if use_bias else "_nobias"
+        return (
+            LinearPreprocessor(P, bias),
+            P.shape[0],
+            f"{rank_str}_fz{fz}{shrink_str}{bias_str}",
+            f"{'low-rank' if r else 'full-rank'} ZCA, eps={eps}, shrinkage={shrinkage}, "
+            f"bias={use_bias}",
+        )
+    if preproc_type == "pca":
+        use_bias = warmup_cfg.get("bias", True)
+        P = compute_pca_matrix(eigvecs, r=r)
+        bias = (-(mean @ P.T)).astype("float32") if (use_bias and mean is not None) else None
+        rank_str = f"PCA{r}" if r is not None else "PCA"
+        bias_str = "" if use_bias else "_nobias"
+        return (
+            LinearPreprocessor(P, bias),
+            P.shape[0],
+            f"{rank_str}_fz{fz}{bias_str}",
+            f"PCA with r={r}, bias={use_bias}" if r else f"full-rank PCA, bias={use_bias}",
+        )
+    if preproc_type == "attention":
+        eps = warmup_cfg.get("eps", 1e-5)
+        scale_by_eigvals = warmup_cfg.get("scale_by_eigvals", True)
+        # The 2-D output dim is the number of eigvec COLUMNS without an
+        # explicit r (stats may hold truncated top-k eigvecs).
+        n_comp = int(eigvecs.shape[1])
+        if r is not None and int(r) > n_comp:
+            raise ValueError(
+                f"warmup.r={r} exceeds the {n_comp} eigenvector columns in the covariance stats"
+            )
+        module = PrefilledAttention(input_dim, eigvecs, eigvals=stats.get("eigvals"), r=r,
+                                    scale_by_eigvals=scale_by_eigvals, eps=eps)
+        out_dim = int(r) if r is not None else n_comp
+        rank_str = r if r else "Full"
+        scale_suffix = "_scaled" if (scale_by_eigvals and stats.get("eigvals") is not None) else ""
+        return (
+            module,
+            out_dim,
+            f"Attn{rank_str}{scale_suffix}_fz{fz}",
+            f"Attention preprocessor with r={r}, scale_by_eigvals={scale_by_eigvals}",
+        )
+    raise ValueError(f"Unknown preprocessor type: '{preproc_type}'")
+
+
 def get_model(config: dict, generator: Optional[torch.Generator] = None) -> ModelBundle:
-    """Build the model from the full config dict (no preprocessor)."""
+    """Build the model (and its optional preprocessor) from the full config
+    dict. Mutates ``config['model']['image_size']`` when a preprocessor
+    changes the input dimension; the raw length stays the preprocessor's
+    ``in_features`` (``SpecViT.input_length``)."""
     from vit_tpu_torch.models.vit import SpecViT  # local import avoids a cycle
+    from vit_tpu_torch.utils import load_cov_stats
 
     warmup_cfg = config.get("warmup", {}) or {}
     loss_name = (config.get("loss", {}) or {}).get("name") or ""
@@ -274,9 +357,36 @@ def get_model(config: dict, generator: Optional[torch.Generator] = None) -> Mode
     elif not loss_name:
         loss_name = "l2"
     preproc_type = warmup_cfg.get("preprocessor")
-    if preproc_type is not None and str(preproc_type).lower() not in ("none", "null"):
-        raise NotImplementedError(f"preprocessor '{preproc_type}' is not ported yet")
+    if preproc_type is None or str(preproc_type).lower() in ("none", "null"):
+        vit_config = get_vit_config(config)
+        module = SpecViT(vit_config, generator=generator)
+        name = build_model_name(vit_config, "ViT", full_config=config)
+        return ModelBundle(module, vit_config, name, loss_name)
+
+    model_cfg = config.get("model", {}) or {}
+    if (str(model_cfg.get("input_kind", "")).lower() == "image"
+            or str(model_cfg.get("name", "")).lower() in IMAGE_VIT_PRESETS):
+        raise NotImplementedError("the image family's patch-PCA preprocessor is not ported yet")
+    cov_path = warmup_cfg.get("cov_path")
+    if cov_path is None:
+        raise ValueError(f"preprocessor='{preproc_type}' requires 'cov_path' in warmup config")
+    stats = load_cov_stats(cov_path)
+    input_dim = int(stats["eigvecs"].shape[0])
+    original_image_size = int(config["model"]["image_size"])
+    if input_dim != original_image_size:
+        raise ValueError(
+            f"Mismatch: eigvecs dimension {input_dim} != image_size {original_image_size}"
+        )
+    freeze_epochs = int(warmup_cfg.get("freeze_epochs", 0) or 0)
+    preprocessor, output_dim, name_prefix, desc = _build_preprocessor(
+        str(preproc_type).lower(), warmup_cfg, stats, input_dim
+    )
+    if output_dim != original_image_size:
+        print(f"[builder] Auto-adjusting image_size: {original_image_size} -> {output_dim}")
+        config["model"]["image_size"] = int(output_dim)
     vit_config = get_vit_config(config)
-    module = SpecViT(vit_config, generator=generator)
-    name = build_model_name(vit_config, "ViT", full_config=config)
-    return ModelBundle(module, vit_config, name, loss_name)
+    module = SpecViT(vit_config, generator=generator, preprocessor=preprocessor)
+    name = build_model_name(vit_config, f"{name_prefix}_ViT", full_config=config)
+    print(f"[builder] Created {desc} preprocessor -> {name}")
+    return ModelBundle(module, vit_config, name, loss_name, freeze_epochs=freeze_epochs,
+                       has_preprocessor=True, preprocessor_desc=desc)

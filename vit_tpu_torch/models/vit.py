@@ -7,8 +7,12 @@
   The MLP is dense -> GELU -> dense, or the fused CUDA kernel when
   ``fused_mlp`` is set (which, as in ``vit_tpu``, ignores
   ``gelu_approximate``: the kernel is exact GELU).
-* ``SpecViT``           — embeddings -> encoder -> final LN -> CLS -> head,
-  the head in fp32.
+* ``SpecViT``           — [preprocessor] -> embeddings -> encoder -> final
+  LN -> CLS -> head, the head in fp32. The optional preprocessor
+  (:mod:`vit_tpu_torch.models.preprocessor`, built by the builder from
+  covariance statistics) maps the raw (B, L) spectra before the embeddings,
+  in fp32; its parameters sit under ``preprocessor.`` for the freeze
+  schedule and are not drawn from the weight generator.
 
 Module attribute names give exactly the HF state-dict keys that
 ``vit_tpu.train.torch_bridge.to_torch_state_dict`` writes (``vit.embeddings.
@@ -22,10 +26,13 @@ draws its mask from its own int32 seed: :meth:`SpecViT.forward` takes
 ``dropout_seeds``, :attr:`SpecViT.num_dropout_sites` of them per step, so
 a recomputed forward draws the same masks. ``remat: mlp`` checkpoints the
 MLP sublayer and ``remat: true`` the whole layer
-(``torch.utils.checkpoint``, non-reentrant). :func:`compute_loss` keeps
-the reference quirk that ``loss.name: 'mae'`` trains MSE. ``nn.Dropout``
-streams (``fast_dropout: false``), image inputs, preprocessors and MoE are
-not ported yet.
+(``torch.utils.checkpoint``, non-reentrant). ``fast_dropout: false`` takes
+``nn.Dropout`` masks at the same sites (:func:`stream_dropout`, a generator
+seeded from each site's seed, so a recompute redraws them); attention's
+flash route keeps its hash mask either way. RoPE (``pos_encoding_type:
+rope``) rotates q and k inside attention. :func:`compute_loss` keeps the
+reference quirk that ``loss.name: 'mae'`` trains MSE. Image inputs and MoE
+are not ported yet.
 
 Diagnostics capture (``vit_tpu/models/vit.py:231-345``): ``forward`` takes
 an optional ``capture`` dict and fills it with ``vit_tpu``'s tree of
@@ -53,7 +60,7 @@ from vit_tpu_torch.models.tokenization import (
     LinearPatchTokenizer,
     SlidingWindowTokenizer,
 )
-from vit_tpu_torch.ops.dropout import hash_dropout
+from vit_tpu_torch.ops.dropout import site_dropout
 
 __all__ = ["SpectraEmbeddings", "ViTLayer", "ViTEncoder", "SpecViT", "compute_loss"]
 
@@ -84,8 +91,7 @@ class SpectraEmbeddings(nn.Module):
             self.position_embeddings = nn.Parameter(
                 torch.empty(1, self.patch_embeddings.num_patches + 1, cfg.hidden_size)
             )
-        elif cfg.pos_encoding_type == "rope":
-            raise NotImplementedError("RoPE position encoding is not ported yet")
+        # 'rope' is applied inside attention; None adds nothing.
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         tokens = self.patch_embeddings(x)  # (B, T, H) in the compute dtype
@@ -116,6 +122,8 @@ class ViTLayer(nn.Module):
             dtype=dt,
             qkv_bias=cfg.qkv_bias,
             use_rope=cfg.pos_encoding_type == "rope",
+            rope_base=cfg.rope_base,
+            fast_dropout=cfg.fast_dropout,
             softmax_dtype=cfg.softmax_dtype,
             fused_qkv=cfg.fused_qkv,
             dropout_rate=cfg.attention_dropout,
@@ -156,7 +164,7 @@ class ViTLayer(nn.Module):
                 capture["mlp_activation"] = h
             h = w2(h, dt)
         if self.training and seed is not None:
-            h = hash_dropout(h, cfg.hidden_dropout, seed)
+            h = site_dropout(h, cfg.hidden_dropout, seed, cfg.fast_dropout)
         return x + h
 
 
@@ -189,11 +197,13 @@ class _ViTModel(nn.Module):
 
 
 class SpecViT(nn.Module):
-    """embeddings -> encoder -> LN -> CLS -> task head (``regressor`` or
-    ``classifier``, fp32). Weights are drawn from ``generator`` (default: a
-    ``torch.Generator`` seeded with 0) as ``vit_tpu`` initialises them."""
+    """[preprocessor] -> embeddings -> encoder -> LN -> CLS -> task head
+    (``regressor`` or ``classifier``, fp32). Weights are drawn from
+    ``generator`` (default: a ``torch.Generator`` seeded with 0) as
+    ``vit_tpu`` initialises them; a ``preprocessor`` keeps its own."""
 
-    def __init__(self, cfg: Any, generator: Optional[torch.Generator] = None) -> None:
+    def __init__(self, cfg: Any, generator: Optional[torch.Generator] = None,
+                 preprocessor: Optional[nn.Module] = None) -> None:
         super().__init__()
         if cfg.input_kind == "image":
             raise NotImplementedError("the image ViT family is not ported yet")
@@ -204,13 +214,25 @@ class SpecViT(nn.Module):
         self.vit = _ViTModel(cfg)
         self.add_module(self.head_name, Linear(cfg.hidden_size, cfg.num_labels))
         self.init_weights(generator or torch.Generator().manual_seed(0))
+        # Registered last: its keys follow the model's, as the bridge writes them.
+        self.preprocessor = preprocessor
 
     @property
     def head(self) -> Linear:
         return getattr(self, self.head_name)
 
+    @property
+    def input_length(self) -> int:
+        """Raw spectrum length the model takes: the preprocessor's input
+        dimension (the builder adjusted ``image_size`` to its output), else
+        ``image_size``."""
+        if self.preprocessor is not None:
+            return self.preprocessor.in_features
+        return self.cfg.image_size
+
     def init_weights(self, g: torch.Generator) -> None:
-        for m in self.modules():
+        """Draw every weight of the ViT (not the preprocessor's) from ``g``."""
+        for m in [*self.vit.modules(), self.head]:
             if isinstance(m, (Linear, LayerNorm, SpectraEmbeddings)):
                 m.init_(g)
 
@@ -237,18 +259,16 @@ class SpecViT(nn.Module):
         cfg = self.cfg
         seeds = None
         if self.training and (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0):
-            if not cfg.fast_dropout:
-                raise NotImplementedError(
-                    "model.fast_dropout: false (nn.Dropout streams) is not ported yet"
-                )
             if dropout_seeds is None or len(dropout_seeds) != self.num_dropout_sites:
                 raise ValueError(
                     f"training-mode dropout needs {self.num_dropout_sites} dropout_seeds"
                 )
             seeds = [int(s) for s in dropout_seeds]
+        if self.preprocessor is not None:
+            x = self.preprocessor(x)
         tokens = self.vit.embeddings(x)
         if seeds is not None:
-            tokens = hash_dropout(tokens, cfg.hidden_dropout, seeds[0])
+            tokens = site_dropout(tokens, cfg.hidden_dropout, seeds[0], cfg.fast_dropout)
         h = self.vit.encoder(tokens, None if seeds is None else seeds[1:],
                              None if capture is None else capture.setdefault("encoder", {}))
         return self.vit.layernorm(h)

@@ -17,6 +17,14 @@ seed becomes ``seed & 0xFFFFFFFF``, as ``convert_element_type`` makes it.
 The keep threshold and ``1/keep`` are computed here on the host, once,
 exactly as ``_keep_threshold`` does; the CUDA kernels receive them as
 arguments (:func:`keep_params`).
+
+:func:`stream_dropout` is the other kind, ``nn.Dropout``'s (``model.
+fast_dropout: false``): a Bernoulli keep mask drawn from a
+``torch.Generator`` seeded with the call site's int32 seed, so a recomputed
+forward (activation checkpointing) seeds a fresh generator the same way and
+draws the same mask. Its stream is torch's, not ``vit_tpu``'s: the two agree
+in distribution (keep rate, ``1/(1-rate)`` scaling), not bit for bit.
+:func:`site_dropout` picks one of the two by ``fast``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ __all__ = [
     "keep_params",
     "attention_keep_mask",
     "seed_u32",
+    "stream_dropout",
+    "site_dropout",
 ]
 
 _U32 = 0xFFFFFFFF
@@ -137,3 +147,25 @@ def hash_dropout(x: torch.Tensor, rate: float, seed) -> torch.Tensor:
     if rate >= 1.0:
         return torch.zeros_like(x)
     return x * hash_keep_mask(x.shape, rate, seed, device=x.device).to(x.dtype)
+
+
+def stream_dropout(x: torch.Tensor, rate: float, seed) -> torch.Tensor:
+    """``nn.Dropout``: keep each element with probability ``1 - rate`` and
+    divide it by ``1 - rate`` (in ``x``'s dtype, as flax does); the mask comes from a generator on ``x``'s
+    device seeded with ``seed`` (an int32)."""
+    if rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    g = torch.Generator(device=x.device).manual_seed(seed_u32(seed))
+    keep = torch.rand(x.shape, generator=g, device=x.device) < keep_prob
+    # flax divides by keep_prob in x's dtype (0.8984375 for 0.9 in bf16)
+    scale = float(torch.tensor(keep_prob, dtype=x.dtype))
+    return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def site_dropout(x: torch.Tensor, rate: float, seed, fast: bool = True) -> torch.Tensor:
+    """One dropout call site: :func:`hash_dropout` (``fast``, ``vit_tpu``'s
+    default) or :func:`stream_dropout`."""
+    return hash_dropout(x, rate, seed) if fast else stream_dropout(x, rate, seed)

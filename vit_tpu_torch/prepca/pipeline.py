@@ -2,7 +2,8 @@
 helpers from ``vit_tpu/prepca/pipeline.py``).
 
 Host code in numpy float64, as in ``vit_tpu``. The rest of the offline
-statistics (PCA, KPCA, ZCA, PCP and their CLIs) is not ported yet.
+statistics (PCA, KPCA, ZCA, PCP and their CLIs) is not ported yet; the
+covariance statistics the preprocessors read are in :mod:`.stats`.
 """
 
 from __future__ import annotations

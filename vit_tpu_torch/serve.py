@@ -7,7 +7,10 @@ ids / probabilities for classification. The label statistics come from the
 checkpoint's ``meta.yaml`` or are passed to :class:`Predictor` directly.
 
 The device is explicit: ``device="cuda"`` (the default) raises when CUDA is
-absent; pass ``device="cpu"`` to run on the CPU. ``quantize``,
+absent; pass ``device="cpu"`` to run on the CPU. A model with a covariance
+preprocessor takes raw spectra of the eigenvector rows' length
+(:attr:`Predictor.input_length`), not the builder's adjusted
+``model.image_size`` (``vit_tpu/serve.py:300-308``). ``quantize``,
 ``calibration``, ``num_devices`` and ``export`` are not ported yet.
 
 Example::
@@ -19,6 +22,7 @@ Example::
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Union
 
 import numpy as np
@@ -62,6 +66,8 @@ class Predictor:
         self.module = module.eval()
         self.vit_config = vit_config
         self.device = next(module.parameters()).device
+        # Raw spectrum length: a preprocessor's input dimension when there is one.
+        self.input_length = int(getattr(module, "input_length", vit_config.image_size))
         self.label_norm = label_norm or "none"
         self.label_norm_stats = {
             k: (None if v is None else np.asarray(v, np.float64))
@@ -114,7 +120,8 @@ class Predictor:
         own = str(ckpt) in ("best", "last")
         if not own and not str(ckpt).endswith((".pt", ".pth", ".ckpt")):
             raise ValueError(f"ckpt={ckpt!r}: {ORBAX_HINT}")
-        cfg = load_config(config) if isinstance(config, str) else dict(config)
+        # A copy: the builder adjusts model.image_size in place for a preprocessor.
+        cfg = load_config(config) if isinstance(config, str) else copy.deepcopy(config)
         if perf_preset:
             if precision is None:
                 precision = "bf16"
@@ -155,6 +162,9 @@ class Predictor:
         n = len(x)
         if n == 0:
             return np.zeros((0, int(self.vit_config.num_labels)), np.float32)
+        if x.shape[-1] != self.input_length:
+            raise ValueError(f"spectra of length {x.shape[-1]}, but the model takes "
+                             f"{self.input_length}")
         bs = self.batch_size
         outs = []
         for i in range(0, n, bs):

@@ -17,6 +17,14 @@ is deleted after the pointer has moved off it. A crash at any point leaves
 the previous pointer and its target whole, so ``--ckpt last`` always finds
 a complete file.
 
+``train.async_ckpt`` (``async_save``, ``vit_tpu/train/checkpoint.py:63-79,
+151-215``): the snapshot of the state to host memory stays synchronous (a
+copy of every tensor, so later steps cannot change what is written), the
+write of the version directory runs on a background thread, at most one
+at a time, and the pointer flips wait until their write has landed.
+:meth:`CheckpointManager.wait` fences every read-back (test, restore,
+artifact upload). Both modes write the same bytes.
+
 ``state.pt`` holds the model's state dict under ``state_dict`` (the HF keys,
 so :class:`vit_tpu_torch.serve.Predictor` serves it) beside the training
 state: optimizer state, step, ``plateau_scale``, the plateau and
@@ -29,7 +37,8 @@ from __future__ import annotations
 
 import os
 import shutil
-from typing import Any, Dict, Optional
+import threading
+from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = ["CheckpointManager", "default_ckpt_dir", "read_meta", "ORBAX_HINT", "STATE_FILE"]
 
@@ -62,13 +71,18 @@ class CheckpointManager:
     """best + last checkpoints keyed on a monitored metric."""
 
     def __init__(self, root_dir: str, model_name: str, monitor: str = "mae", mode: str = "min",
-                 enabled: bool = True) -> None:
+                 enabled: bool = True, async_save: bool = False) -> None:
         self.root_dir = root_dir
         self.model_name = model_name
         self.dir = os.path.abspath(os.path.join(root_dir, model_name))
         self.monitor = monitor
         self.mode = mode
         self.enabled = enabled
+        self.async_save = async_save
+        self._writer: Optional[threading.Thread] = None
+        self._write_error: Optional[BaseException] = None
+        # (pointer, committed version) pairs whose flip waits for the write.
+        self._pending: List[Tuple[str, str]] = []
         # Best is tracked in memory per run; --ckpt resume seeds it from meta.
         self.best_value: Optional[float] = None
         self.best_epoch: Optional[int] = None
@@ -125,26 +139,58 @@ class CheckpointManager:
             yaml.safe_dump(meta, f, sort_keys=False)
         os.replace(tmp, self._meta_path())
 
-    def _save(self, pointer: str, state: Dict[str, Any]) -> None:
+    def wait(self) -> None:
+        """Fence: block until the write in flight has landed, then flip the
+        pointers that wait for it. Re-raises the writer's error."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._write_error is not None:
+            err, self._write_error = self._write_error, None
+            raise RuntimeError("checkpoint write failed") from err
+        self._flip_pending()
+
+    def _flip_pending(self) -> None:
+        """Point each pending pointer at its committed version (one atomic
+        rename) and delete the version it pointed at before."""
+        pending, self._pending = self._pending, []
+        for pointer, version in pending:
+            old = os.path.realpath(pointer) if os.path.islink(pointer) else None
+            link_tmp = f"{pointer}.lnk-{self._counter:08d}"
+            if os.path.lexists(link_tmp):
+                os.remove(link_tmp)
+            os.symlink(version, link_tmp)
+            os.replace(link_tmp, pointer)  # atomic pointer flip
+            if old and old != version and os.path.exists(old):
+                shutil.rmtree(old, ignore_errors=True)
+
+    def _write(self, version: str, state: Dict[str, Any]) -> None:
         import torch
 
+        try:
+            tmp_dir = f"{version}.tmp"
+            shutil.rmtree(tmp_dir, ignore_errors=True)
+            os.makedirs(tmp_dir)
+            torch.save(state, os.path.join(tmp_dir, STATE_FILE))
+            os.replace(tmp_dir, version)  # the version is whole before anything names it
+        except Exception as e:  # re-raised by wait()
+            self._write_error = e
+
+    def _save(self, pointer: str, state: Dict[str, Any]) -> None:
+        self.wait()  # at most one write in flight; its flips happen now
         os.makedirs(self._version_root(), exist_ok=True)
         self._counter += 1
         version = os.path.join(self._version_root(),
                                f"{os.path.basename(pointer)}-{self._counter:08d}")
-        tmp_dir = f"{version}.tmp"
-        shutil.rmtree(tmp_dir, ignore_errors=True)
-        os.makedirs(tmp_dir)
-        torch.save(state, os.path.join(tmp_dir, STATE_FILE))
-        os.replace(tmp_dir, version)  # the version is whole before anything names it
-        old = os.path.realpath(pointer) if os.path.islink(pointer) else None
-        link_tmp = f"{pointer}.lnk-{self._counter:08d}"
-        if os.path.lexists(link_tmp):
-            os.remove(link_tmp)
-        os.symlink(version, link_tmp)
-        os.replace(link_tmp, pointer)  # atomic pointer flip
-        if old and old != version and os.path.exists(old):
-            shutil.rmtree(old, ignore_errors=True)
+        snapshot = _snapshot(state)
+        self._pending.append((pointer, version))
+        if self.async_save:
+            self._writer = threading.Thread(target=self._write, args=(version, snapshot),
+                                            name="checkpoint-writer", daemon=False)
+            self._writer.start()
+        else:
+            self._write(version, snapshot)
+            self.wait()
 
     def _improved(self, value: Optional[float]) -> bool:
         if value is None:
@@ -177,3 +223,16 @@ class CheckpointManager:
         if not os.path.exists(path):
             raise FileNotFoundError(f"Checkpoint not found: {path}")
         return path
+
+
+def _snapshot(obj: Any) -> Any:
+    """A host copy of every tensor in a nest of dicts, lists and tuples."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _snapshot(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_snapshot(v) for v in obj)
+    return obj

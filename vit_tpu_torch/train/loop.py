@@ -14,7 +14,14 @@ One training step (``_make_grads_fn`` :168 and ``_make_step_body`` :242):
   gradients are summed and scaled by 1/A;
 * global-norm clip (``train.grad_clip``, 0.5) with optax's rule;
 * the update at learning rate ``spec.lr * schedule(step) * plateau_scale``
-  with ``step`` counted before the update.
+  with ``step`` counted before the update;
+* with a preprocessor frozen this epoch (``warmup.freeze_epochs``, see
+  :meth:`Experiment._frozen_flag`), its gradients are zeroed before the clip,
+  so they take no part in the global norm, and its update is undone after
+  the optimizer, so AdamW's decoupled decay cannot shrink it either
+  (``vit_tpu/train/loop.py:250-257``). The zeroed gradients stay tensors:
+  every optimizer counts the step for every parameter, as optax's global
+  count does.
 
 ``Experiment.fit`` runs epochs of such steps over ``Batcher`` batches
 copied ahead to the device, evaluates the validation split in masked
@@ -40,14 +47,20 @@ Around the steps, as in ``vit_tpu`` (``loop.py:1210-1224,1444-1702``):
 * ``train.profile``: a torch.profiler Chrome trace of the steady-state
   epoch (the second of the run when there is one) under that directory,
   ``./results/profile`` for ``true``;
-* W&B logging and checkpoint artifacts through :class:`MetricLogger`.
+* W&B logging and checkpoint artifacts through :class:`MetricLogger`;
+* ``train.async_ckpt``: checkpoint writes on a background thread, fenced by
+  ``CheckpointManager.wait()`` before any read-back.
+
+A model with a preprocessor takes raw spectra of the preprocessor's input
+length (``SpecViT.input_length``), which the builder's adjusted
+``model.image_size`` no longer gives; the loaded split's length is checked
+against it. Each epoch's metrics add ``preprocessor_frozen`` (1.0 or 0.0).
 
 Runs on the card unless ``device="cpu"`` is given. ``fused_epoch``,
 ``epochs_per_dispatch`` and ``epoch_gather`` are TPU dispatch strategies
 that equal this per-step path by ``vit_tpu``'s own invariant (:242-246),
 so they are ignored with a note. Multi-device training, model/sequence/
-pipeline parallelism, optimizer-state sharding, MoE and preprocessors
-raise.
+pipeline parallelism, optimizer-state sharding and MoE raise.
 """
 
 from __future__ import annotations
@@ -214,12 +227,14 @@ class Experiment:
                                    config=config, save_artifacts=self.save)
         self.ckpt = CheckpointManager(default_ckpt_dir(), self.bundle.model_name,
                                       monitor=self.monitor, mode=self.monitor_mode,
-                                      enabled=self.save)
+                                      enabled=self.save,
+                                      async_save=bool(train_cfg.get("async_ckpt", False)))
         # Host generators: dropout seeds and injected noise (see module doc).
         self.dropout_gen = torch.Generator().manual_seed(seed)
         self.noise_gen = torch.Generator().manual_seed(seed + 1)
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0
+        self.frozen = 0.0  # 1.0 while the preprocessor is frozen (_frozen_flag)
         self.plateau_scale = 1.0
         self.plateau: Optional[PlateauScheduler] = None
         self.early: Optional[EarlyStopping] = None
@@ -234,14 +249,45 @@ class Experiment:
         seeds = draw_seeds(self.dropout_gen, self.accum_steps, self.module.num_dropout_sites)
         loss = loss_and_grads(self.module, batch, vc.task_type, self.bundle.loss_name, seeds,
                               self.noise_level, self.noise_gen)
+        frozen = self._preprocessor_params() if self.frozen else []
+        for p in frozen:
+            p.grad.zero_()  # before the clip: out of the global norm
         params = [p for p in self.module.parameters() if p.grad is not None]
         if spec.grad_clip and spec.grad_clip > 0:
             clip_by_global_norm([p.grad for p in params], spec.grad_clip)
         lr = spec.lr * schedule(self.step) * self.plateau_scale
         set_learning_rate(self.optimizer, lr)
+        held = [p.detach().clone() for p in frozen]
         self.optimizer.step()
+        with torch.no_grad():
+            for p, h in zip(frozen, held):
+                p.copy_(h)  # after the optimizer: no update, no weight decay
         self.step += 1
         return loss, lr
+
+    def _preprocessor_params(self) -> List[torch.nn.Parameter]:
+        pre = getattr(self.module, "preprocessor", None)
+        return [] if pre is None else list(pre.parameters())
+
+    def _frozen_flag(self, epoch: int) -> float:
+        """``warmup.freeze_epochs``: -1 frozen for good; N > 0 frozen for the
+        first N epochs; 0 never (``vit_tpu/train/loop.py:1013-1021``)."""
+        fe = self.bundle.freeze_epochs
+        if not self.bundle.has_preprocessor or fe == 0:
+            return 0.0
+        if fe == -1:
+            return 1.0
+        return 1.0 if epoch < fe else 0.0
+
+    def _check_input_length(self, dataset) -> None:
+        """The split's spectra must have the model's raw input length (for a
+        preprocessor model, not the adjusted ``model.image_size``)."""
+        flux = getattr(dataset, "flux", None)
+        want = self.module.input_length
+        if flux is not None and flux.shape[1] != want:
+            raise ValueError(f"spectra of length {flux.shape[1]}, but the model takes {want}"
+                             + (" (the preprocessor's input dimension)"
+                                if self.bundle.has_preprocessor else ""))
 
     # -- state -------------------------------------------------------------
     def _state(self) -> Dict[str, Any]:
@@ -259,6 +305,7 @@ class Experiment:
     def _restore(self, spec: str, training: bool) -> None:
         """Load ``best | last | path``: the weights, and for a resumed fit the
         optimizer, step, plateau scale, generators and scheduler states."""
+        self.ckpt.wait()  # an async write must land before it is read back
         state = torch.load(self.ckpt.resolve(spec), map_location="cpu", weights_only=True)
         self.module.load_state_dict(state["state_dict"], strict=True)
         if not training:
@@ -356,6 +403,7 @@ class Experiment:
     def _fit_impl(self) -> Dict[str, float]:
         self.datamodule.setup("fit")
         train_ds = self.datamodule.train
+        self._check_input_length(train_ds)
         steps_per_epoch = max(1, -(-len(train_ds) // self.batch_size))
         has_val = self.datamodule.val is not None and len(self.datamodule.val) > 0
         # The plateau scheduler needs an explicit data.val_path (reference parity).
@@ -415,6 +463,7 @@ class Experiment:
         self.module.train()
         for epoch in range(start_epoch, max_epochs):
             batcher.set_epoch(epoch)
+            self.frozen = self._frozen_flag(epoch)
             # Trace the first epoch after the start (steady state), or the
             # start epoch when it is the run's only one.
             prof = None
@@ -451,6 +500,8 @@ class Experiment:
                 epoch_metrics["tflops_per_s"] = tflops
                 if peak_tflops:
                     epoch_metrics["mfu"] = tflops / float(peak_tflops)  # one device
+            if self.bundle.has_preprocessor:
+                epoch_metrics["preprocessor_frozen"] = float(self.frozen)
             mon, stop = None, False
             if has_val:
                 val = self._eval_metrics(self.datamodule.val, "val",
@@ -487,6 +538,7 @@ class Experiment:
                     cka.on_train_end(viz.save_dir if viz.save_enabled else None, self.logger)
             except Exception as e:
                 print(f"[viz] train-end artifacts skipped: {e}")
+        self.ckpt.wait()  # async writes land before the artifacts and run()'s test read them
         if self.save:  # W&B model artifacts at train end
             meta = {"monitor": monitor_key, "best_value": self.ckpt.best_value,
                     "best_epoch": self.ckpt.best_epoch}
@@ -522,6 +574,7 @@ class Experiment:
         """Metrics on the test split, of ``ckpt`` (``best | last | path``) if
         given, and the regression report when ``viz.enable``."""
         self.datamodule.setup("test")
+        self._check_input_length(self.datamodule.test)
         if ckpt:
             self._restore(ckpt, training=False)
         metrics = self._eval_metrics(self.datamodule.test, "test", self.batch_size)

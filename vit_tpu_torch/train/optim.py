@@ -4,11 +4,18 @@
   :class:`EarlyStopping` are ``vit_tpu``'s, as host Python: cosine (per
   epoch, periodic past ``T_max``), onecycle (per step), constant, plateau
   (a host-driven multiplicative scale), none, with the linear warmup prefix.
-* :func:`build_optimizer` makes a ``torch.optim`` optimizer for ``adamw``,
-  ``adam`` and ``sgd`` with optax's defaults (betas 0.9/0.999, eps 1e-8,
-  the config's weight decay, 0 unless set; ``adam``/``sgd`` add it to the
-  gradient as optax's ``add_decayed_weights`` does). The other optimizer
-  names of ``vit_tpu`` raise ``NotImplementedError``.
+* :func:`build_optimizer` follows ``vit_tpu``'s ``_core_optimizer``
+  (``vit_tpu/train/optim.py:173-229``), optax's update rules and defaults:
+  ``adamw``, ``adam`` and ``sgd`` are ``torch.optim``'s with optax's
+  constants (betas 0.9/0.999, eps 1e-8); rmsprop (decay 0.99), adadelta,
+  adagrad, adamax, rprop and lbfgs (``linesearch=None``: memory 10, the
+  scaled initial preconditioner) are :class:`OptaxOptimizer`, optax's rules
+  step for step; ``asgd`` runs sgd and ``sparseadam`` adam, each with
+  ``vit_tpu``'s message. Weight decay is AdamW's decoupled decay, and for
+  every other optimizer optax's ``add_decayed_weights`` (coupled L2) before
+  the rule. ``opt.moment_dtype: bf16`` keeps adam's and adamw's first
+  moment in bf16 (half that state's bytes); other optimizers print
+  ``vit_tpu``'s "no effect" line, and other values raise ``ValueError``.
 * The training step sets the learning rate before each update to
   ``spec.lr * schedule(step) * plateau_scale``, with ``step`` counted
   before the update (:func:`set_learning_rate`), and clips the gradients
@@ -21,11 +28,14 @@ import dataclasses
 import math
 from typing import Callable, Iterable, Optional
 
+import numpy as np
 import torch
 
 __all__ = [
     "OptSpec",
+    "OptaxOptimizer",
     "build_optimizer",
+    "state_bytes",
     "schedule_scale",
     "set_learning_rate",
     "clip_by_global_norm",
@@ -33,8 +43,8 @@ __all__ = [
     "EarlyStopping",
 ]
 
-_PORTED = ("adamw", "adam", "sgd")
-_UNPORTED = ("rmsprop", "adadelta", "adagrad", "adamax", "lbfgs", "rprop", "asgd", "sparseadam")
+_FALLBACKS = {"asgd": "sgd", "sparseadam": "adam"}
+_KNOWN = ("adam", "adamw", "sgd", "rmsprop", "adadelta", "adagrad", "adamax", "lbfgs", "rprop")
 
 
 @dataclasses.dataclass
@@ -201,26 +211,221 @@ def schedule_scale(spec: OptSpec) -> Callable[[int], float]:
     return f
 
 
+def _moment_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    if name is None:
+        return None
+    key = str(name).lower()
+    if key in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    if key in ("f32", "fp32", "float32", "32"):
+        return None
+    raise ValueError(f"Unsupported opt.moment_dtype '{name}'")
+
+
+def _f32(x: float) -> float:
+    """A constant as the fp32 value optax computes it in."""
+    return float(np.float32(x))
+
+
+class OptaxOptimizer(torch.optim.Optimizer):
+    """One of optax's update rules as a ``torch.optim`` optimizer: the
+    gradient, plus ``weight_decay * p`` (optax's ``add_decayed_weights``)
+    unless ``decoupled``, goes through ``rule``; ``decoupled`` (adamw) adds
+    the decay to the rule's output; the update is then scaled by ``-lr``
+    (rprop: by -1, its step sizes start at the first ``lr``) and added to
+    the parameter, as ``optax.apply_updates``. Each step is optax's for
+    every parameter, so its counts are global ones.
+
+    Rules and constants (optax's defaults): ``adam`` (b1 0.9, b2 0.999, eps
+    1e-8; ``mu_dtype`` keeps the first moment in that dtype), ``rmsprop``
+    (decay 0.99, eps 1e-8 inside the root), ``adadelta`` (rho 0.9, eps
+    1e-6), ``adagrad`` (initial accumulator 0.1, eps 1e-7), ``adamax`` (b1
+    0.9, b2 0.999, eps 1e-8), ``rprop`` (eta 0.5/1.2, steps in [1e-6, 50]),
+    ``lbfgs`` (memory 10, the first step scaled by min(1, 1/|g|), later ones
+    by the last pair's curvature; one flat vector over all parameters)."""
+
+    RULES = ("adam", "rmsprop", "adadelta", "adagrad", "adamax", "rprop", "lbfgs")
+
+    def __init__(self, params, rule: str, lr: float, weight_decay: float = 0.0,
+                 decoupled: bool = False, mu_dtype: Optional[torch.dtype] = None,
+                 memory_size: int = 10) -> None:
+        if rule not in self.RULES:
+            raise ValueError(f"Unknown optax rule '{rule}'")
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, initial_lr=lr))
+        self.rule = rule
+        self.decoupled = decoupled
+        self.mu_dtype = mu_dtype
+        self.memory_size = int(memory_size)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("OptaxOptimizer takes no closure")
+        if self.rule == "lbfgs":
+            self._lbfgs_step()
+            return None
+        rule = getattr(self, f"_{self.rule}")
+        for group in self.param_groups:
+            lr, wd = group["lr"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if wd and not self.decoupled:
+                    g = g + wd * p
+                u = rule(g, self.state[p], group)
+                if wd and self.decoupled:
+                    u = u + wd * p
+                p.add_(-u if self.rule == "rprop" else u * _f32(-lr))
+        return None
+
+    # -- per-parameter rules: (gradient, state, group) -> update before -lr --
+    def _adam(self, g, st, group, b1=0.9, b2=0.999, eps=1e-8):
+        if not st:
+            st.update(count=0, exp_avg=torch.zeros_like(g, dtype=self.mu_dtype or g.dtype),
+                      exp_avg_sq=torch.zeros_like(g))
+        st["count"] += 1
+        # load_state_dict casts state to the parameter's dtype: cast it back.
+        mu_dtype = self.mu_dtype or g.dtype
+        # optax's b1 * mu takes b1 in mu's dtype (0.8984375 in bf16), then rounds.
+        b1_mu = float(torch.tensor(b1, dtype=mu_dtype))
+        mu = (1 - b1) * g + b1_mu * st["exp_avg"].to(mu_dtype)
+        nu = (1 - b2) * (g * g) + b2 * st["exp_avg_sq"]
+        mu_hat = mu / _f32(1 - np.float32(b1) ** np.float32(st["count"]))
+        nu_hat = nu / _f32(1 - np.float32(b2) ** np.float32(st["count"]))
+        st["exp_avg"], st["exp_avg_sq"] = mu.to(mu_dtype), nu
+        return mu_hat / (torch.sqrt(nu_hat) + eps)
+
+    def _rmsprop(self, g, st, group, decay=0.99, eps=1e-8):
+        if not st:
+            st["nu"] = torch.zeros_like(g)
+        st["nu"] = (1 - decay) * (g * g) + decay * st["nu"]
+        return torch.rsqrt(st["nu"] + eps) * g
+
+    def _adadelta(self, g, st, group, rho=0.9, eps=1e-6):
+        if not st:
+            st.update(e_g=torch.zeros_like(g), e_x=torch.zeros_like(g))
+        st["e_g"] = (1 - rho) * (g * g) + rho * st["e_g"]
+        u = (torch.sqrt(st["e_x"] + eps) / torch.sqrt(st["e_g"] + eps)) * g
+        st["e_x"] = (1 - rho) * (u * u) + rho * st["e_x"]
+        return u
+
+    def _adagrad(self, g, st, group, initial=0.1, eps=1e-7):
+        if not st:
+            st["sum_of_squares"] = torch.full_like(g, initial)
+        sos = g * g + st["sum_of_squares"]
+        st["sum_of_squares"] = sos
+        inv = torch.where(sos > 0, torch.rsqrt(sos + eps), torch.zeros_like(sos))
+        return inv * g
+
+    def _adamax(self, g, st, group, b1=0.9, b2=0.999, eps=1e-8):
+        if not st:
+            st.update(count=0, exp_avg=torch.zeros_like(g), exp_inf=torch.zeros_like(g))
+        st["count"] += 1
+        st["exp_avg"] = (1 - b1) * g + b1 * st["exp_avg"]
+        st["exp_inf"] = torch.maximum(g.abs() + eps, b2 * st["exp_inf"])
+        mu_hat = st["exp_avg"] / _f32(1 - np.float32(b1) ** np.float32(st["count"]))
+        return mu_hat / st["exp_inf"]
+
+    def _rprop(self, g, st, group, eta_minus=0.5, eta_plus=1.2, min_step=1e-6, max_step=50.0):
+        if not st:
+            st.update(step_sizes=torch.full_like(g, group["initial_lr"]),
+                      prev_updates=torch.zeros_like(g))
+        prev = st["prev_updates"]
+        sign = g * prev
+        grown = torch.where(sign > 0, eta_plus, eta_minus).to(g.dtype)
+        sizes = torch.where(sign == 0, st["step_sizes"],
+                            torch.clamp(st["step_sizes"] * grown, min_step, max_step))
+        zero = torch.zeros_like(g)
+        st["step_sizes"] = sizes
+        st["prev_updates"] = torch.where(sign < 0, zero, sizes * torch.sign(g))
+        # optax applies the previous step's signed sizes (zero on a sign flip).
+        return torch.where(sign < 0, zero, prev)
+
+    def _lbfgs_step(self) -> None:
+        params = [p for group in self.param_groups for p in group["params"]]
+        group = self.param_groups[0]
+        lr, wd = group["lr"], group["weight_decay"]
+        flat_p = torch.cat([p.detach().reshape(-1) for p in params])
+        g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                       for p in params])
+        if wd:
+            g = g + wd * flat_p
+        st = self.state[params[0]]
+        m = self.memory_size
+        if not st:
+            st.update(count=0, params=torch.zeros_like(flat_p), updates=torch.zeros_like(g),
+                      diff_params=torch.zeros((m, g.numel()), dtype=g.dtype, device=g.device),
+                      diff_updates=torch.zeros((m, g.numel()), dtype=g.dtype, device=g.device),
+                      weights=torch.zeros(m, dtype=g.dtype, device=g.device))
+        k = st["count"]
+        idx, prev_idx = k % m, (k - 1) % m
+        dp, du = flat_p - st["params"], g - st["updates"]
+        vdot = torch.dot(du, dp)
+        weight = torch.where(vdot == 0.0, torch.zeros_like(vdot), 1.0 / vdot)
+        if k == 0:
+            dp, du, weight = torch.zeros_like(dp), torch.zeros_like(du), torch.zeros_like(weight)
+        st["diff_params"][prev_idx] = dp
+        st["diff_updates"][prev_idx] = du
+        st["weights"][prev_idx] = weight
+        if k > 0:
+            den = torch.dot(du, du)
+            scale = torch.where(den > 0.0, torch.dot(du, dp) / den, torch.ones_like(den))
+        else:
+            scale = torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0)
+        # Two-loop recursion over the memory, oldest to newest by optax's order.
+        order = [(idx + i) % m for i in range(m)]
+        vec, alphas = g, {}
+        for i in reversed(order):
+            alphas[i] = st["weights"][i] * torch.dot(st["diff_params"][i], vec)
+            vec = vec - alphas[i] * st["diff_updates"][i]
+        vec = scale * vec
+        for i in order:
+            beta = st["weights"][i] * torch.dot(st["diff_updates"][i], vec)
+            vec = vec + (alphas[i] - beta) * st["diff_params"][i]
+        st.update(count=k + 1, params=flat_p, updates=g)
+        u = vec * _f32(-lr)
+        offset = 0
+        for p in params:
+            n = p.numel()
+            p.add_(u[offset:offset + n].view_as(p))
+            offset += n
+
+
 def build_optimizer(spec: OptSpec, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
     """The core optimizer of ``spec`` over ``params``; its learning rate is
     set every step by :func:`set_learning_rate`."""
     name = spec.opt_type
-    if name in _UNPORTED:
-        raise NotImplementedError(f"optimizer '{name}' is not ported yet (adamw, adam, sgd are)")
-    if name not in _PORTED:
+    if name in _FALLBACKS:
+        print(f"[optim] '{name}' has no optax equivalent; using '{_FALLBACKS[name]}'")
+        name = _FALLBACKS[name]
+    if name not in _KNOWN:
         raise ValueError(f"Unknown optimizer type '{name}'")
-    if spec.moment_dtype is not None and str(spec.moment_dtype).lower() not in (
-            "f32", "fp32", "float32", "32"):
-        raise NotImplementedError("opt.moment_dtype other than fp32 is not ported yet")
+    mu = _moment_dtype(spec.moment_dtype)
     params = list(params)
     wd = spec.weight_decay
+    if mu is not None and name in ("adam", "adamw"):
+        return OptaxOptimizer(params, "adam", spec.lr, weight_decay=wd,
+                              decoupled=name == "adamw", mu_dtype=mu)
+    if mu is not None:
+        print(f"[optim] opt.moment_dtype has no effect for '{name}' "
+              "(only adam/adamw keep low-precision first moments); "
+              "optimizer state stays fp32")
     if name == "adamw":
         return torch.optim.AdamW(params, lr=spec.lr, betas=(0.9, 0.999), eps=1e-8,
                                  weight_decay=wd)
     if name == "adam":
         return torch.optim.Adam(params, lr=spec.lr, betas=(0.9, 0.999), eps=1e-8,
                                 weight_decay=wd)
-    return torch.optim.SGD(params, lr=spec.lr, momentum=0.0, weight_decay=wd)
+    if name == "sgd":
+        return torch.optim.SGD(params, lr=spec.lr, momentum=0.0, weight_decay=wd)
+    return OptaxOptimizer(params, name, spec.lr, weight_decay=wd)
+
+
+def state_bytes(optimizer: torch.optim.Optimizer) -> int:
+    """Bytes of the optimizer's state tensors."""
+    return sum(v.numel() * v.element_size() for st in optimizer.state.values()
+               for v in st.values() if isinstance(v, torch.Tensor))
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:

@@ -17,6 +17,9 @@ tree of numpy arrays laid out like ``vit_tpu``'s Flax params:
 * ``vit.encoder.layer.{i}.layernorm_{before,after}.*`` and ``vit.layernorm.*``
   <- LayerNorm ``scale``/``bias``
 * ``classifier.*`` | ``regressor.*`` <- the task head
+* ``preprocessor.linear.{weight,bias}`` <- ``preprocessor/{kernel,bias}``
+  (``LinearPreprocessor``); ``preprocessor.{q_lin,k_lin,v_lin}.weight`` <-
+  ``preprocessor/{q_lin,k_lin,v_lin}`` (``PrefilledAttention``), those present
 """
 
 from __future__ import annotations
@@ -48,8 +51,6 @@ def from_flax_params(params: Dict[str, Any], vit_config) -> Dict[str, torch.Tens
     """Flax-layout param tree (numpy leaves) -> the port's ``state_dict``."""
     if getattr(vit_config, "moe_experts", 0) > 1:
         raise ValueError("MoE models have no HF ViT state-dict layout")
-    if "preprocessor" in params:
-        raise NotImplementedError("preprocessor weights are not ported yet")
     out: Dict[str, torch.Tensor] = {}
     emb = params["embeddings"]
     out["vit.embeddings.cls_token"] = _t(emb["cls_token"])
@@ -80,6 +81,14 @@ def from_flax_params(params: Dict[str, Any], vit_config) -> Dict[str, torch.Tens
     _ln("vit.layernorm", params["layernorm"], out)
     head_name = "classifier" if vit_config.task_type == "cls" else "regressor"
     _dense(head_name, params[head_name], out)
+    if "preprocessor" in params:
+        pre = params["preprocessor"]
+        if "kernel" in pre:  # LinearPreprocessor
+            _dense("preprocessor.linear", pre, out)
+        else:  # PrefilledAttention
+            for name in ("q_lin", "k_lin", "v_lin"):
+                if name in pre:
+                    _dense(f"preprocessor.{name}", pre[name], out)
     return out
 
 
