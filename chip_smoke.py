@@ -98,7 +98,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    raises) and the run must print the console-fallback line: (h) baseline.yaml as it
    stands (fp32, ``viz.enable`` with its GIFs, the full test report) with
    batch 16, three epochs, ``train.save`` into a temporary ``CKPT_DIR``:
-   a SIGTERM sent to this process after the first step of epoch 1 must stop
+   a SIGTERM sent to this process at the start of epoch 1 must stop
    ``fit`` at the end of epoch 1 with ``last`` saved, and a resume from
    ``last`` must start at epoch 2; (i) stride1.yaml with baseline's ``viz``
    block, ``compute_cka``, ``train.log_mfu`` against the H100's dense bf16
@@ -149,7 +149,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    their elements within 4 standard deviations, a repeated step and the
    step without remat give the same gradients. ``--only jklmno`` runs the
    build and the named runs alone, for iterating, and prints no result.
-7. Print the kernels' summary, the card line again, and last
+   Runs (e), (f), (k), (n), (o) pin ``fused_epoch: false`` (their per-step
+   figures and counts); (h) trains as ``auto`` decides (the fused epoch)
+   and its row says so; (n) builds the card's optimizers graph-safe, as
+   Experiment does there; the mask check also calls each attention kernel
+   with the seed as an int32 device scalar and holds it bit for bit.
+7. Runs (w), (p), (q), (r), each over more steps: (w) the per-step window,
+   stride1 over 1024 spectra (64 steps an epoch) for 3 epochs: host
+   ms/step of epochs 1-2, device ms/step of a further profiled window,
+   the busy share; (p) baseline's training shape in fp32 and bf16 over the
+   same window per step, then with ``fused_epoch: true`` (the step a CUDA
+   graph) from the same seed: parameters within vit_tpu's bound (rel 1e-6,
+   abs 1e-7; bit-equal printed), in fp32 also ``epoch_gather: block`` and
+   ``epochs_per_dispatch: 3``, each path's host and device ms/step, busy
+   share, peak MiB (the graph's pool included), capture seconds, the
+   replays' device span and host enqueue time a step, and an epoch end's
+   cost (the validation forward with its read-back; metrics, plateau and
+   early stopping on the host); launches counted as each graph's captured
+   launches times its replays, plus the calls outside graphs, 3 a step of
+   K2, K6, K3, K7; (q) stride1 through the graph over 256 spectra, 2
+   epochs, against the per-step path (relative L2 per tensor within 2e-2),
+   K1, K4, K5 counted from the replays; (r) ``lr --engine sequential`` by
+   its runner over 256 in-memory spectra: six trials, ``summary.yaml`` and
+   ``best_config.yaml`` read back, trial 3 bit-equal to its standalone
+   Experiment. Each run's seconds are printed. ``--only`` takes these
+   letters too.
+8. Print the kernels' summary, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
@@ -211,9 +236,12 @@ STRIDE1_TRAIN = {"project": "vit-viz", "model": STRIDE1_MODEL,
                            "fused_epoch": False},
                  "loss": {"name": "mae"}, "opt": _OPT, "data": _DATA,
                  "noise": {"noise_level": 0}, "viz": {"enable": False}}
+# Runs (e), (f), (k), (n), (o) keep the per-step path (their launch counts
+# and per-step figures); run (p) trains this shape through the CUDA graph.
 BASELINE_TRAIN = {"project": "vit-viz",
                   "model": dict(BASELINE_MODEL, attn_impl="flash", fused_mlp=True),
-                  "train": {"batch_size": 16, "ep": 1, "debug": 0, "save": False},
+                  "train": {"batch_size": 16, "ep": 1, "debug": 0, "save": False,
+                            "fused_epoch": False},
                   "loss": {"name": "mae"}, "opt": _OPT, "data": _DATA,
                   "noise": {"noise_level": 0}, "viz": {"enable": False}}
 BASELINE_BF16_TRAIN = dict(BASELINE_TRAIN,
@@ -602,6 +630,17 @@ def mask_check(kernels) -> dict:
         want["short_bwd_dv"] = want["flash_bwd_dkv"]
         got["short_bwd_dk"] = short_bwd(q_k6, zeros, eye, ones, lse, delta, scale, 0.5, seed)[1]
         want["short_bwd_dk"] = ((mask / t).transpose(1, 2) * qs_k6).bfloat16()
+        # The same calls with the seed as an int32 device scalar: the same bits.
+        dev_seed = torch.tensor(seed, dtype=torch.int32, device="cuda")
+        again = {"flash_fwd": flash_fwd(q, q, v, scale, 0.5, dev_seed)[0],
+                 "short_fwd_bf16": short_fwd(zeros, zeros, eye, scale, 0.5, dev_seed)[0],
+                 "flash_bwd_dkv": flash_bwd(zeros, zeros, zeros, eye, lse, delta, scale, 0.5,
+                                            dev_seed)[2],
+                 "short_bwd_dk": short_bwd(q_k6, zeros, eye, ones, lse, delta, scale, 0.5,
+                                           dev_seed)[1]}
+        for name, o in again.items():
+            check(torch.equal(o, got[name]), f"{name} seed {seed}: a device-scalar seed "
+                  "gives other values than the int seed")
         for name, o in got.items():
             ref = want[name]
             wrong = int(((o == 0) != (ref == 0)).sum().item())
@@ -1082,15 +1121,14 @@ def default_run(cfg: dict, expect: dict, kernels) -> dict:
     reset_launches()
     with contextlib.redirect_stdout(tee):
         exp = viz_experiment(cfg, first)
-        train_step = exp.train_step
+        frozen_flag = exp._frozen_flag
 
-        def step_then_sigterm(*args):
-            out = train_step(*args)
-            if exp.step == steps + 1:  # the first step of epoch 1
+        def sigterm_in_epoch_1(epoch):  # read once at the start of each epoch
+            if epoch == 1:
                 os.kill(os.getpid(), signal.SIGTERM)
-            return out
+            return frozen_flag(epoch)
 
-        exp.train_step = step_then_sigterm
+        exp._frozen_flag = sigterm_in_epoch_1
         t0 = time.perf_counter()
         exp.run()
         torch.cuda.synchronize()
@@ -1107,6 +1145,7 @@ def default_run(cfg: dict, expect: dict, kernels) -> dict:
     check("[preempt] signal 15 received" in first_text
           and "[experiment] preemption stop at epoch 1 (resume with --ckpt last)" in first_text,
           f"{tag}: the SIGTERM did not stop the run at the end of epoch 1")
+    path = "per-step" if exp.fused is None else "fused (CUDA graph)"
     check(exp.step == 2 * steps and first_meta.get("last_epoch") == 1,
           f"{tag}: stopped at step {exp.step}, last epoch {first_meta.get('last_epoch')}")
     check(first["captures"] == 2 and [e for e, _ in first["epochs"]] == [0, 1, -1],
@@ -1122,7 +1161,7 @@ def default_run(cfg: dict, expect: dict, kernels) -> dict:
     prof = step_profile(exp2)
     vc = exp.bundle.vit_config
     row = dict(phase="train", run=tag, T=vc.seq_len, layers=vc.num_hidden_layers,
-               dtype=str(vc.dtype), batch=BATCH, inputs=N_INPUTS, steps=steps,
+               dtype=str(vc.dtype), batch=BATCH, inputs=N_INPUTS, steps=steps, path=path,
                epochs_run=[e for e, _ in first["epochs"] + resumed["epochs"]],
                train_loss=epoch1["train_loss"], val_mae=epoch1.get("val_mae"),
                cka_mean=epoch1.get("cka/mean"), smoke_ms_per_step=step_ms,
@@ -1496,7 +1535,7 @@ def optimizer_runs(kernels) -> dict:
     seeds = [[list(range(100 * i, 100 * i + base.module.num_dropout_sites))] for i in range(3)]
     lr, steps = 1e-3, 3
     cases = [(n, None, 1e-5) for n in ("rmsprop", "adadelta", "adagrad", "adamax", "lbfgs",
-                                        "rprop", "asgd", "sparseadam")]
+                                        "rprop", "asgd", "sparseadam", "adam", "adamw", "sgd")]
     cases += [("adam", "bf16", 2e-2), ("adamw", "bf16", 2e-2)]
     out, launches = {}, {n: 0 for n in kernels}
     for name, moment, tol in cases:
@@ -1504,8 +1543,10 @@ def optimizer_runs(kernels) -> dict:
         for device in ("cuda", "cpu"):
             m = get_model(copy.deepcopy(cfg)).module.to(device).train()
             m.load_state_dict(base.module.state_dict(), strict=True)
+            # The card's as Experiment builds it there: graph-safe.
             opt = build_optimizer(OptSpec(lr=lr, opt_type=name, weight_decay=0.01,
-                                          moment_dtype=moment), m.parameters())
+                                          moment_dtype=moment), m.parameters(),
+                                  capturable=device == "cuda")
             reset_launches()
             for b, sd in zip(batches, seeds):
                 loss_and_grads(m, {k: v.to(device) for k, v in b.items()}, vc.task_type,
@@ -1534,7 +1575,7 @@ def optimizer_runs(kernels) -> dict:
     for moment in (None, "bf16"):
         m = get_model(copy.deepcopy(cfg)).module.cuda().train()
         opt = build_optimizer(OptSpec(lr=lr, opt_type="adamw", moment_dtype=moment),
-                              m.parameters())
+                              m.parameters(), capturable=True)
         loss_and_grads(m, {k: v.cuda() for k, v in batches[0].items()}, vc.task_type,
                        base.loss_name, seeds[0])
         opt.step()
@@ -1638,6 +1679,315 @@ def stream_dropout_run(none: dict, kernels) -> dict:
     return row
 
 
+# -- runs (w), (p), (q): many steps, per step and as a CUDA graph ------------
+WINDOW_INPUTS = 1024  # 64 steps an epoch at batch 16
+WINDOW_EPOCHS = 3
+FUSED_RTOL, FUSED_ATOL = 1e-6, 1e-7  # vit_tpu's bound, tests/test_fused_epoch.py:26-28
+PROFILE_STEPS = 16  # per-step steps in a device-time window
+
+
+def window_fit(cfg: dict, inputs: int, epochs: int, fused, **train) -> dict:
+    """``epochs`` epochs of ``inputs`` synthetic spectra at batch 16 on the
+    card from seed 0, per step (``fused`` False) or fused: the Experiment,
+    its epochs' metrics, host ms/step of each epoch, the steady one (epochs
+    1 on), the fit's seconds, peak MiB (the graph's pool included) and the
+    wrappers' counts."""
+    import copy
+
+    from vit_tpu_torch.data.datasets import SpecDataModule
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+    from vit_tpu_torch.ops._build import KERNELS, reset_launches
+    from vit_tpu_torch.train.loop import Experiment
+
+    cfg = copy.deepcopy(cfg)
+    cfg["train"].update(ep=epochs, fused_epoch=fused, **train)
+    data = make_dummy_spectra(n=inputs, length=cfg["model"]["image_size"], seed=1)
+    exp = Experiment(copy.deepcopy(cfg), device="cuda", seed=0,
+                     datamodule=SpecDataModule(cfg, source=data))
+    logged = []
+    exp.logger.log_epoch = lambda epoch, metrics, step=None: logged.append(dict(metrics))
+    steps = -(-inputs // BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    exp.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    host = [m["epoch_time_s"] * 1e3 / steps for m in logged]
+    check(len(logged) == epochs and all(math.isfinite(m["train_loss"]) for m in logged),
+          f"window fit: epochs {logged}")
+    check((exp.fused is not None) == bool(fused), f"window fit: fused {exp.fused} for {fused}")
+    return dict(exp=exp, logged=logged, steps=steps, host_ms_per_step=host,
+                steady_host_ms_per_step=statistics.mean(host[1:]), fit_seconds=fit_s,
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                reserved_mib=torch.cuda.memory_reserved() / 2**20,
+                counts={n: k.launches for n, k in KERNELS.items()},
+                params={k: v.detach().float().cpu().clone()
+                        for k, v in exp.module.state_dict().items()})
+
+
+def window_device(fit: dict) -> dict:
+    """torch.profiler's device time a step over a further window, after the
+    fit's figures are taken: PROFILE_STEPS per-step steps on batches
+    already on the card, or one more fused epoch of replays; the kernels'
+    names and calls in it."""
+    from vit_tpu_torch.train.optim import OptSpec, schedule_scale
+
+    exp, steps = fit["exp"], fit["steps"]
+    if exp.fused is None:
+        spec = OptSpec.from_config(exp.config, steps, monitor_metric=exp.monitor)
+        sched = schedule_scale(spec)
+        arrays = exp.datamodule.train.arrays()
+        batches = [{k: torch.from_numpy(arrays[k][i * BATCH:(i + 1) * BATCH]).cuda()
+                    for k in ("x", "label")} for i in range(PROFILE_STEPS)]
+        prof = device_profile(lambda: [exp.train_step(b, spec, sched) for b in batches], top=12)
+        n = PROFILE_STEPS
+    else:
+        fused = exp.fused
+        prof = device_profile(lambda: fused.run([exp.step // steps], [0.0], False), top=12)
+        n = steps
+    check(prof["device_ms"] > 0, "window: torch.profiler saw no device time")
+    return dict(device_ms_per_step=prof["device_ms"] / n, window_steps=n,
+                busy_share=prof["device_ms"] / n / fit["steady_host_ms_per_step"],
+                top_device_ops=prof["top"])
+
+
+def device_gaps(fn, top: int = 5) -> dict:
+    """The device timeline of ``fn`` under torch.profiler: its device events
+    (kernels, copies, fills) merged into busy intervals, the idle gaps
+    between them, and the ``top`` largest gaps with the events on either
+    side: what stands between the kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # record_function scopes (``Optimizer.step#AdamW.step``) have device-side
+    # spans over many kernels and the gaps between them: left out.
+    evs = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start
+                 and not e.is_user_annotation and "#" not in e.name)
+    check(len(evs) > 1, "device_gaps: torch.profiler saw no device events")
+    gaps, busy, end, prev = [], 0.0, evs[0][0], evs[0][2]
+    for start, stop, name in evs:
+        if start > end:
+            gaps.append((start - end, prev[:60], name[:60]))
+        busy += max(0.0, stop - max(start, end))
+        if stop > end:
+            end, prev = stop, name
+    gaps.sort(reverse=True)
+    by_pair = {}  # idle time summed over each (event before, event after) pair
+    for g, a, b in gaps:
+        us, n = by_pair.get((a, b), (0.0, 0))
+        by_pair[(a, b)] = (us + g, n + 1)
+    pairs = sorted(by_pair.items(), key=lambda kv: -kv[1][0])[:top]
+    return dict(events=len(evs), span_ms=(end - evs[0][0]) / 1e3, busy_ms=busy / 1e3,
+                idle_ms=sum(g for g, _, _ in gaps) / 1e3, gaps=len(gaps),
+                top_gaps=[dict(us=g, after=a, before=b) for g, a, b in gaps[:top]],
+                idle_by_pair=[dict(us=us, gaps=n, after=a, before=b)
+                              for (a, b), (us, n) in pairs])
+
+
+def replay_span(fit: dict) -> dict:
+    """One epoch of replays of a fused fit's graph timed on both clocks:
+    the device span a step (CUDA events around the replays: kernels and
+    the gaps between them) and the host's time to enqueue one."""
+    fused = fit["exp"].fused
+    fused.counter.zero_()  # the last epoch's buffers, replayed again
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(fused.steps):
+        fused._run_step()
+    enqueue_s = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    fused.counter.zero_()
+    gaps = device_gaps(lambda: [fused._run_step() for _ in range(4)])
+    return dict(replay_span_ms_per_step=start.elapsed_time(end) / fused.steps,
+                replay_enqueue_ms_per_step=enqueue_s * 1e3 / fused.steps,
+                replay_timeline_4_steps=gaps)
+
+
+def epoch_end(fit: dict) -> dict:
+    """What an epoch's end costs on the host clock: the validation forward
+    with its read-back (per step: ``_run_eval``'s batches, each read back;
+    fused: one more fused epoch with its validation minus one without), and
+    the host's metrics, plateau and early-stopping steps on the logits."""
+    import copy
+
+    import numpy as np
+
+    exp = fit["exp"]
+    dm = exp.datamodule
+    torch.cuda.synchronize()
+    if exp.fused is None:
+        t0 = time.perf_counter()
+        logits, labels = exp._run_eval(dm.val, dm.val_batch_size)
+        val_s = time.perf_counter() - t0
+    else:
+        fused, epoch = exp.fused, exp.step // fit["steps"]
+        t0 = time.perf_counter()
+        logits = fused.run([epoch], [0.0], True)[0][2]
+        with_val = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fused.run([epoch + 1], [0.0], False)
+        val_s = with_val - (time.perf_counter() - t0)
+        labels = np.asarray(dm.val.arrays()["label"])
+    t0 = time.perf_counter()
+    mon = exp._metrics_from_arrays(logits, labels, "val")[f"val_{exp.monitor}"]
+    for scheduler in (exp.plateau, exp.early):  # copies: the run's own are not stepped
+        if scheduler is not None:
+            copy.deepcopy(scheduler).step(mon)
+    host_s = time.perf_counter() - t0
+    return dict(val_forward_and_read_ms=val_s * 1e3, val_rows=len(labels),
+                metrics_plateau_early_stop_ms=host_s * 1e3)
+
+
+def params_close(a: dict, b: dict) -> tuple:
+    """(every tensor within FUSED_RTOL/FUSED_ATOL, bit-equal, max abs diff)."""
+    close = all(torch.allclose(a[k], b[k], rtol=FUSED_RTOL, atol=FUSED_ATOL) for k in a)
+    equal = all(torch.equal(a[k], b[k]) for k in a)
+    return close, equal, max((a[k] - b[k]).abs().max().item() for k in a)
+
+
+def graph_launches(fit: dict, expect_per_step: dict, kernels) -> dict:
+    """Launches of a fused fit counted from its replays: each graph's
+    launches at capture times its replays (stated so), plus the calls made
+    outside a graph (the warm-up steps, the validation forwards). Every
+    graph must hold ``expect_per_step`` launches a step."""
+    fused = fit["exp"].fused
+    check(len(fused.graphs) >= 1 and fused.replays > 0, f"no replays: {fused.replays}")
+    per_graph = list(fused.captured_launches.values())
+    for got in per_graph:
+        check(got == expect_per_step, f"a captured step launches {got}, "
+              f"expected {expect_per_step}")
+    replayed = {n: per_graph[0][n] * fused.replays for n in kernels}
+    outside = {n: fit["counts"][n] - len(per_graph) * per_graph[0][n] for n in kernels}
+    total = {n: replayed[n] + outside[n] for n in kernels}
+    for n, per_step in expect_per_step.items():
+        check(per_step == 0 or replayed[n] > 0, f"{n}: no launch from the replays")
+    return dict(launches=total, launches_from_replays=replayed, launches_outside_graphs=outside,
+                launch_count_method="capture count x replays, plus calls outside the graph",
+                captured_launches_per_step=per_graph[0], graphs=len(fused.graphs),
+                replays=fused.replays, eager_steps=fused.eager_steps,
+                capture_seconds=fused.capture_seconds)
+
+
+def fit_summary(fit: dict) -> dict:
+    return {k: fit[k] for k in ("host_ms_per_step", "steady_host_ms_per_step", "fit_seconds",
+                                "peak_mib", "reserved_mib")}
+
+
+def window_runs(kernels) -> dict:
+    """(w) the per-step path over a window of many steps: 1024 spectra at
+    batch 16 (64 steps an epoch), 3 epochs, at baseline's training shape
+    (flash, fused MLP, fp32; the per-step half of run (p)) and stride1's
+    (bf16, remat: mlp); host ms/step of epochs 1-2, device ms/step of a
+    further window and the busy share."""
+    none = {n: 0 for n in kernels}
+    fit = window_fit(STRIDE1_TRAIN, WINDOW_INPUTS, WINDOW_EPOCHS, False)
+    layers, steps = STRIDE1_MODEL["num_hidden_layers"], fit["steps"]
+    dm = fit["exp"].datamodule
+    val_batches = -(-len(dm.val) // dm.val_batch_size)
+    expect = dict(none, flash_fwd=layers * (steps + val_batches) * WINDOW_EPOCHS,
+                  flash_bwd_dq=layers * steps * WINDOW_EPOCHS,
+                  flash_bwd_dkv=layers * steps * WINDOW_EPOCHS)
+    check(fit["counts"] == expect, f"w: launches {fit['counts']}, expected {expect}")
+    row = dict(phase="window", run="w_stride1_per_step", inputs=WINDOW_INPUTS,
+               epochs=WINDOW_EPOCHS, steps_per_epoch=steps, launches=fit["counts"],
+               **fit_summary(fit), **window_device(fit))
+    emit(row)
+    return row
+
+
+def graph_runs(kernels) -> dict:
+    """(p) baseline's training shape in fp32 and bf16 over the window: per
+    step, then ``fused_epoch: true`` from the same seed; the parameters after
+    3 epochs within vit_tpu's bound (bit-equal printed); in fp32 also
+    ``epoch_gather: block`` against ``step`` and ``epochs_per_dispatch: 3``
+    against 1; each path's steady host ms/step, device ms/step and busy
+    share, peak MiB, capture seconds and launches counted from the replays
+    (3 of K2, K6, K3, K7 a step)."""
+    import copy
+
+    none = {n: 0 for n in kernels}
+    layers = BASELINE_MODEL["num_hidden_layers"]
+    per_step = dict(none, short_fwd=layers, short_bwd=layers, fused_mlp_fwd=layers,
+                    fused_mlp_bwd=layers)
+    rows = {}
+    for tag, cfg in (("p_baseline_graph_fp32", BASELINE_TRAIN),
+                     ("p_baseline_graph_bf16", BASELINE_BF16_TRAIN)):
+        t0 = time.perf_counter()
+        eager = window_fit(cfg, WINDOW_INPUTS, WINDOW_EPOCHS, False)
+        eager_dev = window_device(eager)
+        graph = window_fit(cfg, WINDOW_INPUTS, WINDOW_EPOCHS, True)
+        launches = graph_launches(graph, per_step, kernels)
+        close, equal, diff = params_close(graph["params"], eager["params"])
+        check(close, f"{tag}: graph against per-step parameters apart by {diff}")
+        variants = {}
+        if cfg is BASELINE_TRAIN:
+            for name, train in (("gather_block", {"epoch_gather": "block"}),
+                                ("epochs_per_dispatch_3", {"epochs_per_dispatch": 3})):
+                other = window_fit(copy.deepcopy(cfg), WINDOW_INPUTS, WINDOW_EPOCHS, True,
+                                   **train)
+                v_close, v_equal, v_diff = params_close(other["params"], graph["params"])
+                check(v_close, f"{tag}: {name} against one epoch a dispatch, gather step, "
+                      f"apart by {v_diff}")
+                variants[name] = dict(within_bound=v_close, bit_equal=v_equal,
+                                      max_abs_diff=v_diff, **fit_summary(other))
+        graph_dev = window_device(graph)
+        graph_dev.update(replay_span(graph), **epoch_end(graph))
+        eager_dev.update(epoch_end(eager))
+        row = dict(phase="graph", run=tag, inputs=WINDOW_INPUTS, epochs=WINDOW_EPOCHS,
+                   steps_per_epoch=graph["steps"], rtol=FUSED_RTOL, atol=FUSED_ATOL,
+                   graph_vs_per_step_within_bound=close, graph_vs_per_step_bit_equal=equal,
+                   graph_vs_per_step_max_abs_diff=diff,
+                   per_step=dict(**fit_summary(eager), **eager_dev, launches=eager["counts"]),
+                   graph=dict(**fit_summary(graph), **graph_dev), variants=variants,
+                   seconds=time.perf_counter() - t0, **launches)
+        emit(row)
+        rows[tag] = row
+    return rows
+
+
+def long_graph_run(kernels) -> dict:
+    """(q) stride1 (bf16, remat: mlp, dropout) with ``fused_epoch: true``
+    over 256 spectra (16 steps), 2 epochs, against the per-step path in the
+    same call: the final parameters within the bf16 training limit (relative
+    L2 per tensor, as TRAIN_GRAD_TOL), the figures of (p), and K1, K4, K5
+    launches counted from the replays."""
+    none = {n: 0 for n in kernels}
+    layers = STRIDE1_MODEL["num_hidden_layers"]
+    tol = TRAIN_GRAD_TOL["d_stride1_bf16"]
+    t0 = time.perf_counter()
+    eager = window_fit(STRIDE1_TRAIN, 256, 2, False)
+    eager_dev = window_device(eager)
+    graph = window_fit(STRIDE1_TRAIN, 256, 2, True)
+    launches = graph_launches(graph, dict(none, flash_fwd=layers, flash_bwd_dq=layers,
+                                          flash_bwd_dkv=layers), kernels)
+    a, b = graph["params"], eager["params"]
+    errs = {k: rel_l2(a[k], b[k], 1e-30) for k in a}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= tol, f"q: {worst} apart by relative L2 {errs[worst]} (tol {tol})")
+    graph_dev = window_device(graph)
+    graph_dev.update(replay_span(graph), **epoch_end(graph))
+    eager_dev.update(epoch_end(eager))
+    row = dict(phase="graph", run="q_stride1_graph_bf16", inputs=256, epochs=2,
+               steps_per_epoch=graph["steps"], rel_l2_max=errs[worst], rel_l2_worst=worst,
+               tol=tol, bit_equal=all(torch.equal(a[k], b[k]) for k in a),
+               per_step=dict(**fit_summary(eager), **eager_dev, launches=eager["counts"]),
+               graph=dict(**fit_summary(graph), **graph_dev),
+               seconds=time.perf_counter() - t0, **launches)
+    emit(row)
+    return row
+
+
+
 def option_runs(work: str, none: dict, kernels, only=None) -> dict:
     """Runs (j)-(o): RoPE, the covariance preprocessors with their freeze
     schedule, the optimizers and the nn.Dropout streams; ``only``: the
@@ -1687,13 +2037,103 @@ def option_runs(work: str, none: dict, kernels, only=None) -> dict:
     return runs
 
 
+def sweep_run(work: str, kernels) -> dict:
+    """(r) ``python -m vit_tpu_torch lr --engine sequential`` as its runner
+    drives it, on the card: baseline's training shape (``fused_epoch`` as
+    ``auto`` decides: the graph) over 256 in-memory spectra, lr in {1e-4,
+    1e-3, 1e-2} x {none, plateau(0.8, 0)}, 2 epochs. Six trials, every one
+    ok; ``summary.yaml`` and ``best_config.yaml`` written and read back;
+    best = the smallest metric; trial 3 bit-equal to a standalone
+    Experiment with seed + 3 and its opt; each trial's seconds."""
+    import copy
+
+    import yaml
+
+    from vit_tpu_torch.data.datasets import SpecDataModule
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+    from vit_tpu_torch.ops._build import reset_launches
+    from vit_tpu_torch.opt.parallel_sweep import ParallelSweepRunner, _SequentialSweepEngine
+    from vit_tpu_torch.train.loop import Experiment
+
+    cfg = copy.deepcopy(BASELINE_TRAIN)
+    cfg["train"].update(ep=2)
+    del cfg["train"]["fused_epoch"]  # auto, as a user's base config leaves it
+    base = os.path.join(work, "sweep_base.yaml")
+    with open(base, "w") as f:
+        yaml.safe_dump(cfg, f)
+    data = make_dummy_spectra(n=256, length=cfg["model"]["image_size"], seed=1)
+
+    def datamodule(c):
+        return SpecDataModule(c, source=data)
+
+    runner = ParallelSweepRunner(base, lr_values=[1e-4, 1e-3, 1e-2],
+                                 schedulers=["none", "plateau"], plateau_factors=[0.8],
+                                 plateau_patience=[0], results_dir=os.path.join(work, "sweep"),
+                                 seed=0, engine="sequential", device="cuda",
+                                 datamodule=datamodule, gpu_ids=[0])
+    reset_launches()
+    t0 = time.perf_counter()
+    best = runner.run()
+    sweep_s = time.perf_counter() - t0
+    calls = {n: k.launches for n, k in kernels.items()}
+    with open(runner.summary_path) as f:
+        summary = yaml.safe_load(f)
+    with open(runner.best_config_path) as f:
+        best_cfg = yaml.safe_load(f)
+    results = summary["results"]
+    ok = [r["metric"] for r in results if r["status"] == "ok"]
+    check(len(results) == 6 and len(ok) == 6, f"r: trials {results}")
+    check(summary["best"]["metric"] == min(ok) == best.metric, f"r: best {summary['best']}")
+    check(best_cfg["_meta"]["generator"] == "vit_tpu_torch.opt.parallel_sweep"
+          and best_cfg["opt"]["lr"] == summary["best"]["config"]["lr"],
+          f"r: best_config {best_cfg.get('_meta')} {best_cfg.get('opt')}")
+    c = runner.sweep_configs[3]
+    trial = _SequentialSweepEngine(runner.base_config, [c], runner.metric_name,
+                                   runner.metric_goal, runner.seed).trial_config(c)
+    alone = Experiment(trial, seed=runner.seed + c.idx, device="cuda",
+                       datamodule=datamodule(trial))
+    alone_metric = alone.fit()["val_mae"]
+    check(alone.fused is not None, "r: the standalone trial did not take the fused epoch")
+    check(alone_metric == results[3]["metric"], f"r: trial 3's metric {results[3]['metric']} "
+          f"against its standalone Experiment's {alone_metric}")
+    row = dict(phase="sweep", run="r_lr_sweep", inputs=256, epochs=2, trials=len(results),
+               engine=summary["engine"], summary_keys=list(summary),
+               best=summary["best"], metrics=[r["metric"] for r in results],
+               trial_seconds=[r["duration_sec"] for r in results], sweep_seconds=sweep_s,
+               trial_3_standalone_metric=alone_metric, trial_3_bit_equal=True,
+               python_kernel_calls=calls,
+               python_kernel_calls_note="wrapper calls: warm-up steps, captures and "
+                                        "validation; replays are not counted here")
+    emit(row)
+    return row
+
+
+def graph_and_sweep_runs(work: str, kernels, only=None) -> dict:
+    """Runs (w), (p), (q) and (r): the per-step window, the fused epoch as a
+    CUDA graph at baseline's and stride1's shapes, and the sequential LR
+    sweep; ``only``: the letters to run (all by default). Each run's
+    seconds are printed."""
+    want = set("wpqr") if only is None else set(only)
+    runs = {}
+    for letter, fn in (("w", lambda: {"w_stride1_per_step": window_runs(kernels)}),
+                       ("p", lambda: graph_runs(kernels)),
+                       ("q", lambda: {"q_stride1_graph_bf16": long_graph_run(kernels)}),
+                       ("r", lambda: {"r_lr_sweep": sweep_run(work, kernels)})):
+        if letter in want:
+            t0 = time.perf_counter()
+            runs.update(fn())
+            emit(dict(phase="run_seconds", run=letter, seconds=time.perf_counter() - t0))
+    return runs
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", default=None,
-                        help="letters of runs (j)-(o) to run after the build, e.g. 'jkl', "
-                             "skipping the kernel phases and runs (a)-(i); prints no result")
+                        help="letters of runs (j)-(r) and (w) to run after the build, e.g. "
+                             "'jkl' or 'pqr', skipping the kernel phases and runs (a)-(i); "
+                             "prints no result")
     args = parser.parse_args(argv)
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1726,10 +2166,12 @@ def main(argv=None) -> int:
                                              for n, per in mma.items()}))
     check_tensor_cores(mma)
     kernels = _build.KERNELS
-    if args.only is not None:  # a partial run for iterating on runs (j)-(o)
+    if args.only is not None:  # a partial run for iterating on runs (j)-(r), (w)
         with tempfile.TemporaryDirectory() as work:
             os.environ["CKPT_DIR"] = work
-            option_runs(work, {n: 0 for n in kernels}, kernels, only=args.only)
+            option_runs(work, {n: 0 for n in kernels}, kernels,
+                        only=set(args.only) & set("jklmno"))
+            graph_and_sweep_runs(work, kernels, only=set(args.only) & set("wpqr"))
         print("chip_smoke: partial run (--only): no result line", flush=True)
         return 0
 
@@ -1824,6 +2266,7 @@ def main(argv=None) -> int:
 
         runs.update(viz_runs(ckpt_dir, none, kernels))
         runs.update(option_runs(ckpt_dir, none, kernels))
+        runs.update(graph_and_sweep_runs(ckpt_dir, kernels))
 
     summary = []
     for name, k in kernels.items():
@@ -1831,7 +2274,7 @@ def main(argv=None) -> int:
         summary.append(dict(
             name=name, route="cuda", source=os.path.relpath(k.source, os.path.dirname(
                 os.path.abspath(__file__))), replaces=k.replaces,
-            launches=sum(r["launches"][name] for r in runs.values()),
+            launches=sum(r["launches"][name] for r in runs.values() if "launches" in r),
             max_abs_err=row["max_abs_err"], ms=row["kernel_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))

@@ -481,3 +481,60 @@ def test_bf16_short_backward_dropout_mask_is_hash_dropout_mask(gen, seed):
     assert torch.equal(dv, (mask / t).transpose(1, 2).to(bf))
     assert torch.equal(dk == 0, mask.transpose(1, 2) == 0)
     assert torch.equal(dk, ((mask / t).transpose(1, 2) * qs).to(bf))
+
+
+@pytest.mark.parametrize("seed", [0, -1, 2**31 - 1])
+def test_device_seed_gives_the_int_seeds_masks(gen, seed):
+    """K1, K2, K4, K5 and K6 read their seed from device memory: a 0-d
+    int32 seed on the card gives bit for bit the int seed's outputs, and the
+    masks of hash_dropout_mask (Q = 0, V = I: O = M/(keep*T) in fp32)."""
+    from vit_tpu_torch.ops.dropout import hash_dropout_mask
+
+    t = d = 128
+    bh, scale = 8, d**-0.5
+    dev = torch.tensor(seed, dtype=torch.int32, device="cuda")
+    q = torch.zeros(bh, t, d, device="cuda")
+    v = torch.eye(t, device="cuda").expand(bh, t, d).contiguous()
+    mask = hash_dropout_mask(t, t, torch.arange(bh), seed, 0.5).cuda()
+    for fwd in (fa.short_fwd, fa.flash_fwd):
+        o = fwd(q, q, v, scale, 0.5, dev)[0]
+        assert torch.equal(o, fwd(q, q, v, scale, 0.5, seed)[0])
+        assert torch.equal(o == 0, mask == 0)
+    x = [torch.randn(bh, t, d, generator=gen, device="cuda", dtype=torch.bfloat16)
+         for _ in range(4)]
+    lse = torch.randn(bh, t, generator=gen, device="cuda").abs() + 3.0
+    delta = torch.randn(bh, t, generator=gen, device="cuda")
+    for bwd in (fa.short_bwd, fa.flash_bwd):
+        a = bwd(*x, lse, delta, scale, 0.5, dev)
+        b = bwd(*x, lse, delta, scale, 0.5, seed)
+        assert all(torch.equal(u, w) for u, w in zip(a, b))
+
+
+def test_captured_step_replays_equal_to_eager(gen, tmp_path, monkeypatch):
+    """A tiny model (the short kernels and the fused MLP, dropout and noise
+    on) trained two epochs through the CUDA graph of its step and through
+    the per-step path from one seed: the same parameters within vit_tpu's
+    fused-epoch bound (rel 1e-6, abs 1e-7), the graph replayed."""
+    from vit_tpu_torch.data.datasets import SpecDataModule
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+    from vit_tpu_torch.train.loop import Experiment
+
+    monkeypatch.setenv("CKPT_DIR", str(tmp_path))
+    cfg = {"model": dict(name="vit", task_type="reg", image_size=256, patch_size=16,
+                         hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
+                         stride_size=16, attn_impl="flash", fused_mlp=True, remat="mlp"),
+           "train": {"batch_size": 8, "ep": 2, "save": False},
+           "loss": {"name": "mae"}, "opt": {"type": "AdamW", "lr": 1e-3, "lr_sch": "none"},
+           "data": {"file_path": "in-memory", "val_path": "in-memory", "param": "log_g",
+                    "num_samples": 64, "label_norm": "minmax"},
+           "noise": {"noise_level": 0.5}, "viz": {"enable": False}}
+    data = make_dummy_spectra(n=64, length=256, seed=1)
+    params = []
+    for fused in (False, True):
+        c = dict(cfg, train=dict(cfg["train"], fused_epoch=fused))
+        exp = Experiment(c, device="cuda", seed=0, datamodule=SpecDataModule(c, source=data))
+        exp.fit()
+        params.append({k: v.detach().cpu() for k, v in exp.module.state_dict().items()})
+    assert exp.fused is not None and exp.fused.replays == 2 * 8 - 1
+    for k in params[0]:
+        assert torch.allclose(params[1][k], params[0][k], rtol=1e-6, atol=1e-7), k

@@ -102,9 +102,10 @@ def test_moment_dtype_bf16_halves_mu_storage():
         sizes[key] = (st["exp_avg"].nbytes, st["exp_avg_sq"].nbytes, popt.state_bytes(opt))
     assert sizes["bf16"][0] * 2 == sizes["fp32"][0] == 64 * 64 * 4
     assert sizes["bf16"][1] == sizes["fp32"][1]
-    # the whole state: bf16 first moment and fp32 second; torch's AdamW
-    # adds a 4-byte step counter per parameter
-    assert sizes["bf16"][2] == 64 * 64 * (2 + 4) and sizes["fp32"][2] == 64 * 64 * 8 + 4
+    # the whole state: bf16 first moment and fp32 second; each adds a 4-byte
+    # step counter per parameter (torch's AdamW, and optax's count kept on
+    # the device by OptaxOptimizer)
+    assert sizes["bf16"][2] == 64 * 64 * (2 + 4) + 4 and sizes["fp32"][2] == 64 * 64 * 8 + 4
 
 
 def test_moment_dtype_bf16_training_step_stays_finite():

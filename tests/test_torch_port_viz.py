@@ -290,12 +290,12 @@ def test_cka_monitor_flags_frozen_layers():
     assert cka.on_validation_epoch(2, _fake_diag(seed=99))["cka/mean"] < 0.5
 
 
-def _viz_experiment(tiny_config, tmp_path, monkeypatch, task="reg", ep=2, **viz):
+def _viz_experiment(tiny_config, tmp_path, monkeypatch, task="reg", ep=2, train=None, **viz):
     monkeypatch.setenv("CKPT_DIR", str(tmp_path / "ckpt"))
     cfg = copy.deepcopy(tiny_config)
     if task == "cls":
         cfg["model"].update(task_type="cls", num_labels=2)
-    cfg["train"].update(ep=ep, batch_size=16)
+    cfg["train"].update(ep=ep, batch_size=16, **(train or {}))
     cfg["viz"] = dict({"enable": True, "save_local": True, "save_dir": str(tmp_path / "viz"),
                        "embedding_method": "pca", "gif_duration": 100}, **viz)
     return Experiment(cfg, seed=0, device="cpu")
@@ -307,7 +307,8 @@ def test_experiment_viz_integration(tiny_config, tmp_path, monkeypatch, capsys, 
     ``log_every_n_steps`` steps on the per-step path; and on a cls run,
     where logits (n, C) meet integer labels."""
     kw = {"epochs": dict(log_every_n_epochs=1, num_viz_samples=16),
-          "steps": dict(ep=1, log_every_n_steps=3, num_viz_samples=8, compute_cka=False),
+          "steps": dict(ep=1, log_every_n_steps=3, num_viz_samples=8, compute_cka=False,
+                        train={"fused_epoch": False}),
           "cls": dict(ep=1, task="cls", num_viz_samples=16)}[case]
     exp = _viz_experiment(tiny_config, tmp_path, monkeypatch, **kw)
     calls = []

@@ -11,7 +11,8 @@ Entry points run on the card unless the caller passes ``device="cpu"``:
 
 * :class:`vit_tpu_torch.serve.Predictor` (``from_checkpoint(..., device=)``)
 * :class:`vit_tpu_torch.train.loop.Experiment` (``device=``): ``fit``, ``test``, ``run``
-* ``python -m vit_tpu_torch run|test|predict ... [--device cuda|cpu]``
+* ``python -m vit_tpu_torch run|test|predict|lr|sweep ... [--device cuda|cpu]``
+  (``lr``: :class:`vit_tpu_torch.opt.parallel_sweep.ParallelSweepRunner`)
 * :func:`vit_tpu_torch.prepca.stats.compute_covariance_stats` (``device=``):
   the statistics a ``warmup.preprocessor`` reads from ``warmup.cov_path``
 """

@@ -1,4 +1,4 @@
-"""Command line of the port: ``python -m vit_tpu_torch run|test|predict ...``.
+"""Command line of the port: ``python -m vit_tpu_torch run|test|predict|lr|sweep ...``.
 
 * ``run`` trains a config and then tests its best checkpoint (mirrors
   ``scripts/run.py``); ``--ckpt best|last|PATH`` resumes a run.
@@ -7,6 +7,13 @@
   (``scripts/predict.py``): denormalised parameters (regression) or classes
   (classification) for spectra from an HDF5 or ``.npz`` file, written to a
   ``.npz``.
+* ``lr`` is the LR/scheduler grid search (``vit_tpu``'s
+  ``opt/parallel_sweep.py``, ``launch.sh lr``) with its flags: ``--engine
+  sequential`` trains the trials one after another and writes
+  ``summary.yaml`` and ``best_config.yaml``; ``vmap`` is not ported yet and
+  raises.
+* ``sweep`` is the W&B sweep agent (``scripts/sweep.py``, ``launch.sh
+  sweep``); it exits 2 without wandb.
 
 All run on the card unless ``--device cpu`` is given, and raise without
 one. Examples:
@@ -14,6 +21,9 @@ one. Examples:
   python -m vit_tpu_torch test -c configs/exp/att_clp/stride1.yaml --ckpt best
   python -m vit_tpu_torch predict -f configs/exp/att_clp/stride1.yaml \\
       --ckpt model.pt --input $TEST_DIR/dataset.h5 --output preds.npz
+  python -m vit_tpu_torch lr configs/exp/att_clp/baseline.yaml --engine sequential \\
+      --lr 1e-4 1e-3 --schedulers none plateau
+  python -m vit_tpu_torch sweep --sweep_id ID --vit_config configs/exp/att_clp/baseline.yaml
 """
 
 from __future__ import annotations
@@ -137,8 +147,18 @@ def main(argv=None) -> int:
     pp.add_argument("--perf-preset", action="store_true",
                     help="bf16 + tanh GELU + bf16 softmax")
     pp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = p.parse_args(argv)
-    return {"run": _run, "test": _test, "predict": _predict}[args.command](args)
+    from vit_tpu_torch.opt import agent, parallel_sweep
+
+    parallel_sweep.add_arguments(sub.add_parser(
+        "lr", help="LR/scheduler grid search (summary.yaml, best_config.yaml)"))
+    agent.add_arguments(sub.add_parser("sweep", help="W&B sweep agent"))
+    # A W&B agent passes the trial's parameters as flags too; they reach the
+    # trial through wandb.config, so the sweep command ignores them.
+    args, unknown = p.parse_known_args(argv)
+    if unknown and args.command != "sweep":
+        p.error(f"unrecognized arguments: {' '.join(unknown)}")
+    return {"run": _run, "test": _test, "predict": _predict, "lr": parallel_sweep.main,
+            "sweep": agent.main}[args.command](args)
 
 
 if __name__ == "__main__":

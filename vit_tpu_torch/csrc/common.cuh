@@ -42,11 +42,14 @@ __device__ __forceinline__ float sum16(float x) {
 
 // Attention dropout, vit_tpu/ops/flash_attention.py::_hash_bits (:115): a
 // murmur3-finalised hash of the GLOBAL (seed, bh, row, col), so every
-// kernel and every tiling draws the same mask. The host computes the keep
-// threshold and 1/keep (vit_tpu_torch/ops/dropout.py::keep_params) and
-// passes them in; an element is kept when its bits are below the threshold.
+// kernel and every tiling draws the same mask. The seed lies in device
+// memory (the Pallas kernels' SMEM seed operand): each CTA reads it once,
+// so a captured launch draws whatever seed its buffer holds at replay. The
+// host computes the keep threshold and 1/keep (vit_tpu_torch/ops/dropout.py::
+// keep_params), which depend on the rate only, and passes them in; an element
+// is kept when its bits are below the threshold.
 struct Dropout {
-  unsigned seed;       // the int32 seed as uint32
+  const int* seed;     // device pointer to the int32 seed; unread when off
   unsigned threshold;  // keep iff bits < threshold
   float inv_keep;      // 1 / (1 - rate)
   int on;              // rate > 0
@@ -63,7 +66,8 @@ __device__ __forceinline__ unsigned fmix32(unsigned x) {
 
 // seed*H_SEED + bh*H_BH, the part of the hash that is fixed for one head.
 __device__ __forceinline__ unsigned head_term(const Dropout& dr, int bh) {
-  return dr.seed * 0x27D4EB2Fu + static_cast<unsigned>(bh) * 0xC2B2AE35u;
+  const unsigned seed = dr.on ? static_cast<unsigned>(__ldg(dr.seed)) : 0u;
+  return seed * 0x27D4EB2Fu + static_cast<unsigned>(bh) * 0xC2B2AE35u;
 }
 
 // The keep factor (0 or 1/keep) of element (row, col) of one head.

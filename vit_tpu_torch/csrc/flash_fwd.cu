@@ -191,14 +191,17 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, void*
 
 // q, k, v, o: (bh, t, d) contiguous in float32 (is_bf16 = 0) or bfloat16;
 // lse: (bh, t) float32. `scale` is d^-1/2 already rounded to the input dtype.
-// Dropout: `dropout` = rate > 0, `seed` the int32 seed as uint32,
-// `threshold` and `inv_keep` from the host (keep iff hash < threshold).
+// Dropout: `dropout` = rate > 0, `seed` a device pointer to the int32 seed
+// (read by the kernel, as the Pallas kernel reads its seed operand from
+// SMEM, so a captured CUDA graph replays with the seed its buffer holds;
+// unread when `dropout` is 0), `threshold` and `inv_keep` from the host
+// (keep iff hash < threshold).
 // Returns cudaGetLastError() after the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int bh, int t, int d, float scale, int is_bf16, int dropout,
-                         unsigned seed, unsigned threshold, float inv_keep, void* stream) {
+                         const void* seed, unsigned threshold, float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout dr{seed, threshold, inv_keep, dropout};
+  const Dropout dr{static_cast<const int*>(seed), threshold, inv_keep, dropout};
   return is_bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, lse, bh, t, d, scale, dr, s)
                  : launch_d<float>(q, k, v, o, lse, bh, t, d, scale, dr, s);
 }

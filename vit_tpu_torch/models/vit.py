@@ -26,7 +26,9 @@ draws its mask from its own int32 seed: :meth:`SpecViT.forward` takes
 ``dropout_seeds``, :attr:`SpecViT.num_dropout_sites` of them per step, so
 a recomputed forward draws the same masks. ``remat: mlp`` checkpoints the
 MLP sublayer and ``remat: true`` the whole layer
-(``torch.utils.checkpoint``, non-reentrant). ``fast_dropout: false`` takes
+(``torch.utils.checkpoint``, non-reentrant; no RNG state is stashed: no
+site draws from a global generator, and a CUDA graph cannot set one while
+it is being captured). ``fast_dropout: false`` takes
 ``nn.Dropout`` masks at the same sites (:func:`stream_dropout`, a generator
 seeded from each site's seed, so a recompute redraws them); attention's
 flash route keeps its hash mask either way. RoPE (``pos_encoding_type:
@@ -144,7 +146,8 @@ class ViTLayer(nn.Module):
         if self.cfg.remat == "mlp" and torch.is_grad_enabled() and capture is None:
             # vit.py:233-236: the attention residuals stay saved; the MLP
             # sublayer (and its kernel) runs again in the backward.
-            return checkpoint(self._mlp, x, mlp_seed, use_reentrant=False)
+            return checkpoint(self._mlp, x, mlp_seed, use_reentrant=False,
+                              preserve_rng_state=False)
         return self._mlp(x, mlp_seed, capture)
 
     def _mlp(self, x: torch.Tensor, seed: Optional[int],
@@ -182,7 +185,8 @@ class ViTEncoder(nn.Module):
                 x = layer(x, s, capture.setdefault(f"layer_{i}", {}))
                 capture[f"cls_hidden_{i}"] = x[:, 0, :]
             elif self.remat_layers and torch.is_grad_enabled():
-                x = checkpoint(layer, x, s, use_reentrant=False)  # vit.py:307
+                x = checkpoint(layer, x, s, use_reentrant=False,
+                              preserve_rng_state=False)  # vit.py:307
             else:
                 x = layer(x, s)
         return x
@@ -245,7 +249,8 @@ class SpecViT(nn.Module):
                 capture: Optional[dict] = None) -> torch.Tensor:
         """(B, L) spectra -> (B, num_labels) fp32 logits. In training mode with
         any dropout rate above 0, ``dropout_seeds`` holds one int32 per site
-        (:attr:`num_dropout_sites`). ``capture``: a dict that receives the
+        (:attr:`num_dropout_sites`): a list of ints, or a (sites,) integer
+        tensor on the device. ``capture``: a dict that receives the
         diagnostics tree (module doc)."""
         cls_token = self.features(x, dropout_seeds, capture)[:, 0, :]
         if capture is not None:
@@ -263,7 +268,10 @@ class SpecViT(nn.Module):
                 raise ValueError(
                     f"training-mode dropout needs {self.num_dropout_sites} dropout_seeds"
                 )
-            seeds = [int(s) for s in dropout_seeds]
+            # Ints stay ints; a (sites,) int tensor on the device is split
+            # into 0-d views, never read back to the host.
+            seeds = (list(dropout_seeds.unbind(0)) if isinstance(dropout_seeds, torch.Tensor)
+                     else [int(s) for s in dropout_seeds])
         if self.preprocessor is not None:
             x = self.preprocessor(x)
         tokens = self.vit.embeddings(x)

@@ -127,8 +127,9 @@ class Kernel:
 
 
 # The dropout tail of the attention kernels: (dropout, seed, threshold,
-# inv_keep, stream).
-_DROP = (_I, _U, _U, _F, _P)
+# inv_keep, stream); the seed is a device pointer to one int32, which the
+# kernels read, so a captured launch takes the seed its buffer holds.
+_DROP = (_I, _P, _U, _F, _P)
 # (q, k, v, o, lse, bh, t, d, scale, is_bf16, *dropout tail)
 _ATTN_FWD = (_P,) * 5 + (_I, _I, _I, _F, _I) + _DROP
 # (q, k, v, dout, lse, delta, *outputs, bh, t, d, scale, is_bf16, *dropout tail)

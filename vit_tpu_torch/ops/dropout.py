@@ -14,9 +14,12 @@ torch has no full uint32 arithmetic, so the hash runs in int64 masked to
 bits, the only ones kept, are those of the uint32 product. A negative int32
 seed becomes ``seed & 0xFFFFFFFF``, as ``convert_element_type`` makes it.
 
-The keep threshold and ``1/keep`` are computed here on the host, once,
-exactly as ``_keep_threshold`` does; the CUDA kernels receive them as
-arguments (:func:`keep_params`).
+A seed is a Python int or a 0-d integer tensor (a device scalar, as the
+fused epoch hands them over): the tensor form runs the same arithmetic in
+tensor operations, never reading the seed back to the host, and gives the
+same bits. The keep threshold and ``1/keep`` depend on the rate only; they
+are computed here on the host, once, exactly as ``_keep_threshold`` does,
+and the CUDA kernels receive them as arguments (:func:`keep_params`).
 
 :func:`stream_dropout` is the other kind, ``nn.Dropout``'s (``model.
 fast_dropout: false``): a Bernoulli keep mask drawn from a
@@ -40,6 +43,7 @@ __all__ = [
     "keep_params",
     "attention_keep_mask",
     "seed_u32",
+    "device_seed",
     "stream_dropout",
     "site_dropout",
 ]
@@ -59,9 +63,25 @@ _AXIS_MULTS = (0x9E3779B1, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F, 0x165667B1, 0xD3A
 _SEED_MULT = 0x7FEB352D
 
 
-def seed_u32(seed) -> int:
-    """An int32 seed (Python int or 0-d tensor) as the uint32 it becomes."""
+def seed_u32(seed):
+    """An int32 seed as the uint32 it becomes: a Python int for an int, an
+    int64 tensor (no host read) for a tensor."""
+    if isinstance(seed, torch.Tensor):
+        return seed.long() & _U32
     return int(seed) & _U32
+
+
+def device_seed(seed, device) -> torch.Tensor:
+    """A seed as the 0-d int32 device scalar the attention kernels read: a
+    tensor is cast on its own device (no host read); an int becomes a filled
+    scalar on ``device`` (a fill, not a host-to-device copy)."""
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1 or seed.dtype.is_floating_point or seed.dtype == torch.bool:
+            raise ValueError(f"a seed tensor holds one integer: {seed.shape} {seed.dtype}")
+        return seed.reshape(()).to(torch.int32)
+    value = int(seed) & _U32
+    return torch.full((), value - (1 << 32) if value >= 1 << 31 else value,
+                      dtype=torch.int32, device=device)
 
 
 def keep_params(rate: float) -> Tuple[int, float]:
@@ -116,8 +136,12 @@ def _coord_hash(shape: Sequence[int], seed, offsets: Optional[Sequence] = None,
     ``seed``; ``offsets`` shifts each axis's coordinates (int32 each)."""
     if len(shape) > len(_AXIS_MULTS):
         raise ValueError(f"hash_dropout supports up to {len(_AXIS_MULTS)} dims")
-    x = torch.full(tuple(shape), (seed_u32(seed) * _SEED_MULT) & _U32, dtype=torch.int64,
-                   device=device)
+    # A 0-d start that each axis's coordinates broadcast against: the first
+    # axes' steps run on small tensors and only the last axis's at full size
+    # (the same bits as a full-size start).
+    x = (seed_u32(seed) * _SEED_MULT) & _U32
+    if not isinstance(x, torch.Tensor):
+        x = torch.full((), x, dtype=torch.int64, device=device)
     for axis, mult in zip(range(len(shape)), _AXIS_MULTS):
         view = [1] * len(shape)
         view[axis] = shape[axis]
@@ -141,7 +165,8 @@ def hash_keep_mask(shape: Sequence[int], rate: float, seed,
 
 
 def hash_dropout(x: torch.Tensor, rate: float, seed) -> torch.Tensor:
-    """Inverted dropout with the counter-based mask; ``seed``: an int32."""
+    """Inverted dropout with the counter-based mask; ``seed``: an int32 (int
+    or 0-d tensor)."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
@@ -158,7 +183,9 @@ def stream_dropout(x: torch.Tensor, rate: float, seed) -> torch.Tensor:
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    g = torch.Generator(device=x.device).manual_seed(seed_u32(seed))
+    # The generator is seeded on the host, so a tensor seed is read back here
+    # (the streams stay off the fused epoch's CUDA graph for that reason).
+    g = torch.Generator(device=x.device).manual_seed(int(seed_u32(seed)))
     keep = torch.rand(x.shape, generator=g, device=x.device) < keep_prob
     # flax divides by keep_prob in x's dtype (0.8984375 for 0.9 in bf16)
     scale = float(torch.tensor(keep_prob, dtype=x.dtype))

@@ -30,6 +30,13 @@ the lse.
 Each wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel for a tensor on the card; nothing else switches. The
 plain versions walk the key tiles their kernels walk.
+
+The dropout seed is a Python int or a 0-d integer tensor on the card. The
+kernels read it from device memory (the Pallas kernels read ``seed_ref``
+from SMEM), so no wrapper reads a seed back to the host and a captured CUDA
+graph replays with whatever seed its buffer holds: an int becomes a device
+scalar once, at the wrapper (:func:`~vit_tpu_torch.ops.dropout.device_seed`),
+and :class:`_Attention` saves that scalar for the backward pass.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from typing import Optional, Tuple
 import torch
 
 from vit_tpu_torch.ops._build import KERNELS
-from vit_tpu_torch.ops.dropout import attention_keep_mask, keep_params, seed_u32
+from vit_tpu_torch.ops.dropout import attention_keep_mask, device_seed, keep_params
 
 __all__ = [
     "flash_attention",
@@ -80,7 +87,7 @@ def _keep(bh: int, rows: Tuple[int, int], cols: Tuple[int, int], seed, rate: flo
 
 
 def short_fwd_plain(q, k, v, scale: float, rate: float = 0.0,
-                    seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                    seed=0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two-pass softmax attention over the whole row: (o (BH,T,d), lse (BH,T))."""
     bh, t, _ = q.shape
     s = torch.matmul(_scaled_q(q, scale).float(), k.float().transpose(1, 2))
@@ -94,7 +101,7 @@ def short_fwd_plain(q, k, v, scale: float, rate: float = 0.0,
 
 
 def flash_fwd_plain(q, k, v, scale: float, rate: float = 0.0,
-                    seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                    seed=0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Online softmax over key tiles of ``FLASH_BLOCK_K``, as the kernel walks
     them: (o (BH,T,d), lse (BH,T))."""
     bh, t, d = q.shape
@@ -130,7 +137,7 @@ def _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, j0, j1):
 
 
 def flash_bwd_plain(q, k, v, do, lse, delta, scale: float, rate: float = 0.0,
-                    seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                    seed=0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4 and K5: (dq, dk, dv) over key tiles of ``BWD_BLOCK_K``. dK is
     scale * ds^T q with q as it is (``_flash_bwd_dkv_kernel``)."""
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
@@ -145,7 +152,7 @@ def flash_bwd_plain(q, k, v, do, lse, delta, scale: float, rate: float = 0.0,
 
 
 def short_bwd_plain(q, k, v, do, lse, delta, scale: float, rate: float = 0.0,
-                    seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                    seed=0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K6 over the whole row: (dq, dk, dv), with dK = ds^T (q*scale rounded)
     and no final scale (``_short_bwd_kernel``)."""
     t = q.shape[1]
@@ -179,12 +186,23 @@ def _check_bwd(q, do, lse, delta) -> None:
         raise ValueError("dout, lse and delta must be contiguous")
 
 
-def _dropout_args(rate: float, seed) -> tuple:
-    """(on, seed as uint32, threshold, 1/keep) for the kernels."""
+def _dropout_args(rate: float, seed: Optional[torch.Tensor]) -> tuple:
+    """(on, seed pointer, threshold, 1/keep) for the kernels; ``seed`` the
+    device scalar of :func:`_kernel_seed` (None without dropout)."""
     if rate <= 0.0:
-        return 0, 0, 0, 1.0
+        return 0, None, 0, 1.0
     threshold, inv_keep = keep_params(rate)
-    return 1, seed_u32(seed), threshold, inv_keep
+    return 1, seed.data_ptr(), threshold, inv_keep
+
+
+def _kernel_seed(seed, rate: float, device) -> Optional[torch.Tensor]:
+    """The int32 device scalar the kernels read (None without dropout)."""
+    if rate <= 0.0:
+        return None
+    seed = device_seed(seed, device)
+    if seed.device != torch.device(device):
+        raise ValueError(f"the dropout seed lies on {seed.device}, the inputs on {device}")
+    return seed
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -206,6 +224,7 @@ def _launch_fwd(name: str, q, k, v, scale: float, rate: float, seed):
     q, k, v = (_aligned(x) for x in (q, k, v))
     # The kernels fold scale into q in q's dtype: pass it already rounded there.
     scale_t = float(torch.tensor(scale, dtype=q.dtype))
+    seed = _kernel_seed(seed, rate, q.device)
     KERNELS[name].launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         bh, t, d, scale_t, int(q.dtype == torch.bfloat16), *_dropout_args(rate, seed),
@@ -219,6 +238,7 @@ def _launch_bwd(name: str, outs, q, k, v, do, lse, delta, scale: float, rate: fl
     bh, t, d = q.shape
     if q.numel() == 0:
         return
+    seed = _kernel_seed(seed, rate, q.device)
     KERNELS[name].launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), *(o.data_ptr() for o in outs), bh, t, d, float(scale),
@@ -235,7 +255,7 @@ def _on_cpu(q) -> bool:
 
 
 def flash_fwd(q, k, v, scale: float, rate: float = 0.0,
-              seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+              seed=0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming forward (K1): (BH, T, d) x3 -> (o, lse (BH, T) fp32)."""
     _check_qkv(q, k, v)
     if _on_cpu(q):
@@ -244,7 +264,7 @@ def flash_fwd(q, k, v, scale: float, rate: float = 0.0,
 
 
 def short_fwd(q, k, v, scale: float, rate: float = 0.0,
-              seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+              seed=0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Short-sequence forward (K2), for T up to 512: same in and out as
     :func:`flash_fwd`."""
     if q.dim() == 3 and q.shape[1] > SHORT_T_MAX:
@@ -255,7 +275,7 @@ def short_fwd(q, k, v, scale: float, rate: float = 0.0,
     return _launch_fwd("short_fwd", q, k, v, scale, rate, seed)
 
 
-def flash_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed: int = 0):
+def flash_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed=0):
     """Streaming backward: K4 (dq) then K5 (dk, dv). ``do`` like q; ``lse``
     from the forward and ``delta = rowsum(do*o)``, both (BH, T) fp32."""
     _check_qkv(q, k, v)
@@ -269,7 +289,7 @@ def flash_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed: in
     return dq, dk, dv
 
 
-def short_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed: int = 0):
+def short_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed=0):
     """Short-sequence backward (K6), T up to 512: as :func:`flash_bwd`."""
     if q.dim() == 3 and q.shape[1] > SHORT_T_MAX:
         raise ValueError(f"short_bwd takes T <= {SHORT_T_MAX}, got {q.shape[1]}")
@@ -285,19 +305,21 @@ def short_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed: in
 
 class _Attention(torch.autograd.Function):
     """The kernels' forward and backward as one differentiable op on
-    (BH, T, d) tensors; saves q, k, v, o and lse (``_core_fwd``)."""
+    (BH, T, d) tensors; saves q, k, v, o, lse (``_core_fwd``) and the
+    seed's device scalar."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float, rate: float, seed: int, short: bool):
+    def forward(ctx, q, k, v, scale: float, rate: float, seed: Optional[torch.Tensor],
+                short: bool):
         o, lse = (short_fwd if short else flash_fwd)(q, k, v, scale, rate=rate, seed=seed)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.cfg = (scale, rate, seed, short)
+        ctx.save_for_backward(q, k, v, o, lse, seed)
+        ctx.cfg = (scale, rate, short)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        scale, rate, seed, short = ctx.cfg
+        q, k, v, o, lse, seed = ctx.saved_tensors
+        scale, rate, short = ctx.cfg
         do = do.contiguous()
         delta = (do.float() * o.float()).sum(dim=-1)  # XLA's D, outside the kernels
         bwd = short_bwd if short else flash_bwd
@@ -306,18 +328,19 @@ class _Attention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, dropout_rate: float = 0.0,
-                    dropout_seed: Optional[int] = None) -> torch.Tensor:
+                    dropout_seed=None) -> torch.Tensor:
     """Exact attention with scale ``d**-0.5``: (B, H, T, d) -> (B, H, T, d),
     differentiable through the backward kernels.
 
     ``dropout_rate > 0`` drops softmax probabilities in the kernels with the
-    counter-based mask of ``dropout_seed`` (an int32; required then): the
-    same (seed, rate) always draws the same mask, as in ``vit_tpu``.
+    counter-based mask of ``dropout_seed`` (an int32, as an int or a 0-d
+    tensor on q's device; required then): the same (seed, rate) always draws
+    the same mask, as in ``vit_tpu``.
     """
     rate = float(dropout_rate)
     if rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
-    seed = 0 if dropout_seed is None else int(dropout_seed)
+    seed = device_seed(dropout_seed, q.device) if rate > 0.0 else None
     b, h, t, d = q.shape
     args = [x.reshape(b * h, t, d).contiguous() for x in (q, k, v)]
     short = _round_up(t, 128) <= SHORT_T_MAX

@@ -5,9 +5,10 @@ One training step (``_make_grads_fn`` :168 and ``_make_step_body`` :242):
 
 * draw the step's dropout seeds on the host, one int32 per dropout call
   site (and per micro-batch), from the Experiment's CPU
-  ``torch.Generator`` seeded from ``seed``; they reach the kernels as
-  arguments, so the CPU and the card draw the same masks for the same step
-  and a resumed run draws what the uninterrupted one would;
+  ``torch.Generator`` seeded from ``seed``; the kernels read them from
+  device memory, so the CPU and the card draw the same masks for the same
+  step and a resumed run draws what the uninterrupted one would (the fused
+  epoch draws a whole epoch's at once, in the same order);
 * optional noise injection ``x + randn * error * noise_level``, the normal
   draws from a second CPU generator;
 * loss and gradients, over ``train.accumulate_steps`` micro-batches whose
@@ -56,11 +57,24 @@ length (``SpecViT.input_length``), which the builder's adjusted
 ``model.image_size`` no longer gives; the loaded split's length is checked
 against it. Each epoch's metrics add ``preprocessor_frozen`` (1.0 or 0.0).
 
-Runs on the card unless ``device="cpu"`` is given. ``fused_epoch``,
-``epochs_per_dispatch`` and ``epoch_gather`` are TPU dispatch strategies
-that equal this per-step path by ``vit_tpu``'s own invariant (:242-246),
-so they are ignored with a note. Multi-device training, model/sequence/
-pipeline parallelism, optimizer-state sharding and MoE raise.
+``train.fused_epoch`` (``true``, ``false`` or ``auto``, the default, as in
+``vit_tpu``: fused when the epoch's needed columns are under 4 GB and
+``debug`` is off) runs each epoch through :class:`~vit_tpu_torch.train.fused.
+FusedEpochs`: the data on the device, the step captured as a CUDA graph and
+replayed, the same step and the same random numbers as the per-step path
+(bit for bit on the CPU), with ``train.epoch_gather`` and
+``train.epochs_per_dispatch`` as ``vit_tpu`` defines them (:1262-1360,
+:1456-1460): blocks of epochs with one read-back, checkpoints, plateau and
+early stopping at block boundaries, ``log_every_n_steps`` rounded to epochs.
+On the card, ``model.fast_dropout: false`` keeps the per-step path, with a
+note: its ``nn.Dropout`` generators are seeded on the host.
+
+The optimizer on the card is graph-safe (``build_optimizer(...,
+capturable=True)``: the learning rate in a device scalar, the step counts
+on the device) on both paths.
+
+Runs on the card unless ``device="cpu"`` is given. Multi-device training,
+model/sequence/pipeline parallelism, optimizer-state sharding and MoE raise.
 """
 
 from __future__ import annotations
@@ -78,6 +92,13 @@ from vit_tpu_torch.models.builder import get_model, step_matmul_flops
 from vit_tpu_torch.models.vit import compute_loss
 from vit_tpu_torch.serve import resolve_device
 from vit_tpu_torch.train.checkpoint import CheckpointManager, default_ckpt_dir
+from vit_tpu_torch.train.fused import (
+    FUSED_DATA_BYTES,
+    FUSED_VAL_BYTES,
+    SEED_HIGH,
+    FusedEpochs,
+    fused_epoch_setting,
+)
 from vit_tpu_torch.train.logging import MetricLogger
 from vit_tpu_torch.train.metrics import (
     classification_metrics,
@@ -91,6 +112,7 @@ from vit_tpu_torch.train.optim import (
     PlateauScheduler,
     build_optimizer,
     clip_by_global_norm,
+    load_optimizer_state,
     schedule_scale,
     set_learning_rate,
 )
@@ -101,22 +123,22 @@ from vit_tpu_torch.viz.diagnostics import capture_batch_cap, capture_diagnostics
 
 __all__ = ["Experiment", "loss_and_grads", "draw_seeds"]
 
-SEED_HIGH = 2**31 - 1  # seeds are drawn in [0, int32 max), as vit_tpu's randint
-
-_IGNORED = ("fused_epoch", "epochs_per_dispatch", "epoch_gather")
-
-
 def draw_seeds(gen: torch.Generator, micro_batches: int, sites: int) -> List[List[int]]:
     """One int32 dropout seed per (micro-batch, call site), on the host."""
     return torch.randint(0, SEED_HIGH, (micro_batches, sites), generator=gen).tolist()
 
 
 def loss_and_grads(module: torch.nn.Module, batch: Dict[str, torch.Tensor], task: str,
-                   loss_name: str, seeds: List[List[int]], noise_level: float = 0.0,
-                   noise_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                   loss_name: str, seeds, noise_level: float = 0.0,
+                   noise=None) -> torch.Tensor:
     """The step's loss (a 0-d tensor on the batch's device), with the
     gradients of the mean over ``len(seeds)`` equal micro-batches left in
-    the parameters' ``.grad`` (zeroed first). ``_make_grads_fn``."""
+    the parameters' ``.grad`` (zeroed first). ``_make_grads_fn``.
+
+    ``seeds``: one row of site seeds per micro-batch (lists of ints, or an
+    (accumulate_steps, sites) int tensor on the device). ``noise``: a CPU
+    ``torch.Generator`` that draws each micro-batch's normals, or those
+    normals already drawn, (accumulate_steps, rows, length) on the device."""
     for p in module.parameters():
         p.grad = None
     x, y = batch["x"], batch["label"]
@@ -128,8 +150,9 @@ def loss_and_grads(module: torch.nn.Module, batch: Dict[str, torch.Tensor], task
     for a in range(accum):
         xa = x[a * mb:(a + 1) * mb]
         if noise_level > 0 and "error" in batch:
-            noise = torch.randn(xa.shape, generator=noise_gen).to(xa.device)
-            xa = xa + noise * batch["error"][a * mb:(a + 1) * mb] * noise_level
+            z = (noise[a] if isinstance(noise, torch.Tensor)
+                 else torch.randn(xa.shape, generator=noise).to(xa.device))
+            xa = xa + z * batch["error"][a * mb:(a + 1) * mb] * noise_level
         loss = compute_loss(module(xa, dropout_seeds=seeds[a]), y[a * mb:(a + 1) * mb],
                             task, loss_name)
         loss.backward()
@@ -200,10 +223,6 @@ class Experiment:
         self.seed = seed
         seed_everything(seed)
         train_cfg = config.get("train", {}) or {}
-        ignored = [k for k in _IGNORED if k in train_cfg]
-        if ignored:
-            print(f"[experiment] train.{', train.'.join(ignored)} ignored: a TPU dispatch "
-                  "strategy; the port runs the per-step path it equals")
         self.bundle = get_model(config, generator=torch.Generator().manual_seed(seed))
         self.module = self.bundle.module.to(self.device)
         self.datamodule = datamodule if datamodule is not None else SpecDataModule.from_config(config)
@@ -240,29 +259,39 @@ class Experiment:
         self.early: Optional[EarlyStopping] = None
         self.callback_metrics: Dict[str, float] = {}
         self.epoch_losses: Optional[np.ndarray] = None  # the last epoch's step losses
+        self.fused: Optional[FusedEpochs] = None  # the fused epoch of the last fit
 
     # -- the step --------------------------------------------------------
     def train_step(self, batch: Dict[str, torch.Tensor], spec: OptSpec,
-                   schedule) -> Tuple[torch.Tensor, float]:
-        """One optimizer step; returns (loss tensor, learning rate)."""
+                   schedule, draws=None) -> Tuple[torch.Tensor, float]:
+        """One optimizer step; returns (loss tensor, learning rate).
+
+        ``draws``: the fused epoch's :class:`~vit_tpu_torch.train.fused.
+        StepDraws` for this step (seeds, noise and learning rate on the
+        device; the fused epoch counts the steps). Without it the step draws
+        from the host generators and counts itself."""
         vc = self.bundle.vit_config
-        seeds = draw_seeds(self.dropout_gen, self.accum_steps, self.module.num_dropout_sites)
+        if draws is None:
+            seeds = draw_seeds(self.dropout_gen, self.accum_steps, self.module.num_dropout_sites)
+            noise, lr = self.noise_gen, spec.lr * schedule(self.step) * self.plateau_scale
+        else:
+            seeds, noise, lr = draws
         loss = loss_and_grads(self.module, batch, vc.task_type, self.bundle.loss_name, seeds,
-                              self.noise_level, self.noise_gen)
+                              self.noise_level, noise)
         frozen = self._preprocessor_params() if self.frozen else []
         for p in frozen:
             p.grad.zero_()  # before the clip: out of the global norm
         params = [p for p in self.module.parameters() if p.grad is not None]
         if spec.grad_clip and spec.grad_clip > 0:
             clip_by_global_norm([p.grad for p in params], spec.grad_clip)
-        lr = spec.lr * schedule(self.step) * self.plateau_scale
         set_learning_rate(self.optimizer, lr)
         held = [p.detach().clone() for p in frozen]
         self.optimizer.step()
         with torch.no_grad():
             for p, h in zip(frozen, held):
                 p.copy_(h)  # after the optimizer: no update, no weight decay
-        self.step += 1
+        if draws is None:
+            self.step += 1
         return loss, lr
 
     def _preprocessor_params(self) -> List[torch.nn.Parameter]:
@@ -311,7 +340,7 @@ class Experiment:
         if not training:
             return
         if self.optimizer is not None and state.get("optimizer") is not None:
-            self.optimizer.load_state_dict(state["optimizer"])
+            load_optimizer_state(self.optimizer, state["optimizer"])
         self.step = int(state["step"])
         self.plateau_scale = float(state["plateau_scale"])
         self.dropout_gen.set_state(state["dropout_rng"])
@@ -412,7 +441,8 @@ class Experiment:
                                    has_val=explicit_val)
         schedule = schedule_scale(spec)
         if self.optimizer is None:
-            self.optimizer = build_optimizer(spec, self.module.parameters())
+            self.optimizer = build_optimizer(spec, self.module.parameters(),
+                                             capturable=self.device.type == "cuda")
         self.plateau = (PlateauScheduler(spec.plateau_factor, spec.plateau_patience,
                                          mode=spec.plateau_mode or self.monitor_mode)
                         if spec.scheduler == "plateau" else None)
@@ -458,45 +488,64 @@ class Experiment:
             label_bounds=_dataset_label_bounds(train_ds))
         num_viz_samples = int((self.config.get("viz", {}) or {}).get("num_viz_samples", 256))
 
+        fused, fused_val, epd = self._select_fused(spec, schedule, train_cols, steps_per_epoch,
+                                                   has_val)
+        self.fused = fused
+        use_blocks = fused is not None and epd > 1
+        val_labels = np.asarray(self.datamodule.val.arrays()["label"]) if fused_val else None
+        if viz is not None and viz_every_steps > 0 and fused is not None:
+            # A fused epoch runs its steps without the host: honour the step
+            # frequency at the nearest epoch boundary (vit_tpu, :1456-1460).
+            viz_every = max(1, round(viz_every_steps / steps_per_epoch))
+            viz_every_steps = 0
+            print(f"[viz] fused-epoch mode: log_every_n_steps -> every {viz_every} epoch(s)")
+
         epoch_metrics: Dict[str, float] = {}
-        profiled = False
+        block_results: Dict[int, tuple] = {}
+        profiled = stop_pending = False
         self.module.train()
         for epoch in range(start_epoch, max_epochs):
             batcher.set_epoch(epoch)
             self.frozen = self._frozen_flag(epoch)
-            # Trace the first epoch after the start (steady state), or the
-            # start epoch when it is the run's only one.
+            # Trace the first epoch after the start that trains (steady
+            # state), or the start epoch when it is the run's only one; a
+            # block's later epochs run no steps.
+            span = epd if (use_blocks and epoch + epd <= max_epochs) else 1
             prof = None
-            if (self.profile_dir is not None and not profiled
-                    and (epoch > start_epoch or epoch + 1 >= max_epochs)):
+            if (self.profile_dir is not None and not profiled and epoch not in block_results
+                    and (epoch > start_epoch or epoch + span >= max_epochs)):
                 prof = self._start_profile()
             t0 = time.perf_counter()
-            losses, last_lr = [], spec.lr
-            for i, batch in enumerate(prefetch_to_device(iter(batcher), self.device,
-                                                         self.prefetch_depth)):
-                loss, last_lr = self.train_step(batch, spec, schedule)
-                losses.append(loss)
-                gstep = epoch * steps_per_epoch + i + 1
-                if viz is not None and viz_every_steps > 0 and has_val \
-                        and gstep % viz_every_steps == 0:
-                    try:
-                        self.logger.log(self._capture_into(viz, cka, gstep, self.datamodule.val,
-                                                           num_viz_samples), step=gstep)
-                    except Exception as e:  # diagnostics never fail training
-                        print(f"[viz] step diagnostics skipped: {e}")
-                if self.debug and i == 0:
-                    break
-            self.epoch_losses = torch.stack(losses).float().cpu().numpy()  # per step
+            fused_logits, block_final, block_dt = None, True, None
+            if use_blocks and epoch not in block_results:
+                block = list(range(epoch, min(epoch + epd, max_epochs)))
+                if len(block) == epd:  # a shorter tail runs one epoch at a time
+                    out = fused.run(block, [self._frozen_flag(e) for e in block], fused_val)
+                    for e, (ls, lr_e, vl, share) in zip(block, out):
+                        block_results[e] = (ls, lr_e, vl, e == block[-1], share)
+                    self.frozen = self._frozen_flag(epoch)
+            if epoch in block_results:
+                losses, last_lr, fused_logits, block_final, block_dt = block_results.pop(epoch)
+            elif fused is not None:
+                # The epoch's time is its steps', through the read of its losses.
+                (losses, last_lr, fused_logits, block_dt), = fused.run([epoch], [self.frozen],
+                                                                       fused_val)
+            else:
+                losses, last_lr = self._per_step_epoch(
+                    batcher, spec, schedule, epoch * steps_per_epoch, viz, cka,
+                    viz_every_steps if has_val else 0, num_viz_samples)
+            self.epoch_losses = np.asarray(losses, np.float32)  # per step
             train_loss = float(np.mean(self.epoch_losses))
-            dt = time.perf_counter() - t0
+            dt = block_dt if block_dt is not None else time.perf_counter() - t0
             if prof is not None:
                 self._stop_profile(prof, epoch, includes_warmup=epoch == start_epoch)
                 profiled = True
+            n_steps = len(self.epoch_losses)
             epoch_metrics = {"train_loss": train_loss, "lr": float(last_lr),
                              "epoch_time_s": dt,
-                             "samples_per_s": len(losses) * self.batch_size / max(dt, 1e-9)}
+                             "samples_per_s": n_steps * self.batch_size / max(dt, 1e-9)}
             if flops_per_step is not None:
-                tflops = len(losses) * flops_per_step / max(dt, 1e-9) / 1e12
+                tflops = n_steps * flops_per_step / max(dt, 1e-9) / 1e12
                 epoch_metrics["tflops_per_s"] = tflops
                 if peak_tflops:
                     epoch_metrics["mfu"] = tflops / float(peak_tflops)  # one device
@@ -504,8 +553,11 @@ class Experiment:
                 epoch_metrics["preprocessor_frozen"] = float(self.frozen)
             mon, stop = None, False
             if has_val:
-                val = self._eval_metrics(self.datamodule.val, "val",
-                                         self.datamodule.val_batch_size)
+                if fused_logits is not None:
+                    val = self._metrics_from_arrays(fused_logits, val_labels, "val")
+                else:
+                    val = self._eval_metrics(self.datamodule.val, "val",
+                                             self.datamodule.val_batch_size)
                 epoch_metrics.update(val)
                 mon = val.get(monitor_key)
                 if self.plateau is not None:
@@ -517,15 +569,23 @@ class Experiment:
                     except Exception as e:  # diagnostics never fail training
                         print(f"[viz] epoch diagnostics skipped: {e}")
                 stop = self.early.step(mon)
-            extra = dict(ckpt_extra, early_stop_state=self.early.state_dict())
-            if self.plateau is not None:
-                extra["plateau_state"] = self.plateau.state_dict()
-            self.ckpt.on_epoch_end(self._state(), epoch, mon, config=self.config, extra=extra)
+                if stop and not block_final and not stop_pending:
+                    # The device already trained through the block's last
+                    # epoch: log the rest of the block (no device work), and
+                    # checkpoint and stop at its end, on the state held.
+                    stop_pending = True
+                    print(f"[experiment] early stopping triggered at epoch {epoch}; "
+                          "flushing to the block boundary")
+            if block_final:  # a block's inner states are never on the host
+                extra = dict(ckpt_extra, early_stop_state=self.early.state_dict())
+                if self.plateau is not None:
+                    extra["plateau_state"] = self.plateau.state_dict()
+                self.ckpt.on_epoch_end(self._state(), epoch, mon, config=self.config, extra=extra)
             self.logger.log_epoch(epoch, epoch_metrics, step=(epoch + 1) * steps_per_epoch)
-            if stop:
+            if (stop or stop_pending) and block_final:
                 print(f"[experiment] early stopping at epoch {epoch}")
                 break
-            if self._preempt.triggered:
+            if self._preempt.triggered and block_final:
                 hint = ("resume with --ckpt last" if self.save
                         else "train.save is off: nothing was persisted")
                 print(f"[experiment] preemption stop at epoch {epoch} ({hint})")
@@ -546,6 +606,68 @@ class Experiment:
             self.logger.log_checkpoint(self.ckpt.last_path, "last", metadata=meta)
         self.callback_metrics = dict(epoch_metrics)
         return epoch_metrics
+
+    def _per_step_epoch(self, batcher, spec, schedule, first_step: int, viz, cka,
+                        viz_every_steps: int, num_viz_samples: int) -> Tuple[np.ndarray, float]:
+        """One epoch of per-step training over ``batcher``'s batches copied
+        ahead to the device, with diagnostics every ``viz_every_steps``
+        steps (0: none); (the step losses, the last learning rate)."""
+        losses, last_lr = [], spec.lr
+        for i, batch in enumerate(prefetch_to_device(iter(batcher), self.device,
+                                                     self.prefetch_depth)):
+            loss, last_lr = self.train_step(batch, spec, schedule)
+            losses.append(loss)
+            gstep = first_step + i + 1
+            if viz is not None and viz_every_steps > 0 and gstep % viz_every_steps == 0:
+                try:
+                    self.logger.log(self._capture_into(viz, cka, gstep, self.datamodule.val,
+                                                       num_viz_samples), step=gstep)
+                except Exception as e:  # diagnostics never fail training
+                    print(f"[viz] step diagnostics skipped: {e}")
+            if self.debug and i == 0:
+                break
+        return torch.stack(losses).float().cpu().numpy(), last_lr
+
+    def _select_fused(self, spec, schedule, train_cols: Dict[str, np.ndarray],
+                      steps_per_epoch: int, has_val: bool):
+        """``train.fused_epoch`` / ``epoch_gather`` / ``epochs_per_dispatch``
+        as ``vit_tpu`` decides them (``loop.py:1262-1360``), with its notes:
+        (the :class:`FusedEpochs` or None, fused validation, epochs a block)."""
+        train_cfg = self.config.get("train", {}) or {}
+        fused_cfg = fused_epoch_setting(train_cfg.get("fused_epoch", "auto"))
+        data_bytes = sum(v.nbytes for v in train_cols.values())
+        use = fused_cfg in (True, "auto") and not self.debug and data_bytes < FUSED_DATA_BYTES
+        if fused_cfg is True and not use:
+            why = "debug mode" if self.debug else (
+                f"epoch data {data_bytes / 1e9:.1f} GB exceeds the 4 GB HBM gate")
+            print(f"[experiment] train.fused_epoch=true ignored: {why}")
+        cfg_m = self.bundle.vit_config
+        if use and self.device.type == "cuda" and not cfg_m.fast_dropout and (
+                cfg_m.hidden_dropout > 0 or cfg_m.attention_dropout > 0):
+            use = False
+            print("[experiment] train.fused_epoch ignored on cuda: model.fast_dropout=false "
+                  "seeds its nn.Dropout generators on the host, which a CUDA graph cannot "
+                  "capture; running the per-step path")
+        epd = int(train_cfg.get("epochs_per_dispatch", 1) or 1)
+        if not use:
+            if epd > 1:
+                print(f"[experiment] train.epochs_per_dispatch={epd} ignored: "
+                      "requires the fused-epoch path (train.fused_epoch)")
+            return None, False, 1
+        val = self.datamodule.val
+        fused_val = has_val and val.arrays()["x"].nbytes < FUSED_VAL_BYTES
+        gather = str(train_cfg.get("epoch_gather", "step") or "step").lower()
+        fused = FusedEpochs(self, spec, schedule, train_cols, steps_per_epoch, gather,
+                            val.arrays()["x"] if fused_val else None,
+                            self.datamodule.val_batch_size)
+        viz_on = bool((self.config.get("viz", {}) or {}).get("enable", False))
+        if epd > 1 and (viz_on or (has_val and not fused_val)):
+            why = ("viz.enable requires per-epoch states" if viz_on
+                   else "fused validation unavailable (val split > 512 MB)")
+            print(f"[experiment] train.epochs_per_dispatch={epd} ignored: {why}; "
+                  "running one dispatch per epoch")
+            epd = 1
+        return fused, fused_val, epd
 
     def _start_profile(self):
         from torch.profiler import ProfilerActivity, profile

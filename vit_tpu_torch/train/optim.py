@@ -35,6 +35,7 @@ __all__ = [
     "OptSpec",
     "OptaxOptimizer",
     "build_optimizer",
+    "load_optimizer_state",
     "state_bytes",
     "schedule_scale",
     "set_learning_rate",
@@ -242,20 +243,36 @@ class OptaxOptimizer(torch.optim.Optimizer):
     1e-6), ``adagrad`` (initial accumulator 0.1, eps 1e-7), ``adamax`` (b1
     0.9, b2 0.999, eps 1e-8), ``rprop`` (eta 0.5/1.2, steps in [1e-6, 50]),
     ``lbfgs`` (memory 10, the first step scaled by min(1, 1/|g|), later ones
-    by the last pair's curvature; one flat vector over all parameters)."""
+    by the last pair's curvature; one flat vector over all parameters),
+    ``sgd`` (the update is the gradient).
 
-    RULES = ("adam", "rmsprop", "adadelta", "adagrad", "adamax", "rprop", "lbfgs")
+    Graph-safe: the state, the step counts (``count``, fp32 scalars) and
+    L-BFGS's ring index live on the parameters' device and are updated in
+    place, bias corrections are computed there, and ``lr`` may be a device
+    scalar (:func:`build_optimizer`'s ``capturable``), so :meth:`step` reads
+    nothing back to the host and a CUDA graph can capture it."""
+
+    RULES = ("adam", "rmsprop", "adadelta", "adagrad", "adamax", "rprop", "lbfgs", "sgd")
 
     def __init__(self, params, rule: str, lr: float, weight_decay: float = 0.0,
                  decoupled: bool = False, mu_dtype: Optional[torch.dtype] = None,
                  memory_size: int = 10) -> None:
         if rule not in self.RULES:
             raise ValueError(f"Unknown optax rule '{rule}'")
-        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, initial_lr=lr))
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, initial_lr=float(lr)))
         self.rule = rule
         self.decoupled = decoupled
         self.mu_dtype = mu_dtype
         self.memory_size = int(memory_size)
+
+    def load_state_dict(self, state_dict) -> None:
+        """As torch's, which casts every state tensor to the parameter's
+        dtype; bf16 first moments are cast back."""
+        super().load_state_dict(state_dict)
+        if self.mu_dtype is not None:
+            for st in self.state.values():
+                if "exp_avg" in st:
+                    st["exp_avg"] = st["exp_avg"].to(self.mu_dtype)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -276,56 +293,68 @@ class OptaxOptimizer(torch.optim.Optimizer):
                 u = rule(g, self.state[p], group)
                 if wd and self.decoupled:
                     u = u + wd * p
-                p.add_(-u if self.rule == "rprop" else u * _f32(-lr))
+                p.add_(-u if self.rule == "rprop" else u * _neg_lr(lr))
         return None
 
-    # -- per-parameter rules: (gradient, state, group) -> update before -lr --
+    @staticmethod
+    def _count(st, g) -> torch.Tensor:
+        """The rule's step count after this step, on g's device."""
+        if "count" not in st:
+            st["count"] = torch.zeros((), dtype=torch.float32, device=g.device)
+        return st["count"].add_(1)
+
+    @staticmethod
+    def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+        """1 - decay**count in fp32, as optax computes it (the base a kernel
+        argument: no copy to the device inside a step)."""
+        return 1 - torch.pow(decay, count)
+
+    # -- per-parameter rules: (gradient, state, group) -> update before -lr;
+    # -- each writes its state in place.
     def _adam(self, g, st, group, b1=0.9, b2=0.999, eps=1e-8):
-        if not st:
-            st.update(count=0, exp_avg=torch.zeros_like(g, dtype=self.mu_dtype or g.dtype),
-                      exp_avg_sq=torch.zeros_like(g))
-        st["count"] += 1
-        # load_state_dict casts state to the parameter's dtype: cast it back.
         mu_dtype = self.mu_dtype or g.dtype
-        # optax's b1 * mu takes b1 in mu's dtype (0.8984375 in bf16), then rounds.
+        if "exp_avg" not in st:
+            st.update(exp_avg=torch.zeros_like(g, dtype=mu_dtype), exp_avg_sq=torch.zeros_like(g))
+        count = self._count(st, g)
+        # optax's b1 * mu takes b1 in mu's dtype (0.8984375 in bf16) and rounds
+        # there; the sum is fp32, and is rounded to mu's dtype only as stored.
         b1_mu = float(torch.tensor(b1, dtype=mu_dtype))
-        mu = (1 - b1) * g + b1_mu * st["exp_avg"].to(mu_dtype)
+        mu = (1 - b1) * g + b1_mu * st["exp_avg"]
         nu = (1 - b2) * (g * g) + b2 * st["exp_avg_sq"]
-        mu_hat = mu / _f32(1 - np.float32(b1) ** np.float32(st["count"]))
-        nu_hat = nu / _f32(1 - np.float32(b2) ** np.float32(st["count"]))
-        st["exp_avg"], st["exp_avg_sq"] = mu.to(mu_dtype), nu
+        st["exp_avg"].copy_(mu)
+        st["exp_avg_sq"].copy_(nu)
+        mu_hat = mu / self._bias_correction(b1, count)
+        nu_hat = nu / self._bias_correction(b2, count)
         return mu_hat / (torch.sqrt(nu_hat) + eps)
 
     def _rmsprop(self, g, st, group, decay=0.99, eps=1e-8):
         if not st:
             st["nu"] = torch.zeros_like(g)
-        st["nu"] = (1 - decay) * (g * g) + decay * st["nu"]
+        st["nu"].copy_((1 - decay) * (g * g) + decay * st["nu"])
         return torch.rsqrt(st["nu"] + eps) * g
 
     def _adadelta(self, g, st, group, rho=0.9, eps=1e-6):
         if not st:
             st.update(e_g=torch.zeros_like(g), e_x=torch.zeros_like(g))
-        st["e_g"] = (1 - rho) * (g * g) + rho * st["e_g"]
+        st["e_g"].copy_((1 - rho) * (g * g) + rho * st["e_g"])
         u = (torch.sqrt(st["e_x"] + eps) / torch.sqrt(st["e_g"] + eps)) * g
-        st["e_x"] = (1 - rho) * (u * u) + rho * st["e_x"]
+        st["e_x"].copy_((1 - rho) * (u * u) + rho * st["e_x"])
         return u
 
     def _adagrad(self, g, st, group, initial=0.1, eps=1e-7):
         if not st:
             st["sum_of_squares"] = torch.full_like(g, initial)
-        sos = g * g + st["sum_of_squares"]
-        st["sum_of_squares"] = sos
+        sos = st["sum_of_squares"].copy_(g * g + st["sum_of_squares"])
         inv = torch.where(sos > 0, torch.rsqrt(sos + eps), torch.zeros_like(sos))
         return inv * g
 
     def _adamax(self, g, st, group, b1=0.9, b2=0.999, eps=1e-8):
-        if not st:
-            st.update(count=0, exp_avg=torch.zeros_like(g), exp_inf=torch.zeros_like(g))
-        st["count"] += 1
-        st["exp_avg"] = (1 - b1) * g + b1 * st["exp_avg"]
-        st["exp_inf"] = torch.maximum(g.abs() + eps, b2 * st["exp_inf"])
-        mu_hat = st["exp_avg"] / _f32(1 - np.float32(b1) ** np.float32(st["count"]))
-        return mu_hat / st["exp_inf"]
+        if "exp_avg" not in st:
+            st.update(exp_avg=torch.zeros_like(g), exp_inf=torch.zeros_like(g))
+        count = self._count(st, g)
+        st["exp_avg"].copy_((1 - b1) * g + b1 * st["exp_avg"])
+        st["exp_inf"].copy_(torch.maximum(g.abs() + eps, b2 * st["exp_inf"]))
+        return st["exp_avg"] / self._bias_correction(b1, count) / st["exp_inf"]
 
     def _rprop(self, g, st, group, eta_minus=0.5, eta_plus=1.2, min_step=1e-6, max_step=50.0):
         if not st:
@@ -333,14 +362,18 @@ class OptaxOptimizer(torch.optim.Optimizer):
                       prev_updates=torch.zeros_like(g))
         prev = st["prev_updates"]
         sign = g * prev
+        zero = torch.zeros_like(g)
+        # optax applies the previous step's signed sizes (zero on a sign flip).
+        out = torch.where(sign < 0, zero, prev)
         grown = torch.where(sign > 0, eta_plus, eta_minus).to(g.dtype)
         sizes = torch.where(sign == 0, st["step_sizes"],
                             torch.clamp(st["step_sizes"] * grown, min_step, max_step))
-        zero = torch.zeros_like(g)
-        st["step_sizes"] = sizes
-        st["prev_updates"] = torch.where(sign < 0, zero, sizes * torch.sign(g))
-        # optax applies the previous step's signed sizes (zero on a sign flip).
-        return torch.where(sign < 0, zero, prev)
+        st["step_sizes"].copy_(sizes)
+        prev.copy_(torch.where(sign < 0, zero, sizes * torch.sign(g)))
+        return out
+
+    def _sgd(self, g, st, group):
+        return g
 
     def _lbfgs_step(self) -> None:
         params = [p for group in self.param_groups for p in group["params"]]
@@ -353,38 +386,41 @@ class OptaxOptimizer(torch.optim.Optimizer):
             g = g + wd * flat_p
         st = self.state[params[0]]
         m = self.memory_size
-        if not st:
-            st.update(count=0, params=torch.zeros_like(flat_p), updates=torch.zeros_like(g),
+        if "params" not in st:
+            st.update(params=torch.zeros_like(flat_p), updates=torch.zeros_like(g),
                       diff_params=torch.zeros((m, g.numel()), dtype=g.dtype, device=g.device),
                       diff_updates=torch.zeros((m, g.numel()), dtype=g.dtype, device=g.device),
                       weights=torch.zeros(m, dtype=g.dtype, device=g.device))
-        k = st["count"]
-        idx, prev_idx = k % m, (k - 1) % m
-        dp, du = flat_p - st["params"], g - st["updates"]
+        k = self._count(st, g).long() - 1  # steps before this one
+        first = k == 0
+        idx, prev_idx = k % m, ((k - 1) % m).view(1)
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        dp = torch.where(first, zero, flat_p - st["params"])
+        du = torch.where(first, zero, g - st["updates"])
         vdot = torch.dot(du, dp)
-        weight = torch.where(vdot == 0.0, torch.zeros_like(vdot), 1.0 / vdot)
-        if k == 0:
-            dp, du, weight = torch.zeros_like(dp), torch.zeros_like(du), torch.zeros_like(weight)
-        st["diff_params"][prev_idx] = dp
-        st["diff_updates"][prev_idx] = du
-        st["weights"][prev_idx] = weight
-        if k > 0:
-            den = torch.dot(du, du)
-            scale = torch.where(den > 0.0, torch.dot(du, dp) / den, torch.ones_like(den))
-        else:
-            scale = torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0)
-        # Two-loop recursion over the memory, oldest to newest by optax's order.
-        order = [(idx + i) % m for i in range(m)]
-        vec, alphas = g, {}
-        for i in reversed(order):
-            alphas[i] = st["weights"][i] * torch.dot(st["diff_params"][i], vec)
-            vec = vec - alphas[i] * st["diff_updates"][i]
+        weight = torch.where(first | (vdot == 0.0), zero, 1.0 / vdot)
+        st["diff_params"].index_copy_(0, prev_idx, dp[None])
+        st["diff_updates"].index_copy_(0, prev_idx, du[None])
+        st["weights"].index_copy_(0, prev_idx, weight.view(1))
+        den = torch.dot(du, du)
+        scale = torch.where(first, torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0),
+                            torch.where(den > 0.0, torch.dot(du, dp) / den, torch.ones_like(den)))
+        # Two-loop recursion over the memory, oldest to newest by optax's
+        # order: the ring rotated to start at this step's slot.
+        order = (idx + torch.arange(m, device=g.device)) % m
+        ps, us = st["diff_params"][order], st["diff_updates"][order]
+        ws = st["weights"][order]
+        vec, alphas = g, [None] * m
+        for i in reversed(range(m)):
+            alphas[i] = ws[i] * torch.dot(ps[i], vec)
+            vec = vec - alphas[i] * us[i]
         vec = scale * vec
-        for i in order:
-            beta = st["weights"][i] * torch.dot(st["diff_updates"][i], vec)
-            vec = vec + (alphas[i] - beta) * st["diff_params"][i]
-        st.update(count=k + 1, params=flat_p, updates=g)
-        u = vec * _f32(-lr)
+        for i in range(m):
+            beta = ws[i] * torch.dot(us[i], vec)
+            vec = vec + (alphas[i] - beta) * ps[i]
+        st["params"].copy_(flat_p)
+        st["updates"].copy_(g)
+        u = vec * _neg_lr(lr)
         offset = 0
         for p in params:
             n = p.numel()
@@ -392,9 +428,22 @@ class OptaxOptimizer(torch.optim.Optimizer):
             offset += n
 
 
-def build_optimizer(spec: OptSpec, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+def _neg_lr(lr):
+    """-lr as optax scales by it: an fp32 constant, or the negated device
+    scalar (exact)."""
+    return -lr if isinstance(lr, torch.Tensor) else _f32(-lr)
+
+
+def build_optimizer(spec: OptSpec, params: Iterable[torch.nn.Parameter],
+                    capturable: bool = False) -> torch.optim.Optimizer:
     """The core optimizer of ``spec`` over ``params``; its learning rate is
-    set every step by :func:`set_learning_rate`."""
+    set every step by :func:`set_learning_rate`.
+
+    ``capturable`` (the card): the learning rate is held in an fp32 device
+    scalar, torch's Adam and AdamW keep their step counts on the device
+    (``capturable=True``) and sgd runs optax's rule in :class:`OptaxOptimizer`
+    (torch's SGD reads a tensor learning rate back to the host), so a step
+    reads nothing back and a CUDA graph can capture it."""
     name = spec.opt_type
     if name in _FALLBACKS:
         print(f"[optim] '{name}' has no optax equivalent; using '{_FALLBACKS[name]}'")
@@ -405,21 +454,43 @@ def build_optimizer(spec: OptSpec, params: Iterable[torch.nn.Parameter]) -> torc
     params = list(params)
     wd = spec.weight_decay
     if mu is not None and name in ("adam", "adamw"):
-        return OptaxOptimizer(params, "adam", spec.lr, weight_decay=wd,
-                              decoupled=name == "adamw", mu_dtype=mu)
-    if mu is not None:
-        print(f"[optim] opt.moment_dtype has no effect for '{name}' "
-              "(only adam/adamw keep low-precision first moments); "
-              "optimizer state stays fp32")
-    if name == "adamw":
-        return torch.optim.AdamW(params, lr=spec.lr, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=wd)
-    if name == "adam":
-        return torch.optim.Adam(params, lr=spec.lr, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=wd)
-    if name == "sgd":
-        return torch.optim.SGD(params, lr=spec.lr, momentum=0.0, weight_decay=wd)
-    return OptaxOptimizer(params, name, spec.lr, weight_decay=wd)
+        opt = OptaxOptimizer(params, "adam", spec.lr, weight_decay=wd,
+                             decoupled=name == "adamw", mu_dtype=mu)
+    else:
+        if mu is not None:
+            print(f"[optim] opt.moment_dtype has no effect for '{name}' "
+                  "(only adam/adamw keep low-precision first moments); "
+                  "optimizer state stays fp32")
+        if name in ("adamw", "adam"):
+            cls = torch.optim.AdamW if name == "adamw" else torch.optim.Adam
+            opt = cls(params, lr=spec.lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd,
+                      capturable=capturable)
+        elif name == "sgd" and not capturable:
+            opt = torch.optim.SGD(params, lr=spec.lr, momentum=0.0, weight_decay=wd)
+        else:
+            opt = OptaxOptimizer(params, name, spec.lr, weight_decay=wd)
+    if capturable:
+        for group in opt.param_groups:
+            group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32,
+                                       device=group["params"][0].device)
+    return opt
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state_dict: dict) -> None:
+    """``optimizer.load_state_dict``, keeping this optimizer's own learning
+    rate holders (a captured graph reads the same device scalar) and
+    ``capturable`` flags, with torch's step counts where this optimizer
+    keeps them: so a state written on the card resumes on the CPU and back."""
+    live = [{k: g[k] for k in ("lr", "capturable") if k in g} for g in optimizer.param_groups]
+    optimizer.load_state_dict(state_dict)
+    for group, keep in zip(optimizer.param_groups, live):
+        group.update(keep)
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            step = st.get("step")
+            if isinstance(step, torch.Tensor) and not isinstance(optimizer, OptaxOptimizer):
+                st["step"] = (step.to(torch.float32).to(p.device) if group.get("capturable")
+                              else step.cpu())
 
 
 def state_bytes(optimizer: torch.optim.Optimizer) -> int:
@@ -428,9 +499,18 @@ def state_bytes(optimizer: torch.optim.Optimizer) -> int:
                for v in st.values() if isinstance(v, torch.Tensor))
 
 
-def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr) -> None:
+    """Every group's learning rate: a float, written into a device scalar
+    (a fill, no host sync) where the optimizer holds one, or a 0-d tensor
+    copied into it."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            if isinstance(lr, torch.Tensor):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 @torch.no_grad()

@@ -43,15 +43,17 @@ class PreemptionGuard:
 
     def _handle(self, signum, frame) -> None:
         self.triggered = True
-        print(f"[preempt] signal {signum} received — stopping at the next epoch boundary "
-              "(send again to terminate immediately)", flush=True)
         # One-shot: a repeat gets the previous behaviour instead of being
-        # swallowed by a hung run.
+        # swallowed by a hung run. The handler goes back BEFORE the line is
+        # printed: a caller that sends the second signal on reading the line
+        # must find the previous handler in place, not this one's slot.
         prev = self._prev.pop(signum, signal.SIG_DFL)
         try:
             signal.signal(signum, prev)
         except (ValueError, OSError):
             pass
+        print(f"[preempt] signal {signum} received — stopping at the next epoch boundary "
+              "(send again to terminate immediately)", flush=True)
 
     def uninstall(self) -> None:
         for sig, prev in list(self._prev.items()):
