@@ -52,7 +52,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    dQ = scale*M/(keep*T), K5 and K6 with Q = K = 0, dO = I give
    dV[j, c] = M[c, j]/(keep*T), K6 with Q = K6_Q*I, K = 0, V = I, dO = 1
    gives dK[j, c] = M[c, j]/(keep*T) * bf16(K6_Q*bf16(scale)), all exact in
-   bf16 and held bit for bit.
+   bf16 and held bit for bit; then the same with one seed for each of four
+   groups of 8 heads (a stacked launch over four replicas, ``bh_per_seed``):
+   each group's mask is its own seed's, bit for bit. The kernel rows
+   include the image family's shapes: K2/K6 at B128 H6 T65 d64 and K3/K7 at
+   R8320 D384 F1536, bf16 (ViT-S/16 on 32-pixel images at batch 128).
 3. Serve the main path through ``Predictor.from_checkpoint(..., device=
    "cuda")`` three times, each from a ``.pt`` written from a port model
    initialised from a seeded ``torch.Generator``: (a) stride1 in bf16
@@ -174,7 +178,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``best_config.yaml`` read back, trial 3 bit-equal to its standalone
    Experiment. Each run's seconds are printed. ``--only`` takes these
    letters too.
-8. Print the kernels' summary, the card line again, and last
+8. Runs (s), (s'), (u): (s) ``lr`` with its default engine, vmap, at (r)'s
+   shape and grid: the six trials as stacked replicas through one CUDA
+   graph of the replica step (K2 and K6 once a layer, the replicas folded
+   into the heads with a seed each; K3 and K7 once a layer and replica),
+   vit_tpu's summary schema, the sweep's seconds beside (r)'s, device ms per
+   replica-step; with dropout off each replica's metric within 1e-4 of its
+   sequential trial, and a replica at lr 1e3 'error' (non-finite) with the
+   others' metrics unchanged. (s') (``--only v``) K1/K4/K5 over three
+   stacked replicas at stride1's shape and K2/K6 at (e)'s, bit for bit
+   their single launches and within tolerance of the plain versions; three
+   stride1 replicas through the graph. (u) the image family on synthetic
+   images at full width: cifar_vit_s16.yaml as it stands (the fused
+   epoch), with flash and the fused MLP (per step, exact launches), behind
+   patch-PCA statistics made on the card (held against the CPU's), and
+   vit_b16_bf16.yaml with flash and the fused MLP at batch 64 (of 1024):
+   the first step in fp32 on the card against the CPU per tensor (1e-4)
+   and in bf16 (2e-2, global relative L2; per tensor reported), one epoch,
+   then served in bf16 (features 0.125, logits what that implies through
+   the fp32 head) and fp32 (1e-4).
+9. Print the kernels' summary, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
@@ -253,14 +276,21 @@ SERVE_REPEATS = 9  # timed passes over the N_INPUTS spectra; all over their tota
 K7_FP32_REL = 1e-5  # K7 weight gradients against their largest value, fp32 inputs
 K7_BF16_REL = 1e-3  # the same with bf16 inputs; rounding dW to bf16 moves it ~2e-3
 GRAD_FLOOR = 1e-3  # per-tensor gradient norms are floored at this share of the global norm
+# (u)'s bf16 first step: a tensor's limit is at least this many times the
+# CPU's own bf16 error on it (the card's bf16 step stands about as far from
+# fp32 as the CPU's; each row reports grad_nearest_limit_share).
+BF16_OWN = 2.0
 TRAIN_GRAD_TOL = {"d_stride1_bf16": 2e-2, "e_baseline_flash_fused_fp32": 1e-4,
                   "f_baseline_flash_fused_bf16": 2e-2, "g_stride1_bf16_fused_mlp": 2e-2,
                   "j_stride1_rope_bf16": 2e-2, "k_baseline_rope_fp32": 1e-4,
-                  "l_stride1_zca_train": 2e-2}
+                  "l_stride1_zca_train": 2e-2, "u_cifar_s16_bf16": 2e-2,
+                  "u_cifar_s16_flash_fused_bf16": 2e-2, "u_cifar_s16_pca_bf16": 2e-2,
+                  "u_vit_b16_flash_fused_bf16": 2e-2}
 # Run (l)'s covariance: more spectra than pixels, so the centred covariance
 # of the 4096-pixel spectra has full rank (rank <= samples - 1).
 COV_SAMPLES = 8192
 MASK_SEEDS = (0, -1, 2**31 - 1)
+SEED_VECTOR = (0, -1, 2**31 - 1)  # one seed a replica in the stacked checks
 # Q = K6_Q * I in K6's dK mask check: a bf16 value where bf16(K6_Q *
 # bf16(scale)) (K6) and bf16(K6_Q * scale) (K5) differ at d = 32 and 128.
 K6_Q = 1.046875
@@ -596,7 +626,9 @@ def mask_check(kernels) -> dict:
     = M[c, j]/(keep*T); K6 with Q = K6_Q * I, K = 0, V = I, dO = 1 gives
     dK[j, c] = M[c, j]/(keep*T) * bf16(K6_Q * bf16(scale)), K6's rounding of
     Q*scale (K5's would round K6_Q * scale). Every value is exact in bf16:
-    held bit for bit."""
+    held bit for bit. Then the same with one seed for each of four groups
+    of 8 heads (a stacked launch over four replicas): each group's mask is
+    its own seed's at its own head indices, bit for bit."""
     from vit_tpu_torch.ops.dropout import hash_dropout_mask
     from vit_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd, short_bwd, short_fwd
 
@@ -610,37 +642,46 @@ def mask_check(kernels) -> dict:
     ones, q_k6 = torch.ones_like(zeros), (K6_Q * eye).contiguous()
     qs_k6 = float((K6_Q * torch.tensor(scale, dtype=torch.bfloat16).float()).bfloat16())
     out = {}
-    for seed in MASK_SEEDS:
-        mask = hash_dropout_mask(t, t, torch.arange(bh), seed, 0.5).cuda()  # 0 or 1/keep
+    vector = torch.tensor(SEED_VECTOR + (12345,), dtype=torch.int32, device="cuda")
+    for seed in (*MASK_SEEDS, vector):
+        per = bh // len(vector) if isinstance(seed, torch.Tensor) else 0
+        if per:  # (replicas, heads per replica, t, t) -> (bh, t, t)
+            mask = hash_dropout_mask(t, t, torch.arange(per), seed.cpu(), 0.5).view(bh, t, t)
+        else:
+            mask = hash_dropout_mask(t, t, torch.arange(bh), seed, 0.5)  # 0 or 1/keep
+        mask = mask.cuda()
+        drop = (0.5, seed, per)
         got, want = {}, {}
         for name, fwd in (("short_fwd", short_fwd), ("flash_fwd", flash_fwd)):
-            got[name] = fwd(q, q, v, scale, 0.5, seed)[0]
+            got[name] = fwd(q, q, v, scale, *drop)[0]
             want[name] = mask / t
-            got[f"{name}_bf16"] = fwd(zeros, zeros, eye, scale, 0.5, seed)[0]
+            got[f"{name}_bf16"] = fwd(zeros, zeros, eye, scale, *drop)[0]
             want[f"{name}_bf16"] = (mask / t).bfloat16()
         got["flash_bwd_dq"] = flash_bwd(zeros, eye, eye, torch.ones_like(zeros), lse, delta,
-                                        scale, 0.5, seed)[0]
+                                        scale, *drop)[0]
         want["flash_bwd_dq"] = (mask / t * scale).bfloat16()
-        got["flash_bwd_dkv"] = flash_bwd(zeros, zeros, zeros, eye, lse, delta, scale, 0.5,
-                                         seed)[2]
+        got["flash_bwd_dkv"] = flash_bwd(zeros, zeros, zeros, eye, lse, delta, scale, *drop)[2]
         want["flash_bwd_dkv"] = (mask / t).transpose(1, 2).bfloat16()
-        got["short_bwd_dq"] = short_bwd(zeros, eye, eye, ones, lse, delta, scale, 0.5, seed)[0]
+        got["short_bwd_dq"] = short_bwd(zeros, eye, eye, ones, lse, delta, scale, *drop)[0]
         want["short_bwd_dq"] = want["flash_bwd_dq"]
-        got["short_bwd_dv"] = short_bwd(zeros, zeros, zeros, eye, lse, delta, scale, 0.5, seed)[2]
+        got["short_bwd_dv"] = short_bwd(zeros, zeros, zeros, eye, lse, delta, scale, *drop)[2]
         want["short_bwd_dv"] = want["flash_bwd_dkv"]
-        got["short_bwd_dk"] = short_bwd(q_k6, zeros, eye, ones, lse, delta, scale, 0.5, seed)[1]
+        got["short_bwd_dk"] = short_bwd(q_k6, zeros, eye, ones, lse, delta, scale, *drop)[1]
         want["short_bwd_dk"] = ((mask / t).transpose(1, 2) * qs_k6).bfloat16()
-        # The same calls with the seed as an int32 device scalar: the same bits.
-        dev_seed = torch.tensor(seed, dtype=torch.int32, device="cuda")
-        again = {"flash_fwd": flash_fwd(q, q, v, scale, 0.5, dev_seed)[0],
-                 "short_fwd_bf16": short_fwd(zeros, zeros, eye, scale, 0.5, dev_seed)[0],
-                 "flash_bwd_dkv": flash_bwd(zeros, zeros, zeros, eye, lse, delta, scale, 0.5,
-                                            dev_seed)[2],
-                 "short_bwd_dk": short_bwd(q_k6, zeros, eye, ones, lse, delta, scale, 0.5,
-                                           dev_seed)[1]}
-        for name, o in again.items():
-            check(torch.equal(o, got[name]), f"{name} seed {seed}: a device-scalar seed "
-                  "gives other values than the int seed")
+        if per:
+            seed = "vector:" + ",".join(str(int(x)) for x in vector.tolist())
+        else:
+            # The same calls with the seed as an int32 device scalar: the same bits.
+            dev_seed = torch.tensor(seed, dtype=torch.int32, device="cuda")
+            again = {"flash_fwd": flash_fwd(q, q, v, scale, 0.5, dev_seed)[0],
+                     "short_fwd_bf16": short_fwd(zeros, zeros, eye, scale, 0.5, dev_seed)[0],
+                     "flash_bwd_dkv": flash_bwd(zeros, zeros, zeros, eye, lse, delta, scale,
+                                                0.5, dev_seed)[2],
+                     "short_bwd_dk": short_bwd(q_k6, zeros, eye, ones, lse, delta, scale, 0.5,
+                                               dev_seed)[1]}
+            for name, o in again.items():
+                check(torch.equal(o, got[name]), f"{name} seed {seed}: a device-scalar seed "
+                      "gives other values than the int seed")
         for name, o in got.items():
             ref = want[name]
             wrong = int(((o == 0) != (ref == 0)).sum().item())
@@ -736,74 +777,132 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor, floor: float) -> float:
     return ((a - b).norm() / max(b.norm().item(), floor)).item()
 
 
-def first_step_check(tag, exp, cfg, tol) -> dict:
-    """Loss and parameter gradients of one step on a batch of 4 with fixed
-    dropout seeds, on the card against fp32 on the CPU; and the CPU
-    gradients of that batch and of a probe batch (four standard-normal
-    spectra, as the serving runs' probes, with uniform random labels), which must lie
-    at least DISTINCT limits apart."""
+def cpu_step(exp, cfg, precision: str, batches, seeds) -> list:
+    """(loss, gradients) of one step on each of ``batches`` on the CPU in
+    ``precision``, from the card's weights."""
     import copy
 
     from vit_tpu_torch.models.builder import get_model
     from vit_tpu_torch.train.loop import loss_and_grads
 
-    arrays = exp.datamodule.train.arrays()
-    task, loss_name = exp.bundle.vit_config.task_type, exp.bundle.loss_name
     cpu_cfg = copy.deepcopy(cfg)
-    cpu_cfg["train"] = dict(cpu_cfg.get("train", {}), precision="float32")
+    cpu_cfg["train"] = dict(cpu_cfg.get("train", {}), precision=precision)
     cpu_model = get_model(cpu_cfg).module.train()
     cpu_model.load_state_dict({k: v.cpu() for k, v in exp.module.state_dict().items()})
+    task, loss_name = exp.bundle.vit_config.task_type, exp.bundle.loss_name
+    out = []
+    for b in batches:
+        loss = loss_and_grads(cpu_model, b, task, loss_name, seeds).item()
+        out.append((loss, [p.grad.float().clone() for p in cpu_model.parameters()]))
+    return out
+
+
+def first_step_check(tag, exp, cfg, tol, cpu_ref=None, bf16_limits: bool = False) -> dict:
+    """Loss and parameter gradients of one step on a batch of 4 with fixed
+    dropout seeds, on the card against fp32 on the CPU, each tensor's in
+    relative L2 at ``tol``; and the CPU gradients of that batch and of a
+    probe batch (four standard-normal spectra or images, as the serving
+    runs' probes, with uniform random labels or classes), which must lie at
+    least DISTINCT limits apart. ``cpu_ref``: a dict that keeps the CPU's
+    fp32 step for a further check of the same weights (filled on the first
+    call, read on the next).
+
+    ``bf16_limits``: the same step also runs in the config's bf16 on the
+    CPU, and each tensor's limit is the larger of ``tol`` and BF16_OWN
+    times that step's own distance from fp32 on the tensor: the card's bf16
+    step may stand as far from fp32 as bf16 itself puts the CPU, twice over,
+    and never further than ``tol`` where bf16 moves the CPU less. The global
+    relative L2 is then held at ``tol`` as well, and the card's distance
+    from the CPU's bf16 step is reported."""
+    arrays = exp.datamodule.train.arrays()
+    task = exp.bundle.vit_config.task_type
     exp.module.train()
     seeds = [list(range(1000, 1000 + exp.module.num_dropout_sites))]
 
     batch = {k: torch.from_numpy(arrays[k][:4]) for k in ("x", "label")}
+    g3 = torch.Generator().manual_seed(3)
     probes = {"x": torch.randn(batch["x"].shape, generator=torch.Generator().manual_seed(2)),
-              "label": torch.rand(batch["label"].shape, generator=torch.Generator().manual_seed(3))}
+              "label": (torch.randint(0, exp.bundle.vit_config.num_labels, batch["label"].shape,
+                                      generator=g3, dtype=batch["label"].dtype)
+                        if task == "cls" else torch.rand(batch["label"].shape, generator=g3))}
+    from vit_tpu_torch.train.loop import loss_and_grads
+
     card_loss = loss_and_grads(exp.module, {k: v.cuda() for k, v in batch.items()}, task,
-                               loss_name, seeds).item()
+                               exp.bundle.loss_name, seeds).item()
     card = [p.grad.float().cpu() for p in exp.module.parameters()]
     for p in exp.module.parameters():
         p.grad = None
-    ref = []
-    for b in (batch, probes):
-        loss = loss_and_grads(cpu_model, b, task, loss_name, seeds).item()
-        ref.append((loss, [p.grad.clone() for p in cpu_model.parameters()]))
+    ref = (cpu_ref or {}).get("ref")
+    if ref is None:
+        ref = cpu_step(exp, cfg, "float32", (batch, probes), seeds)
+        if cpu_ref is not None:
+            cpu_ref["ref"] = ref
     (ref_loss, ref_a), (_, ref_b) = ref
     total = torch.sqrt(sum(r.square().sum() for r in ref_a)).item()
     names = [n for n, _ in exp.module.named_parameters()]
-    errs = {n: rel_l2(c, r, GRAD_FLOOR * total) for n, c, r in zip(names, card, ref_a)}
+
+    def rel(grads, against):
+        return {n: rel_l2(c, r, GRAD_FLOOR * total) for n, c, r in zip(names, grads, against)}
+
+    errs = rel(card, ref_a)
+    limits = dict.fromkeys(names, tol)
+    extra = {}
+    if bf16_limits:
+        (_, cpu16), = cpu_step(exp, cfg, cfg["train"]["precision"], (batch,), seeds)
+        own = rel(cpu16, ref_a)
+        limits = {n: max(tol, BF16_OWN * own[n]) for n in names}
+        vs16 = rel(card, cpu16)
+        extra = dict(cpu_bf16_rel_l2_max=max(own.values()),
+                     cpu_bf16_rel_l2_median=statistics.median(own.values()),
+                     vs_cpu_bf16_rel_l2_max=max(vs16.values()),
+                     vs_cpu_bf16_rel_l2_median=statistics.median(vs16.values()),
+                     limits_above_tol={n: lim for n, lim in limits.items() if lim > tol})
     worst = max(errs, key=errs.get)
+    used = max(names, key=lambda n: errs[n] / limits[n])  # nearest its limit
+    glob = (torch.sqrt(sum((c - r).square().sum() for c, r in zip(card, ref_a))) / total).item()
     apart = (torch.sqrt(sum((a - b).square().sum() for a, b in zip(ref_a, ref_b))) / total).item()
     loss_err = abs(card_loss - ref_loss) / abs(ref_loss)
     check(loss_err <= tol, f"{tag}: first-step loss {card_loss} vs CPU fp32 {ref_loss} "
           f"(relative {loss_err}, tol {tol})")
-    check(errs[worst] <= tol, f"{tag}: gradient of {worst} differs from the CPU fp32 step by "
-          f"relative L2 {errs[worst]} (tol {tol})")
+    check(errs[used] <= limits[used], f"{tag}: gradient of {used} differs from the CPU fp32 "
+          f"step by relative L2 {errs[used]} (limit {limits[used]})")
+    if bf16_limits:
+        check(glob <= tol, f"{tag}: the gradients differ from the CPU fp32 step by global "
+              f"relative L2 {glob} (tol {tol})")
     check(apart >= DISTINCT * tol, f"{tag}: the probe batch's gradients only {apart} apart "
           f"(relative L2): the check cannot tell batches apart at tol {tol}")
     return dict(first_step_loss=card_loss, first_step_loss_cpu_fp32=ref_loss,
                 loss_rel_err=loss_err, grad_rel_l2_max=errs[worst], grad_rel_l2_worst=worst,
-                grad_rel_l2_median=statistics.median(errs.values()), grad_tol=tol,
-                grad_batches_apart=apart, grad_batches_apart_min=DISTINCT * tol)
+                grad_rel_l2_median=statistics.median(errs.values()), grad_rel_l2_global=glob,
+                grad_nearest_limit=used, grad_nearest_limit_share=errs[used] / limits[used],
+                grad_tol=tol, grad_batches_apart=apart, grad_batches_apart_min=DISTINCT * tol,
+                **extra)
 
 
-def train_run(tag, cfg, expect, kernels, after=None) -> dict:
-    """One epoch of Experiment.fit on the card over in-memory spectra;
-    ``after(exp)`` adds its dict of further checks to the row."""
+def train_run(tag, cfg, expect, kernels, after=None, grad_check=None) -> dict:
+    """One epoch of Experiment.fit on the card over in-memory spectra (or,
+    for an image config, the synthetic images its data section sizes);
+    ``after(exp)`` adds its dict of further checks to the row;
+    ``grad_check(tag, exp, cfg)`` replaces the first-step check."""
     import copy
 
     import numpy as np
 
     from vit_tpu_torch.data.datasets import SpecDataModule
+    from vit_tpu_torch.data.images import ImageDataModule
     from vit_tpu_torch.data.synthetic import make_dummy_spectra
     from vit_tpu_torch.ops._build import reset_launches
     from vit_tpu_torch.train.loop import Experiment
 
-    data = make_dummy_spectra(n=N_INPUTS, length=cfg["model"]["image_size"], seed=1)
-    dm = SpecDataModule(cfg, source=data)
+    if cfg["model"].get("input_kind") == "image":
+        dm = ImageDataModule(cfg)
+    else:
+        data = make_dummy_spectra(n=N_INPUTS, length=cfg["model"]["image_size"], seed=1)
+        dm = SpecDataModule(cfg, source=data)
     exp = Experiment(copy.deepcopy(cfg), device="cuda", datamodule=dm)
     dm.setup("fit")
-    grads = first_step_check(tag, exp, cfg, TRAIN_GRAD_TOL[tag])
+    grads = (first_step_check(tag, exp, cfg, TRAIN_GRAD_TOL[tag]) if grad_check is None
+             else grad_check(tag, exp, cfg))
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -815,7 +914,7 @@ def train_run(tag, cfg, expect, kernels, after=None) -> dict:
     launches = {n: k.launches for n, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in exp.epoch_losses]
-    steps = -(-N_INPUTS // BATCH)
+    steps = -(-len(dm.train) // exp.batch_size)
     check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
     check(len(losses) == steps and all(np.isfinite(losses)), f"{tag}: step losses {losses}")
 
@@ -823,8 +922,10 @@ def train_run(tag, cfg, expect, kernels, after=None) -> dict:
     vc = exp.bundle.vit_config
     step_ms = metrics["epoch_time_s"] * 1e3 / steps
     row = dict(phase="train", run=tag, T=vc.seq_len, layers=vc.num_hidden_layers,
-               dtype=str(vc.dtype), batch=BATCH, inputs=N_INPUTS, steps=steps, losses=losses,
+               dtype=str(vc.dtype), batch=exp.batch_size, inputs=len(dm.train), steps=steps,
+               path="per-step" if exp.fused is None else "fused (CUDA graph)", losses=losses,
                train_loss=metrics["train_loss"], val_mae=metrics.get("val_mae"),
+               val_acc=metrics.get("val_acc"),
                smoke_ms_per_step=step_ms, smoke_steps_per_s=1e3 / step_ms, fit_seconds=fit_s,
                peak_mem_bytes=peak, launches=launches, expected_launches=expect,
                device_ms_per_step=prof["device_ms"], device_busy_share=prof["device_ms"] / step_ms,
@@ -841,15 +942,20 @@ def max_span(feats: torch.Tensor) -> float:
     return min((feats[i] - feats[j]).abs().max().item() for i in range(n) for j in range(i))
 
 
-def serve_run(tag, cfg, expect, tol, feat_tol, ckpt_dir, kernels, module=None):
-    """Serve N_INPUTS spectra on the card; check launches, finiteness, and
-    the logits and per-token features of two served spectra and two probes
-    against the same weights in fp32 on the CPU. ``module``: the weights to
-    serve (default: the config's model initialised from seed 0)."""
+def serve_run(tag, cfg, expect, tol, feat_tol, ckpt_dir, kernels, module=None,
+              n=N_INPUTS, batch=BATCH):
+    """Serve ``n`` spectra (an image config: synthetic images) on the card at
+    ``batch``; check launches, finiteness, and the logits and per-token
+    features of two served inputs and two probes against the same weights in
+    fp32 on the CPU. ``module``: the weights to serve (default: the
+    config's model initialised from seed 0). ``tol`` None: the logits are
+    held to what the feature limit implies through the fp32 head, feat_tol
+    times the largest L1 norm of a row of its weight."""
     import copy
 
     import numpy as np
 
+    from vit_tpu_torch.data.images import ImageDataset
     from vit_tpu_torch.data.synthetic import make_dummy_spectra
     from vit_tpu_torch.models.builder import get_model
     from vit_tpu_torch.ops._build import reset_launches
@@ -860,12 +966,18 @@ def serve_run(tag, cfg, expect, tol, feat_tol, ckpt_dir, kernels, module=None):
     if module is None:  # a copy: a preprocessor's builder adjusts model.image_size
         module = get_model(copy.deepcopy(cfg), generator=torch.Generator().manual_seed(0)).module
     save_torch_checkpoint(module, pt)
-    loaded = Predictor.from_checkpoint(cfg, ckpt=pt, batch_size=BATCH, device="cuda")
-    pred = Predictor(loaded.module, loaded.vit_config, label_norm="minmax",
-                     label_norm_stats=LOGG_STATS, batch_size=BATCH)
-    length = pred.input_length  # the raw spectra, before any preprocessor
-    x = make_dummy_spectra(n=N_INPUTS, length=length, seed=1)["flux"]
-    pred.predict(x[:BATCH])  # warm-up: cuBLAS handles, allocator
+    loaded = Predictor.from_checkpoint(cfg, ckpt=pt, batch_size=batch, device="cuda")
+    reg = loaded.vit_config.task_type != "cls"
+    pred = Predictor(loaded.module, loaded.vit_config, label_norm="minmax" if reg else "none",
+                     label_norm_stats=LOGG_STATS if reg else None, batch_size=batch)
+    if pred.image_shapes is not None:
+        images = ImageDataset(num_test_samples=n, image_size=pred.vit_config.image_size,
+                              num_classes=pred.vit_config.num_labels)
+        images.load_data("test")  # the synthetic test split: n images
+        x = images.images
+    else:  # the raw spectra, before any preprocessor
+        x = make_dummy_spectra(n=n, length=pred.input_length, seed=1)["flux"]
+    pred.predict(x[:batch])  # warm-up: cuBLAS handles, allocator
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     log_g = pred.predict(x)
@@ -877,10 +989,11 @@ def serve_run(tag, cfg, expect, tol, feat_tol, ckpt_dir, kernels, module=None):
         runs.append(time.perf_counter() - t0)
     vc = pred.vit_config
     check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
-    check(log_g.shape == (N_INPUTS, 1) and bool(torch.isfinite(torch.from_numpy(log_g)).all()),
+    check(log_g.shape == ((n, 1) if reg else (n,))
+          and bool(torch.isfinite(torch.from_numpy(log_g).double()).all()),
           f"{tag}: predictions not finite or of shape {log_g.shape}")
 
-    probes = torch.randn(2, length, generator=torch.Generator().manual_seed(2)).numpy()
+    probes = torch.randn((2,) + x.shape[1:], generator=torch.Generator().manual_seed(2)).numpy()
     xs = np.concatenate([x[:2], probes])
     cpu = Predictor.from_checkpoint(cfg, ckpt=pt, batch_size=len(xs), precision="float32",
                                     device="cpu")
@@ -891,6 +1004,8 @@ def serve_run(tag, cfg, expect, tol, feat_tol, ckpt_dir, kernels, module=None):
         feats = pred.module.features(torch.from_numpy(xs).to(pred.device)).float().cpu()
     feat_err = (feats - feats_ref).abs().max().item()
     probe_span = max_span(feats_ref[2:])
+    if tol is None:
+        tol = feat_tol * cpu.module.head.weight.abs().sum(1).max().item()
     check(err <= tol, f"{tag}: logits differ from the CPU fp32 run by {err} (tol {tol})")
     check(feat_err <= feat_tol,
           f"{tag}: features differ from the CPU fp32 run by {feat_err} (tol {feat_tol})")
@@ -898,22 +1013,26 @@ def serve_run(tag, cfg, expect, tol, feat_tol, ckpt_dir, kernels, module=None):
           f"{tag}: probes' features only {probe_span} apart: the comparison cannot tell "
           f"inputs apart at tol {feat_tol}")
 
-    batch_ms = sum(runs) * 1e3 / (SERVE_REPEATS * N_INPUTS // BATCH)
-    prof = device_profile(lambda: pred._batched_logits(x[:BATCH]))
+    batch_ms = sum(runs) * 1e3 / (SERVE_REPEATS * -(-n // batch))
+    prof = device_profile(lambda: pred._batched_logits(x[:batch]))
+    per_s = "smoke_images_per_s" if pred.image_shapes is not None else "smoke_spectra_per_s"
     row = dict(phase="serve", run=tag, T=vc.seq_len, layers=vc.num_hidden_layers,
-               dtype=str(vc.dtype), batch=BATCH, inputs=N_INPUTS, repeats=SERVE_REPEATS,
-               smoke_spectra_per_s=SERVE_REPEATS * N_INPUTS / sum(runs),
+               dtype=str(vc.dtype), batch=batch, inputs=n, repeats=SERVE_REPEATS,
+               **{per_s: SERVE_REPEATS * n / sum(runs)},
                pass_seconds_min_max=[min(runs), max(runs)], batch_ms=batch_ms,
                peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches,
-               log_g_min=float(log_g.min()), log_g_max=float(log_g.max()),
                max_abs_logit_err_vs_cpu_fp32=err, logit_tol=tol,
-               logit_span_served=float(log_g.max() - log_g.min())
-               / (LOGG_STATS["label_max"][0] - LOGG_STATS["label_min"][0]),
                logit_span_probes=float(abs(logits_ref[2] - logits_ref[3]).max()),
                max_abs_feature_err_vs_cpu_fp32=feat_err, feature_tol=feat_tol,
                feature_span_served=max_span(feats_ref[:2]), feature_span_probes=probe_span,
                device_ms_per_batch=prof["device_ms"],
                device_busy_share=prof["device_ms"] / batch_ms, top_device_ops=prof["top"])
+    if reg:
+        row.update(log_g_min=float(log_g.min()), log_g_max=float(log_g.max()),
+                   logit_span_served=float(log_g.max() - log_g.min())
+                   / (LOGG_STATS["label_max"][0] - LOGG_STATS["label_min"][0]))
+    else:
+        row.update(classes_served=sorted({int(c) for c in log_g}))
     emit(row)
     return row
 
@@ -1095,10 +1214,10 @@ def step_profile(exp) -> dict:
     """torch.profiler's device time of one further training step."""
     from vit_tpu_torch.train.optim import OptSpec, schedule_scale
 
-    steps = -(-N_INPUTS // BATCH)
+    steps = -(-len(exp.datamodule.train) // exp.batch_size)
     spec = OptSpec.from_config(exp.config, steps, monitor_metric=exp.monitor)
     arrays = exp.datamodule.train.arrays()
-    batch = {k: torch.from_numpy(arrays[k][:BATCH]).cuda() for k in ("x", "label")}
+    batch = {k: torch.from_numpy(arrays[k][:exp.batch_size]).cuda() for k in ("x", "label")}
     return device_profile(lambda: exp.train_step(batch, spec, schedule_scale(spec)))
 
 
@@ -2108,6 +2227,414 @@ def sweep_run(work: str, kernels) -> dict:
     return row
 
 
+# -- runs (s), (s'), (u): the vmapped sweep, the seed vector, the image family --
+SWEEP_GRID = dict(lr_values=[1e-4, 1e-3, 1e-2], schedulers=["none", "plateau"],
+                  plateau_factors=[0.8], plateau_patience=[0])
+# vit_tpu's summary.yaml schema (ParallelSweepRunner._write_summary), in order.
+SUMMARY_KEYS = ["generated_at", "base_config", "metric", "search_space", "gpus", "engine",
+                "num_configs", "results", "best"]
+SWEEP_REL = 1e-4  # a replica's validation metric against its sequential trial
+IMAGE_INPUTS, IMAGE_VAL = 512, 128  # (u)'s synthetic training and validation images
+B16_BATCH = 64  # vit_b16_bf16.yaml's batch of 1024 cut to 64 for (u)'s steps
+IMAGE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "exp", "image")
+
+
+def sweep_base(work: str, name: str, **model) -> tuple:
+    """(r)'s base config with ``model`` overrides, written to ``work``:
+    (path, config)."""
+    import copy
+
+    import yaml
+
+    cfg = copy.deepcopy(BASELINE_TRAIN)
+    cfg["train"].update(ep=2)
+    del cfg["train"]["fused_epoch"]  # auto, as a user's base config leaves it
+    cfg["model"].update(model)
+    path = os.path.join(work, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path, cfg
+
+
+def replica_launches(ep, calls: dict, expect_step: dict, kernels) -> dict:
+    """Launches of a ReplicaEpochs counted from its replays: the captured
+    step's launches (which must be ``expect_step``) times the replays, plus
+    the wrapper calls outside the graph (the eager step, validation)."""
+    check(ep.graph is not None and ep.replays > 0, f"replica graph: {ep.replays} replays")
+    check(ep.captured_launches == expect_step,
+          f"a captured replica step launches {ep.captured_launches}, expected {expect_step}")
+    replayed = {n: expect_step[n] * ep.replays for n in kernels}
+    outside = {n: calls[n] - expect_step[n] for n in kernels}  # less the capture itself
+    for n, per_step in expect_step.items():
+        check(per_step == 0 or replayed[n] > 0, f"{n}: no launch from the replays")
+    return dict(launches={n: replayed[n] + outside[n] for n in kernels},
+                launches_from_replays=replayed, launches_outside_graphs=outside,
+                launch_count_method="capture count x replays, plus calls outside the graph",
+                captured_launches_per_step=expect_step, replays=ep.replays,
+                eager_steps=ep.eager_steps, capture_seconds=ep.capture_seconds)
+
+
+def replica_timing(ep) -> dict:
+    """One further epoch of the replica graph's replays over the last
+    epoch's buffers: the device span a step (CUDA events) and the host's
+    enqueue time, then torch.profiler's kernel time of another epoch; per
+    step of all replicas and per replica-step."""
+    ep.counter.zero_()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(ep.steps):
+        ep.run_step()
+    enqueue_s = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    span = start.elapsed_time(end) / ep.steps
+    ep.counter.zero_()
+    prof = device_profile(lambda: [ep.run_step() for _ in range(ep.steps)], top=8)
+    dev = prof["device_ms"] / ep.steps
+    return dict(replicas=ep.replicas, replay_span_ms_per_step=span,
+                replay_enqueue_ms_per_step=enqueue_s * 1e3 / ep.steps,
+                device_ms_per_step=dev, device_ms_per_replica_step=dev / ep.replicas,
+                device_busy_share=dev / span, top_device_ops=prof["top"])
+
+
+def vmap_sweep_run(work: str, kernels) -> dict:
+    """(s) ``python -m vit_tpu_torch lr`` with its default engine, vmap, as
+    its runner drives it: (r)'s shape and grid (baseline + flash + fused
+    MLP, fp32, dropout on; 256 in-memory spectra, 2 epochs), the six trials
+    as six stacked replicas through a CUDA graph of one replica step.
+    Checks: six ok results, vit_tpu's summary schema, best = the smallest
+    metric, best_config; the captured step launches K2 and K6 once a layer
+    (the replicas folded into the heads) and K3 and K7 once a layer and
+    replica. Reports the sweep's seconds (beside (r)'s, same call), the
+    replica step's device ms and peak memory. Then, with dropout off, the
+    engine against the sequential engine's trials (the same inits, seed +
+    idx): each replica's validation metric within SWEEP_REL; and the grid
+    plus one replica at lr 1e3, which must end 'error' (non-finite) and
+    leave the six others' metrics as they were."""
+    import yaml
+
+    from vit_tpu_torch.data.datasets import SpecDataModule
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+    from vit_tpu_torch.ops._build import reset_launches
+    from vit_tpu_torch.opt.parallel_sweep import (
+        ParallelSweepRunner,
+        SweepConfig,
+        _SequentialSweepEngine,
+        _VmapSweepEngine,
+    )
+
+    data = make_dummy_spectra(n=256, length=BASELINE_MODEL["image_size"], seed=1)
+
+    def datamodule(c):
+        return SpecDataModule(c, source=data)
+
+    base, _ = sweep_base(work, "vmap_sweep_base.yaml")
+    runner = ParallelSweepRunner(base, **SWEEP_GRID, results_dir=os.path.join(work, "vmap"),
+                                 seed=0, device="cuda", datamodule=datamodule, gpu_ids=[0])
+    check(runner.engine == "vmap", f"s: the runner's default engine is {runner.engine}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    best = runner.run()
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    calls = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    with open(runner.summary_path) as f:
+        summary = yaml.safe_load(f)
+    with open(runner.best_config_path) as f:
+        best_cfg = yaml.safe_load(f)
+    results = summary["results"]
+    ok = [r["metric"] for r in results if r["status"] == "ok"]
+    check(list(summary) == SUMMARY_KEYS and summary["engine"] == "vmap",
+          f"s: summary keys {list(summary)}, engine {summary.get('engine')}")
+    check(len(results) == 6 and len(ok) == 6, f"s: trials {results}")
+    check(summary["best"]["metric"] == min(ok) == best.metric, f"s: best {summary['best']}")
+    check(best_cfg["_meta"]["generator"] == "vit_tpu_torch.opt.parallel_sweep"
+          and best_cfg["opt"]["lr"] == summary["best"]["config"]["lr"],
+          f"s: best_config {best_cfg.get('_meta')} {best_cfg.get('opt')}")
+    ep = runner.engine_run.epochs
+    layers, replicas = BASELINE_MODEL["num_hidden_layers"], len(results)
+    expect_step = dict({n: 0 for n in kernels}, short_fwd=layers, short_bwd=layers,
+                       fused_mlp_fwd=layers * replicas, fused_mlp_bwd=layers * replicas)
+    launches = replica_launches(ep, calls, expect_step, kernels)
+    check(ep.replays + ep.eager_steps == 2 * ep.steps,
+          f"s: {ep.replays} replays + {ep.eager_steps} eager steps for 2 x {ep.steps}")
+    timing = replica_timing(ep)
+
+    # Dropout off: the replicas against the sequential engine's trials.
+    _, off = sweep_base(work, "vmap_nodrop.yaml", hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0)
+    configs = runner.sweep_configs
+    args = ("val_mae", "minimize", 0)
+    t0 = time.perf_counter()
+    seq = _SequentialSweepEngine(off, configs, *args, device="cuda",
+                                 datamodule=datamodule).run()
+    seq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vm = _VmapSweepEngine(off, configs, *args, device="cuda", datamodule=datamodule).run()
+    vm_s = time.perf_counter() - t0
+    wild = _VmapSweepEngine(off, configs + [SweepConfig(len(configs), 1e3)], *args,
+                            device="cuda", datamodule=datamodule).run()
+    rel = []
+    for a, b in zip(vm, seq):
+        check(a.status == b.status == "ok", f"s: dropout-off trial {a.config} {a.status} "
+              f"{a.message}; sequential {b.status} {b.message}")
+        rel.append(abs(a.metric - b.metric) / abs(b.metric))
+    check(max(rel) <= SWEEP_REL, f"s: replica metrics {[r.metric for r in vm]} against the "
+          f"sequential trials' {[r.metric for r in seq]} (relative {rel}, tol {SWEEP_REL})")
+    check(wild[-1].status == "error" and "non-finite" in (wild[-1].message or ""),
+          f"s: the lr 1e3 replica ended {wild[-1].status}: {wild[-1].message}")
+    moved = [abs(a.metric - b.metric) / abs(b.metric) for a, b in zip(wild, vm)]
+    check(all(r.status == "ok" for r in wild[:-1]) and max(moved) <= 1e-6,
+          f"s: the other replicas moved with the diverged one: {moved}")
+    row = dict(phase="sweep", run="s_vmap_sweep", engine=summary["engine"], inputs=256,
+               epochs=2, trials=len(results), summary_keys=list(summary),
+               best=summary["best"], metrics=[r["metric"] for r in results],
+               sweep_seconds=sweep_s, peak_mib=peak / 2**20, **launches, **timing,
+               dropout_off=dict(vmap_metrics=[r.metric for r in vm],
+                                sequential_metrics=[r.metric for r in seq],
+                                max_rel_diff=max(rel), tol=SWEEP_REL, vmap_seconds=vm_s,
+                                sequential_seconds=seq_s),
+               diverged=dict(lr=1e3, status=wild[-1].status, message=wild[-1].message,
+                             others_max_rel_move=max(moved),
+                             others_bit_equal=all(a.metric == b.metric
+                                                  for a, b in zip(wild, vm))))
+    emit(row)
+    return row
+
+
+def stacked_case(name: str, short: bool, b, h, t, d, dtype, rate, g) -> dict:
+    """One stacked launch over len(SEED_VECTOR) replicas of (b, h) heads with
+    one seed each (bh_per_seed = b*h), forward and backward, against one
+    launch per replica with its seed: bit for bit (each head's arithmetic
+    is its own), and against the plain version with the seed vector within
+    the kernel's tolerance."""
+    from vit_tpu_torch.ops.flash_attention import (
+        flash_bwd, flash_bwd_plain, flash_fwd, flash_fwd_plain, short_bwd, short_bwd_plain,
+        short_fwd, short_fwd_plain,
+    )
+
+    fwd, bwd = (short_fwd, short_bwd) if short else (flash_fwd, flash_bwd)
+    fwd_plain, bwd_plain = ((short_fwd_plain, short_bwd_plain) if short
+                            else (flash_fwd_plain, flash_bwd_plain))
+    r, per = len(SEED_VECTOR), b * h
+    seeds = torch.tensor(SEED_VECTOR, dtype=torch.int32, device="cuda")
+    q, k, v, do = (torch.randn(r * per, t, d, generator=g, device="cuda", dtype=dtype)
+                   for _ in range(4))
+    scale = d**-0.5
+    o, lse = fwd(q, k, v, scale, rate, seeds, per)
+    delta = (do.float() * o.float()).sum(-1)
+    grads = bwd(q, k, v, do, lse, delta, scale, rate, seeds, per)
+    for i, seed in enumerate(SEED_VECTOR):
+        sl = slice(i * per, (i + 1) * per)
+        o1, lse1 = fwd(q[sl], k[sl], v[sl], scale, rate, seed)
+        g1 = bwd(q[sl], k[sl], v[sl], do[sl], lse1, delta[sl], scale, rate, seed)
+        check(torch.equal(o[sl], o1) and torch.equal(lse[sl], lse1),
+              f"{name}: replica {i}'s stacked forward differs from its single launch")
+        for what, a, c in zip(("dq", "dk", "dv"), grads, g1):
+            check(torch.equal(a[sl], c), f"{name}: replica {i}'s stacked {what} differs from "
+                  "its single launch")
+    o_ref, _ = fwd_plain(q, k, v, scale, rate, seeds, per)
+    g_ref = bwd_plain(q, k, v, do, lse, delta, scale, rate, seeds, per)
+    errs = {"o": (o.float() - o_ref.float()).abs().max().item()}
+    for what, a, c in zip(("dq", "dk", "dv"), grads, g_ref):
+        errs[what] = (a.float() - c.float()).abs().max().item()
+        check(errs[what] <= kernel_tol(c), f"{name}: stacked {what} vs the plain version "
+              f"{errs[what]} (tol {kernel_tol(c)})")
+    check(errs["o"] <= kernel_tol(o_ref), f"{name}: stacked o vs the plain version {errs['o']}")
+    row = dict(phase="stacked_seeds", kernel=name, replicas=r, b=b, h=h, T=t, d=d,
+               dtype=str(dtype), rate=rate, seeds=list(SEED_VECTOR), bit_equal_to_singles=True,
+               max_abs_err_vs_plain=errs)
+    emit(row)
+    return row
+
+
+def seed_vector_runs(work: str, kernels) -> dict:
+    """(s') The seed vector at full width: K1, K4, K5 over three stacked
+    replicas at stride1's shape (B16 H2 T4066 d64 bf16, dropout 0.1) and K2,
+    K6 at (e)'s (B16 H2 T129 d16 fp32), each bit for bit its three single
+    launches (stacked_case); the masks themselves are mask_check's. Then a
+    few replica steps of stride1.yaml (3 layers, hidden 128, T 4066, bf16,
+    remat: mlp, dropout 0.1) as a three-replica vmapped sweep over 128
+    in-memory spectra (8 steps of 16, one epoch) through the replica graph:
+    launches and its device ms."""
+    import copy
+
+    from vit_tpu_torch.data.datasets import SpecDataModule
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+    from vit_tpu_torch.ops._build import reset_launches
+    from vit_tpu_torch.opt.parallel_sweep import SweepConfig, _VmapSweepEngine
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = {"stacked_flash": stacked_case("K1_K4_K5_stride1", False, 16, 2, 4066, 64,
+                                         torch.bfloat16, 0.1, g),
+           "stacked_short": stacked_case("K2_K6_baseline", True, 16, 2, 129, 16,
+                                         torch.float32, 0.1, g)}
+    cfg = copy.deepcopy(STRIDE1_TRAIN)
+    del cfg["train"]["fused_epoch"]
+    data = make_dummy_spectra(n=128, length=STRIDE1_MODEL["image_size"], seed=1)
+    configs = [SweepConfig(i, lr) for i, lr in enumerate((1e-4, 1e-3, 1e-2))]
+    engine = _VmapSweepEngine(cfg, configs, "val_mae", "minimize", 0, device="cuda",
+                              datamodule=lambda c: SpecDataModule(c, source=data))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    calls = {n: k.launches for n, k in kernels.items()}
+    check(all(r.status == "ok" for r in results), f"s': {[r.message for r in results]}")
+    ep = engine.epochs
+    layers = STRIDE1_MODEL["num_hidden_layers"]
+    expect_step = dict({n: 0 for n in kernels}, flash_fwd=layers, flash_bwd_dq=layers,
+                       flash_bwd_dkv=layers)
+    row = dict(phase="replica_steps", run="s2_stride1_replicas",
+               inputs=128, steps=ep.steps, metrics=[r.metric for r in results],
+               sweep_seconds=sweep_s, peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+               **replica_launches(ep, calls, expect_step, kernels), **replica_timing(ep))
+    emit(row)
+    out["s2_stride1_replicas"] = row
+    return out
+
+
+def image_grad_check(tag, exp, cfg) -> dict:
+    """(u)'s first step: the same weights in fp32 on the card (the kernels'
+    fp32 bodies at the run's shapes) held per tensor at 1e-4 against the
+    CPU; the config's bf16 step held per tensor at 2e-2, or at BF16_OWN
+    times the CPU's own bf16 error on the tensor where that is larger
+    (``first_step_check``'s ``bf16_limits``). At 12 layers the query and key
+    weights' gradients, ~1e-3 of the global norm under the near-uniform
+    attention of the std-0.02 init, come out of a cancellation in dS and
+    differ from fp32 by more than 2e-2 in bf16 on the CPU alone (up to 0.03
+    at ViT-S, 0.08 at ViT-B); every other tensor stays under 0.015."""
+    import copy
+    import types
+
+    from vit_tpu_torch.models.builder import get_model
+
+    cfg32 = copy.deepcopy(cfg)
+    cfg32["train"]["precision"] = "float32"
+    b32 = get_model(copy.deepcopy(cfg32))
+    b32.module.load_state_dict(exp.module.state_dict())
+    exp32 = types.SimpleNamespace(module=b32.module.cuda(), datamodule=exp.datamodule,
+                                  bundle=b32)
+    cpu_ref = {}  # one CPU step serves both checks
+    fp32 = first_step_check(f"{tag}/fp32", exp32, cfg32, FP32_TOL, cpu_ref=cpu_ref)
+    del exp32, b32
+    return dict(first_step_fp32=fp32, **first_step_check(
+        tag, exp, cfg, TRAIN_GRAD_TOL[tag], cpu_ref=cpu_ref, bf16_limits=True))
+
+
+def image_config(name: str, **model) -> dict:
+    """``configs/exp/image/<name>`` as it stands but for the data: no paths
+    (the synthetic images of ImageDataset's fallback), IMAGE_INPUTS training
+    and IMAGE_VAL validation images; one epoch; ``model`` overrides."""
+    from vit_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(IMAGE_DIR, name))
+    cfg["data"] = {"num_samples": IMAGE_INPUTS, "num_test_samples": IMAGE_VAL}
+    cfg["train"].update(ep=1, save=False)
+    cfg["model"].update(model)
+    return cfg
+
+
+def image_runs(work: str, none: dict, kernels) -> dict:
+    """(u) The image family at full width on synthetic class-conditional
+    images: cifar_vit_s16.yaml as it stands (ViT-S: hidden 384, 12 layers,
+    6 heads, patch 4, T 65, bf16, batch 128; xla attention, dense MLP, the
+    fused epoch as ``auto`` decides), then with ``attn_impl: flash`` and
+    ``fused_mlp: true`` (K2/K6 at T65 d64, K3/K7 at R8320 D384 F1536, per
+    step: exact launches); cifar_vit_s16_pca.yaml behind patch-PCA
+    statistics computed on the card (held against the CPU's); and
+    vit_b16_bf16.yaml (hidden 768, 12 layers, T 197, remat) with flash and
+    the fused MLP, its batch of 1024 cut to B16_BATCH. Each run: the first
+    step's gradients against fp32 on the CPU (2e-2), one epoch, then the
+    trained weights served on the card and held as (a)-(c) are."""
+    import copy
+
+    import numpy as np
+
+    from vit_tpu_torch.data.images import make_dummy_images
+    from vit_tpu_torch.models.builder import get_vit_config
+    from vit_tpu_torch.prepca.pipeline import compute_patch_pca_images
+
+    rows = {}
+
+    def run(tag, cfg, expect, serve_expect, serve_batch):
+        trained = {}
+
+        def keep(exp):
+            trained["module"] = exp.module
+            return {}
+
+        rows[tag] = train_run(tag, cfg, expect, kernels, after=keep,
+                              grad_check=image_grad_check)
+        module = trained["module"].cpu()
+        rows[f"{tag}_serve"] = serve_run(f"{tag}_serve", cfg, serve_expect, None,
+                                         BF16_FEATURE_TOL, work, kernels, module=module,
+                                         n=2 * serve_batch, batch=serve_batch)
+        fp32 = copy.deepcopy(cfg)
+        fp32["train"]["precision"] = "float32"
+        rows[f"{tag}_serve_fp32"] = serve_run(f"{tag}_serve_fp32", fp32, serve_expect,
+                                              FP32_TOL, FP32_TOL, work, kernels, module=module,
+                                              n=2 * serve_batch, batch=serve_batch)
+
+    def counts(cfg, remat_layer=False):
+        """Exact per-step launches of one epoch's fit, and of serving two
+        batches, for a config with flash and the fused MLP."""
+        layers = get_vit_config(copy.deepcopy(cfg)).num_hidden_layers
+        bs = cfg["train"]["batch_size"]
+        steps, val = -(-IMAGE_INPUTS // bs), -(-IMAGE_VAL // min(bs, IMAGE_VAL))
+        fwd = layers * ((2 if remat_layer else 1) * steps + val)
+        return dict(none, short_fwd=fwd, short_bwd=layers * steps, fused_mlp_fwd=fwd,
+                    fused_mlp_bwd=layers * steps), dict(none, short_fwd=layers * 2,
+                                                        fused_mlp_fwd=layers * 2)
+
+    s16 = image_config("cifar_vit_s16.yaml")
+    run("u_cifar_s16_bf16", s16, none, none, 128)
+    flash = image_config("cifar_vit_s16.yaml", attn_impl="flash", fused_mlp=True)
+    flash["train"]["fused_epoch"] = False  # per step: exact launch counts
+    expect, serve_expect = counts(flash)
+    run("u_cifar_s16_flash_fused_bf16", flash, expect, serve_expect, 128)
+
+    images = make_dummy_images(n=IMAGE_INPUTS, image_size=32, num_classes=10, seed=0)["images"]
+    t0 = time.perf_counter()
+    card = compute_patch_pca_images(images, patch_size=4, device="cuda")
+    pca_s = time.perf_counter() - t0
+    cpu = compute_patch_pca_images(images, patch_size=4, device="cpu")
+    evr_err = float(np.abs(card["explained_variance_ratio"] - cpu["explained_variance_ratio"])
+                    .max())
+    mean_err = float(np.abs(card["mean"] - cpu["mean"]).max())
+    top = cpu["explained_variance_ratio"] > 1e-3
+    signs = np.sign((card["components"] * cpu["components"]).sum(0))
+    basis_err = float(np.abs(card["components"] * signs - cpu["components"])[:, top].max())
+    check(evr_err <= 1e-5 and mean_err <= 1e-6 and basis_err <= 1e-3,
+          f"u: patch PCA card vs CPU: evr {evr_err}, mean {mean_err}, basis {basis_err}")
+    pca_path = os.path.join(work, "pca_patch_img_4.npz")
+    np.savez(pca_path, **card)
+    pca = image_config("cifar_vit_s16_pca.yaml")
+    pca["warmup"]["cov_path"] = pca_path
+    run("u_cifar_s16_pca_bf16", pca, none, none, 128)
+    rows["u_cifar_s16_pca_bf16"].update(pca_stats_seconds=pca_s, pca_evr_err_vs_cpu=evr_err,
+                                        pca_mean_err_vs_cpu=mean_err,
+                                        pca_basis_err_vs_cpu=basis_err)
+
+    b16 = image_config("vit_b16_bf16.yaml", attn_impl="flash", fused_mlp=True)
+    b16["train"].update(batch_size=B16_BATCH, fused_epoch=False)
+    expect, serve_expect = counts(b16, remat_layer=True)
+    run("u_vit_b16_flash_fused_bf16", b16, expect, serve_expect, B16_BATCH)
+    emit(dict(phase="image_cuts", reduced={
+        "all": f"synthetic class-conditional images ({IMAGE_INPUTS} train, {IMAGE_VAL} val) "
+               "in place of the npz files; 1 epoch",
+        "u_vit_b16_flash_fused_bf16": f"train.batch_size 1024 -> {B16_BATCH}"}))
+    return rows
+
+
 def graph_and_sweep_runs(work: str, kernels, only=None) -> dict:
     """Runs (w), (p), (q) and (r): the per-step window, the fused epoch as a
     CUDA graph at baseline's and stride1's shapes, and the sequential LR
@@ -2126,14 +2653,29 @@ def graph_and_sweep_runs(work: str, kernels, only=None) -> dict:
     return runs
 
 
+def replica_and_image_runs(work: str, none: dict, kernels, only=None) -> dict:
+    """Runs (s), (s') ('v') and (u); ``only``: the letters to run (all by
+    default). Each run's seconds are printed."""
+    want = set("svu") if only is None else set(only)
+    runs = {}
+    for letter, fn in (("s", lambda: {"s_vmap_sweep": vmap_sweep_run(work, kernels)}),
+                       ("v", lambda: seed_vector_runs(work, kernels)),
+                       ("u", lambda: image_runs(work, none, kernels))):
+        if letter in want:
+            t0 = time.perf_counter()
+            runs.update(fn())
+            emit(dict(phase="run_seconds", run=letter, seconds=time.perf_counter() - t0))
+    return runs
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", default=None,
-                        help="letters of runs (j)-(r) and (w) to run after the build, e.g. "
-                             "'jkl' or 'pqr', skipping the kernel phases and runs (a)-(i); "
-                             "prints no result")
+                        help="letters of runs (j)-(r), (w), (s), (u) and 'v' for (s') to run "
+                             "after the build, e.g. 'jkl' or 'pqr' or 'svu', skipping the "
+                             "kernel phases and runs (a)-(i); prints no result")
     args = parser.parse_args(argv)
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2172,6 +2714,8 @@ def main(argv=None) -> int:
             option_runs(work, {n: 0 for n in kernels}, kernels,
                         only=set(args.only) & set("jklmno"))
             graph_and_sweep_runs(work, kernels, only=set(args.only) & set("wpqr"))
+            replica_and_image_runs(work, {n: 0 for n in kernels}, kernels,
+                                   only=set(args.only) & set("svu"))
         print("chip_smoke: partial run (--only): no result line", flush=True)
         return 0
 
@@ -2215,6 +2759,20 @@ def main(argv=None) -> int:
     mlp_bwd_case(16 * 129, 32, 128, torch.bfloat16, g, sfu_rate, kernels)  # (f)'s shape
     mlp_bwd_case(1000, 384, 1536, torch.float32, g, sfu_rate, kernels)
     mlp_bwd_case(1000, 384, 1536, torch.bfloat16, g, sfu_rate, kernels)
+    # The image family's shapes (run (u)): ViT-S/16 on 32-pixel images at
+    # batch 128 (T 65, d 64; 128 x 65 = 8320 MLP rows).
+    attention_case("short_fwd", short_fwd, short_fwd_plain, 128, 6, 65, 64, torch.bfloat16,
+                   g, sfu_rate, kernels, rate=0.1)
+    attention_bwd_case(True, 128, 6, 65, 64, torch.bfloat16, 0.1, g, sfu_rate, kernels)
+    mlp_case(128 * 65, 384, 1536, torch.bfloat16, g, sfu_rate, kernels)
+    mlp_bwd_case(128 * 65, 384, 1536, torch.bfloat16, g, sfu_rate, kernels)
+    # ViT-B/16 on 224-pixel images at (u)'s cut batch of B16_BATCH (T 197,
+    # d 64; B16_BATCH x 197 MLP rows at D768 F3072, K7 on its FMA body).
+    attention_case("short_fwd", short_fwd, short_fwd_plain, B16_BATCH, 12, 197, 64,
+                   torch.bfloat16, g, sfu_rate, kernels, rate=0.1)
+    attention_bwd_case(True, B16_BATCH, 12, 197, 64, torch.bfloat16, 0.1, g, sfu_rate, kernels)
+    mlp_case(B16_BATCH * 197, 768, 3072, torch.bfloat16, g, sfu_rate, kernels)
+    mlp_bwd_case(B16_BATCH * 197, 768, 3072, torch.bfloat16, g, sfu_rate, kernels)
     mask_check(kernels)
 
     none = {n: 0 for n in kernels}
@@ -2267,6 +2825,7 @@ def main(argv=None) -> int:
         runs.update(viz_runs(ckpt_dir, none, kernels))
         runs.update(option_runs(ckpt_dir, none, kernels))
         runs.update(graph_and_sweep_runs(ckpt_dir, kernels))
+        runs.update(replica_and_image_runs(ckpt_dir, none, kernels))
 
     summary = []
     for name, k in kernels.items():

@@ -538,3 +538,80 @@ def test_captured_step_replays_equal_to_eager(gen, tmp_path, monkeypatch):
     assert exp.fused is not None and exp.fused.replays == 2 * 8 - 1
     for k in params[0]:
         assert torch.allclose(params[1][k], params[0][k], rtol=1e-6, atol=1e-7), k
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t, short", [(65, True), (129, True), (197, True), (600, False)])
+def test_seed_vector_launch_is_r_single_launches(gen, t, short, dtype):
+    """K1, K2, K4, K5, K6 over three stacked replicas with a seed each
+    (bh_per_seed): every output bit for bit the replica's own launch, and
+    the stacked launch within tolerance of the plain version."""
+    fwd, bwd = (fa.short_fwd, fa.short_bwd) if short else (fa.flash_fwd, fa.flash_bwd)
+    pfwd, pbwd = ((fa.short_fwd_plain, fa.short_bwd_plain) if short
+                  else (fa.flash_fwd_plain, fa.flash_bwd_plain))
+    seeds, per, d = [7, -1, 2**31 - 1], 6, 64
+    sv = torch.tensor(seeds, dtype=torch.int32, device="cuda")
+    q, k, v = _qkv(gen, len(seeds) * per, t, d, dtype)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    o, lse = fwd(q, k, v, d**-0.5, 0.1, sv, per)
+    delta = (do.float() * o.float()).sum(-1)
+    grads = bwd(q, k, v, do, lse, delta, d**-0.5, 0.1, sv, per)
+    for i, s in enumerate(seeds):
+        sl = slice(i * per, (i + 1) * per)
+        o1, lse1 = fwd(q[sl], k[sl], v[sl], d**-0.5, 0.1, s)
+        assert torch.equal(o[sl], o1) and torch.equal(lse[sl], lse1)
+        for a, b in zip(grads, bwd(q[sl], k[sl], v[sl], do[sl], lse1, delta[sl], d**-0.5, 0.1,
+                                   s)):
+            assert torch.equal(a[sl], b)
+    o_ref, _ = pfwd(q, k, v, d**-0.5, 0.1, sv, per)
+    assert (o.float() - o_ref.float()).abs().max().item() <= _tol(o_ref)
+    for a, b in zip(grads, pbwd(q, k, v, do, lse, delta, d**-0.5, 0.1, sv, per)):
+        assert (a.float() - b.float()).abs().max().item() <= _tol(b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vmap_rules_launch_as_the_stacked_replicas(gen, dtype):
+    """torch.func.vmap over three replicas: flash_attention folds them into
+    one launch of K2 and K6 with their seeds, the fused MLP launches K3 and
+    K7 once per replica on its own weights; outputs and gradients against
+    each replica's plain version on the CPU in the same dtype (the weight
+    gradients, fp32 sums over every row, to 1e-5 / 1e-3 of their largest
+    value as above)."""
+    from vit_tpu_torch.ops.flash_attention import flash_attention
+
+    r, b, h, t, d, f = 3, 4, 2, 65, 64, 256
+    seeds = torch.tensor([3, 4, 5], dtype=torch.int32, device="cuda")
+    q, k, v = (torch.randn(r, b, h, t, d, generator=gen, device="cuda").to(dtype)
+               .requires_grad_(True) for _ in range(3))
+    before = {n: KERNELS[n].launches for n in KERNELS}
+    o = torch.func.vmap(lambda q, k, v, s: flash_attention(q, k, v, 0.1, s))(q, k, v, seeds)
+    co = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)  # dO, exact on both sides
+    grads = torch.autograd.grad(o, (q, k, v), co)
+    assert KERNELS["short_fwd"].launches == before["short_fwd"] + 1
+    assert KERNELS["short_bwd"].launches == before["short_bwd"] + 1
+    for i in range(r):
+        qi, ki, vi = (x[i].detach().cpu().requires_grad_(True) for x in (q, k, v))
+        oi = flash_attention(qi, ki, vi, 0.1, int(seeds[i]))
+        gi = torch.autograd.grad(oi, (qi, ki, vi), co[i].cpu())
+        assert (o[i].float().cpu() - oi.float()).abs().max().item() <= _tol(oi)
+        for a, c in zip(grads, gi):
+            assert (a[i].float().cpu() - c.float()).abs().max().item() <= _tol(c)
+    x = torch.randn(r, b * t, d, generator=gen, device="cuda").to(dtype).requires_grad_(True)
+    w = [torch.randn(r, *shape, generator=gen, device="cuda").mul_(0.05).requires_grad_(True)
+         for shape in ((f, d), (f,), (d, f), (d,))]
+    before = {n: KERNELS[n].launches for n in KERNELS}
+    y = torch.func.vmap(fm.fused_mlp)(x, *w)
+    cy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+    gy = torch.autograd.grad(y, (x, *w), cy)
+    assert KERNELS["fused_mlp_fwd"].launches == before["fused_mlp_fwd"] + r
+    assert KERNELS["fused_mlp_bwd"].launches == before["fused_mlp_bwd"] + r
+    rel = 1e-5 if dtype == torch.float32 else 1e-3
+    for i in range(r):
+        xi = x[i].detach().cpu().requires_grad_(True)
+        wi = [t_[i].detach().cpu().requires_grad_(True) for t_ in w]
+        yi = fm.fused_mlp(xi, *wi)
+        gi = torch.autograd.grad(yi, (xi, *wi), cy[i].cpu())
+        assert (y[i].float().cpu() - yi.float()).abs().max().item() <= _tol(yi)
+        assert (gy[0][i].float().cpu() - gi[0].float()).abs().max().item() <= _tol(gi[0])
+        for a, c in zip(gy[1:], gi[1:]):
+            assert (a[i].cpu() - c).abs().max().item() <= rel * c.abs().max().item()

@@ -10,6 +10,7 @@ the packages do.
 """
 
 import copy
+import os
 
 import jax
 import jax.numpy as jnp
@@ -234,8 +235,21 @@ def test_builder_errors(tiny_config, cov_path):
         get_model(_warm_config(tiny_config, cov_path, preprocessor="kpca"))
     image = _warm_config(tiny_config, cov_path, preprocessor="pca")
     image["model"]["input_kind"] = "image"
-    with pytest.raises(NotImplementedError, match="image"):
+    with pytest.raises(ValueError, match="patch dim"):  # a spectra basis is no patch basis
         get_model(image)
+    # The image family's patch-PCA builder: a patch basis of 4 x 4 x 3 patches.
+    from vit_tpu_torch.data.images import make_dummy_images
+    from vit_tpu_torch.prepca.pipeline import compute_patch_pca_images
+
+    stats = compute_patch_pca_images(make_dummy_images(16, 16)["images"], patch_size=4,
+                                     device="cpu")
+    patch_path = str(os.path.join(os.path.dirname(cov_path), "patch_pca.npz"))
+    np.savez(patch_path, components=stats["components"], mean=stats["mean"])
+    image["model"].update(image_size=16, patch_size=4, task_type="cls", num_labels=3)
+    image["warmup"].update(cov_path=patch_path, r=12)
+    bundle = get_model(image)
+    assert bundle.has_preprocessor and bundle.model_name.startswith("PCAp12_fz0_ViT")
+    assert bundle.module.eval()(torch.zeros((2, 16, 16, 3))).shape == (2, 3)
     for off in ("none", None):
         cfg = _warm_config(tiny_config, cov_path, preprocessor=off)
         assert not get_model(cfg).has_preprocessor and cfg["model"]["image_size"] == 512

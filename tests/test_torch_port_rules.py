@@ -131,9 +131,13 @@ def test_training_mode_and_unported_paths_raise(tmp_path, monkeypatch, capsys):
     assert slow.train()(x, dropout_seeds=seeds).shape == (1, 1)  # nn.Dropout streams
     rope = get_model(dict(cfg, model=dict(cfg["model"], pos_encoding_type="rope"))).module
     assert rope.train()(x, dropout_seeds=seeds).shape == (1, 1)
-    for extra in ({"attn_impl": "ring"}, {"name": "vit-s16"}, {"moe_experts": 4}):
+    for extra in ({"attn_impl": "ring"}, {"moe_experts": 4}):
         with pytest.raises(NotImplementedError):
             get_model(dict(cfg, model=dict(cfg["model"], **extra)))
+    s16 = get_model(dict(cfg, model=dict(cfg["model"], name="vit-s16", num_hidden_layers=1,
+                                         task_type="cls", num_labels=3))).module
+    images = torch.zeros((1, 64, 64, 3))  # the image family is ported
+    assert s16.train()(images, dropout_seeds=list(range(s16.num_dropout_sites))).shape == (1, 3)
     from vit_tpu_torch.prepca.stats import compute_covariance_stats
 
     cov = str(tmp_path / "cov.npz")
@@ -142,7 +146,7 @@ def test_training_mode_and_unported_paths_raise(tmp_path, monkeypatch, capsys):
     pca = get_model(dict(cfg, model=dict(cfg["model"]), warmup={"preprocessor": "pca",
                                                                  "cov_path": cov, "r": 32}))
     assert pca.module.train()(x, dropout_seeds=seeds).shape == (1, 1)
-    with pytest.raises(NotImplementedError):  # the image family's patch PCA
+    with pytest.raises(ValueError, match="patch dim"):  # a spectra basis is no patch basis
         get_model(dict(cfg, model=dict(cfg["model"], input_kind="image"),
                        warmup={"preprocessor": "pca", "cov_path": cov}))
     for name in ("rmsprop", "adadelta", "adagrad", "adamax", "lbfgs", "rprop", "asgd",

@@ -137,11 +137,17 @@ def test_failing_trial_is_isolated(sweep_base_config, tmp_path):
     assert statuses == {1e-3: "ok", 1e6: "error"}
 
 
-def test_engine_validated_and_vmap_raises(sweep_base_config):
+def test_engine_validated_and_vmap_raises(sweep_base_config, tmp_path):
+    """A bad engine raises; vit_tpu's default engine, vmap, is the default
+    and runs (it raised before the vmapped engine was ported)."""
     with pytest.raises(ValueError, match="engine"):
         psweep.ParallelSweepRunner("/nonexistent.yaml", engine="bogus")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §A.3.*--engine sequential"):
-        psweep.ParallelSweepRunner(sweep_base_config)  # vit_tpu's default engine
+    runner = psweep.ParallelSweepRunner(sweep_base_config, lr_values=[1e-3], device="cpu",
+                                        results_dir=str(tmp_path / "runs"))
+    assert runner.engine == "vmap"
+    assert runner.run().metric is not None
+    with open(runner.summary_path) as f:
+        assert yaml.safe_load(f)["engine"] == "vmap"
 
 
 def test_lr_cli_dry_run_and_vmap(sweep_base_config, tmp_path):
@@ -153,9 +159,14 @@ def test_lr_cli_dry_run_and_vmap(sweep_base_config, tmp_path):
     assert run.returncode == 0, run.stderr
     assert "4 configs" in run.stdout and "[Dry run]" in run.stdout
     assert not os.path.exists(tmp_path / "runs")
-    vmap = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert vmap.returncode != 0 and "NotImplementedError" in vmap.stderr
-    assert "--engine sequential" in vmap.stderr
+    vmap = subprocess.run(cmd[:5] + ["--lr", "1e-3", "--device", "cpu", "--results-dir",
+                                     str(tmp_path / "runs")],
+                          cwd=ROOT, capture_output=True, text=True, timeout=240)
+    assert vmap.returncode == 0, vmap.stderr
+    assert "vmapped replicas" in vmap.stdout and "[sweep] epoch 1:" in vmap.stdout
+    (run_dir,) = os.listdir(tmp_path / "runs")
+    with open(tmp_path / "runs" / run_dir / "summary.yaml") as f:
+        assert yaml.safe_load(f)["engine"] == "vmap"
 
 
 # -- the W&B agent ----------------------------------------------------------------

@@ -42,14 +42,20 @@ __device__ __forceinline__ float sum16(float x) {
 
 // Attention dropout, vit_tpu/ops/flash_attention.py::_hash_bits (:115): a
 // murmur3-finalised hash of the GLOBAL (seed, bh, row, col), so every
-// kernel and every tiling draws the same mask. The seed lies in device
-// memory (the Pallas kernels' SMEM seed operand): each CTA reads it once,
-// so a captured launch draws whatever seed its buffer holds at replay. The
+// kernel and every tiling draws the same mask. The seeds lie in device
+// memory (the Pallas kernels' SMEM seed operand): each CTA reads its one
+// seed once, so a captured launch draws whatever seed its buffer holds at
+// replay. Heads come in groups of `bh_per_seed` with a seed each: a launch
+// over R stacked replicas of B*H heads passes R seeds and bh_per_seed = B*H,
+// and head bh hashes (seed[bh / bh_per_seed], bh % bh_per_seed), what each
+// replica draws alone (vit_tpu's kernel under jax.vmap). One seed for the
+// whole launch is bh_per_seed = B*H: seed[0] and the global bh. The
 // host computes the keep threshold and 1/keep (vit_tpu_torch/ops/dropout.py::
 // keep_params), which depend on the rate only, and passes them in; an element
 // is kept when its bits are below the threshold.
 struct Dropout {
-  const int* seed;     // device pointer to the int32 seed; unread when off
+  const int* seed;     // device pointer to the int32 seeds; unread when off
+  int bh_per_seed;     // heads that share one seed (> 0 when on)
   unsigned threshold;  // keep iff bits < threshold
   float inv_keep;      // 1 / (1 - rate)
   int on;              // rate > 0
@@ -64,10 +70,13 @@ __device__ __forceinline__ unsigned fmix32(unsigned x) {
   return x;
 }
 
-// seed*H_SEED + bh*H_BH, the part of the hash that is fixed for one head.
+// seed*H_SEED + bh*H_BH, the part of the hash that is fixed for one head:
+// the head's own seed and its index within that seed's group.
 __device__ __forceinline__ unsigned head_term(const Dropout& dr, int bh) {
-  const unsigned seed = dr.on ? static_cast<unsigned>(__ldg(dr.seed)) : 0u;
-  return seed * 0x27D4EB2Fu + static_cast<unsigned>(bh) * 0xC2B2AE35u;
+  if (!dr.on) return static_cast<unsigned>(bh) * 0xC2B2AE35u;
+  const int group = bh / dr.bh_per_seed;
+  const unsigned seed = static_cast<unsigned>(__ldg(dr.seed + group));
+  return seed * 0x27D4EB2Fu + static_cast<unsigned>(bh - group * dr.bh_per_seed) * 0xC2B2AE35u;
 }
 
 // The keep factor (0 or 1/keep) of element (row, col) of one head.

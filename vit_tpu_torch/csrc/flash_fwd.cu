@@ -191,17 +191,20 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, void*
 
 // q, k, v, o: (bh, t, d) contiguous in float32 (is_bf16 = 0) or bfloat16;
 // lse: (bh, t) float32. `scale` is d^-1/2 already rounded to the input dtype.
-// Dropout: `dropout` = rate > 0, `seed` a device pointer to the int32 seed
+// Dropout: `dropout` = rate > 0, `seed` a device pointer to the int32 seeds
 // (read by the kernel, as the Pallas kernel reads its seed operand from
-// SMEM, so a captured CUDA graph replays with the seed its buffer holds;
-// unread when `dropout` is 0), `threshold` and `inv_keep` from the host
+// SMEM, so a captured CUDA graph replays with the seeds its buffer holds;
+// unread when `dropout` is 0), one for every `bh_per_seed` heads (common.cuh
+// Dropout; bh_per_seed = bh for one seed), `threshold` and `inv_keep` from the host
 // (keep iff hash < threshold).
 // Returns cudaGetLastError() after the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int bh, int t, int d, float scale, int is_bf16, int dropout,
-                         const void* seed, unsigned threshold, float inv_keep, void* stream) {
+                         const void* seed, int bh_per_seed,
+                         unsigned threshold, float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout dr{static_cast<const int*>(seed), threshold, inv_keep, dropout};
+  const Dropout dr{static_cast<const int*>(seed), bh_per_seed, threshold, inv_keep,
+                   dropout};
   return is_bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, lse, bh, t, d, scale, dr, s)
                  : launch_d<float>(q, k, v, o, lse, bh, t, d, scale, dr, s);
 }

@@ -11,8 +11,10 @@ it checks the eigenvector rows against ``model.image_size``, adjusts
 ``config['model']['image_size']`` in place to the preprocessor's output
 dimension, and prefixes the model name (``ZCA{r}_fz{fz}{_s..}{_nobias}``,
 ``PCA{r}_fz..``, ``Attn{r}{_scaled}_fz..``), which names the checkpoint
-directory. The image family (with or without its patch PCA) is not ported
-yet and raises.
+directory. The image family (``input_kind: image`` or a preset name,
+``IMAGE_VIT_PRESETS``) builds the same way, and with ``warmup.preprocessor:
+pca`` puts a patch-level PCA projection in front of its embeddings
+(``_get_image_pca_model``, ``vit_tpu/models/builder.py:416``).
 """
 
 from __future__ import annotations
@@ -341,6 +343,48 @@ def _build_preprocessor(preproc_type: str, warmup_cfg: dict, stats: dict, input_
     raise ValueError(f"Unknown preprocessor type: '{preproc_type}'")
 
 
+def _get_image_pca_model(config: dict, warmup_cfg: dict, loss_name: str, preproc_type,
+                         generator: Optional[torch.Generator]) -> ModelBundle:
+    """An image ViT behind a patch-level PCA projection
+    (``vit_tpu/models/builder.py::_get_image_pca_model``): ``warmup.
+    preprocessor: pca`` with ``warmup.cov_path`` (or ``pca_path``) naming a
+    patch-PCA artifact, an optional rank ``warmup.r`` and the usual
+    ``freeze_epochs``."""
+    from vit_tpu_torch.models.preprocessor import PatchPCAProjector
+    from vit_tpu_torch.models.vit import SpecViT
+    from vit_tpu_torch.utils import load_patch_pca_stats
+
+    if str(preproc_type).lower() not in ("pca", "patch_pca"):
+        raise ValueError(
+            f"Image models support preprocessor 'pca' (patch-level); got '{preproc_type}'")
+    path = warmup_cfg.get("pca_path") or warmup_cfg.get("cov_path")
+    if path is None:
+        raise ValueError("image patch-PCA requires 'cov_path' (or 'pca_path') in warmup config")
+    stats = load_patch_pca_stats(path)
+    vit_config = get_vit_config(config)
+    patch_dim = vit_config.patch_size**2 * vit_config.num_channels
+    basis = stats["components"]
+    if basis.shape[0] != patch_dim:
+        raise ValueError(
+            f"Mismatch: PCA basis dimension {basis.shape[0]} != patch dim {patch_dim} "
+            f"({vit_config.patch_size}x{vit_config.patch_size}x{vit_config.num_channels})")
+    r = warmup_cfg.get("r")
+    r = int(r) if r is not None else int(basis.shape[1])
+    if r > basis.shape[1]:
+        raise ValueError(f"warmup.r={r} exceeds the {basis.shape[1]} components in the "
+                         f"patch-PCA artifact")
+    freeze_epochs = int(warmup_cfg.get("freeze_epochs", 0) or 0)
+    fz = _get_freeze_suffix(freeze_epochs)
+    preprocessor = PatchPCAProjector(vit_config.patch_size, vit_config.num_channels,
+                                     basis[:, :r], stats.get("mean"))
+    module = SpecViT(vit_config, generator=generator, preprocessor=preprocessor)
+    name = build_model_name(vit_config, f"PCAp{r}_fz{fz}_ViT", full_config=config)
+    desc = f"patch-level PCA, r={r}/{basis.shape[1]}, patch_dim={patch_dim}"
+    print(f"[builder] Created {desc} preprocessor -> {name}")
+    return ModelBundle(module, vit_config, name, loss_name, freeze_epochs=freeze_epochs,
+                       has_preprocessor=True, preprocessor_desc=desc)
+
+
 def get_model(config: dict, generator: Optional[torch.Generator] = None) -> ModelBundle:
     """Build the model (and its optional preprocessor) from the full config
     dict. Mutates ``config['model']['image_size']`` when a preprocessor
@@ -366,7 +410,7 @@ def get_model(config: dict, generator: Optional[torch.Generator] = None) -> Mode
     model_cfg = config.get("model", {}) or {}
     if (str(model_cfg.get("input_kind", "")).lower() == "image"
             or str(model_cfg.get("name", "")).lower() in IMAGE_VIT_PRESETS):
-        raise NotImplementedError("the image family's patch-PCA preprocessor is not ported yet")
+        return _get_image_pca_model(config, warmup_cfg, loss_name, preproc_type, generator)
     cov_path = warmup_cfg.get("cov_path")
     if cov_path is None:
         raise ValueError(f"preprocessor='{preproc_type}' requires 'cov_path' in warmup config")

@@ -19,7 +19,11 @@
 The matrices are data-dependent constants computed when the model is built;
 the products run on the module's device. Freezing is the training loop's
 concern (``warmup.freeze_epochs``), keyed on the ``preprocessor.`` prefix.
-``PatchPCAProjector`` (the image family's) is not ported yet.
+
+* :class:`PatchPCAProjector` (the image family's): ``(B, H, W, C) -> (B, N,
+  r)``, each non-overlapping ``P x P x C`` patch flattened row-major over
+  (P, P, C) and projected in fp32 onto the top-r PCA basis, bias ``-mean @
+  V_r``; ``preprocessor.linear.weight`` is ``V_r^T``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ __all__ = [
     "compute_pca_matrix",
     "LinearPreprocessor",
     "PrefilledAttention",
+    "PatchPCAProjector",
 ]
 
 
@@ -153,3 +158,39 @@ class PrefilledAttention(nn.Module):
         q, k, v = self.q_lin(x32), self.k_lin(x32), self.v_lin(x32)
         scores = torch.matmul(q, k.transpose(-1, -2)) / float(self.qk_out) ** 0.5
         return torch.matmul(torch.softmax(scores, dim=-1), v)
+
+
+class PatchPCAProjector(nn.Module):
+    """Patch-level PCA projection for NHWC images (NCHW is transposed
+    first), ``vit_tpu/models/preprocessor.py::PatchPCAProjector``: the basis
+    (patch_dim, r) and the optional patch mean (patch_dim,) prefill
+    ``linear`` (weight ``basis^T``, bias ``-mean @ basis``)."""
+
+    def __init__(self, patch_size: int, num_channels: int, basis: np.ndarray,
+                 mean: Optional[np.ndarray] = None) -> None:
+        super().__init__()
+        basis = np.asarray(basis, np.float32)
+        self.patch_size = int(patch_size)
+        self.num_channels = int(num_channels)
+        patch_dim = self.patch_size**2 * self.num_channels
+        if basis.shape[0] != patch_dim:
+            raise ValueError(f"PCA basis rows {basis.shape[0]} != patch dim {patch_dim} "
+                             f"({patch_size}x{patch_size}x{num_channels})")
+        bias = None if mean is None else -(np.asarray(mean, np.float32) @ basis)
+        self.linear = _Weights(basis.T, bias)
+
+    @property
+    def out_features(self) -> int:
+        return int(self.linear.weight.shape[0])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() != 4:
+            raise ValueError(f"PatchPCAProjector expects (B, H, W, C), got {tuple(x.shape)}")
+        c, p = self.num_channels, self.patch_size
+        if x.shape[1] == c and x.shape[-1] != c:
+            x = x.permute(0, 2, 3, 1)  # NCHW -> NHWC
+        b, hgt, wid, ch = x.shape
+        if hgt % p or wid % p or ch != c:
+            raise ValueError(f"image {tuple(x.shape[1:])} not tileable by patch {p} x {p} x {c}")
+        patches = x.reshape(b, hgt // p, p, wid // p, p, c).permute(0, 1, 3, 2, 4, 5)
+        return self.linear(patches.reshape(b, -1, p * p * c))

@@ -1,4 +1,4 @@
-"""Patch tokenizers for 1-D spectra (port of ``vit_tpu/models/tokenization.py``).
+"""Patch tokenizers (port of ``vit_tpu/models/tokenization.py``).
 
 * ``SlidingWindowTokenizer`` — zero-pad to ``(num_patches-1)*stride+patch``,
   unfold, Linear; ``num_patches = ceil((L-P)/S)+1``.
@@ -6,8 +6,10 @@
   ``num_patches = (L-P)//S + 1``. Run as unfold + product with the
   (H, 1, P) conv weight, so no cuDNN convolution (and no TF32) is involved.
 * ``LinearPatchTokenizer`` — non-overlapping reshape, ``L % P == 0``.
-
-``Patch2DTokenizer`` (images) is not ported yet.
+* ``Patch2DTokenizer`` — images: Conv2D(P x P, stride P, VALID) over NHWC
+  input (NCHW is transposed first, as in ``vit_tpu``), run as a patchify
+  reshape + product with the (H, C, P, P) conv weight, tokens row-major over
+  the patch grid.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ __all__ = [
     "SlidingWindowTokenizer",
     "Conv1DPatchTokenizer",
     "LinearPatchTokenizer",
+    "Patch2DTokenizer",
 ]
 
 
@@ -116,3 +119,32 @@ class LinearPatchTokenizer(_Tokenizer):
         self._check(x)
         patches = x.reshape(x.shape[0], self.num_patches, self.patch_size)
         return self.projection(patches, self.dtype)
+
+
+class Patch2DTokenizer(nn.Module):
+    """Standard ViT image patchify: ``(B, S, S, C) -> (B, (S/P)^2, H)``, the
+    stride-P convolution's weight (H, C, P, P) as ``projection.weight``."""
+
+    def __init__(self, image_size: int, patch_size: int, hidden_size: int,
+                 num_channels: int = 3, dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.image_size = image_size
+        self.patch_size = patch_size
+        self.num_channels = num_channels
+        self.dtype = dtype
+        self.num_patches = (image_size // patch_size) ** 2
+        self.projection = Linear(num_channels * patch_size**2, hidden_size,
+                                 weight_shape=(hidden_size, num_channels, patch_size, patch_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() != 4:
+            raise ValueError(f"Patch2DTokenizer expects 4-D input, got {tuple(x.shape)}")
+        c = self.num_channels
+        if x.shape[1] == c and x.shape[-1] != c:
+            x = x.permute(0, 2, 3, 1)  # NCHW -> NHWC
+        b, hgt, wid, _ = x.shape
+        p = self.patch_size
+        # VALID: rows and columns past the last whole patch are dropped.
+        x = x[:, :hgt // p * p, :wid // p * p]
+        patches = x.reshape(b, hgt // p, p, wid // p, p, c).permute(0, 1, 3, 5, 2, 4)
+        return self.projection(patches.reshape(b, -1, c * p * p), self.dtype)

@@ -2,6 +2,11 @@
 
 * ``SpectraEmbeddings`` — SW/C1D/LIN tokenizer + CLS token (N(0, 1) at
   init, the reference quirk) + optional learned positions.
+* ``ImageEmbeddings``   — the image family (``model.input_kind: image``):
+  2-D patchify of NHWC images (``Patch2DTokenizer``), or a dense embedding
+  of pre-tokenized (B, N, F) patch features (the patch-PCA preprocessor's
+  output), + CLS token and learned positions (both N(0, 0.02), standard
+  ViT; RoPE configs add no positions).
 * ``ViTLayer``          — pre-LN block in HF ViT order: layernorm_before ->
   attention -> residual; layernorm_after -> MLP -> residual. LN eps 1e-12.
   The MLP is dense -> GELU -> dense, or the fused CUDA kernel when
@@ -28,13 +33,15 @@ a recomputed forward draws the same masks. ``remat: mlp`` checkpoints the
 MLP sublayer and ``remat: true`` the whole layer
 (``torch.utils.checkpoint``, non-reentrant; no RNG state is stashed: no
 site draws from a global generator, and a CUDA graph cannot set one while
-it is being captured). ``fast_dropout: false`` takes
+it is being captured). Under ``torch.func.vmap`` over stacked replicas (the
+vmapped sweep) the checkpoint is taken around the whole replica batch, by
+:func:`remat`. ``fast_dropout: false`` takes
 ``nn.Dropout`` masks at the same sites (:func:`stream_dropout`, a generator
 seeded from each site's seed, so a recompute redraws them); attention's
 flash route keeps its hash mask either way. RoPE (``pos_encoding_type:
 rope``) rotates q and k inside attention. :func:`compute_loss` keeps the
-reference quirk that ``loss.name: 'mae'`` trains MSE. Image inputs and MoE
-are not ported yet.
+reference quirk that ``loss.name: 'mae'`` trains MSE. MoE is not ported
+yet.
 
 Diagnostics capture (``vit_tpu/models/vit.py:231-345``): ``forward`` takes
 an optional ``capture`` dict and fills it with ``vit_tpu``'s tree of
@@ -55,18 +62,80 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from vit_tpu_torch.func_internals import (
+    is_batched,
+    reparametrize,
+    tree_flatten,
+    tree_unflatten,
+)
 from vit_tpu_torch.models.attention import MultiHeadSelfAttention
-from vit_tpu_torch.models.layers import DenseHolder, LayerNorm, Linear, dense, init_normal_
+from vit_tpu_torch.models.layers import (
+    KERNEL_STD,
+    DenseHolder,
+    LayerNorm,
+    Linear,
+    dense,
+    init_normal_,
+)
 from vit_tpu_torch.models.tokenization import (
     Conv1DPatchTokenizer,
     LinearPatchTokenizer,
+    Patch2DTokenizer,
     SlidingWindowTokenizer,
 )
 from vit_tpu_torch.ops.dropout import site_dropout
 
-__all__ = ["SpectraEmbeddings", "ViTLayer", "ViTEncoder", "SpecViT", "compute_loss"]
+__all__ = ["SpectraEmbeddings", "ImageEmbeddings", "ViTLayer", "ViTEncoder", "SpecViT",
+           "compute_loss", "remat"]
 
 SITES_PER_LAYER = 3  # attention probabilities, attention output, MLP output
+
+
+class _ReplicaRemat(torch.autograd.Function):
+    """The checkpoint of ``fn`` (a method of ``module``) under
+    ``torch.func.vmap``: the checkpoint's recompute runs in the backward,
+    after vmap has returned, so it is taken in the vmap rule, around the
+    whole replica batch, with ``module``'s (replica) parameters passed in
+    explicitly so the recompute can put them back. ``flat``: the leaves of
+    ``fn``'s arguments (``spec`` rebuilds them), then the parameters."""
+
+    @staticmethod
+    def forward(module, fn, names, spec, *flat):
+        raise RuntimeError("_ReplicaRemat runs only under torch.func.vmap")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("_ReplicaRemat runs only under torch.func.vmap")
+
+    @staticmethod
+    def vmap(info, in_dims, module, fn, names, spec, *flat):
+        dims = in_dims[4:]
+        n_args = spec.num_leaves
+
+        def per_replica(*flat):
+            with reparametrize(module, dict(zip(names, flat[n_args:]))):
+                return fn(*tree_unflatten(list(flat[:n_args]), spec))
+
+        def stacked(*flat):
+            return torch.func.vmap(per_replica, in_dims=dims)(*flat)
+
+        out = checkpoint(stacked, *flat, use_reentrant=False, preserve_rng_state=False)
+        return out, 0
+
+
+def remat(module: nn.Module, fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant, no RNG stash); ``fn`` reads
+    ``module``'s parameters."""
+    leaves, spec = tree_flatten(list(args))
+    if not any(map(is_batched, leaves)):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    names, params = zip(*module.named_parameters())
+    return _ReplicaRemat.apply(module, fn, names, spec, *leaves, *params)
 
 
 def _tokenizer(cfg: Any) -> nn.Module:
@@ -109,6 +178,46 @@ class SpectraEmbeddings(nn.Module):
             init_normal_(self.position_embeddings, 1.0, g)
 
 
+class ImageEmbeddings(nn.Module):
+    """2-D patch (or pre-tokenized patch features) + CLS + learned positions
+    (``vit_tpu/models/vit.py::ImageEmbeddings``). ``patch_features``: the
+    width F of (B, N, F) inputs (a patch-PCA preprocessor's rank), embedded
+    by ``patch_embeddings.projection`` as a dense layer; None for images."""
+
+    def __init__(self, cfg: Any, patch_features: Optional[int] = None) -> None:
+        super().__init__()
+        self.cfg = cfg
+        num_patches = (cfg.image_size // cfg.patch_size) ** 2
+        if patch_features is None:
+            self.patch_embeddings = Patch2DTokenizer(cfg.image_size, cfg.patch_size,
+                                                     cfg.hidden_size, cfg.num_channels,
+                                                     cfg.dtype)
+        else:
+            self.patch_embeddings = nn.Module()
+            self.patch_embeddings.projection = Linear(patch_features, cfg.hidden_size)
+        self.cls_token = nn.Parameter(torch.empty(1, 1, cfg.hidden_size))
+        self.position_embeddings = None
+        if cfg.pos_encoding_type != "rope":
+            self.position_embeddings = nn.Parameter(
+                torch.empty(1, num_patches + 1, cfg.hidden_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 3:
+            tokens = self.patch_embeddings.projection(x, self.cfg.dtype)
+        else:
+            tokens = self.patch_embeddings(x)
+        cls = self.cls_token.to(tokens.dtype).expand(tokens.shape[0], 1, -1)
+        tokens = torch.cat([cls, tokens], dim=1)
+        if self.position_embeddings is not None:
+            tokens = tokens + self.position_embeddings.to(tokens.dtype)
+        return tokens
+
+    def init_(self, g: torch.Generator) -> None:
+        init_normal_(self.cls_token, KERNEL_STD, g)
+        if self.position_embeddings is not None:
+            init_normal_(self.position_embeddings, KERNEL_STD, g)
+
+
 class ViTLayer(nn.Module):
     """Pre-LN transformer encoder block (HF ViT ordering)."""
 
@@ -146,8 +255,7 @@ class ViTLayer(nn.Module):
         if self.cfg.remat == "mlp" and torch.is_grad_enabled() and capture is None:
             # vit.py:233-236: the attention residuals stay saved; the MLP
             # sublayer (and its kernel) runs again in the backward.
-            return checkpoint(self._mlp, x, mlp_seed, use_reentrant=False,
-                              preserve_rng_state=False)
+            return remat(self, self._mlp, x, mlp_seed)
         return self._mlp(x, mlp_seed, capture)
 
     def _mlp(self, x: torch.Tensor, seed: Optional[int],
@@ -185,17 +293,17 @@ class ViTEncoder(nn.Module):
                 x = layer(x, s, capture.setdefault(f"layer_{i}", {}))
                 capture[f"cls_hidden_{i}"] = x[:, 0, :]
             elif self.remat_layers and torch.is_grad_enabled():
-                x = checkpoint(layer, x, s, use_reentrant=False,
-                              preserve_rng_state=False)  # vit.py:307
+                x = remat(layer, layer, x, s)  # vit.py:307
             else:
                 x = layer(x, s)
         return x
 
 
 class _ViTModel(nn.Module):
-    def __init__(self, cfg: Any) -> None:
+    def __init__(self, cfg: Any, patch_features: Optional[int] = None) -> None:
         super().__init__()
-        self.embeddings = SpectraEmbeddings(cfg)
+        self.embeddings = (ImageEmbeddings(cfg, patch_features) if cfg.input_kind == "image"
+                           else SpectraEmbeddings(cfg))
         self.encoder = ViTEncoder(cfg)
         self.layernorm = LayerNorm(cfg.hidden_size, cfg.dtype)
 
@@ -204,18 +312,21 @@ class SpecViT(nn.Module):
     """[preprocessor] -> embeddings -> encoder -> LN -> CLS -> task head
     (``regressor`` or ``classifier``, fp32). Weights are drawn from
     ``generator`` (default: a ``torch.Generator`` seeded with 0) as
-    ``vit_tpu`` initialises them; a ``preprocessor`` keeps its own."""
+    ``vit_tpu`` initialises them; a ``preprocessor`` keeps its own. An image
+    model behind a patch-PCA preprocessor embeds its ``out_features``-wide
+    patch coefficients."""
 
     def __init__(self, cfg: Any, generator: Optional[torch.Generator] = None,
                  preprocessor: Optional[nn.Module] = None) -> None:
         super().__init__()
-        if cfg.input_kind == "image":
-            raise NotImplementedError("the image ViT family is not ported yet")
         if getattr(cfg, "moe_experts", 0) > 1:
             raise NotImplementedError("MoE MLPs are not ported yet")
         self.cfg = cfg
         self.head_name = "classifier" if cfg.task_type == "cls" else "regressor"
-        self.vit = _ViTModel(cfg)
+        patch_features = None
+        if cfg.input_kind == "image" and preprocessor is not None:
+            patch_features = preprocessor.out_features
+        self.vit = _ViTModel(cfg, patch_features)
         self.add_module(self.head_name, Linear(cfg.hidden_size, cfg.num_labels))
         self.init_weights(generator or torch.Generator().manual_seed(0))
         # Registered last: its keys follow the model's, as the bridge writes them.
@@ -229,15 +340,15 @@ class SpecViT(nn.Module):
     def input_length(self) -> int:
         """Raw spectrum length the model takes: the preprocessor's input
         dimension (the builder adjusted ``image_size`` to its output), else
-        ``image_size``."""
-        if self.preprocessor is not None:
+        ``image_size`` (an image model's side, whatever its preprocessor)."""
+        if self.preprocessor is not None and self.cfg.input_kind != "image":
             return self.preprocessor.in_features
         return self.cfg.image_size
 
     def init_weights(self, g: torch.Generator) -> None:
         """Draw every weight of the ViT (not the preprocessor's) from ``g``."""
         for m in [*self.vit.modules(), self.head]:
-            if isinstance(m, (Linear, LayerNorm, SpectraEmbeddings)):
+            if isinstance(m, (Linear, LayerNorm, SpectraEmbeddings, ImageEmbeddings)):
                 m.init_(g)
 
     @property

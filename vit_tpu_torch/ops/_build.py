@@ -126,10 +126,11 @@ class Kernel:
         self.launches += 1
 
 
-# The dropout tail of the attention kernels: (dropout, seed, threshold,
-# inv_keep, stream); the seed is a device pointer to one int32, which the
-# kernels read, so a captured launch takes the seed its buffer holds.
-_DROP = (_I, _P, _U, _F, _P)
+# The dropout tail of the attention kernels: (dropout, seed, bh_per_seed,
+# threshold, inv_keep, stream); the seed is a device pointer to int32 seeds,
+# one for every bh_per_seed heads, which the kernels read, so a captured
+# launch takes the seeds its buffer holds.
+_DROP = (_I, _P, _I, _U, _F, _P)
 # (q, k, v, o, lse, bh, t, d, scale, is_bf16, *dropout tail)
 _ATTN_FWD = (_P,) * 5 + (_I, _I, _I, _F, _I) + _DROP
 # (q, k, v, dout, lse, delta, *outputs, bh, t, d, scale, is_bf16, *dropout tail)

@@ -17,9 +17,16 @@ seed becomes ``seed & 0xFFFFFFFF``, as ``convert_element_type`` makes it.
 A seed is a Python int or a 0-d integer tensor (a device scalar, as the
 fused epoch hands them over): the tensor form runs the same arithmetic in
 tensor operations, never reading the seed back to the host, and gives the
-same bits. The keep threshold and ``1/keep`` depend on the rate only; they
-are computed here on the host, once, exactly as ``_keep_threshold`` does,
-and the CUDA kernels receive them as arguments (:func:`keep_params`).
+same bits. Under ``torch.func.vmap`` (the stacked sweep of
+:mod:`vit_tpu_torch.opt.parallel_sweep`) a replica's seed is a 0-d tensor
+and each of these functions is already per replica. An (R,) integer tensor,
+one seed per replica, is that same path: :func:`_per_replica` maps the 0-d
+form over it, so the masks gain a leading replica axis and replica ``r``'s
+mask is the one seed ``r`` draws alone at its own coordinates, which is
+what ``vit_tpu`` computes under ``jax.vmap``. The keep threshold and ``1/keep``
+depend on the rate only; they are computed here on the host, once, exactly
+as ``_keep_threshold`` does, and the CUDA kernels receive them as arguments
+(:func:`keep_params`).
 
 :func:`stream_dropout` is the other kind, ``nn.Dropout``'s (``model.
 fast_dropout: false``): a Bernoulli keep mask drawn from a
@@ -72,12 +79,17 @@ def seed_u32(seed):
 
 
 def device_seed(seed, device) -> torch.Tensor:
-    """A seed as the 0-d int32 device scalar the attention kernels read: a
-    tensor is cast on its own device (no host read); an int becomes a filled
-    scalar on ``device`` (a fill, not a host-to-device copy)."""
+    """A seed as the int32 device tensor the attention kernels read: a 0-d
+    scalar, or an (R,) vector of one seed per replica. A tensor is cast on
+    its own device (no host read); an int becomes a filled scalar on
+    ``device`` (a fill, not a host-to-device copy)."""
     if isinstance(seed, torch.Tensor):
-        if seed.numel() != 1 or seed.dtype.is_floating_point or seed.dtype == torch.bool:
-            raise ValueError(f"a seed tensor holds one integer: {seed.shape} {seed.dtype}")
+        if (seed.numel() == 0 or seed.dim() > 1 or seed.dtype.is_floating_point
+                or seed.dtype == torch.bool):
+            raise ValueError("a seed tensor holds one integer, or one per replica (R,): "
+                             f"{seed.shape} {seed.dtype}")
+        if seed.numel() > 1:
+            return seed.to(torch.int32)
         return seed.reshape(()).to(torch.int32)
     value = int(seed) & _U32
     return torch.full((), value - (1 << 32) if value >= 1 << 31 else value,
@@ -109,10 +121,24 @@ def _hash_bits(rows, cols, bh, seed) -> torch.Tensor:
     return _fmix32(x)
 
 
+def _is_vector(seed) -> bool:
+    return isinstance(seed, torch.Tensor) and seed.dim() == 1
+
+
+def _per_replica(fn, seed, *args):
+    """``fn(seed_r, *args_r)`` for each seed of an (R,) vector, stacked on a
+    new leading axis (``args`` mapped along their first axis): the 0-d seed
+    path under ``torch.func.vmap``, as the stacked sweep runs it."""
+    return torch.func.vmap(fn)(seed, *args)
+
+
 def attention_keep_mask(rows: torch.Tensor, cols: torch.Tensor, bh, seed,
                         rate: float) -> torch.Tensor:
     """fp32 keep mask (0 or 1/keep) at broadcast global (rows, cols, bh):
-    what the attention kernels multiply P by."""
+    what the attention kernels multiply P by. An (R,) ``seed`` adds a
+    leading replica axis (``bh`` then counts within a replica)."""
+    if _is_vector(seed):
+        return _per_replica(lambda s: attention_keep_mask(rows, cols, bh, s, rate), seed)
     threshold, inv_keep = keep_params(rate)
     bits = _hash_bits(rows.long(), cols.long(), bh, seed)
     return torch.where(bits < threshold, inv_keep, 0.0).to(torch.float32)
@@ -121,7 +147,8 @@ def attention_keep_mask(rows: torch.Tensor, cols: torch.Tensor, bh, seed,
 def hash_dropout_mask(t_q: int, t_k: int, bh, seed, rate: float,
                       device=None) -> torch.Tensor:
     """The exact (t_q, t_k) keep-mask the attention kernels draw; ``bh`` a
-    scalar, or a (BH,) tensor that adds a leading dimension."""
+    scalar, or a (BH,) tensor that adds a leading dimension; an (R,) seed
+    adds a replica dimension before it."""
     rows = torch.arange(t_q, dtype=torch.int64, device=device)[:, None]
     cols = torch.arange(t_k, dtype=torch.int64, device=device)[None, :]
     if isinstance(bh, torch.Tensor) and bh.dim() == 1:
@@ -158,7 +185,13 @@ def _coord_hash(shape: Sequence[int], seed, offsets: Optional[Sequence] = None,
 def hash_keep_mask(shape: Sequence[int], rate: float, seed,
                    offsets: Optional[Sequence] = None, device=None) -> torch.Tensor:
     """Inverted-dropout keep mask (``1/(1-rate)`` or 0), fp32, for a block
-    at ``offsets`` of a logically larger tensor."""
+    at ``offsets`` of a logically larger tensor; an (R,) ``seed`` draws
+    each replica's block along ``shape[0]``, ``offsets`` then describing
+    ``shape[1:]``."""
+    if _is_vector(seed):
+        if shape[0] != seed.numel():
+            raise ValueError(f"{seed.numel()} replica seeds for a leading axis of {shape[0]}")
+        return _per_replica(lambda s: hash_keep_mask(shape[1:], rate, s, offsets, device), seed)
     threshold, inv_keep = keep_params(rate)
     bits = _coord_hash(shape, seed, offsets, device)
     return torch.where(bits < threshold, inv_keep, 0.0).to(torch.float32)
@@ -166,11 +199,14 @@ def hash_keep_mask(shape: Sequence[int], rate: float, seed,
 
 def hash_dropout(x: torch.Tensor, rate: float, seed) -> torch.Tensor:
     """Inverted dropout with the counter-based mask; ``seed``: an int32 (int
-    or 0-d tensor)."""
+    or 0-d tensor), or (R,) seeds for the R replicas along ``x``'s first
+    axis."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
+    if _is_vector(seed):
+        return _per_replica(lambda s, xr: hash_dropout(xr, rate, s), seed, x)
     return x * hash_keep_mask(x.shape, rate, seed, device=x.device).to(x.dtype)
 
 

@@ -37,6 +37,14 @@ from SMEM), so no wrapper reads a seed back to the host and a captured CUDA
 graph replays with whatever seed its buffer holds: an int becomes a device
 scalar once, at the wrapper (:func:`~vit_tpu_torch.ops.dropout.device_seed`),
 and :class:`_Attention` saves that scalar for the backward pass.
+
+A stacked sweep (:mod:`vit_tpu_torch.opt.parallel_sweep`) runs R replicas
+at once: every wrapper takes an (R,) seed vector with ``bh_per_seed``, the
+heads of one replica, and head ``bh`` then hashes ``(seed[bh //
+bh_per_seed], bh % bh_per_seed)``, what each replica draws alone.
+:class:`_Attention` has a ``torch.func.vmap`` rule that folds the replica
+axis into the heads, one launch for all replicas with their seeds; so
+``vmap`` over R replicas gives what R single calls give, mask for mask.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from vit_tpu_torch.func_internals import is_batched
 from vit_tpu_torch.ops._build import KERNELS
 from vit_tpu_torch.ops.dropout import attention_keep_mask, device_seed, keep_params
 
@@ -78,16 +87,21 @@ def _scaled_q(q: torch.Tensor, scale: float) -> torch.Tensor:
 
 
 def _keep(bh: int, rows: Tuple[int, int], cols: Tuple[int, int], seed, rate: float,
-          device) -> torch.Tensor:
-    """(BH, rows, cols) fp32 keep factors at global coordinates."""
+          device, bh_per_seed: int = 0) -> torch.Tensor:
+    """(BH, rows, cols) fp32 keep factors at global coordinates; with an (R,)
+    ``seed``, head ``i`` takes seed ``i // bh_per_seed`` and hashes
+    ``i % bh_per_seed``."""
     r = torch.arange(*rows, dtype=torch.int64, device=device)[None, :, None]
     c = torch.arange(*cols, dtype=torch.int64, device=device)[None, None, :]
     heads = torch.arange(bh, dtype=torch.int64, device=device)[:, None, None]
+    if isinstance(seed, torch.Tensor) and seed.dim() == 1:
+        per = bh_per_seed or bh
+        seed, heads = seed.to(device)[heads // per], heads % per
     return attention_keep_mask(r, c, heads, seed, rate)
 
 
-def short_fwd_plain(q, k, v, scale: float, rate: float = 0.0,
-                    seed=0) -> Tuple[torch.Tensor, torch.Tensor]:
+def short_fwd_plain(q, k, v, scale: float, rate: float = 0.0, seed=0,
+                    bh_per_seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two-pass softmax attention over the whole row: (o (BH,T,d), lse (BH,T))."""
     bh, t, _ = q.shape
     s = torch.matmul(_scaled_q(q, scale).float(), k.float().transpose(1, 2))
@@ -95,13 +109,13 @@ def short_fwd_plain(q, k, v, scale: float, rate: float = 0.0,
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     if rate > 0.0:
-        p = p * _keep(bh, (0, t), (0, t), seed, rate, q.device)
+        p = p * _keep(bh, (0, t), (0, t), seed, rate, q.device, bh_per_seed)
     o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
     return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
-def flash_fwd_plain(q, k, v, scale: float, rate: float = 0.0,
-                    seed=0) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_fwd_plain(q, k, v, scale: float, rate: float = 0.0, seed=0,
+                    bh_per_seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Online softmax over key tiles of ``FLASH_BLOCK_K``, as the kernel walks
     them: (o (BH,T,d), lse (BH,T))."""
     bh, t, d = q.shape
@@ -117,46 +131,46 @@ def flash_fwd_plain(q, k, v, scale: float, rate: float = 0.0,
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)  # unmasked P
         if rate > 0.0:
-            p = p * _keep(bh, (0, t), (j0, j1), seed, rate, q.device)
+            p = p * _keep(bh, (0, t), (j0, j1), seed, rate, q.device, bh_per_seed)
         acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), v[:, j0:j1].float())
         m = m_new
     l = l.clamp_min(1e-30)
     return (acc / l).to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
-def _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, j0, j1):
+def _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, j0, j1, bh_per_seed=0):
     """(P*M/keep, ds) of key columns [j0, j1) for every row, fp32."""
     s = torch.matmul(_scaled_q(q, scale).float(), k[:, j0:j1].float().transpose(1, 2))
     p = torch.exp(s - lse[..., None])
     dp = torch.matmul(do.float(), v[:, j0:j1].float().transpose(1, 2))
     pm = p
     if rate > 0.0:
-        keep = _keep(q.shape[0], (0, q.shape[1]), (j0, j1), seed, rate, q.device)
+        keep = _keep(q.shape[0], (0, q.shape[1]), (j0, j1), seed, rate, q.device, bh_per_seed)
         pm, dp = p * keep, dp * keep
     return pm, p * (dp - delta[..., None])
 
 
-def flash_bwd_plain(q, k, v, do, lse, delta, scale: float, rate: float = 0.0,
-                    seed=0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def flash_bwd_plain(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed=0,
+                    bh_per_seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4 and K5: (dq, dk, dv) over key tiles of ``BWD_BLOCK_K``. dK is
     scale * ds^T q with q as it is (``_flash_bwd_dkv_kernel``)."""
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     for j0 in range(0, q.shape[1], BWD_BLOCK_K):
         j1 = min(q.shape[1], j0 + BWD_BLOCK_K)
-        pm, ds = _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, j0, j1)
+        pm, ds = _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, j0, j1, bh_per_seed)
         dq_acc = dq_acc + torch.matmul(ds.to(k.dtype).float(), k[:, j0:j1].float())
         dv[:, j0:j1] = torch.matmul(pm.to(do.dtype).float().transpose(1, 2), do.float())
         dk[:, j0:j1] = torch.matmul(ds.to(q.dtype).float().transpose(1, 2), q.float()) * scale
     return (dq_acc * scale).to(q.dtype), dk, dv
 
 
-def short_bwd_plain(q, k, v, do, lse, delta, scale: float, rate: float = 0.0,
-                    seed=0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def short_bwd_plain(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed=0,
+                    bh_per_seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K6 over the whole row: (dq, dk, dv), with dK = ds^T (q*scale rounded)
     and no final scale (``_short_bwd_kernel``)."""
     t = q.shape[1]
-    pm, ds = _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, 0, t)
+    pm, ds = _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, 0, t, bh_per_seed)
     dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * scale
     dv = torch.matmul(pm.to(do.dtype).float().transpose(1, 2), do.float())
     dk = torch.matmul(ds.to(q.dtype).float().transpose(1, 2), _scaled_q(q, scale).float())
@@ -186,22 +200,29 @@ def _check_bwd(q, do, lse, delta) -> None:
         raise ValueError("dout, lse and delta must be contiguous")
 
 
-def _dropout_args(rate: float, seed: Optional[torch.Tensor]) -> tuple:
-    """(on, seed pointer, threshold, 1/keep) for the kernels; ``seed`` the
-    device scalar of :func:`_kernel_seed` (None without dropout)."""
+def _dropout_args(rate: float, seed: Optional[torch.Tensor], bh: int,
+                  bh_per_seed: int) -> tuple:
+    """(on, seed pointer, heads per seed, threshold, 1/keep) for the kernels;
+    ``seed`` the device seeds of :func:`_kernel_seed` (None without
+    dropout)."""
     if rate <= 0.0:
-        return 0, None, 0, 1.0
+        return 0, None, 0, 0, 1.0
     threshold, inv_keep = keep_params(rate)
-    return 1, seed.data_ptr(), threshold, inv_keep
+    return 1, seed.data_ptr(), bh_per_seed or bh, threshold, inv_keep
 
 
-def _kernel_seed(seed, rate: float, device) -> Optional[torch.Tensor]:
-    """The int32 device scalar the kernels read (None without dropout)."""
+def _kernel_seed(seed, rate: float, device, bh: int,
+                 bh_per_seed: int) -> Optional[torch.Tensor]:
+    """The int32 device seeds the kernels read (None without dropout): a
+    scalar, or one per ``bh_per_seed`` heads."""
     if rate <= 0.0:
         return None
     seed = device_seed(seed, device)
     if seed.device != torch.device(device):
         raise ValueError(f"the dropout seed lies on {seed.device}, the inputs on {device}")
+    if seed.numel() * (bh_per_seed or bh) != bh:
+        raise ValueError(f"{seed.numel()} seeds of {bh_per_seed or bh} heads each for "
+                         f"{bh} heads")
     return seed
 
 
@@ -215,7 +236,8 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch_fwd(name: str, q, k, v, scale: float, rate: float, seed):
+def _launch_fwd(name: str, q, k, v, scale: float, rate: float, seed,
+                bh_per_seed: int = 0):
     bh, t, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
@@ -224,25 +246,26 @@ def _launch_fwd(name: str, q, k, v, scale: float, rate: float, seed):
     q, k, v = (_aligned(x) for x in (q, k, v))
     # The kernels fold scale into q in q's dtype: pass it already rounded there.
     scale_t = float(torch.tensor(scale, dtype=q.dtype))
-    seed = _kernel_seed(seed, rate, q.device)
+    seed = _kernel_seed(seed, rate, q.device, bh, bh_per_seed)
     KERNELS[name].launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        bh, t, d, scale_t, int(q.dtype == torch.bfloat16), *_dropout_args(rate, seed),
-        _stream(q),
+        bh, t, d, scale_t, int(q.dtype == torch.bfloat16),
+        *_dropout_args(rate, seed, bh, bh_per_seed), _stream(q),
     )
     return o, lse
 
 
 def _launch_bwd(name: str, outs, q, k, v, do, lse, delta, scale: float, rate: float,
-                seed) -> None:
+                seed, bh_per_seed: int = 0) -> None:
     bh, t, d = q.shape
     if q.numel() == 0:
         return
-    seed = _kernel_seed(seed, rate, q.device)
+    seed = _kernel_seed(seed, rate, q.device, bh, bh_per_seed)
     KERNELS[name].launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), *(o.data_ptr() for o in outs), bh, t, d, float(scale),
-        int(q.dtype == torch.bfloat16), *_dropout_args(rate, seed), _stream(q),
+        int(q.dtype == torch.bfloat16), *_dropout_args(rate, seed, bh, bh_per_seed),
+        _stream(q),
     )
 
 
@@ -254,77 +277,112 @@ def _on_cpu(q) -> bool:
     raise ValueError(f"no kernel for device {q.device}")
 
 
-def flash_fwd(q, k, v, scale: float, rate: float = 0.0,
-              seed=0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Streaming forward (K1): (BH, T, d) x3 -> (o, lse (BH, T) fp32)."""
+def flash_fwd(q, k, v, scale: float, rate: float = 0.0, seed=0,
+              bh_per_seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Streaming forward (K1): (BH, T, d) x3 -> (o, lse (BH, T) fp32).
+    ``seed``: one int32, or (R,) of them with ``bh_per_seed`` = BH / R."""
     _check_qkv(q, k, v)
     if _on_cpu(q):
-        return flash_fwd_plain(q, k, v, scale, rate, seed)
-    return _launch_fwd("flash_fwd", q, k, v, scale, rate, seed)
+        return flash_fwd_plain(q, k, v, scale, rate, seed, bh_per_seed)
+    return _launch_fwd("flash_fwd", q, k, v, scale, rate, seed, bh_per_seed)
 
 
-def short_fwd(q, k, v, scale: float, rate: float = 0.0,
-              seed=0) -> Tuple[torch.Tensor, torch.Tensor]:
+def short_fwd(q, k, v, scale: float, rate: float = 0.0, seed=0,
+              bh_per_seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Short-sequence forward (K2), for T up to 512: same in and out as
     :func:`flash_fwd`."""
     if q.dim() == 3 and q.shape[1] > SHORT_T_MAX:
         raise ValueError(f"short_fwd takes T <= {SHORT_T_MAX}, got {q.shape[1]}")
     _check_qkv(q, k, v)
     if _on_cpu(q):
-        return short_fwd_plain(q, k, v, scale, rate, seed)
-    return _launch_fwd("short_fwd", q, k, v, scale, rate, seed)
+        return short_fwd_plain(q, k, v, scale, rate, seed, bh_per_seed)
+    return _launch_fwd("short_fwd", q, k, v, scale, rate, seed, bh_per_seed)
 
 
-def flash_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed=0):
+def flash_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed=0,
+              bh_per_seed: int = 0):
     """Streaming backward: K4 (dq) then K5 (dk, dv). ``do`` like q; ``lse``
     from the forward and ``delta = rowsum(do*o)``, both (BH, T) fp32."""
     _check_qkv(q, k, v)
     _check_bwd(q, do, lse, delta)
     if _on_cpu(q):
-        return flash_bwd_plain(q, k, v, do, lse, delta, scale, rate, seed)
+        return flash_bwd_plain(q, k, v, do, lse, delta, scale, rate, seed, bh_per_seed)
     q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("flash_bwd_dq", (dq,), q, k, v, do, lse, delta, scale, rate, seed)
-    _launch_bwd("flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta, scale, rate, seed)
+    args = (q, k, v, do, lse, delta, scale, rate, seed, bh_per_seed)
+    _launch_bwd("flash_bwd_dq", (dq,), *args)
+    _launch_bwd("flash_bwd_dkv", (dk, dv), *args)
     return dq, dk, dv
 
 
-def short_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed=0):
+def short_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed=0,
+              bh_per_seed: int = 0):
     """Short-sequence backward (K6), T up to 512: as :func:`flash_bwd`."""
     if q.dim() == 3 and q.shape[1] > SHORT_T_MAX:
         raise ValueError(f"short_bwd takes T <= {SHORT_T_MAX}, got {q.shape[1]}")
     _check_qkv(q, k, v)
     _check_bwd(q, do, lse, delta)
     if _on_cpu(q):
-        return short_bwd_plain(q, k, v, do, lse, delta, scale, rate, seed)
+        return short_bwd_plain(q, k, v, do, lse, delta, scale, rate, seed, bh_per_seed)
     q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("short_bwd", (dq, dk, dv), q, k, v, do, lse, delta, scale, rate, seed)
+    _launch_bwd("short_bwd", (dq, dk, dv), q, k, v, do, lse, delta, scale, rate, seed,
+                bh_per_seed)
     return dq, dk, dv
+
+
+def replica_first(x: torch.Tensor, dim: Optional[int], n: int) -> torch.Tensor:
+    """A ``torch.func.vmap`` rule's input with its replica axis (``dim``,
+    None: unbatched, so repeated) first."""
+    return x.movedim(dim, 0) if dim is not None else x.expand(n, *x.shape)
 
 
 class _Attention(torch.autograd.Function):
     """The kernels' forward and backward as one differentiable op on
     (BH, T, d) tensors; saves q, k, v, o, lse (``_core_fwd``) and the
-    seed's device scalar."""
+    seeds' device tensor.
+
+    Under ``torch.func.vmap`` over R replicas, :meth:`vmap` folds the replica
+    axis into the heads, (R·BH, T, d), and applies this op once with the R
+    replicas' seeds and ``bh_per_seed = BH``: one launch of each kernel for
+    all replicas, forward and backward, each replica's masks its own."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float, rate: float, seed: Optional[torch.Tensor],
-                short: bool):
-        o, lse = (short_fwd if short else flash_fwd)(q, k, v, scale, rate=rate, seed=seed)
+    def forward(q, k, v, scale: float, rate: float, seed: Optional[torch.Tensor],
+                short: bool, bh_per_seed: int = 0):
+        return (short_fwd if short else flash_fwd)(q, k, v, scale, rate=rate, seed=seed,
+                                                   bh_per_seed=bh_per_seed)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, scale, rate, seed, short, bh_per_seed = inputs
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, o, lse, seed)
-        ctx.cfg = (scale, rate, short)
-        return o
+        ctx.cfg = (scale, rate, short, bh_per_seed)
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, _dlse):
         q, k, v, o, lse, seed = ctx.saved_tensors
-        scale, rate, short = ctx.cfg
+        scale, rate, short, bh_per_seed = ctx.cfg
         do = do.contiguous()
         delta = (do.float() * o.float()).sum(dim=-1)  # XLA's D, outside the kernels
         bwd = short_bwd if short else flash_bwd
-        dq, dk, dv = bwd(q, k, v, do, lse, delta, scale, rate, seed)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = bwd(q, k, v, do, lse, delta, scale, rate, seed, bh_per_seed)
+        return dq, dk, dv, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, scale, rate, seed, short, bh_per_seed):
+        n = info.batch_size
+        q, k, v = (replica_first(x, d, n) for x, d in zip((q, k, v), in_dims[:3]))
+        r, bh, t, d = q.shape
+        if seed is not None:
+            if bh_per_seed or seed.dim() - (in_dims[5] is not None) != 0:
+                raise ValueError("under vmap, each replica takes one 0-d dropout seed")
+            seed = replica_first(seed, in_dims[5], n).contiguous()
+        fold = [x.reshape(r * bh, t, d) for x in (q, k, v)]
+        o, lse = _Attention.apply(*fold, scale, rate, seed, short, bh if seed is not None else 0)
+        return (o.view(r, bh, t, d), lse.view(r, bh, t)), (0, 0)
 
 
 def flash_attention(q, k, v, dropout_rate: float = 0.0,
@@ -344,8 +402,9 @@ def flash_attention(q, k, v, dropout_rate: float = 0.0,
     b, h, t, d = q.shape
     args = [x.reshape(b * h, t, d).contiguous() for x in (q, k, v)]
     short = _round_up(t, 128) <= SHORT_T_MAX
-    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
-        o = _Attention.apply(*args, d**-0.5, rate, seed, short)
+    if (torch.is_grad_enabled() and any(x.requires_grad for x in args)) or any(
+            is_batched(x) for x in (*args, seed)):
+        o, _ = _Attention.apply(*args, d**-0.5, rate, seed, short)
     else:
         o, _ = (short_fwd if short else flash_fwd)(*args, d**-0.5, rate=rate, seed=seed)
     return o.view(b, h, t, d)

@@ -22,6 +22,11 @@ width the repo configures, runs its products on the tensor cores
 (``csrc/fused_mlp_tc.cuh``, ``csrc/fused_mlp_bwd_tc.cuh``); fp32, where
 tensor cores would mean TF32, and other bf16 widths run on the fp32 FMA
 units.
+
+Under ``torch.func.vmap`` over R replicas (a stacked sweep,
+:mod:`vit_tpu_torch.opt.parallel_sweep`), each replica has its own weights:
+:class:`_FusedMLP`'s ``vmap`` rule launches the kernels once per replica on
+that replica's rows and weights, R launches of each.
 """
 
 from __future__ import annotations
@@ -30,8 +35,9 @@ from typing import Tuple
 
 import torch
 
+from vit_tpu_torch.func_internals import is_batched
 from vit_tpu_torch.ops._build import KERNELS
-from vit_tpu_torch.ops.flash_attention import _aligned
+from vit_tpu_torch.ops.flash_attention import _aligned, replica_first
 
 __all__ = ["fused_mlp", "fused_mlp_plain", "fused_mlp_bwd", "fused_mlp_bwd_plain", "bwd_plan",
            "gelu_as", "dgelu_as", "erf_as"]
@@ -200,18 +206,34 @@ class _FusedMLP(torch.autograd.Function):
     are cast to x's dtype here, so the kernel's fp32 weight gradients reach
     fp32 parameters unrounded, as vit_tpu's fp32 ``_bwd_kernel`` outputs
     reach its parameters through ``astype`` (autograd casts them to a
-    parameter's own dtype where that differs)."""
+    parameter's own dtype where that differs). The cast w1, b1, w2 are
+    returned beside y (not differentiable) for the backward to save."""
 
     @staticmethod
-    def forward(ctx, x2, w1, b1, w2, b2):
+    def forward(x2, w1, b1, w2, b2):
         ws = _cast(x2, w1, b1, w2, b2)
-        ctx.save_for_backward(x2, *ws[:3])
-        return _fwd(x2, *ws)
+        # Views: a weight already in x's dtype is the input itself, which
+        # autograd will not save as an output.
+        return (_fwd(x2, *ws), *(w.view_as(w) for w in ws[:3]))
 
     @staticmethod
-    def backward(ctx, dy):
+    def setup_context(ctx, inputs, output):
+        _, *ws = output
+        ctx.mark_non_differentiable(*ws)
+        ctx.save_for_backward(inputs[0], *ws)
+
+    @staticmethod
+    def backward(ctx, dy, *_):
         x2, w1, b1, w2 = ctx.saved_tensors
         return fused_mlp_bwd(x2, dy.contiguous(), w1, b1, w2)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        """One application (K3 now, K7 in the backward) per replica."""
+        n = info.batch_size
+        args = [replica_first(t, d, n) for t, d in zip(args, in_dims)]
+        outs = zip(*(_FusedMLP.apply(*(a[r] for a in args)) for r in range(n)))
+        return tuple(torch.stack(o) for o in outs), (0,) * 4
 
 
 def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -221,8 +243,9 @@ def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     for fp32 weights (the model's mixed-precision path)."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1]).contiguous()
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x2, w1, b1, w2, b2)):
-        y = _FusedMLP.apply(x2, w1, b1, w2, b2)
+    ts = (x2, w1, b1, w2, b2)
+    if (torch.is_grad_enabled() and any(t.requires_grad for t in ts)) or any(map(is_batched, ts)):
+        y = _FusedMLP.apply(*ts)[0]
     else:
         y = _fwd(x2, *_cast(x2, w1, b1, w2, b2))
     return y.reshape(shape)

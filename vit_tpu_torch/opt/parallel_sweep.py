@@ -1,19 +1,33 @@
 """LR and scheduler grid search (port of ``vit_tpu/opt/parallel_sweep.py``):
-``python -m vit_tpu_torch lr <base_config> --engine sequential``.
+``python -m vit_tpu_torch lr <base_config> [--engine vmap|sequential]``.
 
 The grid, its ``SweepConfig``/``SweepResult`` records and the artifacts
 ``launch.sh lr`` reads (``summary.yaml``, ``best_config.yaml``) are
-``vit_tpu``'s, schema for schema. The trials run on the sequential engine
-(``_SequentialSweepEngine``, ``vit_tpu`` :160-222): one full
-:class:`~vit_tpu_torch.train.loop.Experiment` after another on one card, each
-with seed ``seed + idx``, ``train.save`` and ``viz.enable`` off and project
-``vit-opt-sweep`` unless set, a failure isolated as ``status='error'``, and
-as its metric the last monitored value of its fit. Each trial trains through
-the fused epoch when its config allows it (``train.fused_epoch: auto``).
+``vit_tpu``'s, schema for schema. Two engines run the trials:
 
-``vit_tpu``'s default engine, ``vmap`` (every trial at once, a replica
-axis through the model), is not ported yet: asking for it raises
-``NotImplementedError`` and never runs the trials one by one instead.
+* ``vmap`` (the default, ``_VmapSweepEngine``, ``vit_tpu`` :224-657): every
+  trial at once, as R replicas stacked on a leading axis of the parameters
+  and optimizer state, one step of all of them through ``torch.func.vmap``
+  (:class:`~vit_tpu_torch.train.fused.ReplicaEpochs`, a CUDA graph of that
+  step on the card). Each replica has its own init (seed ``seed + idx``, as
+  the sequential engine's Experiment draws it), dropout and noise streams
+  (host generators seeded ``10_000 + seed + idx`` and ``20_000 + seed +
+  idx``), shuffle (``epoch_permutation`` with ``seed + idx``), learning rate
+  (``base_lr * sweep_epoch_scales``: warmup, cosine, the host plateau
+  scale) and early stopping (patience 100); a stopped or diverged replica's
+  state is held by an ``active`` mask. ``attn_impl: ring`` sweeps as
+  ``xla`` and ``train.pipeline_parallel`` as 1, with ``vit_tpu``'s lines.
+  ``model.fast_dropout: false`` with a dropout rate, and ``opt.type:
+  lbfgs``, raise: their generators and flat vector do not batch over
+  replicas (``ROADMAP.md`` §C).
+* ``sequential`` (``_SequentialSweepEngine``, ``vit_tpu`` :160-222): one full
+  :class:`~vit_tpu_torch.train.loop.Experiment` after another on one card,
+  each with seed ``seed + idx``, ``train.save`` and ``viz.enable`` off and
+  project ``vit-opt-sweep`` unless set, a failure isolated as
+  ``status='error'``, and as its metric the last monitored value of its fit.
+  Each trial trains through the fused epoch when its config allows it
+  (``train.fused_epoch: auto``).
+
 ``--gpus`` is recorded in ``summary.yaml`` as in ``vit_tpu``.
 
 The runner and the engine take an optional ``datamodule`` factory, called
@@ -33,6 +47,9 @@ from datetime import datetime
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+import torch
+
+from vit_tpu_torch.data.pipeline import epoch_permutation
 
 __all__ = ["DEFAULT_LRS", "SweepConfig", "SweepResult", "ParallelSweepRunner",
            "sweep_epoch_scales", "main"]
@@ -164,6 +181,278 @@ class _SequentialSweepEngine:
         return results
 
 
+def _metric_key(metric_name: str, task: str, mode: str):
+    """(key of the host metrics, mode) that ranks the replicas, resolved
+    against what the task produces (``vit_tpu`` :456-476)."""
+    metric_key = metric_name.replace("val_", "")
+    available = ("acc",) if task == "cls" else ("mae", "mse", "r2")
+    if metric_key not in available:
+        if task == "cls" and metric_key == "mae":
+            print("[sweep] metric val_mae unavailable for cls; ranking by val_acc (maximize)")
+            return "acc", "max"
+        raise ValueError(f"metric '{metric_name}' is not produced by task '{task}' "
+                         f"(available: {', '.join('val_' + a for a in available)})")
+    return metric_key, mode
+
+
+class _VmapSweepEngine:
+    """Train every SweepConfig at once as stacked replicas (module doc)."""
+
+    def __init__(self, base_config: dict, configs: List[SweepConfig], metric_name: str,
+                 metric_goal: str, seed: int, skip_test: bool = True, device="cuda",
+                 datamodule: Optional[Callable[[dict], Any]] = None) -> None:
+        self.base_config = base_config
+        self.configs = configs
+        self.metric_name = metric_name
+        self.metric_goal = metric_goal
+        self.seed = seed
+        self.skip_test = skip_test
+        self.device = device
+        self.datamodule = datamodule
+        self.epochs: Optional[Any] = None  # the ReplicaEpochs of the last run
+
+    def sweep_config(self) -> dict:
+        """The base config as every replica trains it, with ``vit_tpu``'s
+        substitutions printed (:262-284)."""
+        cfg = copy.deepcopy(self.base_config)
+        cfg.setdefault("train", {}).setdefault("save", False)
+        cfg.setdefault("project", "vit-opt-sweep")
+        cfg.setdefault("viz", {})["enable"] = False
+        if (cfg.get("model", {}) or {}).get("attn_impl") == "ring":
+            print("[sweep] attn_impl: ring -> xla for the vmapped sweep "
+                  "(identical math deterministically; dropout mask streams "
+                  "differ; the final run trains with ring)")
+            cfg["model"]["attn_impl"] = "xla"
+        if int((cfg.get("train", {}) or {}).get("pipeline_parallel", 1) or 1) > 1:
+            print("[sweep] train.pipeline_parallel -> 1 for the vmapped "
+                  "sweep (identical math; the final run trains pipelined)")
+            cfg["train"]["pipeline_parallel"] = 1
+        return cfg
+
+    def init_replica(self, cfg: dict, c: SweepConfig):
+        """Trial ``c``'s model, its weights drawn from seed ``seed + idx`` as
+        the sequential engine's Experiment draws them."""
+        from vit_tpu_torch.models.builder import get_model
+
+        return get_model(copy.deepcopy(cfg),
+                         generator=torch.Generator().manual_seed(self.seed + c.idx)).module
+
+    def _datamodule(self, cfg: dict, input_kind: str):
+        if self.datamodule is not None:
+            return self.datamodule(cfg)
+        if input_kind == "image":
+            from vit_tpu_torch.data.images import ImageDataModule
+
+            return ImageDataModule.from_config(cfg)
+        from vit_tpu_torch.data.datasets import SpecDataModule
+
+        return SpecDataModule.from_config(cfg)
+
+    def run(self) -> List[SweepResult]:
+        from vit_tpu_torch.models.builder import get_model
+        from vit_tpu_torch.models.vit import compute_loss
+        from vit_tpu_torch.serve import resolve_device
+        from vit_tpu_torch.train.fused import SEED_HIGH, ReplicaEpochs
+        from vit_tpu_torch.train.metrics import classification_metrics, regression_metrics
+        from vit_tpu_torch.train.optim import (
+            EarlyStopping,
+            OptSpec,
+            PlateauScheduler,
+            build_replica_optimizer,
+        )
+        from vit_tpu_torch.train.preempt import PreemptionGuard
+        from vit_tpu_torch.utils import seed_everything
+
+        t_start = time.perf_counter()
+        device = resolve_device(self.device)
+        cfg = self.sweep_config()
+        seed_everything(self.seed)
+        bundle = get_model(copy.deepcopy(cfg))
+        vc = bundle.vit_config
+        task = vc.task_type
+        if not vc.fast_dropout and (vc.hidden_dropout > 0 or vc.attention_dropout > 0):
+            raise NotImplementedError(
+                "model.fast_dropout: false with dropout on: its nn.Dropout masks come from "
+                "a generator seeded on the host at every call site, which the vmapped sweep "
+                "cannot batch over replicas (ROADMAP.md §C); sweep it with --engine sequential")
+        dm = self._datamodule(cfg, vc.input_kind)
+        dm.setup("fit")
+        if dm.val is None or len(dm.val) == 0:
+            raise RuntimeError("LR sweep requires a validation set (data.val_path)")
+
+        R = len(self.configs)
+        train_cfg = cfg.get("train", {}) or {}
+        batch_size = int(train_cfg.get("batch_size", 64))
+        max_epochs = int(train_cfg.get("ep", 10))
+        noise_level = float((cfg.get("noise", {}) or {}).get("noise_level", 0) or 0)
+        n_train = len(dm.train)
+        steps_per_epoch = max(1, -(-n_train // batch_size))
+
+        # Stacked replicas: trial idx's weights in row idx of every parameter.
+        replicas = [self.init_replica(cfg, c) for c in self.configs]
+        names = [n for n, _ in replicas[0].named_parameters()]
+        params = {n: torch.stack([dict(m.named_parameters())[n].detach() for m in replicas])
+                  .to(device).requires_grad_(True) for n in names}
+        module = replicas[0].to(device).train()
+        del replicas
+
+        # vit_tpu's OptSpec with the trial-varied pieces neutralised: lr 1
+        # (the replicas' rates come in every epoch) and no scheduler (the
+        # host's sweep_epoch_scales), lr_sch stripped before resolution.
+        cfg_for_spec = copy.deepcopy(cfg)
+        (cfg_for_spec.get("opt", {}) or {}).pop("lr_sch", None)
+        spec = OptSpec.from_config(cfg_for_spec, steps_per_epoch,
+                                   monitor_metric=self.metric_name, has_val=True)
+        spec = dataclasses.replace(spec, lr=1.0, scheduler=None, total_epochs=max_epochs)
+        warmup_epochs = int(spec.warmup_epochs or 0)
+        optimizer = build_replica_optimizer(spec, params.values(), R)
+        has_preproc = bundle.has_preprocessor
+        frozen_names = [n for n in names if n.startswith("preprocessor.")] if has_preproc else []
+
+        def frozen_flag(epoch: int) -> float:
+            fe = bundle.freeze_epochs
+            if not has_preproc or fe == 0:
+                return 0.0
+            return 1.0 if (fe == -1 or epoch < fe) else 0.0
+
+        base_lrs = np.asarray([c.lr for c in self.configs], np.float32)
+        metric_key, mode = _metric_key(self.metric_name, task,
+                                       "min" if self.metric_goal == "minimize" else "max")
+        plateaus = {i: PlateauScheduler(c.factor or 0.1, c.patience or 10, mode=mode)
+                    for i, c in enumerate(self.configs) if c.scheduler == "plateau"}
+
+        def epoch_lrs(epoch: int) -> np.ndarray:
+            return base_lrs * sweep_epoch_scales(
+                self.configs, epoch, warmup_epochs, {i: p.scale for i, p in plateaus.items()},
+                max_epochs)
+
+        need = ("x", "error", "label") if noise_level > 0 else ("x", "label")
+        train_cols = {k: v for k, v in dm.train.arrays().items() if k in need}
+        val_arrays = dm.val.arrays()
+        vbs = min(batch_size, len(dm.val))
+        epochs = ReplicaEpochs(
+            module, params, optimizer,
+            lambda logits, y: compute_loss(logits, y, task, bundle.loss_name),
+            train_cols, steps_per_epoch, batch_size, noise_level, spec.grad_clip,
+            frozen_names, val_arrays["x"], vbs)
+        self.epochs = epochs
+        val_labels = np.asarray(val_arrays["label"])
+        dropout_gens = [torch.Generator().manual_seed(10_000 + self.seed + c.idx)
+                        for c in self.configs]
+        noise_gens = [torch.Generator().manual_seed(20_000 + self.seed + c.idx)
+                      for c in self.configs]
+        sites = module.num_dropout_sites
+        noise_shape = (steps_per_epoch, batch_size) + tuple(train_cols["x"].shape[1:])
+
+        early = [EarlyStopping(patience=100, mode=mode) for _ in range(R)]
+        last_metrics = np.full(R, np.nan, np.float64)
+        active = np.ones(R, np.float32)
+        statuses = ["ok"] * R
+        messages: List[Optional[str]] = [None] * R
+        durations = np.zeros(R, np.float64)
+        dispatch_failed = False
+
+        def _deactivate(i: int, status: str, message: Optional[str]) -> None:
+            active[i] = 0.0
+            statuses[i] = status
+            messages[i] = message
+            durations[i] = time.perf_counter() - t_start
+
+        def metrics_of(logits: np.ndarray, labels: np.ndarray) -> Dict[str, float]:
+            return (classification_metrics(logits, labels) if task == "cls"
+                    else regression_metrics(logits, labels))
+
+        # The first SIGTERM stops the sweep at the next epoch boundary and the
+        # artifacts are written from the epochs that completed; a caller may
+        # set ``preempt_guard`` to a guard of its own.
+        guard = getattr(self, "preempt_guard", None)
+        if guard is None:
+            guard = PreemptionGuard(enabled=bool(train_cfg.get("handle_preemption", True)))
+        guard.install()
+        try:
+            for epoch in range(max_epochs):
+                perms = np.stack([epoch_permutation(n_train, batch_size, steps_per_epoch,
+                                                    self.seed + c.idx, epoch)
+                                  for c in self.configs])
+                seeds = torch.stack([torch.randint(0, SEED_HIGH, (steps_per_epoch, sites),
+                                                   generator=g) for g in dropout_gens])
+                noise = (torch.stack([torch.randn(noise_shape, generator=g) for g in noise_gens])
+                         if epochs.noise is not None else None)
+                epochs.prepare(perms, seeds, noise, epoch_lrs(epoch), active,
+                               frozen_flag(epoch))
+                _losses, logits = epochs.run_epoch()
+                for i in range(R):
+                    if active[i] == 0.0:
+                        continue  # held state: its metric cannot change
+                    last_metrics[i] = metrics_of(logits[i], val_labels).get(metric_key, np.nan)
+                    if not math.isfinite(float(last_metrics[i])):
+                        _deactivate(i, "error", "non-finite metric (diverged)")
+                        continue
+                    if i in plateaus:
+                        plateaus[i].step(float(last_metrics[i]))
+                    if early[i].step(float(last_metrics[i])):
+                        _deactivate(i, "ok", f"early-stopped at epoch {epoch}")
+                finite = np.where(np.isfinite(last_metrics), last_metrics, np.nan)
+                if not np.all(np.isnan(finite)):
+                    best_i = int(np.nanargmin(finite) if mode == "min" else np.nanargmax(finite))
+                    print(f"[sweep] epoch {epoch}: {self.metric_name} "
+                          f"min={np.nanmin(finite):.5f} max={np.nanmax(finite):.5f} "
+                          f"best=replica {best_i} (lr={self.configs[best_i].lr:.1e}) "
+                          f"active={int(active.sum())}/{R}", flush=True)
+                if not active.any():
+                    print(f"[sweep] all replicas stopped at epoch {epoch}")
+                    break
+                if guard.triggered:
+                    for i in range(R):
+                        if active[i] > 0:
+                            _deactivate(i, "ok", f"preemption stop at epoch {epoch}")
+                    print(f"[sweep] preemption stop at epoch {epoch} — "
+                          "writing artifacts from completed epochs")
+                    break
+        except Exception as e:  # noqa: BLE001 — per-trial isolation
+            # Stopped replicas keep their results; only the active ones fail,
+            # and the state a failed step left is not evaluated below.
+            dispatch_failed = True
+            print(f"[sweep] epoch dispatch failed: {e}")
+            for i in range(R):
+                if active[i] > 0:
+                    _deactivate(i, "error", f"{type(e).__name__}: {e}")
+        finally:
+            guard.uninstall()
+
+        # --run-test: each ok replica's test metric, reported, never ranked.
+        test_msgs: List[Optional[str]] = [None] * R
+        if not self.skip_test and not dispatch_failed and any(s == "ok" for s in statuses):
+            dm.setup("test")
+            if dm.test is not None and len(dm.test) > 0:
+                arrays = dm.test.arrays()
+                tbs = min(batch_size, len(dm.test))
+                n_test = len(dm.test)
+                nb = -(-n_test // tbs)
+                rows = torch.arange(nb * tbs, device=device).clamp_max(n_test - 1).view(nb, tbs)
+                x = torch.from_numpy(np.ascontiguousarray(arrays["x"])).to(device)
+                tl = epochs.predict(x, rows)[:, :n_test].float().cpu().numpy()
+                tlab = np.asarray(arrays["label"])
+                for i in range(R):
+                    if statuses[i] == "ok":
+                        v = metrics_of(tl[i], tlab).get(metric_key, float("nan"))
+                        test_msgs[i] = f"test_{metric_key}={v:.6f}"
+
+        wall = time.perf_counter() - t_start
+        results = []
+        for i, c in enumerate(self.configs):
+            v = float(last_metrics[i])
+            ok = statuses[i] == "ok" and math.isfinite(v)
+            msg = messages[i]
+            if ok and test_msgs[i]:
+                msg = f"{msg}; {test_msgs[i]}" if msg else test_msgs[i]
+            results.append(SweepResult(
+                config=c, metric=v if math.isfinite(v) else None,
+                duration_sec=float(durations[i]) if durations[i] > 0 else wall,
+                status="ok" if ok else "error", message=msg))
+        return results
+
+
 class ParallelSweepRunner:
     """Grid construction, execution, and summary/best-config artifacts."""
 
@@ -180,11 +469,6 @@ class ParallelSweepRunner:
 
         if engine not in ("vmap", "sequential"):
             raise ValueError(f"engine must be 'vmap' or 'sequential', got {engine!r}")
-        if engine == "vmap":
-            raise NotImplementedError(
-                "the vmapped sweep engine (every trial at once on a replica axis) is not "
-                "ported yet (ROADMAP.md §A.3); pass --engine sequential (engine='sequential') "
-                "to train the trials one after another")
         self.base_config_path = base_config_path
         self.base_config = load_config(base_config_path)
         self.lr_values = [float(x) for x in (lr_values or DEFAULT_LRS)]
@@ -229,9 +513,10 @@ class ParallelSweepRunner:
         return configs
 
     def run(self, dry_run: bool = False) -> Optional[SweepResult]:
+        kind = ("vmapped replicas" if self.engine == "vmap"
+                else "sequential full-fidelity trials")
         print("=" * 62)
-        print(f"Parallel LR sweep (sequential full-fidelity trials): "
-              f"{len(self.sweep_configs)} configs")
+        print(f"Parallel LR sweep ({kind}): {len(self.sweep_configs)} configs")
         print(f"  base config : {self.base_config_path}")
         print(f"  metric      : {self.metric_name} ({self.metric_goal})")
         print(f"  lr values   : {self.lr_values}")
@@ -246,10 +531,11 @@ class ParallelSweepRunner:
             return None
 
         os.makedirs(self.run_dir, exist_ok=True)
-        engine = _SequentialSweepEngine(self.base_config, self.sweep_configs, self.metric_name,
-                                        self.metric_goal, self.seed, skip_test=self.skip_test,
-                                        device=self.device, datamodule=self.datamodule)
-        results = engine.run()
+        engine_cls = _VmapSweepEngine if self.engine == "vmap" else _SequentialSweepEngine
+        self.engine_run = engine_cls(self.base_config, self.sweep_configs, self.metric_name,
+                                     self.metric_goal, self.seed, skip_test=self.skip_test,
+                                     device=self.device, datamodule=self.datamodule)
+        results = self.engine_run.run()
         for i, r in enumerate(results):
             self._print_progress(r, i + 1, len(results))
         best = self._select_best(results)
@@ -359,9 +645,10 @@ def add_arguments(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--results-dir", help="Directory for sweep results (default: ./opt_runs)")
     parser.add_argument("--seed", type=int, default=42, help="Base random seed")
     parser.add_argument("--engine", choices=("vmap", "sequential"), default="vmap",
-                        help="sequential: one full Experiment per trial, one after another. "
-                             "vmap (vit_tpu's default, every trial at once) is not ported "
-                             "yet and raises")
+                        help="vmap: the whole grid as stacked replicas, one step of all of "
+                             "them at once (substitutes ring->xla and unstages the "
+                             "pipeline). sequential: one full Experiment per trial, one "
+                             "after another, unsubstituted")
     parser.add_argument("--run-test", action="store_true",
                         help="Also execute the test loop after each fit")
     parser.add_argument("--dry-run", action="store_true",

@@ -10,8 +10,10 @@ The device is explicit: ``device="cuda"`` (the default) raises when CUDA is
 absent; pass ``device="cpu"`` to run on the CPU. A model with a covariance
 preprocessor takes raw spectra of the eigenvector rows' length
 (:attr:`Predictor.input_length`), not the builder's adjusted
-``model.image_size`` (``vit_tpu/serve.py:300-308``). ``quantize``,
-``calibration``, ``num_devices`` and ``export`` are not ported yet.
+``model.image_size`` (``vit_tpu/serve.py:300-308``); an image model takes
+(N, S, S, C) images (NHWC, or NCHW), with or without its patch-PCA
+preprocessor. ``quantize``, ``calibration``, ``num_devices`` and ``export``
+are not ported yet.
 
 Example::
 
@@ -66,8 +68,13 @@ class Predictor:
         self.module = module.eval()
         self.vit_config = vit_config
         self.device = next(module.parameters()).device
-        # Raw spectrum length: a preprocessor's input dimension when there is one.
+        # Raw spectrum length: a preprocessor's input dimension when there is
+        # one; an image model takes (S, S, C) images (NHWC, or NCHW).
         self.input_length = int(getattr(module, "input_length", vit_config.image_size))
+        self.image_shapes = None
+        if vit_config.input_kind == "image":
+            s_, c_ = vit_config.image_size, vit_config.num_channels
+            self.image_shapes = ((s_, s_, c_), (c_, s_, s_))
         self.label_norm = label_norm or "none"
         self.label_norm_stats = {
             k: (None if v is None else np.asarray(v, np.float64))
@@ -162,7 +169,11 @@ class Predictor:
         n = len(x)
         if n == 0:
             return np.zeros((0, int(self.vit_config.num_labels)), np.float32)
-        if x.shape[-1] != self.input_length:
+        if self.image_shapes is not None:
+            if tuple(x.shape[1:]) not in self.image_shapes:
+                raise ValueError(f"images of shape {tuple(x.shape[1:])}, but the model takes "
+                                 f"{self.image_shapes[0]} (NHWC) or {self.image_shapes[1]}")
+        elif x.shape[-1] != self.input_length:
             raise ValueError(f"spectra of length {x.shape[-1]}, but the model takes "
                              f"{self.input_length}")
         bs = self.batch_size

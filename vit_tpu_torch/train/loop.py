@@ -208,7 +208,10 @@ class Experiment:
     """Build model, data and optimizer, then ``fit`` / ``test`` / ``run``.
 
     ``datamodule``: an already built :class:`SpecDataModule` (e.g. over
-    in-memory spectra) in place of the one the config's paths describe.
+    in-memory spectra) in place of the one the config's paths describe. An
+    image config (``model.input_kind: image``) reads an
+    :class:`~vit_tpu_torch.data.images.ImageDataModule` (NHWC images, the
+    synthetic set when no path is configured).
     """
 
     def __init__(self, config: dict, use_wandb: bool = False, sweep: bool = False,
@@ -225,7 +228,14 @@ class Experiment:
         train_cfg = config.get("train", {}) or {}
         self.bundle = get_model(config, generator=torch.Generator().manual_seed(seed))
         self.module = self.bundle.module.to(self.device)
-        self.datamodule = datamodule if datamodule is not None else SpecDataModule.from_config(config)
+        if datamodule is not None:
+            self.datamodule = datamodule
+        elif self.bundle.vit_config.input_kind == "image":
+            from vit_tpu_torch.data.images import ImageDataModule
+
+            self.datamodule = ImageDataModule.from_config(config)
+        else:
+            self.datamodule = SpecDataModule.from_config(config)
         self.max_epochs = int(train_cfg.get("ep", 10))
         self.debug = bool(train_cfg.get("debug", 0))
         self.save = bool(train_cfg.get("save", False))

@@ -20,6 +20,11 @@
   ``spec.lr * schedule(step) * plateau_scale``, with ``step`` counted
   before the update (:func:`set_learning_rate`), and clips the gradients
   by global norm with optax's rule (:func:`clip_by_global_norm`).
+* The vmapped sweep trains R replicas stacked on a leading axis
+  (:class:`ReplicaOptimizer`, :func:`build_replica_optimizer`): an (R,)
+  learning-rate vector, each replica's own step counts and global-norm
+  clip, and an ``active`` mask that holds a stopped replica's parameters
+  and state, as ``vit_tpu`` vmaps its optax chain over the replicas.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ import torch
 __all__ = [
     "OptSpec",
     "OptaxOptimizer",
+    "ReplicaOptimizer",
     "build_optimizer",
+    "build_replica_optimizer",
     "load_optimizer_state",
     "state_bytes",
     "schedule_scale",
@@ -434,6 +441,25 @@ def _neg_lr(lr):
     return -lr if isinstance(lr, torch.Tensor) else _f32(-lr)
 
 
+def _resolve(spec: OptSpec):
+    """(optimizer name after ``vit_tpu``'s fallbacks, bf16 first-moment
+    dtype or None), with ``vit_tpu``'s messages; raises for an unknown name
+    or moment dtype."""
+    name = spec.opt_type
+    if name in _FALLBACKS:
+        print(f"[optim] '{name}' has no optax equivalent; using '{_FALLBACKS[name]}'")
+        name = _FALLBACKS[name]
+    if name not in _KNOWN:
+        raise ValueError(f"Unknown optimizer type '{name}'")
+    mu = _moment_dtype(spec.moment_dtype)
+    if mu is not None and name not in ("adam", "adamw"):
+        print(f"[optim] opt.moment_dtype has no effect for '{name}' "
+              "(only adam/adamw keep low-precision first moments); "
+              "optimizer state stays fp32")
+        mu = None
+    return name, mu
+
+
 def build_optimizer(spec: OptSpec, params: Iterable[torch.nn.Parameter],
                     capturable: bool = False) -> torch.optim.Optimizer:
     """The core optimizer of ``spec`` over ``params``; its learning rate is
@@ -444,23 +470,13 @@ def build_optimizer(spec: OptSpec, params: Iterable[torch.nn.Parameter],
     (``capturable=True``) and sgd runs optax's rule in :class:`OptaxOptimizer`
     (torch's SGD reads a tensor learning rate back to the host), so a step
     reads nothing back and a CUDA graph can capture it."""
-    name = spec.opt_type
-    if name in _FALLBACKS:
-        print(f"[optim] '{name}' has no optax equivalent; using '{_FALLBACKS[name]}'")
-        name = _FALLBACKS[name]
-    if name not in _KNOWN:
-        raise ValueError(f"Unknown optimizer type '{name}'")
-    mu = _moment_dtype(spec.moment_dtype)
+    name, mu = _resolve(spec)
     params = list(params)
     wd = spec.weight_decay
-    if mu is not None and name in ("adam", "adamw"):
+    if mu is not None:
         opt = OptaxOptimizer(params, "adam", spec.lr, weight_decay=wd,
                              decoupled=name == "adamw", mu_dtype=mu)
     else:
-        if mu is not None:
-            print(f"[optim] opt.moment_dtype has no effect for '{name}' "
-                  "(only adam/adamw keep low-precision first moments); "
-                  "optimizer state stays fp32")
         if name in ("adamw", "adam"):
             cls = torch.optim.AdamW if name == "adamw" else torch.optim.Adam
             opt = cls(params, lr=spec.lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd,
@@ -474,6 +490,82 @@ def build_optimizer(spec: OptSpec, params: Iterable[torch.nn.Parameter],
             group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32,
                                        device=group["params"][0].device)
     return opt
+
+
+class ReplicaOptimizer(OptaxOptimizer):
+    """:class:`OptaxOptimizer`'s rule on parameters stacked on a leading
+    axis of R replicas, each replica the update ``vit_tpu``'s optax chain
+    makes for it under ``jax.vmap``:
+
+    * ``lr`` is an (R,) fp32 tensor on the parameters' device, one learning
+      rate a replica (:func:`set_learning_rate` copies a vector into it);
+    * step counts are (R, 1, ...) tensors, one a replica;
+    * :attr:`active`, an (R,) 0/1 tensor: a replica at 0 keeps its
+      parameters and its whole state through :meth:`step` (``vit_tpu``'s
+      ``jnp.where(active, new, old)`` on the replica's state).
+
+    The rule runs elementwise on the stacked tensors, so every rule of
+    :class:`OptaxOptimizer` but L-BFGS (one flat vector of all parameters)
+    applies; ``lbfgs`` raises. Graph-safe as :class:`OptaxOptimizer` is."""
+
+    def __init__(self, params, rule: str, replicas: int, weight_decay: float = 0.0,
+                 decoupled: bool = False, mu_dtype: Optional[torch.dtype] = None) -> None:
+        if rule == "lbfgs":
+            raise NotImplementedError(
+                "opt.type lbfgs: its update is one flat vector over all parameters and the "
+                "vmapped sweep cannot batch it over replicas (ROADMAP.md §C); sweep it with "
+                "--engine sequential")
+        # vit_tpu builds the sweep's rule at learning rate 1.0 and injects
+        # the replicas' rates at every step: rprop's first step sizes are 1.0.
+        super().__init__(params, rule, 1.0, weight_decay=weight_decay, decoupled=decoupled,
+                         mu_dtype=mu_dtype)
+        self.replicas = int(replicas)
+        device = self.param_groups[0]["params"][0].device
+        for group in self.param_groups:
+            group["lr"] = torch.zeros(self.replicas, dtype=torch.float32, device=device)
+        self.active = torch.ones(self.replicas, dtype=torch.float32, device=device)
+
+    def _count(self, st, g) -> torch.Tensor:
+        if "count" not in st:
+            st["count"] = torch.zeros((self.replicas,) + (1,) * (g.dim() - 1),
+                                      dtype=torch.float32, device=g.device)
+        return st["count"].add_(1)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("ReplicaOptimizer takes no closure")
+        rule = getattr(self, f"_{self.rule}")
+        for group in self.param_groups:
+            wd = group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                lanes = (self.replicas,) + (1,) * (p.dim() - 1)
+                keep = self.active.view(lanes) > 0
+                st = self.state[p]
+                held = [(t, t.clone()) for t in [p, *st.values()]]
+                g = p.grad
+                if wd and not self.decoupled:
+                    g = g + wd * p
+                u = rule(g, st, group)
+                if wd and self.decoupled:
+                    u = u + wd * p
+                p.add_(-u if self.rule == "rprop" else u * -group["lr"].view(lanes))
+                for t, old in held:
+                    t.copy_(torch.where(keep, t, old))
+        return None
+
+
+def build_replica_optimizer(spec: OptSpec, params: Iterable[torch.Tensor],
+                            replicas: int) -> ReplicaOptimizer:
+    """The core optimizer of ``spec`` for stacked replicas: optax's rule of
+    ``spec.opt_type`` (adam for adam, adamw and sparseadam; sgd for sgd and
+    asgd; adamw's decay decoupled), as :func:`build_optimizer` resolves it."""
+    name, mu = _resolve(spec)
+    rule = "adam" if name == "adamw" else name
+    return ReplicaOptimizer(params, rule, replicas, weight_decay=spec.weight_decay,
+                            decoupled=name == "adamw", mu_dtype=mu)
 
 
 def load_optimizer_state(optimizer: torch.optim.Optimizer, state_dict: dict) -> None:
@@ -501,12 +593,14 @@ def state_bytes(optimizer: torch.optim.Optimizer) -> int:
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr) -> None:
     """Every group's learning rate: a float, written into a device scalar
-    (a fill, no host sync) where the optimizer holds one, or a 0-d tensor
-    copied into it."""
+    (a fill, no host sync) where the optimizer holds one, or a tensor (an
+    (R,) vector for a :class:`ReplicaOptimizer`) copied into it."""
     for group in optimizer.param_groups:
         if isinstance(group["lr"], torch.Tensor):
             if isinstance(lr, torch.Tensor):
                 group["lr"].copy_(lr)
+            elif group["lr"].dim() > 0:
+                group["lr"].copy_(torch.as_tensor(np.asarray(lr, np.float32)))
             else:
                 group["lr"].fill_(lr)
         else:
@@ -514,16 +608,26 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr) -> None:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float,
+                        per_replica: bool = False) -> torch.Tensor:
     """optax's ``clip_by_global_norm``, in place: each gradient becomes
     ``g / norm * max_norm`` when the global L2 norm reaches ``max_norm``
     (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``). Returns the
-    norm, on the gradients' device, without a host sync."""
+    norm, on the gradients' device, without a host sync. ``per_replica``:
+    the gradients are stacked on a leading replica axis and each replica is
+    clipped by its own norm, an (R,) result (one diverged replica's NaN
+    stays its own)."""
     grads = [g for g in grads if g is not None]
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-    keep = norm < max_norm
+    if not per_replica:
+        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        keep = norm < max_norm
+        for g in grads:
+            g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
+        return norm
+    norm = torch.sqrt(sum(g.float().square().flatten(1).sum(1) for g in grads))
     for g in grads:
-        g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
+        n = norm.view((-1,) + (1,) * (g.dim() - 1))
+        g.copy_(torch.where(n < max_norm, g, g / n.to(g.dtype) * max_norm))
     return norm
 
 

@@ -9,7 +9,10 @@ tree of numpy arrays laid out like ``vit_tpu``'s Flax params:
 * ``vit.embeddings.cls_token`` / ``position_embeddings`` <- ``embeddings/...``
 * ``vit.embeddings.patch_embeddings.projection.*`` <- ``embeddings/patch_embeddings/
   projection`` (Linear kernel (in, out) -> weight (out, in); Conv1d kernel
-  (P, 1, H) -> weight (H, 1, P))
+  (P, 1, H) -> weight (H, 1, P); the image family's Conv2d kernel (kh, kw,
+  in, H) -> weight (H, in, kh, kw), as ``vit_tpu/train/torch_bridge.py:81-90``
+  maps it), or ``embeddings/patch_embeddings`` itself, the dense embedding
+  of an image model behind a patch-PCA preprocessor
 * ``vit.encoder.layer.{i}.attention.attention.{query,key,value}.*`` <-
   ``encoder/layer_i/attention/{query,key,value}``
 * ``vit.encoder.layer.{i}.attention.output.dense.*`` <- ``.../attention/out``
@@ -18,7 +21,8 @@ tree of numpy arrays laid out like ``vit_tpu``'s Flax params:
   <- LayerNorm ``scale``/``bias``
 * ``classifier.*`` | ``regressor.*`` <- the task head
 * ``preprocessor.linear.{weight,bias}`` <- ``preprocessor/{kernel,bias}``
-  (``LinearPreprocessor``); ``preprocessor.{q_lin,k_lin,v_lin}.weight`` <-
+  (``LinearPreprocessor``, ``PatchPCAProjector``);
+  ``preprocessor.{q_lin,k_lin,v_lin}.weight`` <-
   ``preprocessor/{q_lin,k_lin,v_lin}`` (``PrefilledAttention``), those present
 """
 
@@ -56,14 +60,16 @@ def from_flax_params(params: Dict[str, Any], vit_config) -> Dict[str, torch.Tens
     out["vit.embeddings.cls_token"] = _t(emb["cls_token"])
     if "position_embeddings" in emb:
         out["vit.embeddings.position_embeddings"] = _t(emb["position_embeddings"])
-    proj = emb["patch_embeddings"]["projection"]
+    proj = emb["patch_embeddings"]
+    proj = proj.get("projection", proj)  # the image PCA model's bare Dense
     kernel = np.asarray(proj["kernel"])
-    if kernel.ndim == 2:  # SW / Linear tokenizer
+    if kernel.ndim == 2:  # SW / Linear tokenizer, or the dense patch embedding
         out["vit.embeddings.patch_embeddings.projection.weight"] = _t(kernel.T)
     elif kernel.ndim == 3:  # Conv1d: flax (P, in, H) -> torch (H, in, P)
         out["vit.embeddings.patch_embeddings.projection.weight"] = _t(kernel.transpose(2, 1, 0))
-    else:
-        raise NotImplementedError("2-D patch embeddings (image family) are not ported yet")
+    else:  # Conv2d: flax (kh, kw, in, H) -> torch (H, in, kh, kw)
+        out["vit.embeddings.patch_embeddings.projection.weight"] = _t(
+            kernel.transpose(3, 2, 0, 1))
     if "bias" in proj:
         out["vit.embeddings.patch_embeddings.projection.bias"] = _t(proj["bias"])
 

@@ -5,7 +5,8 @@ The covariance cache (``load_cov_stats`` / ``clear_cov_cache``,
 ``vit_tpu/utils.py:40-122``) is process-global and keyed by the resolved
 path; it checks the required keys ``{mean, cov, eigvals, eigvecs}``.
 Artifacts are ``.npz`` or the reference's torch ``.pt``; values come back
-as numpy arrays.
+as numpy arrays. :func:`load_patch_pca_stats` (``vit_tpu/utils.py:82``)
+reads the image family's patch-PCA artifact.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ __all__ = [
     "load_cov_stats",
     "clear_cov_cache",
     "save_cov_stats",
+    "load_patch_pca_stats",
 ]
 
 _COV_REQUIRED_KEYS = ("mean", "cov", "eigvals", "eigvecs")
@@ -92,6 +94,23 @@ def load_cov_stats(path: str, use_cache: bool = True) -> dict:
 def clear_cov_cache() -> None:
     """Drop the process-global covariance cache."""
     _cov_cache.clear()
+
+
+def load_patch_pca_stats(path: str) -> dict:
+    """A patch-PCA artifact ``{components|eigvecs|V, mean, ...}`` (``.npz``
+    or ``.pt``, the schema of :func:`~vit_tpu_torch.prepca.pipeline.
+    compute_patch_pca_images`), numpy arrays, with the basis under
+    ``components``: (patch_dim, k) fp32, columns the principal directions."""
+    resolved = _resolve(path)
+    if not os.path.exists(resolved):
+        raise FileNotFoundError(f"Patch-PCA stats file not found: {resolved}")
+    stats = {k: _to_numpy(v) for k, v in _load_stats_file(resolved).items()}
+    basis = next((stats[k] for k in ("components", "eigvecs", "V") if k in stats), None)
+    if basis is None:
+        raise KeyError(f"Patch-PCA stats at {resolved} need one of components/eigvecs/V; "
+                       f"found {sorted(stats.keys())}")
+    stats["components"] = np.asarray(basis, np.float32)
+    return stats
 
 
 def save_cov_stats(stats: dict, path: str) -> str:
