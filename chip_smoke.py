@@ -197,7 +197,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    and in bf16 (2e-2, global relative L2; per tensor reported), one epoch,
    then served in bf16 (features 0.125, logits what that implies through
    the fp32 head) and fp32 (1e-4).
-9. Print the kernels' summary, the card line again, and last
+9. Runs (v), (x), (y): (v) int8 serving (``--only z``; 'v' runs (s')):
+   stride1.yaml in bf16 at batch 16, unquantized, int8-w8a8 dynamic,
+   calibrated and int8-wo, K1 launched exactly, each held against the same
+   variant on the CPU in bf16 (logits 1e-2, features 0.125), with
+   spectra/s, device ms a batch, the int8 table's bytes and the device
+   bytes held after the strip; then ViT-B/16 the same four ways at batch 8
+   and 128 (images/s, device ms a batch: the W8A8 / weight-only route on
+   this card). (x) ``Predictor.export`` of stride1 bf16, stride1 with the
+   fused MLP, baseline with flash in fp32 and stride1 int8-w8a8, loaded in
+   one fresh process that imports no model code: predictions against the
+   live ones (1e-6 fp32, 1e-2 bf16), K1, K2, K3 counted inside the loaded
+   programs, export seconds and bytes. (y) the repairs: ``opt.type: lbfgs``
+   through the vmapped sweep at (s)'s grid (one full-batch step held within
+   1e-4 of the sequential trials; at (s)'s batch the gaps reported),
+   ``fast_dropout: false`` at (p)'s shape per step and through the CUDA
+   graph (parameters bit-equal), and three replicas' masks under vmap in
+   a graph bit-equal to single calls with the engine's seeds.
+10. Print the kernels' summary, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
@@ -2635,6 +2652,448 @@ def image_runs(work: str, none: dict, kernels) -> dict:
     return rows
 
 
+# Run (v), int8 serving: the unquantized bf16 model and three int8 variants
+# (tag, Predictor quantize, calibrated on the first batch).
+QUANT_VARIANTS = (("bf16", None, False), ("int8_w8a8", "int8-w8a8", False),
+                  ("int8_w8a8_calibrated", "int8-w8a8", True), ("int8_wo", "int8-wo", False))
+B16_SERVE_BATCHES = (8, 128)  # ViT-B/16 serving: both sides of the W8A8 / weight-only route
+B16_SERVE_IMAGES = 256
+
+
+def quant_features(p, x: torch.Tensor) -> torch.Tensor:
+    """The final LayerNorm's output for every token through ``p``'s served
+    forward (its int8 table where it has one), fp32 on the host."""
+    from vit_tpu_torch.models.layers import intercept_linear
+    from vit_tpu_torch.ops.quant import quantized_interceptor
+
+    with torch.inference_mode():
+        if not p._qtable:
+            return p.module.features(x).float().cpu()
+        with intercept_linear(quantized_interceptor(p.module, p._qtable,
+                                                    p.quant_variant == "int8-wo")):
+            return p.module.features(x).float().cpu()
+
+
+def resident_predictor(build):
+    """(the Predictor ``build()`` returns, the device bytes it holds: weights
+    after the strip, the int8 table, label buffers)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    p = build()
+    torch.cuda.synchronize()
+    return p, torch.cuda.memory_allocated() - base
+
+
+def serve_timing(p, x) -> dict:
+    """Inputs/s over SERVE_REPEATS passes of ``x`` (after a warm-up batch),
+    host ms a batch, torch.profiler's device ms of one batch, busy share."""
+    p.predict(x[:p.batch_size])
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(SERVE_REPEATS):
+        t0 = time.perf_counter()
+        p.predict(x)  # ends in a copy to the host
+        runs.append(time.perf_counter() - t0)
+    batch_ms = sum(runs) * 1e3 / (SERVE_REPEATS * -(-len(x) // p.batch_size))
+    prof = device_profile(lambda: p._batched_logits(x[:p.batch_size]))
+    return dict(inputs_per_s=SERVE_REPEATS * len(x) / sum(runs), batch_ms=batch_ms,
+                device_ms_per_batch=prof["device_ms"],
+                device_busy_share=prof["device_ms"] / batch_ms, top_device_ops=prof["top"])
+
+
+def quant_serve_runs(work: str, kernels) -> dict:
+    """(v) int8 serving. stride1.yaml in bf16 at batch 16 (seeded weights,
+    64 synthetic spectra) four ways: unquantized, int8-w8a8 dynamic, int8-w8a8
+    calibrated on the first batch, int8-wo. Each: K1 launched exactly layers
+    x batches, finite predictions, logits and per-token features of two
+    served spectra and two probes against the same variant run by the port
+    on the CPU in bf16 (1e-2 on logits, 0.125 on features), spectra/s,
+    device ms a batch, busy share, the int8 table's bytes and the device
+    bytes the predictor holds after the strip. Then ViT-B/16
+    (vit_b16_bf16.yaml: attn auto -> xla at T 197, dense MLP) the same four
+    ways at batch 8 and 128 on 256 synthetic images, each variant a
+    Predictor over a copy of one seeded module: images/s and device ms a
+    batch (the calibrated variant calibrated on the first 8 images),
+    logits finite and each int8 variant's distance from bf16 reported."""
+    import copy
+
+    import numpy as np
+
+    from vit_tpu_torch.data.images import ImageDataset
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+    from vit_tpu_torch.models.builder import get_model
+    from vit_tpu_torch.ops._build import reset_launches
+    from vit_tpu_torch.ops.quant import quantized_size_bytes
+    from vit_tpu_torch.serve import Predictor
+    from vit_tpu_torch.train.torch_bridge import save_torch_checkpoint
+
+    none = {n: 0 for n in kernels}
+    stride1 = {"model": STRIDE1_MODEL, "train": {"batch_size": BATCH, "precision": "bf16"},
+               "data": {"param": "log_g"}, "noise": {"noise_level": 0}}
+    module = get_model(copy.deepcopy(stride1), generator=torch.Generator().manual_seed(0)).module
+    pt = os.path.join(work, "v_stride1.pt")
+    save_torch_checkpoint(module, pt)
+    x = make_dummy_spectra(n=N_INPUTS, length=STRIDE1_MODEL["image_size"], seed=1)["flux"]
+    probes = torch.randn((2, x.shape[1]), generator=torch.Generator().manual_seed(2)).numpy()
+    xs = torch.from_numpy(np.concatenate([x[:2], probes]))
+    expect = dict(none, flash_fwd=STRIDE1_MODEL["num_hidden_layers"] * (N_INPUTS // BATCH))
+    rows, logits = {}, {}
+    for tag, mode, calibrate in QUANT_VARIANTS:
+        calib = x[:BATCH] if calibrate else None
+        p, held = resident_predictor(lambda: Predictor.from_checkpoint(
+            stride1, ckpt=pt, batch_size=BATCH, quantize=mode, calibration=calib,
+            device="cuda"))
+        p.label_norm = "minmax"
+        p.label_norm_stats = {k: np.asarray(v, np.float64) for k, v in LOGG_STATS.items()}
+        p.predict(x[:BATCH])  # warm-up: cuBLAS handles, allocator
+        reset_launches()
+        out = p.predict(x)
+        launches = {n: k.launches for n, k in kernels.items()}
+        check(launches == expect, f"v {tag}: launches {launches}, expected {expect}")
+        check(out.shape == (N_INPUTS, 1) and bool(np.isfinite(out).all()),
+              f"v {tag}: predictions not finite or of shape {out.shape}")
+        timing = serve_timing(p, x)
+        cpu = Predictor.from_checkpoint(stride1, ckpt=pt, batch_size=BATCH, quantize=mode,
+                                        calibration=calib, device="cpu")
+        with torch.inference_mode():
+            want = cpu._forward(xs).float()
+            got = p._forward(xs.cuda()).float().cpu()
+        logit_err = (got - want).abs().max().item()
+        feat_err = (quant_features(p, xs.cuda()) - quant_features(cpu, xs)).abs().max().item()
+        check(logit_err <= 1e-2 and feat_err <= BF16_FEATURE_TOL,
+              f"v {tag}: card against the CPU's {tag}: logits {logit_err} (tol 1e-2), "
+              f"features {feat_err} (tol {BF16_FEATURE_TOL})")
+        logits[tag] = got
+        row = dict(phase="int8_serve", run=f"v_stride1_{tag}", quantize=mode,
+                   variant=p.quant_variant, calibrated=calibrate, batch=BATCH,
+                   inputs=N_INPUTS, launches=launches, smoke_spectra_per_s=timing.pop(
+                       "inputs_per_s"), **timing,
+                   quantized_layers=len(p._qtable or {}),
+                   quantized_size_bytes=quantized_size_bytes(p._qtable or {}),
+                   resident_device_bytes=held,
+                   max_abs_logit_err_vs_cpu_same_variant=logit_err, logit_tol=1e-2,
+                   max_abs_feature_err_vs_cpu_same_variant=feat_err,
+                   feature_tol=BF16_FEATURE_TOL,
+                   max_abs_logit_diff_vs_bf16=(got - logits["bf16"]).abs().max().item())
+        emit(row)
+        rows[row["run"]] = row
+        del p, cpu
+
+    b16 = image_config("vit_b16_bf16.yaml")
+    bundle = get_model(copy.deepcopy(b16), generator=torch.Generator().manual_seed(0))
+    images = ImageDataset(num_test_samples=B16_SERVE_IMAGES, image_size=b16["model"]["image_size"],
+                          num_classes=b16["model"]["num_labels"])
+    images.load_data("test")
+    imgs = images.images
+    b16_logits, b16_rows = {}, {}
+    for tag, mode, calibrate in QUANT_VARIANTS:
+        calib = imgs[:B16_SERVE_BATCHES[0]] if calibrate else None
+        p, held = resident_predictor(lambda: Predictor(
+            copy.deepcopy(bundle.module).cuda(), bundle.vit_config,
+            batch_size=B16_SERVE_BATCHES[0], quantize=mode, calibration=calib))
+        per_batch = {}
+        for batch in B16_SERVE_BATCHES:
+            p.batch_size = batch  # the variant is pinned: the route does not depend on it
+            per_batch[batch] = serve_timing(p, imgs)
+        lg = p._batched_logits(imgs[:B16_SERVE_BATCHES[0]])
+        check(bool(np.isfinite(lg).all()), f"v ViT-B/16 {tag}: logits not finite")
+        b16_logits[tag] = lg
+        b16_rows[tag] = dict(quantize=mode, variant=p.quant_variant, calibrated=calibrate,
+                             quantized_layers=len(p._qtable or {}),
+                             quantized_size_bytes=quantized_size_bytes(p._qtable or {}),
+                             resident_device_bytes=held,
+                             max_abs_logit_diff_vs_bf16=float(abs(lg - b16_logits["bf16"]).max()),
+                             **{f"batch_{b}": {k: v for k, v in t.items()
+                                               if k != "top_device_ops"}
+                                for b, t in per_batch.items()},
+                             top_device_ops_largest_batch=per_batch[B16_SERVE_BATCHES[-1]][
+                                 "top_device_ops"])
+        del p
+    speedups = {tag: {f"batch_{b}": b16_rows["bf16"][f"batch_{b}"]["device_ms_per_batch"]
+                      / r[f"batch_{b}"]["device_ms_per_batch"] for b in B16_SERVE_BATCHES}
+                for tag, r in b16_rows.items()}
+    row = dict(phase="int8_serve", run="v_vit_b16_int8", images=B16_SERVE_IMAGES,
+               batches=list(B16_SERVE_BATCHES), launches=dict(none), variants=b16_rows,
+               device_speedup_vs_bf16=speedups,
+               route_threshold=64, note="vit_tpu's W8A8_WO_BATCH_THRESHOLD kept as it is")
+    emit(row)
+    rows[row["run"]] = row
+    return rows
+
+
+EXPORT_LOADER = r"""
+import json, sys, time
+import numpy as np
+import torch
+from vit_tpu_torch.export import load_exported
+from vit_tpu_torch.ops._build import KERNELS, reset_launches
+x = np.load(sys.argv[1])
+out = {}
+for path, npy in zip(sys.argv[2::2], sys.argv[3::2]):
+    t0 = time.perf_counter()
+    p = load_exported(path, device="cuda")
+    load_s = time.perf_counter() - t0
+    p.predict(x[:p.batch_size])  # warm-up: loads the kernels' libraries
+    torch.cuda.synchronize()
+    reset_launches()
+    y = p.predict(x)
+    torch.cuda.synchronize()
+    np.save(npy, y)
+    out[path] = dict(load_seconds=load_s, launches={n: k.launches for n, k in KERNELS.items()})
+bad = sorted(m for m in sys.modules if m.startswith(("vit_tpu_torch.models",
+      "vit_tpu_torch.config", "vit_tpu_torch.train", "vit_tpu_torch.serve", "jax", "flax",
+      "optax", "orbax")) or m == "vit_tpu" or m.startswith("vit_tpu."))
+print("EXPORT_RESULT " + json.dumps(dict(results=out, model_modules=bad)))
+"""
+
+
+def export_runs(work: str, kernels) -> dict:
+    """(x) export: (a) stride1 bf16, (b) stride1 + fused_mlp, (c) baseline +
+    flash fp32, and stride1 int8-w8a8, each served live on the card at batch
+    16 and exported (seconds, bytes); then one fresh process that imports
+    vit_tpu_torch.export alone (no model code: checked in its sys.modules)
+    loads each artifact on the card and serves the 64 spectra: predictions
+    against the live Predictor's (expected 0 apart before the
+    denormalisation, which the artifact does in fp32: 1e-6 in fp32, 1e-2 in
+    bf16), and K1, K2, K3 counted inside the loaded programs, exactly layers
+    x batches."""
+    import copy
+
+    import numpy as np
+
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+    from vit_tpu_torch.models.builder import get_model
+    from vit_tpu_torch.serve import Predictor
+    from vit_tpu_torch.train.torch_bridge import save_torch_checkpoint
+
+    none = {n: 0 for n in kernels}
+    stride1 = {"model": STRIDE1_MODEL, "train": {"batch_size": BATCH, "precision": "bf16"},
+               "data": {"param": "log_g"}, "noise": {"noise_level": 0}}
+    baseline = {"model": dict(BASELINE_MODEL, attn_impl="flash"), "train": {"batch_size": BATCH},
+                "data": {"param": "log_g"}, "noise": {"noise_level": 0}}
+    calls = STRIDE1_MODEL["num_hidden_layers"] * (N_INPUTS // BATCH)
+    cases = (("x_a_stride1_bf16", stride1, None, 1e-2, dict(none, flash_fwd=calls)),
+             ("x_b_stride1_fused_mlp_bf16", dict(stride1, model=dict(STRIDE1_MODEL,
+                                                                      fused_mlp=True)),
+              None, 1e-2, dict(none, flash_fwd=calls, fused_mlp_fwd=calls)),
+             ("x_c_baseline_flash_fp32", baseline, None, 1e-6, dict(none, short_fwd=calls)),
+             ("x_stride1_int8_w8a8", stride1, "int8-w8a8", 1e-2, dict(none, flash_fwd=calls)))
+    x = make_dummy_spectra(n=N_INPUTS, length=STRIDE1_MODEL["image_size"], seed=1)["flux"]
+    x_path = os.path.join(work, "x_spectra.npy")
+    np.save(x_path, x)
+    live, meta, args = {}, {}, []
+    for tag, cfg, mode, tol, expect in cases:
+        module = get_model(copy.deepcopy(cfg), generator=torch.Generator().manual_seed(0)).module
+        pt = os.path.join(work, f"{tag}.pt")
+        save_torch_checkpoint(module, pt)
+        p = Predictor.from_checkpoint(cfg, ckpt=pt, batch_size=BATCH, quantize=mode,
+                                      device="cuda")
+        p.label_norm = "minmax"
+        p.label_norm_stats = {k: np.asarray(v, np.float64) for k, v in LOGG_STATS.items()}
+        live[tag] = p.predict(x)
+        path = os.path.join(work, f"{tag}.vittxpt")
+        t0 = time.perf_counter()
+        header = p.export(path)
+        meta[tag] = dict(export_seconds=time.perf_counter() - t0,
+                         artifact_bytes=os.path.getsize(path), header=header)
+        args += [path, os.path.join(work, f"{tag}_loaded.npy")]
+        del p
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_LOADER, x_path, *args],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=900)
+    load_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"x: the loading process failed:\n{proc.stderr[-4000:]}")
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("EXPORT_RESULT ")]
+    check(len(line) == 1, f"x: no result from the loading process:\n{proc.stdout[-2000:]}")
+    result = json.loads(line[0][len("EXPORT_RESULT "):])
+    check(result["model_modules"] == [],
+          f"x: the loading process imported model code: {result['model_modules']}")
+    rows = {}
+    for (tag, cfg, mode, tol, expect), path in zip(cases, args[::2]):
+        got = np.load(os.path.join(work, f"{tag}_loaded.npy"))
+        diff = float(abs(got - live[tag]).max())
+        launches = result["results"][path]["launches"]
+        check(launches == expect, f"{tag}: the loaded program launched {launches}, "
+              f"expected {expect}")
+        check(got.shape == live[tag].shape and diff <= tol,
+              f"{tag}: loaded against live predictions {diff} apart (tol {tol})")
+        row = dict(phase="export", run=tag, quantize=mode, batch=BATCH, inputs=N_INPUTS,
+                   launches=launches, max_abs_diff_loaded_vs_live=diff, tol=tol,
+                   load_seconds=result["results"][path]["load_seconds"],
+                   loading_process_seconds=load_s, loading_process_model_modules=[],
+                   **meta[tag])
+        emit(row)
+        rows[tag] = row
+    return rows
+
+
+def repair_runs(work: str, kernels) -> dict:
+    """(y) the two repaired faults on the card. (y1) opt.type lbfgs through
+    the vmapped sweep at (s)'s shape and grid, dropout off, against the
+    sequential engine's trials: with one full-batch step (batch 256, 1
+    epoch) each replica within SWEEP_REL; at (s)'s batch 16 over 2 epochs
+    the engines' gaps reported (L-BFGS without a line search amplifies the
+    two engines' fp32 summation orders after its first step: the CPU shows
+    0.5-2.5% after two). (y2) fast_dropout: false, dropout 0.1, at (p)'s
+    shape over 256 spectra, 2 epochs: per step, then fused_epoch: true,
+    which now runs the step as a CUDA graph; parameters bit-equal, host
+    ms/step of both. (y3) three replicas with fast_dropout: false through
+    the vmapped sweep's graph: each replica's nn.Dropout masks, drawn under
+    vmap inside a CUDA graph from the engine's own site seeds, bit-equal to
+    single calls with those seeds, and each replica's forward within 1e-5
+    of its model alone."""
+    import copy
+
+    import numpy as np
+
+    from vit_tpu_torch.data.datasets import SpecDataModule
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+    from vit_tpu_torch.ops._build import reset_launches
+    from vit_tpu_torch.ops.dropout import stream_dropout
+    from vit_tpu_torch.opt.parallel_sweep import (
+        ParallelSweepRunner,
+        _SequentialSweepEngine,
+        _VmapSweepEngine,
+    )
+
+    none = {n: 0 for n in kernels}
+    data = make_dummy_spectra(n=256, length=BASELINE_MODEL["image_size"], seed=1)
+
+    def datamodule(c):
+        return SpecDataModule(c, source=data)
+
+    base, _ = sweep_base(work, "lbfgs_base.yaml")
+    configs = ParallelSweepRunner(base, **SWEEP_GRID, results_dir=os.path.join(work, "lb"),
+                                  seed=0, device="cuda", datamodule=datamodule,
+                                  gpu_ids=[0]).sweep_configs
+    args = ("val_mae", "minimize", 0)
+    lbfgs = {}
+    for tag, train in (("full_batch_one_step", dict(batch_size=256, ep=1)),
+                       ("s_shape_2_epochs", {})):
+        _, cfg = sweep_base(work, f"lbfgs_{tag}.yaml", hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0)
+        cfg["opt"]["type"] = "lbfgs"
+        cfg["train"].update(train)
+        t0 = time.perf_counter()
+        seq = _SequentialSweepEngine(cfg, configs, *args, device="cuda",
+                                     datamodule=datamodule).run()
+        seq_s = time.perf_counter() - t0
+        engine = _VmapSweepEngine(cfg, configs, *args, device="cuda", datamodule=datamodule)
+        t0 = time.perf_counter()
+        vm = engine.run()
+        vm_s = time.perf_counter() - t0
+        check(engine.epochs.graph is not None and engine.epochs.replays > 0
+              or engine.epochs.steps == 1,
+              f"y1 {tag}: the replica step did not run as a graph")
+        rel = [abs(a.metric - b.metric) / abs(b.metric)
+               if a.metric is not None and b.metric is not None and math.isfinite(a.metric)
+               and math.isfinite(b.metric) else None for a, b in zip(vm, seq)]
+        if tag == "full_batch_one_step":
+            check(all(a.status == b.status == "ok" for a, b in zip(vm, seq))
+                  and max(rel) <= SWEEP_REL,
+                  f"y1: lbfgs replicas {[(a.status, a.metric) for a in vm]} against the "
+                  f"sequential trials {[(b.status, b.metric) for b in seq]} (relative {rel})")
+        lbfgs[tag] = dict(vmap=[(a.status, a.metric) for a in vm],
+                          sequential=[(b.status, b.metric) for b in seq], rel_diff=rel,
+                          held=tag == "full_batch_one_step", tol=SWEEP_REL,
+                          vmap_seconds=vm_s, sequential_seconds=seq_s)
+    row = dict(phase="repair", run="y1_lbfgs_vmap_sweep", launches=dict(none), **lbfgs)
+    emit(row)
+    rows = {row["run"]: row}
+
+    cfg = copy.deepcopy(BASELINE_TRAIN)
+    cfg["model"]["fast_dropout"] = False  # dropout 0.1 / 0.1, the builder's defaults
+    layers = BASELINE_MODEL["num_hidden_layers"]
+    per_step = dict(none, short_fwd=layers, short_bwd=layers, fused_mlp_fwd=layers,
+                    fused_mlp_bwd=layers)
+    eager = window_fit(cfg, 256, 2, False)
+    graph = window_fit(cfg, 256, 2, True)
+    launches = graph_launches(graph, per_step, kernels)
+    close, equal, diff = params_close(graph["params"], eager["params"])
+    check(equal, f"y2: fast_dropout false through the graph against per step: parameters "
+          f"{diff} apart (bit-equal required)")
+    row = dict(phase="repair", run="y2_stream_dropout_graph", inputs=256, epochs=2,
+               steps_per_epoch=graph["steps"], bit_equal=equal, max_abs_diff=diff,
+               per_step=dict(**fit_summary(eager), launches=eager["counts"]),
+               graph=fit_summary(graph),
+               host_ms_per_step_speedup=eager["steady_host_ms_per_step"]
+               / graph["steady_host_ms_per_step"], **launches)
+    emit(row)
+    rows[row["run"]] = row
+
+    _, cfg3 = sweep_base(work, "stream_replicas.yaml", fast_dropout=False)
+    engine = _VmapSweepEngine(cfg3, configs[:3], *args, device="cuda", datamodule=datamodule)
+    reset_launches()
+    res = engine.run()
+    calls = {n: k.launches for n, k in kernels.items()}
+    ep = engine.epochs
+    check(all(r.status == "ok" for r in res) and ep.graph is not None and ep.replays > 0,
+          f"y3: {[(r.status, r.message) for r in res]}, graph {ep.graph}, {ep.replays} replays")
+    launches = replica_launches(ep, calls, dict(none, short_fwd=layers, short_bwd=layers,
+                                                fused_mlp_fwd=layers * len(res),
+                                                fused_mlp_bwd=layers * len(res)), kernels)
+    seeds = ep.seeds[:, 0].contiguous()  # (R, sites): the last epoch's first step
+    shape = (BATCH, 129, BASELINE_MODEL["hidden_size"])
+    ones = torch.ones(shape, device="cuda")
+    site = torch.zeros(len(configs[:3]), dtype=torch.int32, device="cuda")
+    out = torch.empty((len(configs[:3]),) + shape, device="cuda")
+
+    def masks():
+        out.copy_(torch.func.vmap(lambda s_: stream_dropout(ones, 0.1, s_))(site))
+
+    masks()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        masks()
+    wrong = 0
+    for j in range(seeds.shape[1]):
+        site.copy_(seeds[:, j])
+        g.replay()
+        for r in range(len(configs[:3])):
+            wrong += int((out[r] != stream_dropout(ones, 0.1, seeds[r, j])).sum())
+    check(wrong == 0, f"y3: {wrong} mask elements of the replicas differ from single calls")
+    module = ep.module.train()
+    xb = torch.from_numpy(data["flux"][:BATCH]).cuda()
+    with torch.no_grad():
+        stacked = torch.func.vmap(lambda p_, s_: torch.func.functional_call(
+            module, p_, (xb,), {"dropout_seeds": s_}))(ep.params, seeds)
+        alone = [torch.func.functional_call(module, {k: v[r] for k, v in ep.params.items()},
+                                            (xb,), {"dropout_seeds": seeds[r]})
+                 for r in range(len(configs[:3]))]
+    fwd_err = max((stacked[r] - alone[r]).abs().max().item() / alone[r].abs().max().item()
+                  for r in range(len(alone)))
+    check(fwd_err <= 1e-5, f"y3: a replica's forward {fwd_err} from its model alone")
+    row = dict(phase="repair", run="y3_stream_dropout_replicas", replicas=len(res),
+               statuses=[r.status for r in res], metrics=[r.metric for r in res],
+               mask_sites_checked=int(seeds.shape[1]), wrong_mask_elements=wrong,
+               forward_rel_err_vs_alone=fwd_err, **launches)
+    emit(row)
+    rows[row["run"]] = row
+    return rows
+
+
+def slice11_runs(work: str, kernels, only=None) -> dict:
+    """Runs (v) int8 serving ('z' for --only: 'v' runs (s')), (x) export and
+    (y) the repairs; ``only``: the letters to run (all by default). Each
+    run's seconds are printed."""
+    want = set("zxy") if only is None else set(only)
+    runs = {}
+    for letter, fn in (("z", lambda: quant_serve_runs(work, kernels)),
+                       ("x", lambda: export_runs(work, kernels)),
+                       ("y", lambda: repair_runs(work, kernels))):
+        if letter in want:
+            t0 = time.perf_counter()
+            runs.update(fn())
+            emit(dict(phase="run_seconds", run=letter, seconds=time.perf_counter() - t0))
+    return runs
+
+
 def graph_and_sweep_runs(work: str, kernels, only=None) -> dict:
     """Runs (w), (p), (q) and (r): the per-step window, the fused epoch as a
     CUDA graph at baseline's and stride1's shapes, and the sequential LR
@@ -2673,8 +3132,9 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", default=None,
-                        help="letters of runs (j)-(r), (w), (s), (u) and 'v' for (s') to run "
-                             "after the build, e.g. 'jkl' or 'pqr' or 'svu', skipping the "
+                        help="letters of runs (j)-(r), (w), (s), (u), 'v' for (s'), 'z' for "
+                             "(v) int8 serving, 'x' export and 'y' the repairs, to run after "
+                             "the build, e.g. 'jkl' or 'pqr' or 'svu' or 'zxy', skipping the "
                              "kernel phases and runs (a)-(i); prints no result")
     args = parser.parse_args(argv)
     started = time.perf_counter()
@@ -2716,6 +3176,7 @@ def main(argv=None) -> int:
             graph_and_sweep_runs(work, kernels, only=set(args.only) & set("wpqr"))
             replica_and_image_runs(work, {n: 0 for n in kernels}, kernels,
                                    only=set(args.only) & set("svu"))
+            slice11_runs(work, kernels, only=set(args.only) & set("zxy"))
         print("chip_smoke: partial run (--only): no result line", flush=True)
         return 0
 
@@ -2826,6 +3287,7 @@ def main(argv=None) -> int:
         runs.update(option_runs(ckpt_dir, none, kernels))
         runs.update(graph_and_sweep_runs(ckpt_dir, kernels))
         runs.update(replica_and_image_runs(ckpt_dir, none, kernels))
+        runs.update(slice11_runs(ckpt_dir, kernels))
 
     summary = []
     for name, k in kernels.items():

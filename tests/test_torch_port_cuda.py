@@ -615,3 +615,83 @@ def test_vmap_rules_launch_as_the_stacked_replicas(gen, dtype):
         assert (gy[0][i].float().cpu() - gi[0].float()).abs().max().item() <= _tol(gi[0])
         for a, c in zip(gy[1:], gi[1:]):
             assert (a[i].cpu() - c).abs().max().item() <= rel * c.abs().max().item()
+
+
+# -- int8 serving and the served kernels as custom operators ------------------------
+@pytest.mark.parametrize("rows", [1, 16, 17, 300])
+def test_int8_dense_on_int_mm_matches_the_cpu(gen, rows):
+    """torch._int_mm on the card: 16 rows and fewer are padded to 17; the
+    int32 products are exact, so the card equals the CPU's int8_dense to one
+    fp32 rounding of the rescale (dynamic and static activation scales)."""
+    from vit_tpu_torch.ops import quant
+
+    x = torch.randn(rows, 128, generator=gen, device="cuda")
+    w = torch.randn(256, 128, generator=gen, device="cuda") * 0.05
+    scale = torch.clamp_min(w.abs().amax(1), 1e-12) / 127.0
+    wq = torch.clamp(torch.round(w / scale[:, None]), -127, 127).to(torch.int8)
+    b = torch.randn(256, generator=gen, device="cuda") * 0.01
+    xq = torch.randint(-127, 128, (rows, 128), generator=gen, device="cuda", dtype=torch.int8)
+    assert torch.equal(quant.int8_matmul(xq, wq).cpu(), xq.cpu().int() @ wq.cpu().int().t())
+    for sx in (None, torch.tensor(0.02, device="cuda")):
+        got = quant.int8_dense(x, wq, scale, b, sx=sx)
+        want = quant.int8_dense(x.cpu(), wq.cpu(), scale.cpu(), b.cpu(),
+                                sx=None if sx is None else sx.cpu())
+        torch.testing.assert_close(got.cpu(), want, rtol=2**-23, atol=1e-6)
+    xb = x.to(torch.bfloat16)
+    assert quant.int8_dense(xb, wq, scale, b).dtype == torch.bfloat16  # x's dtype back
+
+
+@pytest.mark.parametrize("k, n", [(100, 256), (128, 60)])
+def test_int8_matmul_refuses_what_int_mm_cannot_take(gen, k, n):
+    from vit_tpu_torch.ops import quant
+
+    xq = torch.zeros(32, k, dtype=torch.int8, device="cuda")
+    wq = torch.zeros(n, k, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int8_matmul(xq, wq)
+
+
+@pytest.mark.parametrize("short, t", [(True, 129), (False, 1100)])
+def test_served_custom_ops_launch_the_kernels(gen, short, t):
+    """The served forward's K1/K2 and K3 custom operators launch the kernels
+    once a call (what an exported program runs) and equal the wrappers."""
+    q, k, v = _qkv(gen, 4, t, 64, torch.bfloat16)
+    name = "short_fwd" if short else "flash_fwd"
+    op = getattr(torch.ops.vit_tpu_torch, name)
+    before = KERNELS[name].launches
+    o, lse = op(q, k, v, 0.125, 0.0, None)
+    torch.cuda.synchronize()
+    assert KERNELS[name].launches == before + 1
+    o2, lse2 = (fa.short_fwd if short else fa.flash_fwd)(q, k, v, 0.125)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    x, w1, b1, w2, b2 = _mlp_operands(gen, 300, 128, 512, torch.bfloat16)
+    before = KERNELS["fused_mlp_fwd"].launches
+    y = torch.ops.vit_tpu_torch.fused_mlp_fwd(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert KERNELS["fused_mlp_fwd"].launches == before + 1
+    assert torch.equal(y, fm.fused_mlp(x, w1, b1, w2, b2))
+
+
+def test_stream_dropout_in_a_graph_equals_eager(gen):
+    """fast_dropout: false's stream from a device seed: a captured CUDA graph
+    replayed with new seeds in its buffer draws the eager masks bit for bit,
+    and the card's masks are the CPU's (the kept values to one fp32 ulp:
+    the card divides by a scalar as a product with its reciprocal)."""
+    from vit_tpu_torch.ops.dropout import stream_dropout
+
+    x = torch.randn(16, 129, 32, generator=gen, device="cuda")
+    seed = torch.zeros((), dtype=torch.int32, device="cuda")
+    out = torch.empty_like(x)
+    stream_dropout(x, 0.1, seed)  # warm-up before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(stream_dropout(x, 0.1, seed))
+    for s in (0, -1, 2**31 - 1, 12345):
+        seed.fill_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, stream_dropout(x, 0.1, s))
+        cpu = stream_dropout(x.cpu(), 0.1, s)
+        assert torch.equal(out.cpu() != 0, cpu != 0)
+        torch.testing.assert_close(out.cpu(), cpu, rtol=2**-23, atol=0)

@@ -94,11 +94,13 @@ def test_streaming_and_short_plain_versions_agree(t):
 
 @pytest.mark.parametrize("t, name", [(129, "short_fwd"), (512, "short_fwd"), (513, "flash_fwd"), (4066, "flash_fwd")])
 def test_dispatch_rule_is_vit_tpus(t, name, monkeypatch):
-    """T rounded up to 128 at most 512 -> short kernel, else streaming."""
+    """T rounded up to 128 at most 512 -> short kernel, else streaming. The
+    forward without a gradient calls each kernel through its custom operator
+    (``_short_fwd_op`` / ``_flash_fwd_op``, what an exported program holds)."""
     called = []
     for fn in ("short_fwd", "flash_fwd"):
-        monkeypatch.setattr(port, fn,
-                            lambda q, k, v, s, fn=fn, **kw: (called.append(fn), (q, None))[1])
+        monkeypatch.setattr(port, f"_{fn}_op",
+                            lambda q, k, v, s, *a, fn=fn: (called.append(fn), (q, None))[1])
     q = torch.zeros(1, 1, t, 16)
     port.flash_attention(q, q, q)
     assert called == [name]

@@ -100,6 +100,40 @@ def test_stream_dropout_fused_equals_per_step(resumable, monkeypatch, tmp_path):
                      _fit(cfg, monkeypatch, tmp_path / "b", True, ep=2))
 
 
+@pytest.mark.parametrize("remat", [False, True])
+def test_stream_masks_per_step_device_seed_and_replica_agree(tiny_config, remat):
+    """fast_dropout: false draws its nn.Dropout masks from the sites' seeds
+    on the device: the per-step path's int seeds, the fused epoch's (sites,)
+    device tensor and replica r of a vmapped step (its row of the (R,
+    sites) seeds, as the sweep hands them) give the same forward: bit for
+    bit for the first two, and for the vmapped replica to rel 1e-6 (its
+    products are batched ones, summed in another order), against a change
+    of seed that moves it by far more; the masks themselves bit for bit
+    under vmap, at the layer function."""
+    cfg = copy.deepcopy(tiny_config)
+    cfg["model"].update(fast_dropout=False, attn_impl="xla", remat=remat,
+                        hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
+    m = get_model(cfg, generator=torch.Generator().manual_seed(2)).module.train()
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 512)).astype(np.float32))
+    R, sites = 3, m.num_dropout_sites
+    seeds = np.random.default_rng(1).integers(-2**31, 2**31, (R, sites)).astype(np.int32)
+    per_step = [m(x, dropout_seeds=[int(s) for s in row]) for row in seeds]
+    device = [m(x, dropout_seeds=torch.from_numpy(row)) for row in seeds]
+    params = {n: p.detach()[None].expand((R,) + p.shape) for n, p in m.named_parameters()}
+    replicas = torch.func.vmap(lambda p, s: torch.func.functional_call(
+        m, p, (x,), {"dropout_seeds": s}))(params, torch.from_numpy(seeds))
+    for r in range(R):
+        assert torch.equal(per_step[r], device[r])
+        torch.testing.assert_close(replicas[r], per_step[r], rtol=1e-6, atol=1e-7)
+    other = m(x, dropout_seeds=[int(s) + 1 for s in seeds[0]])
+    assert (other - per_step[0]).abs().max() > 100 * 1e-6 * per_step[0].abs().max()
+    y = torch.randn(R, 8, 40, generator=torch.Generator().manual_seed(3))
+    stacked = torch.func.vmap(lambda s, yr: pdrop.stream_dropout(yr, 0.1, s))(
+        torch.from_numpy(seeds[:, 0]), y)
+    for r in range(R):
+        assert torch.equal(stacked[r], pdrop.stream_dropout(y[r], 0.1, int(seeds[r, 0])))
+
+
 def test_zca_freeze_schedule_fused_equals_per_step(tiny_config, monkeypatch, tmp_path):
     """A ZCA preprocessor frozen for epoch 0 (freeze_epochs: 1): the frozen
     and released steps of the fused epoch equal the per-step path's."""

@@ -6,12 +6,13 @@
 * ``predict`` is batch inference over a torch ``.pt`` checkpoint
   (``scripts/predict.py``): denormalised parameters (regression) or classes
   (classification) for spectra from an HDF5 or ``.npz`` file, written to a
-  ``.npz``.
+  ``.npz``; ``--quantize int8|int8-w8a8|int8-wo`` serves int8 encoder
+  weights and ``--calibrate`` gives W8A8 static activation scales from the
+  first ``--batch-size`` inputs.
 * ``lr`` is the LR/scheduler grid search (``vit_tpu``'s
   ``opt/parallel_sweep.py``, ``launch.sh lr``) with its flags: ``--engine
-  sequential`` trains the trials one after another and writes
-  ``summary.yaml`` and ``best_config.yaml``; ``vmap`` is not ported yet and
-  raises.
+  vmap`` (the default) trains the trials as stacked replicas, ``sequential``
+  one after another; both write ``summary.yaml`` and ``best_config.yaml``.
 * ``sweep`` is the W&B sweep agent (``scripts/sweep.py``, ``launch.sh
   sweep``); it exits 2 without wandb.
 
@@ -62,7 +63,9 @@ def _predict(args: argparse.Namespace) -> int:
     x = load_inputs(args.input, args.limit)
     pred = Predictor.from_checkpoint(
         args.config, ckpt=args.ckpt, batch_size=args.batch_size,
-        precision=args.precision, perf_preset=args.perf_preset, device=args.device,
+        precision=args.precision, quantize=args.quantize,
+        calibration=x[: args.batch_size] if args.calibrate else None,
+        perf_preset=args.perf_preset, device=args.device,
     )
     out = {"predictions": pred.predict(x)}
     if args.proba and pred.vit_config.task_type == "cls":
@@ -144,6 +147,11 @@ def main(argv=None) -> int:
                     help="classification: write softmax probabilities too")
     pp.add_argument("--precision", default=None,
                     help="serving compute dtype override (e.g. bf16)")
+    pp.add_argument("--quantize", default=None, choices=["int8", "int8-w8a8", "int8-wo"],
+                    help="int8 encoder weights: 'int8' routes W8A8 or weight-only by "
+                         "batch size (W8A8 with --calibrate); the others pin the variant")
+    pp.add_argument("--calibrate", action="store_true",
+                    help="W8A8: static activation scales from the first --batch-size inputs")
     pp.add_argument("--perf-preset", action="store_true",
                     help="bf16 + tanh GELU + bf16 softmax")
     pp.add_argument("--device", default="cuda", help="cuda (default) or cpu")

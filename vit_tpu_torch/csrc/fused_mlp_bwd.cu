@@ -21,8 +21,9 @@
 // segment of rows) and reduced in a fixed order by a last pass: no float
 // atomics, so a step is bit-repeatable. Two bodies, chosen by the caller
 // (`tensor_cores`) by a static rule on dtype and width, not on failure:
-// * bf16 with D and F multiples of 16 and D <= 512 (every width the repo
-//   configures) runs fused_mlp_bwd_tc.cuh: every product as wgmma on the
+// * bf16 with D and F multiples of 16 and D <= 512 (the spectra configs
+//   and ViT-S/16's D384; not ViT-B's D768 or ViT-L's D1024, which take the
+//   FMA body below) runs fused_mlp_bwd_tc.cuh: every product as wgmma on the
 //   tensor cores, g and dh kept in registers (no (R, F) tensor in device
 //   memory); a dx pass, a weight-gradient pass, then the sum of partials.
 // * fp32 (tensor cores would mean TF32) and other bf16 widths run the FMA

@@ -8,17 +8,25 @@ end. :class:`Linear` and :class:`LayerNorm` do the same, with torch's
 (out, in) weight layout. Parameters start empty and are filled by
 :func:`init_normal_` from an explicit ``torch.Generator`` or by
 ``load_state_dict``.
+
+Every dense layer of the model runs :meth:`Linear.forward`, so it is the
+one place a serving-time substitute can take over a layer's product
+(:func:`intercept_linear`, the port's counterpart of flax's
+``nn.intercept_methods`` on ``nn.Dense.__call__``; int8 serving,
+:mod:`vit_tpu_torch.ops.quant`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import contextvars
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
 
-__all__ = ["Linear", "DenseHolder", "LayerNorm", "dense", "init_normal_", "KERNEL_STD",
-           "LN_EPS"]
+__all__ = ["Linear", "DenseHolder", "LayerNorm", "dense", "init_normal_", "intercept_linear",
+           "KERNEL_STD", "LN_EPS"]
 
 KERNEL_STD = 0.02  # HF initializer_range
 LN_EPS = 1e-12  # HF ViTConfig layer_norm_eps
@@ -32,6 +40,23 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     return y if bias is None else y + bias.to(dtype)
 
 
+# fn(linear, x, dtype) -> a tensor that replaces the layer's product, or None;
+# per thread (and asyncio task), so concurrent forwards do not see each other's.
+_INTERCEPT: contextvars.ContextVar = contextvars.ContextVar("intercept_linear", default=None)
+
+
+@contextlib.contextmanager
+def intercept_linear(fn: Callable) -> Iterator[None]:
+    """Within the context, each :meth:`Linear.forward` first calls
+    ``fn(linear, x, dtype)``: a tensor it returns is the layer's output,
+    None runs the layer's own product. Contexts nest; the inner one rules."""
+    token = _INTERCEPT.set(fn)
+    try:
+        yield
+    finally:
+        _INTERCEPT.reset(token)
+
+
 class Linear(nn.Module):
     """``weight`` of ``shape`` (out, *in); the product flattens ``in``."""
 
@@ -43,6 +68,11 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        fn = _INTERCEPT.get()
+        if fn is not None:
+            y = fn(self, x, dtype)
+            if y is not None:
+                return y
         return dense(x, self.weight.reshape(-1, self.in_features), self.bias, dtype)
 
     def init_(self, g: torch.Generator) -> None:

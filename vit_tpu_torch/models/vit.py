@@ -36,8 +36,8 @@ site draws from a global generator, and a CUDA graph cannot set one while
 it is being captured). Under ``torch.func.vmap`` over stacked replicas (the
 vmapped sweep) the checkpoint is taken around the whole replica batch, by
 :func:`remat`. ``fast_dropout: false`` takes
-``nn.Dropout`` masks at the same sites (:func:`stream_dropout`, a generator
-seeded from each site's seed, so a recompute redraws them); attention's
+``nn.Dropout`` masks at the same sites (:func:`stream_dropout`, a
+counter-based stream of each site's seed, so a recompute redraws them); attention's
 flash route keeps its hash mask either way. RoPE (``pos_encoding_type:
 rope``) rotates q and k inside attention. :func:`compute_loss` keeps the
 reference quirk that ``loss.name: 'mae'`` trains MSE. MoE is not ported

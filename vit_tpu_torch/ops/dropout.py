@@ -29,11 +29,17 @@ as ``_keep_threshold`` does, and the CUDA kernels receive them as arguments
 (:func:`keep_params`).
 
 :func:`stream_dropout` is the other kind, ``nn.Dropout``'s (``model.
-fast_dropout: false``): a Bernoulli keep mask drawn from a
-``torch.Generator`` seeded with the call site's int32 seed, so a recomputed
-forward (activation checkpointing) seeds a fresh generator the same way and
-draws the same mask. Its stream is torch's, not ``vit_tpu``'s: the two agree
-in distribution (keep rate, ``1/(1-rate)`` scaling), not bit for bit.
+fast_dropout: false``): each element is kept where a uniform draw in
+[0, 1) falls below ``1 - rate``. The draw is counter-based too, a function
+of the call site's seed and the element's coordinates computed in tensor
+operations (:func:`stream_uniform`), on a stream of its own: the start
+mixes the seed with another multiplier and a salt, so the same seed gives
+other bits than :func:`hash_dropout`'s. As the seed never leaves the
+device, the per-step path, the fused epoch's CUDA graph, a replica of the
+vmapped sweep (a 0-d seed under ``torch.func.vmap``) and remat's recompute
+draw the same mask bit for bit. Its stream is the port's, not
+``vit_tpu``'s: the two agree in distribution (keep rate, ``1/(1-rate)``
+scaling in x's dtype), not bit for bit.
 :func:`site_dropout` picks one of the two by ``fast``.
 """
 
@@ -51,6 +57,7 @@ __all__ = [
     "attention_keep_mask",
     "seed_u32",
     "device_seed",
+    "stream_uniform",
     "stream_dropout",
     "site_dropout",
 ]
@@ -68,6 +75,10 @@ _M2 = 0xC2B2AE35
 # vit_tpu/ops/dropout.py:37-39: one odd multiplier per axis, and the seed's.
 _AXIS_MULTS = (0x9E3779B1, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F, 0x165667B1, 0xD3A2646D)
 _SEED_MULT = 0x7FEB352D
+# The nn.Dropout stream's start: the seed under another odd multiplier, plus
+# a salt, so its bits are not hash_dropout's for the same seed.
+_STREAM_SEED_MULT = 0x846CA68B
+_STREAM_SALT = 0x5BD1E995
 
 
 def seed_u32(seed):
@@ -158,15 +169,17 @@ def hash_dropout_mask(t_q: int, t_k: int, bh, seed, rate: float,
 
 
 def _coord_hash(shape: Sequence[int], seed, offsets: Optional[Sequence] = None,
-                device=None) -> torch.Tensor:
+                device=None, seed_mult: int = _SEED_MULT, salt: int = 0) -> torch.Tensor:
     """uint32 hash (in int64) of each element's coordinates mixed with
-    ``seed``; ``offsets`` shifts each axis's coordinates (int32 each)."""
+    ``seed``; ``offsets`` shifts each axis's coordinates (int32 each).
+    ``seed_mult`` and ``salt`` set the start (``vit_tpu``'s by default)."""
     if len(shape) > len(_AXIS_MULTS):
         raise ValueError(f"hash_dropout supports up to {len(_AXIS_MULTS)} dims")
     # A 0-d start that each axis's coordinates broadcast against: the first
     # axes' steps run on small tensors and only the last axis's at full size
     # (the same bits as a full-size start).
-    x = (seed_u32(seed) * _SEED_MULT) & _U32
+    x = seed_u32(seed) * seed_mult
+    x = (x + salt if salt else x) & _U32  # no extra kernel on hash_dropout's path
     if not isinstance(x, torch.Tensor):
         x = torch.full((), x, dtype=torch.int64, device=device)
     for axis, mult in zip(range(len(shape)), _AXIS_MULTS):
@@ -210,19 +223,26 @@ def hash_dropout(x: torch.Tensor, rate: float, seed) -> torch.Tensor:
     return x * hash_keep_mask(x.shape, rate, seed, device=x.device).to(x.dtype)
 
 
+def stream_uniform(shape: Sequence[int], seed, device=None) -> torch.Tensor:
+    """fp32 uniforms in [0, 1), one per element of ``shape``: the top 24
+    bits of the coordinate hash on the stream's own start, times 2**-24.
+    ``seed``: an int32, as an int or a 0-d tensor (never read back)."""
+    bits = _coord_hash(shape, seed, device=device, seed_mult=_STREAM_SEED_MULT,
+                       salt=_STREAM_SALT)
+    return (bits >> 8).to(torch.float32) * 2.0**-24
+
+
 def stream_dropout(x: torch.Tensor, rate: float, seed) -> torch.Tensor:
     """``nn.Dropout``: keep each element with probability ``1 - rate`` and
-    divide it by ``1 - rate`` (in ``x``'s dtype, as flax does); the mask comes from a generator on ``x``'s
-    device seeded with ``seed`` (an int32)."""
+    divide it by ``1 - rate`` (in ``x``'s dtype, as flax does); the mask
+    keeps the elements whose :func:`stream_uniform` of ``seed`` (an int32)
+    lies below ``1 - rate``."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    # The generator is seeded on the host, so a tensor seed is read back here
-    # (the streams stay off the fused epoch's CUDA graph for that reason).
-    g = torch.Generator(device=x.device).manual_seed(int(seed_u32(seed)))
-    keep = torch.rand(x.shape, generator=g, device=x.device) < keep_prob
+    keep = stream_uniform(x.shape, seed, device=x.device) < keep_prob
     # flax divides by keep_prob in x's dtype (0.8984375 for 0.9 in bf16)
     scale = float(torch.tensor(keep_prob, dtype=x.dtype))
     return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))

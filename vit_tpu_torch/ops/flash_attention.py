@@ -45,6 +45,14 @@ bh_per_seed], bh % bh_per_seed)``, what each replica draws alone.
 :class:`_Attention` has a ``torch.func.vmap`` rule that folds the replica
 axis into the heads, one launch for all replicas with their seeds; so
 ``vmap`` over R replicas gives what R single calls give, mask for mask.
+
+Serving (no gradient, no ``vmap``) calls K1 and K2 through the custom
+operators ``torch.ops.vit_tpu_torch.flash_fwd`` and ``short_fwd``
+(``torch.library.custom_op``, with fake versions that give the output
+shapes), so ``torch.export`` traces a served model with each launch as one
+opaque node (:mod:`vit_tpu_torch.export`). Their CUDA implementation is
+the launch, their CPU implementation the plain version; a process that
+loads an exported program imports this module to register them.
 """
 
 from __future__ import annotations
@@ -331,6 +339,26 @@ def short_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed=0,
     return dq, dk, dv
 
 
+@torch.library.custom_op("vit_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, rate: float,
+                  seed: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 as an opaque operator (the served forward): :func:`flash_fwd`."""
+    return flash_fwd(q, k, v, scale, rate=rate, seed=seed)
+
+
+@torch.library.custom_op("vit_tpu_torch::short_fwd", mutates_args=())
+def _short_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, rate: float,
+                  seed: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 as an opaque operator (the served forward): :func:`short_fwd`."""
+    return short_fwd(q, k, v, scale, rate=rate, seed=seed)
+
+
+@_flash_fwd_op.register_fake
+@_short_fwd_op.register_fake
+def _attention_fwd_fake(q, k, v, scale, rate, seed):
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
 def replica_first(x: torch.Tensor, dim: Optional[int], n: int) -> torch.Tensor:
     """A ``torch.func.vmap`` rule's input with its replica axis (``dim``,
     None: unbatched, so repeated) first."""
@@ -406,5 +434,5 @@ def flash_attention(q, k, v, dropout_rate: float = 0.0,
             is_batched(x) for x in (*args, seed)):
         o, _ = _Attention.apply(*args, d**-0.5, rate, seed, short)
     else:
-        o, _ = (short_fwd if short else flash_fwd)(*args, d**-0.5, rate=rate, seed=seed)
+        o, _ = (_short_fwd_op if short else _flash_fwd_op)(*args, d**-0.5, rate, seed)
     return o.view(b, h, t, d)

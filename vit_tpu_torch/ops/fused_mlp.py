@@ -17,16 +17,23 @@ The wrappers take the plain versions for tensors on the CPU and launch the
 kernels for tensors on the card. The kernels tile over F and over the
 output columns, so they run at every width. Each kernel picks its body by
 a fixed rule, not on failure: bf16 with D and F multiples of 16 and D at
-most 1024 (forward) or 512 (backward, :func:`bwd_plan`), which covers every
-width the repo configures, runs its products on the tensor cores
-(``csrc/fused_mlp_tc.cuh``, ``csrc/fused_mlp_bwd_tc.cuh``); fp32, where
-tensor cores would mean TF32, and other bf16 widths run on the fp32 FMA
-units.
+most 1024 (forward) or 512 (backward, :func:`bwd_plan`) runs its products
+on the tensor cores (``csrc/fused_mlp_tc.cuh``, ``csrc/fused_mlp_bwd_tc.cuh``);
+fp32, where tensor cores would mean TF32, and other bf16 widths run on the
+fp32 FMA units. So the backward of ViT-B (D768) and ViT-L (D1024) takes the
+FMA body, which ``vit_tpu`` never launches there: its Pallas MLP falls back
+to ``_jnp_mlp`` past a 12 MiB VMEM envelope
+(``vit_tpu/ops/fused_mlp.py:247-261``).
 
 Under ``torch.func.vmap`` over R replicas (a stacked sweep,
 :mod:`vit_tpu_torch.opt.parallel_sweep`), each replica has its own weights:
 :class:`_FusedMLP`'s ``vmap`` rule launches the kernels once per replica on
 that replica's rows and weights, R launches of each.
+
+Serving (no gradient, no ``vmap``) calls K3 through the custom operator
+``torch.ops.vit_tpu_torch.fused_mlp_fwd`` (CUDA: the launch; CPU: the plain
+version; a fake version gives the shape), so ``torch.export`` keeps it as
+one opaque node (:mod:`vit_tpu_torch.export`).
 """
 
 from __future__ import annotations
@@ -126,6 +133,18 @@ def _on_cpu(x) -> bool:
 def _fwd(x2, w1, b1, w2, b2) -> torch.Tensor:
     _check(x2, w1, b1, w2, b2)
     return fused_mlp_plain(x2, w1, b1, w2, b2) if _on_cpu(x2) else _launch(x2, w1, b1, w2, b2)
+
+
+@torch.library.custom_op("vit_tpu_torch::fused_mlp_fwd", mutates_args=())
+def _fused_mlp_fwd_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                      b2: torch.Tensor) -> torch.Tensor:
+    """K3 as an opaque operator (the served forward) on (R, D) rows."""
+    return _fwd(x, w1, b1, w2, b2)
+
+
+@_fused_mlp_fwd_op.register_fake
+def _fused_mlp_fwd_fake(x, w1, b1, w2, b2):
+    return torch.empty_like(x)
 
 
 _WAVES = 2 * 132  # CTAs that fill two waves of the H100's 132 SMs
@@ -247,5 +266,5 @@ def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     if (torch.is_grad_enabled() and any(t.requires_grad for t in ts)) or any(map(is_batched, ts)):
         y = _FusedMLP.apply(*ts)[0]
     else:
-        y = _fwd(x2, *_cast(x2, w1, b1, w2, b2))
+        y = _fused_mlp_fwd_op(x2, *_cast(x2, w1, b1, w2, b2))
     return y.reshape(shape)

@@ -17,9 +17,10 @@ The grid, its ``SweepConfig``/``SweepResult`` records and the artifacts
   scale) and early stopping (patience 100); a stopped or diverged replica's
   state is held by an ``active`` mask. ``attn_impl: ring`` sweeps as
   ``xla`` and ``train.pipeline_parallel`` as 1, with ``vit_tpu``'s lines.
-  ``model.fast_dropout: false`` with a dropout rate, and ``opt.type:
-  lbfgs``, raise: their generators and flat vector do not batch over
-  replicas (``ROADMAP.md`` §C).
+  ``model.fast_dropout: false`` draws each replica's ``nn.Dropout`` masks
+  from its 0-d site seeds on the device, and ``opt.type: lbfgs`` keeps one
+  flat vector and memory a replica (:class:`~vit_tpu_torch.train.optim.
+  ReplicaOptimizer`).
 * ``sequential`` (``_SequentialSweepEngine``, ``vit_tpu`` :160-222): one full
   :class:`~vit_tpu_torch.train.loop.Experiment` after another on one card,
   each with seed ``seed + idx``, ``train.save`` and ``viz.enable`` off and
@@ -270,11 +271,6 @@ class _VmapSweepEngine:
         bundle = get_model(copy.deepcopy(cfg))
         vc = bundle.vit_config
         task = vc.task_type
-        if not vc.fast_dropout and (vc.hidden_dropout > 0 or vc.attention_dropout > 0):
-            raise NotImplementedError(
-                "model.fast_dropout: false with dropout on: its nn.Dropout masks come from "
-                "a generator seeded on the host at every call site, which the vmapped sweep "
-                "cannot batch over replicas (ROADMAP.md §C); sweep it with --engine sequential")
         dm = self._datamodule(cfg, vc.input_kind)
         dm.setup("fit")
         if dm.val is None or len(dm.val) == 0:

@@ -12,8 +12,18 @@ preprocessor takes raw spectra of the eigenvector rows' length
 (:attr:`Predictor.input_length`), not the builder's adjusted
 ``model.image_size`` (``vit_tpu/serve.py:300-308``); an image model takes
 (N, S, S, C) images (NHWC, or NCHW), with or without its patch-PCA
-preprocessor. ``quantize``, ``calibration``, ``num_devices`` and ``export``
-are not ported yet.
+preprocessor.
+
+``quantize`` (``vit_tpu/serve.py:141-221``): ``"int8-w8a8"`` (int8
+activations and weights, ``torch._int_mm``), ``"int8-wo"`` (int8 weights,
+the product in the compute dtype) or ``"int8"``, which routes as
+``vit_tpu`` does: W8A8 with a ``calibration`` batch (static activation
+scales) or below :data:`~vit_tpu_torch.ops.quant.W8A8_WO_BATCH_THRESHOLD`,
+weight-only at or above it. The quantized layers' fp32 weights are
+stripped from the device (:mod:`vit_tpu_torch.ops.quant`).
+:meth:`Predictor.export` writes a ``torch.export`` artifact that
+:func:`vit_tpu_torch.export.load_exported` serves without model code.
+``num_devices > 1`` is not ported yet.
 
 Example::
 
@@ -32,6 +42,8 @@ import torch
 
 __all__ = ["Predictor", "resolve_device"]
 
+QUANTIZE_MODES = (None, "int8", "int8-w8a8", "int8-wo")
+
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
     """``torch.device(device)``; raises for CUDA when no card is present."""
@@ -44,12 +56,12 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
-def _reject_unported(quantize, calibration, num_devices) -> None:
-    for what, asked in (("quantize", quantize is not None),
-                        ("calibration", calibration is not None),
-                        ("num_devices > 1", num_devices not in (None, 1))):
-        if asked:
-            raise NotImplementedError(f"Predictor {what} is not ported yet")
+def _check_quantize_mode(quantize: Optional[str]) -> None:
+    if quantize not in QUANTIZE_MODES:
+        raise ValueError(
+            f"Unsupported quantize mode '{quantize}' "
+            "(expected None, 'int8', 'int8-w8a8', or 'int8-wo')"
+        )
 
 
 class Predictor:
@@ -63,11 +75,18 @@ class Predictor:
         quantize: Optional[str] = None,
         calibration=None,
         num_devices: Optional[int] = None,
+        input_shape: Optional[tuple] = None,
     ) -> None:
-        _reject_unported(quantize, calibration, num_devices)
+        if num_devices not in (None, 1):
+            raise NotImplementedError("Predictor num_devices > 1 is not ported yet")
+        _check_quantize_mode(quantize)
         self.module = module.eval()
         self.vit_config = vit_config
+        self.quantize = quantize
         self.device = next(module.parameters()).device
+        # Per-input shape (no batch axis): recorded by from_checkpoint, what
+        # export needs for its static batch shape.
+        self.input_shape = tuple(input_shape) if input_shape else None
         # Raw spectrum length: a preprocessor's input dimension when there is
         # one; an image model takes (S, S, C) images (NHWC, or NCHW).
         self.input_length = int(getattr(module, "input_length", vit_config.image_size))
@@ -91,6 +110,62 @@ class Predictor:
                 "stats were found in checkpoint meta — predictions will be "
                 "returned in NORMALIZED units"
             )
+        self.quant_variant = None
+        self._qtable = None
+        if quantize is not None:
+            self._quantize(quantize, calibration)
+
+    def _quantize(self, quantize: str, calibration) -> None:
+        """Build the int8 table, strip the fp32 weights it replaces, pick the
+        variant and, for W8A8 with a calibration batch, its static scales."""
+        from vit_tpu_torch.ops.quant import (
+            W8A8_WO_BATCH_THRESHOLD,
+            calibrate_activation_scales,
+            quantize_dense_params,
+            strip_quantized,
+        )
+
+        vc = self.vit_config
+        if getattr(vc, "fused_mlp", False) or getattr(vc, "fused_qkv", False):
+            # The fused MLP and fused QKV read their weights directly, not
+            # through Linear.forward: the int8 table would never be used
+            # and the stripped weights would be.
+            raise ValueError(
+                "quantize requires the unfused Dense paths: rebuild the "
+                "module with model.fused_mlp=False and "
+                "model.fused_qkv=False (identical math)"
+            )
+        self._qtable = quantize_dense_params(self.module)
+        if not self._qtable:
+            # Every Linear below min_fan_in (or excluded): serving stays fp32.
+            print(
+                f"[serve] quantize='{quantize}' matched no layers "
+                "(no Dense kernel with fan-in >= 64) — serving "
+                "UNQUANTIZED at full resident size"
+            )
+        strip_quantized(self.module, self._qtable)
+        weight_only = quantize == "int8-wo" or (
+            quantize == "int8"
+            and calibration is None
+            and self.batch_size >= W8A8_WO_BATCH_THRESHOLD
+        )
+        self.quant_variant = "int8-wo" if weight_only else "int8-w8a8"
+        if calibration is not None and not weight_only and self._qtable:
+            calib = np.ascontiguousarray(np.asarray(calibration, np.float32)[: self.batch_size])
+            self._qtable = calibrate_activation_scales(
+                self.module, self._qtable, torch.from_numpy(calib).to(self.device))
+
+    def _forward(self, x: torch.Tensor, qtable: Optional[dict] = None) -> torch.Tensor:
+        """One batch through the model, quantized by ``qtable`` (default the
+        predictor's own) where it has one: the forward both the live
+        predictor and an exported artifact run."""
+        qtable = self._qtable if qtable is None else qtable
+        if not qtable:
+            return self.module(x)
+        from vit_tpu_torch.ops.quant import quantized_apply
+
+        return quantized_apply(self.module, qtable, x,
+                               weight_only=self.quant_variant == "int8-wo")
 
     @classmethod
     def from_checkpoint(
@@ -112,6 +187,10 @@ class Predictor:
         ``precision``: compute dtype override (e.g. ``"bf16"``); parameters
         stay fp32. ``perf_preset=True``: bf16 (unless ``precision`` is given)
         + tanh GELU + bf16 softmax accumulation, as in ``vit_tpu``.
+        ``quantize``: ``"int8"`` | ``"int8-w8a8"`` | ``"int8-wo"`` (the model
+        is rebuilt with ``fused_mlp`` and ``fused_qkv`` off, identical math);
+        ``calibration``: representative inputs, of which the first
+        ``batch_size`` give W8A8 its static activation scales.
         """
         from vit_tpu_torch.config import load_config
         from vit_tpu_torch.models.builder import get_model
@@ -123,6 +202,8 @@ class Predictor:
         )
         from vit_tpu_torch.train.torch_bridge import load_torch_checkpoint
 
+        # Fail fast on a bad mode, before the model is built.
+        _check_quantize_mode(quantize)
         dev = resolve_device(device)
         own = str(ckpt) in ("best", "last")
         if not own and not str(ckpt).endswith((".pt", ".pth", ".ckpt")):
@@ -140,6 +221,11 @@ class Predictor:
             # Sequence parallelism is a training-mesh concern; serving runs
             # the numerically identical single-device xla path.
             cfg = dict(cfg, model=dict(cfg["model"], attn_impl="xla"))
+        mcfg = cfg.get("model", {}) or {}
+        if quantize is not None and (mcfg.get("fused_mlp") or mcfg.get("fused_qkv")):
+            # Both read their weights directly, past the Linear interception
+            # that int8 serving hooks: serve the identical-math unfused layers.
+            cfg = dict(cfg, model=dict(cfg["model"], fused_mlp=False, fused_qkv=False))
         bundle = get_model(cfg)
         meta = read_meta(default_ckpt_dir(), bundle.model_name)
         if own:
@@ -149,6 +235,11 @@ class Predictor:
             except FileNotFoundError as e:  # e.g. an orbax run of vit_tpu
                 raise ValueError(f"ckpt={ckpt!r}: {e}; {ORBAX_HINT}") from None
         bundle.module.load_state_dict(load_torch_checkpoint(str(ckpt)), strict=True)
+        vc = bundle.vit_config
+        if vc.input_kind == "image":
+            input_shape = (vc.image_size, vc.image_size, vc.num_channels)
+        else:
+            input_shape = (int(getattr(bundle.module, "input_length", vc.image_size)),)
         return cls(
             bundle.module.to(dev),
             bundle.vit_config,
@@ -158,10 +249,16 @@ class Predictor:
             quantize=quantize,
             calibration=calibration,
             num_devices=num_devices,
+            input_shape=input_shape,
         )
 
-    def export(self, *args, **kwargs):
-        raise NotImplementedError("Predictor.export is not ported yet")
+    def export(self, path: str, input_shape=None) -> dict:
+        """Write a self-contained serving artifact (a ``torch.export``
+        program: weights, int8 table and denormalisation inside) that
+        :func:`vit_tpu_torch.export.load_exported` serves without model code."""
+        from vit_tpu_torch.export import export_predictor
+
+        return export_predictor(self, path, input_shape=input_shape)
 
     # -- inference -----------------------------------------------------------
     @torch.inference_mode()
@@ -183,7 +280,7 @@ class Predictor:
             pad = bs - len(chunk)
             if pad:
                 chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
-            logits = self.module(torch.from_numpy(chunk).to(self.device))
+            logits = self._forward(torch.from_numpy(chunk).to(self.device))
             logits = logits.float().cpu().numpy()
             outs.append(logits[: bs - pad] if pad else logits)
         return np.concatenate(outs)

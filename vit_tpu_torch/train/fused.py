@@ -47,6 +47,7 @@ frozen preprocessor.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -97,8 +98,16 @@ def _capture(step, device, pool) -> Tuple["torch.cuda.CUDAGraph", Dict[str, int]
     before = {n: k.launches for n, k in KERNELS.items()}
     t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
-        step()
+    # A graph left by an earlier run is destroyed now, not by a collection
+    # that happens to run inside the capture: destroying a graph is not
+    # permitted while a stream captures, and would invalidate this capture.
+    gc.collect()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            step()
+    finally:
+        gc.enable()
     return (graph, {n: k.launches - before[n] for n, k in KERNELS.items()},
             time.perf_counter() - t0)
 

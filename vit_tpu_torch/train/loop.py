@@ -66,8 +66,8 @@ replayed, the same step and the same random numbers as the per-step path
 ``train.epochs_per_dispatch`` as ``vit_tpu`` defines them (:1262-1360,
 :1456-1460): blocks of epochs with one read-back, checkpoints, plateau and
 early stopping at block boundaries, ``log_every_n_steps`` rounded to epochs.
-On the card, ``model.fast_dropout: false`` keeps the per-step path, with a
-note: its ``nn.Dropout`` generators are seeded on the host.
+``model.fast_dropout: false`` runs there too: its ``nn.Dropout`` masks are
+computed on the device from the sites' seeds.
 
 The optimizer on the card is graph-safe (``build_optimizer(...,
 capturable=True)``: the learning rate in a device scalar, the step counts
@@ -651,13 +651,6 @@ class Experiment:
             why = "debug mode" if self.debug else (
                 f"epoch data {data_bytes / 1e9:.1f} GB exceeds the 4 GB HBM gate")
             print(f"[experiment] train.fused_epoch=true ignored: {why}")
-        cfg_m = self.bundle.vit_config
-        if use and self.device.type == "cuda" and not cfg_m.fast_dropout and (
-                cfg_m.hidden_dropout > 0 or cfg_m.attention_dropout > 0):
-            use = False
-            print("[experiment] train.fused_epoch ignored on cuda: model.fast_dropout=false "
-                  "seeds its nn.Dropout generators on the host, which a CUDA graph cannot "
-                  "capture; running the per-step path")
         epd = int(train_cfg.get("epochs_per_dispatch", 1) or 1)
         if not use:
             if epd > 1:

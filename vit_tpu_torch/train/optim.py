@@ -382,57 +382,84 @@ class OptaxOptimizer(torch.optim.Optimizer):
     def _sgd(self, g, st, group):
         return g
 
-    def _lbfgs_step(self) -> None:
+    def _lbfgs_state(self, params, lead: tuple = ()) -> dict:
+        """L-BFGS's state, on the first parameter, created at zero if absent:
+        the last flat parameters and gradient (``(*lead, P)``), the memory of
+        ``memory_size`` (s, y) pairs (``(*lead, m, P)``), their weights and
+        the step count, with a leading replica axis ``lead`` or none."""
+        st = self.state[params[0]]
+        if "params" not in st:
+            p0 = params[0]
+            n = sum(p[(0,) * len(lead)].numel() for p in params)
+            m = self.memory_size
+
+            def zeros(*shape):
+                return torch.zeros(lead + shape, dtype=p0.dtype, device=p0.device)
+
+            st.update(params=zeros(n), updates=zeros(n), diff_params=zeros(m, n),
+                      diff_updates=zeros(m, n), weights=zeros(m),
+                      count=torch.zeros(lead + (1,) * len(lead), dtype=torch.float32,
+                                        device=p0.device))
+        return st
+
+    def _lbfgs_step(self, lead: tuple = ()) -> None:
+        """optax's ``lbfgs(lr, linesearch=None)`` on one flat vector of all
+        parameters, or one a replica with ``lead = (R,)``: every dot product,
+        the memory, its ring slot and the first step's scale are then per
+        replica (reductions over the last axis of the stacked tensors)."""
         params = [p for group in self.param_groups for p in group["params"]]
         group = self.param_groups[0]
         lr, wd = group["lr"], group["weight_decay"]
-        flat_p = torch.cat([p.detach().reshape(-1) for p in params])
-        g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-                       for p in params])
+        flat_p = torch.cat([p.detach().reshape(*lead, -1) for p in params], dim=-1)
+        g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                       .reshape(*lead, -1) for p in params], dim=-1)
         if wd:
             g = g + wd * flat_p
-        st = self.state[params[0]]
-        m = self.memory_size
-        if "params" not in st:
-            st.update(params=torch.zeros_like(flat_p), updates=torch.zeros_like(g),
-                      diff_params=torch.zeros((m, g.numel()), dtype=g.dtype, device=g.device),
-                      diff_updates=torch.zeros((m, g.numel()), dtype=g.dtype, device=g.device),
-                      weights=torch.zeros(m, dtype=g.dtype, device=g.device))
-        k = self._count(st, g).long() - 1  # steps before this one
+        st = self._lbfgs_state(params, lead)
+        m, n = self.memory_size, g.shape[-1]
+
+        def vdot(a, b):  # over the last axis
+            return torch.dot(a, b) if a.dim() == 1 else (a * b).sum(-1)
+
+        k = st["count"].add_(1).long().reshape(lead) - 1  # steps before this one
         first = k == 0
-        idx, prev_idx = k % m, ((k - 1) % m).view(1)
+        idx, prev_idx = k % m, (k - 1) % m
         zero = torch.zeros((), dtype=g.dtype, device=g.device)
-        dp = torch.where(first, zero, flat_p - st["params"])
-        du = torch.where(first, zero, g - st["updates"])
-        vdot = torch.dot(du, dp)
-        weight = torch.where(first | (vdot == 0.0), zero, 1.0 / vdot)
-        st["diff_params"].index_copy_(0, prev_idx, dp[None])
-        st["diff_updates"].index_copy_(0, prev_idx, du[None])
-        st["weights"].index_copy_(0, prev_idx, weight.view(1))
-        den = torch.dot(du, du)
-        scale = torch.where(first, torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0),
-                            torch.where(den > 0.0, torch.dot(du, dp) / den, torch.ones_like(den)))
+        dp = torch.where(first[..., None], zero, flat_p - st["params"])
+        du = torch.where(first[..., None], zero, g - st["updates"])
+        vd = vdot(du, dp)
+        weight = torch.where(first | (vd == 0.0), zero, 1.0 / vd)
+        slot = prev_idx[..., None, None].expand(*lead, 1, n)
+        st["diff_params"].scatter_(-2, slot, dp.unsqueeze(-2))
+        st["diff_updates"].scatter_(-2, slot, du.unsqueeze(-2))
+        st["weights"].scatter_(-1, prev_idx[..., None], weight[..., None])
+        den = vdot(du, du)
+        scale = torch.where(first,
+                            torch.clamp(1.0 / torch.linalg.vector_norm(g, dim=-1), max=1.0),
+                            torch.where(den > 0.0, vdot(du, dp) / den, torch.ones_like(den)))
         # Two-loop recursion over the memory, oldest to newest by optax's
         # order: the ring rotated to start at this step's slot.
-        order = (idx + torch.arange(m, device=g.device)) % m
-        ps, us = st["diff_params"][order], st["diff_updates"][order]
-        ws = st["weights"][order]
+        order = (idx[..., None] + torch.arange(m, device=g.device)) % m
+        rows = order[..., None].expand(*lead, m, n)
+        ps = st["diff_params"].gather(-2, rows)
+        us = st["diff_updates"].gather(-2, rows)
+        ws = st["weights"].gather(-1, order)
         vec, alphas = g, [None] * m
         for i in reversed(range(m)):
-            alphas[i] = ws[i] * torch.dot(ps[i], vec)
-            vec = vec - alphas[i] * us[i]
-        vec = scale * vec
+            alphas[i] = (ws[..., i] * vdot(ps[..., i, :], vec))[..., None]
+            vec = vec - alphas[i] * us[..., i, :]
+        vec = scale[..., None] * vec
         for i in range(m):
-            beta = ws[i] * torch.dot(us[i], vec)
-            vec = vec + (alphas[i] - beta) * ps[i]
+            beta = (ws[..., i] * vdot(us[..., i, :], vec))[..., None]
+            vec = vec + (alphas[i] - beta) * ps[..., i, :]
         st["params"].copy_(flat_p)
         st["updates"].copy_(g)
-        u = vec * _neg_lr(lr)
+        u = vec * (_neg_lr(lr) if not lead else -lr.view(*lead, 1))
         offset = 0
         for p in params:
-            n = p.numel()
-            p.add_(u[offset:offset + n].view_as(p))
-            offset += n
+            size = p[(0,) * len(lead)].numel()
+            p.add_(u[..., offset:offset + size].reshape(p.shape))
+            offset += size
 
 
 def _neg_lr(lr):
@@ -504,17 +531,12 @@ class ReplicaOptimizer(OptaxOptimizer):
       parameters and its whole state through :meth:`step` (``vit_tpu``'s
       ``jnp.where(active, new, old)`` on the replica's state).
 
-    The rule runs elementwise on the stacked tensors, so every rule of
-    :class:`OptaxOptimizer` but L-BFGS (one flat vector of all parameters)
-    applies; ``lbfgs`` raises. Graph-safe as :class:`OptaxOptimizer` is."""
+    The rule runs elementwise on the stacked tensors; L-BFGS keeps one flat
+    vector, memory and step count a replica (:meth:`_lbfgs_step` with a
+    replica axis). Graph-safe as :class:`OptaxOptimizer` is."""
 
     def __init__(self, params, rule: str, replicas: int, weight_decay: float = 0.0,
                  decoupled: bool = False, mu_dtype: Optional[torch.dtype] = None) -> None:
-        if rule == "lbfgs":
-            raise NotImplementedError(
-                "opt.type lbfgs: its update is one flat vector over all parameters and the "
-                "vmapped sweep cannot batch it over replicas (ROADMAP.md §C); sweep it with "
-                "--engine sequential")
         # vit_tpu builds the sweep's rule at learning rate 1.0 and injects
         # the replicas' rates at every step: rprop's first step sizes are 1.0.
         super().__init__(params, rule, 1.0, weight_decay=weight_decay, decoupled=decoupled,
@@ -535,6 +557,15 @@ class ReplicaOptimizer(OptaxOptimizer):
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("ReplicaOptimizer takes no closure")
+        if self.rule == "lbfgs":
+            params = [p for group in self.param_groups for p in group["params"]]
+            st = self._lbfgs_state(params, (self.replicas,))
+            held = [(t, t.clone()) for t in [*params, *st.values()]]
+            self._lbfgs_step((self.replicas,))
+            for t, old in held:
+                keep = self.active.view((self.replicas,) + (1,) * (t.dim() - 1)) > 0
+                t.copy_(torch.where(keep, t, old))
+            return None
         rule = getattr(self, f"_{self.rule}")
         for group in self.param_groups:
             wd = group["weight_decay"]
