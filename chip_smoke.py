@@ -214,7 +214,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``fast_dropout: false`` at (p)'s shape per step and through the CUDA
    graph (parameters bit-equal), and three replicas' masks under vmap in
    a graph bit-equal to single calls with the engine's seeds.
-10. Print the kernels' summary, the card line again, and last
+10. Run (z), the Mixture-of-Experts ViT (``--only M``; 'z' runs (v)):
+   cifar_vit_s16_moe.yaml at full width (hidden 384, 12 layers, T 65, 8
+   experts, top-2, C 21, bf16, batch 128) with ``attn_impl: flash`` and
+   ``train.model_parallel: 1``, on synthetic images (512 train, 128 val).
+   (z1) The first step on 4 images: the routing on the card against the
+   CPU's in bf16 and fp32 (assignments that differ, reported); the same
+   weights in fp32 on the card against the CPU per tensor (1e-4); the
+   bf16 step at (u)'s per-tensor limits against fp32 on the CPU with the
+   card's routing imposed on the CPU steps and the CPU's own bf16 error
+   taken over both of its matmul backends (without the imposed routing the
+   distance is reported). Two epochs per step, then ``fused_epoch: true``
+   from the same seed: parameters bit-equal, K2/K6 launches exact (the
+   per-epoch ``moe_dropped_frac`` forward included), host and device ms a
+   step, busy share, and the step's device time split by torch.profiler
+   into K2+K6, the experts' products, dispatch and combine, and the rest;
+   the dense cifar_vit_s16.yaml with the same overrides beside it. (z2) The
+   trained weights served at batch 128, bf16 and int8-wo: K2 exact,
+   images/s, device ms a batch, the int8 table's bytes, logits and features
+   against the same variant on the CPU in bf16 (1e-2, 0.125) with the
+   card's routing imposed. (z3) Three 2-layer fp32 replicas through ``lr
+   --engine vmap``, each within SWEEP_REL of its sequential trial (val_acc
+   and the epoch's training loss). (z4) (z2)'s bf16 predictor exported and
+   served by EXPORT_LOADER in a fresh process: against the live logits,
+   K2 counted inside the loaded program.
+11. Print the kernels' summary, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
@@ -302,7 +326,7 @@ TRAIN_GRAD_TOL = {"d_stride1_bf16": 2e-2, "e_baseline_flash_fused_fp32": 1e-4,
                   "j_stride1_rope_bf16": 2e-2, "k_baseline_rope_fp32": 1e-4,
                   "l_stride1_zca_train": 2e-2, "u_cifar_s16_bf16": 2e-2,
                   "u_cifar_s16_flash_fused_bf16": 2e-2, "u_cifar_s16_pca_bf16": 2e-2,
-                  "u_vit_b16_flash_fused_bf16": 2e-2}
+                  "u_vit_b16_flash_fused_bf16": 2e-2, "z_cifar_s16_moe_bf16": 2e-2}
 # Run (l)'s covariance: more spectra than pixels, so the centred covariance
 # of the 4096-pixel spectra has full rank (rank <= samples - 1).
 COV_SAMPLES = 8192
@@ -794,9 +818,10 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor, floor: float) -> float:
     return ((a - b).norm() / max(b.norm().item(), floor)).item()
 
 
-def cpu_step(exp, cfg, precision: str, batches, seeds) -> list:
+def cpu_step(exp, cfg, precision: str, batches, seeds, prepare=None) -> list:
     """(loss, gradients) of one step on each of ``batches`` on the CPU in
-    ``precision``, from the card's weights."""
+    ``precision``, from the card's weights; ``prepare(model)`` adjusts the
+    CPU model first."""
     import copy
 
     from vit_tpu_torch.models.builder import get_model
@@ -806,6 +831,8 @@ def cpu_step(exp, cfg, precision: str, batches, seeds) -> list:
     cpu_cfg["train"] = dict(cpu_cfg.get("train", {}), precision=precision)
     cpu_model = get_model(cpu_cfg).module.train()
     cpu_model.load_state_dict({k: v.cpu() for k, v in exp.module.state_dict().items()})
+    if prepare is not None:
+        prepare(cpu_model)
     task, loss_name = exp.bundle.vit_config.task_type, exp.bundle.loss_name
     out = []
     for b in batches:
@@ -814,7 +841,8 @@ def cpu_step(exp, cfg, precision: str, batches, seeds) -> list:
     return out
 
 
-def first_step_check(tag, exp, cfg, tol, cpu_ref=None, bf16_limits: bool = False) -> dict:
+def first_step_check(tag, exp, cfg, tol, cpu_ref=None, bf16_limits: bool = False,
+                     prepare=None, both_backends: bool = False) -> dict:
     """Loss and parameter gradients of one step on a batch of 4 with fixed
     dropout seeds, on the card against fp32 on the CPU, each tensor's in
     relative L2 at ``tol``; and the CPU gradients of that batch and of a
@@ -830,7 +858,11 @@ def first_step_check(tag, exp, cfg, tol, cpu_ref=None, bf16_limits: bool = False
     step may stand as far from fp32 as bf16 itself puts the CPU, twice over,
     and never further than ``tol`` where bf16 moves the CPU less. The global
     relative L2 is then held at ``tol`` as well, and the card's distance
-    from the CPU's bf16 step is reported."""
+    from the CPU's bf16 step is reported. ``prepare``: passed to every CPU
+    step (cpu_step). ``both_backends``: the CPU's own bf16 error on a tensor
+    is the larger of its bf16 step's with oneDNN's bf16 products and with
+    ATen's own (``torch.backends.mkldnn`` off): two sums of the same
+    products in other orders."""
     arrays = exp.datamodule.train.arrays()
     task = exp.bundle.vit_config.task_type
     exp.module.train()
@@ -851,7 +883,7 @@ def first_step_check(tag, exp, cfg, tol, cpu_ref=None, bf16_limits: bool = False
         p.grad = None
     ref = (cpu_ref or {}).get("ref")
     if ref is None:
-        ref = cpu_step(exp, cfg, "float32", (batch, probes), seeds)
+        ref = cpu_step(exp, cfg, "float32", (batch, probes), seeds, prepare)
         if cpu_ref is not None:
             cpu_ref["ref"] = ref
     (ref_loss, ref_a), (_, ref_b) = ref
@@ -865,20 +897,39 @@ def first_step_check(tag, exp, cfg, tol, cpu_ref=None, bf16_limits: bool = False
     limits = dict.fromkeys(names, tol)
     extra = {}
     if bf16_limits:
-        (_, cpu16), = cpu_step(exp, cfg, cfg["train"]["precision"], (batch,), seeds)
+        (_, cpu16), = cpu_step(exp, cfg, cfg["train"]["precision"], (batch,), seeds, prepare)
         own = rel(cpu16, ref_a)
+        if both_backends:
+            with torch.backends.mkldnn.flags(enabled=False):
+                (_, aten16), = cpu_step(exp, cfg, cfg["train"]["precision"], (batch,), seeds,
+                                        prepare)
+            aten = rel(aten16, ref_a)
+            ratio = {n: aten[n] / max(own[n], 1e-12) for n in names}
+            extra_own = dict(cpu_backend_own_ratio={
+                kind: dict(min=min(v), median=statistics.median(v), max=max(v))
+                for kind, v in (("router", [r for n, r in ratio.items() if "router" in n]),
+                                ("other", [r for n, r in ratio.items() if "router" not in n]))
+                if v})
+            own = {n: max(own[n], aten[n]) for n in names}
         limits = {n: max(tol, BF16_OWN * own[n]) for n in names}
         vs16 = rel(card, cpu16)
         extra = dict(cpu_bf16_rel_l2_max=max(own.values()),
                      cpu_bf16_rel_l2_median=statistics.median(own.values()),
                      vs_cpu_bf16_rel_l2_max=max(vs16.values()),
                      vs_cpu_bf16_rel_l2_median=statistics.median(vs16.values()),
-                     limits_above_tol={n: lim for n, lim in limits.items() if lim > tol})
+                     limits_above_tol={n: lim for n, lim in limits.items() if lim > tol},
+                     **(extra_own if both_backends else {}))
     worst = max(errs, key=errs.get)
     used = max(names, key=lambda n: errs[n] / limits[n])  # nearest its limit
     glob = (torch.sqrt(sum((c - r).square().sum() for c, r in zip(card, ref_a))) / total).item()
     apart = (torch.sqrt(sum((a - b).square().sum() for a, b in zip(ref_a, ref_b))) / total).item()
     loss_err = abs(card_loss - ref_loss) / abs(ref_loss)
+    nearest = sorted(names, key=lambda n: -errs[n] / limits[n])[:6]
+    emit(dict(phase="first_step_nearest_limits", run=tag, global_rel_l2=glob, tensors={
+        n: dict(rel_l2=errs[n], limit=limits[n], numel=ref_a[names.index(n)].numel(),
+                norm_share=ref_a[names.index(n)].norm().item() / total,
+                **({"cpu_bf16_own": own[n], "vs_cpu_bf16": vs16[n]} if bf16_limits else {}))
+        for n in nearest}))
     check(loss_err <= tol, f"{tag}: first-step loss {card_loss} vs CPU fp32 {ref_loss} "
           f"(relative {loss_err}, tol {tol})")
     check(errs[used] <= limits[used], f"{tag}: gradient of {used} differs from the CPU fp32 "
@@ -1823,26 +1874,31 @@ PROFILE_STEPS = 16  # per-step steps in a device-time window
 
 
 def window_fit(cfg: dict, inputs: int, epochs: int, fused, **train) -> dict:
-    """``epochs`` epochs of ``inputs`` synthetic spectra at batch 16 on the
-    card from seed 0, per step (``fused`` False) or fused: the Experiment,
-    its epochs' metrics, host ms/step of each epoch, the steady one (epochs
-    1 on), the fit's seconds, peak MiB (the graph's pool included) and the
-    wrappers' counts."""
+    """``epochs`` epochs of ``inputs`` synthetic spectra (an image config:
+    the synthetic images its data section sizes) at the config's batch on
+    the card from seed 0, per step (``fused`` False) or fused: the
+    Experiment, its epochs' metrics, host ms/step of each epoch, the steady
+    one (epochs 1 on), the fit's seconds, peak MiB (the graph's pool
+    included) and the wrappers' counts."""
     import copy
 
     from vit_tpu_torch.data.datasets import SpecDataModule
+    from vit_tpu_torch.data.images import ImageDataModule
     from vit_tpu_torch.data.synthetic import make_dummy_spectra
     from vit_tpu_torch.ops._build import KERNELS, reset_launches
     from vit_tpu_torch.train.loop import Experiment
 
     cfg = copy.deepcopy(cfg)
     cfg["train"].update(ep=epochs, fused_epoch=fused, **train)
-    data = make_dummy_spectra(n=inputs, length=cfg["model"]["image_size"], seed=1)
-    exp = Experiment(copy.deepcopy(cfg), device="cuda", seed=0,
-                     datamodule=SpecDataModule(cfg, source=data))
+    if cfg["model"].get("input_kind") == "image":
+        dm = ImageDataModule(cfg)
+    else:
+        data = make_dummy_spectra(n=inputs, length=cfg["model"]["image_size"], seed=1)
+        dm = SpecDataModule(cfg, source=data)
+    exp = Experiment(copy.deepcopy(cfg), device="cuda", seed=0, datamodule=dm)
     logged = []
     exp.logger.log_epoch = lambda epoch, metrics, step=None: logged.append(dict(metrics))
-    steps = -(-inputs // BATCH)
+    steps = -(-inputs // cfg["train"]["batch_size"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1875,10 +1931,10 @@ def window_device(fit: dict) -> dict:
         spec = OptSpec.from_config(exp.config, steps, monitor_metric=exp.monitor)
         sched = schedule_scale(spec)
         arrays = exp.datamodule.train.arrays()
-        batches = [{k: torch.from_numpy(arrays[k][i * BATCH:(i + 1) * BATCH]).cuda()
-                    for k in ("x", "label")} for i in range(PROFILE_STEPS)]
+        n, bs = min(PROFILE_STEPS, steps), exp.batch_size
+        batches = [{k: torch.from_numpy(arrays[k][i * bs:(i + 1) * bs]).cuda()
+                    for k in ("x", "label")} for i in range(n)]
         prof = device_profile(lambda: [exp.train_step(b, spec, sched) for b in batches], top=12)
-        n = PROFILE_STEPS
     else:
         fused = exp.fused
         prof = device_profile(lambda: fused.run([exp.step // steps], [0.0], False), top=12)
@@ -2519,7 +2575,8 @@ def seed_vector_runs(work: str, kernels) -> dict:
     return out
 
 
-def image_grad_check(tag, exp, cfg) -> dict:
+def image_grad_check(tag, exp, cfg, cpu_ref=None, prepare=None,
+                     both_backends: bool = False) -> dict:
     """(u)'s first step: the same weights in fp32 on the card (the kernels'
     fp32 bodies at the run's shapes) held per tensor at 1e-4 against the
     CPU; the config's bf16 step held per tensor at 2e-2, or at BF16_OWN
@@ -2528,7 +2585,10 @@ def image_grad_check(tag, exp, cfg) -> dict:
     weights' gradients, ~1e-3 of the global norm under the near-uniform
     attention of the std-0.02 init, come out of a cancellation in dS and
     differ from fp32 by more than 2e-2 in bf16 on the CPU alone (up to 0.03
-    at ViT-S, 0.08 at ViT-B); every other tensor stays under 0.015."""
+    at ViT-S, 0.08 at ViT-B); every other tensor stays under 0.015.
+    ``cpu_ref``: receives the CPU's fp32 step of the fp32 check; ``prepare``
+    and ``both_backends`` go to the bf16 check (first_step_check), which
+    then takes a CPU fp32 step of its own."""
     import copy
     import types
 
@@ -2540,11 +2600,12 @@ def image_grad_check(tag, exp, cfg) -> dict:
     b32.module.load_state_dict(exp.module.state_dict())
     exp32 = types.SimpleNamespace(module=b32.module.cuda(), datamodule=exp.datamodule,
                                   bundle=b32)
-    cpu_ref = {}  # one CPU step serves both checks
+    cpu_ref = {} if cpu_ref is None else cpu_ref  # one CPU step serves both checks
     fp32 = first_step_check(f"{tag}/fp32", exp32, cfg32, FP32_TOL, cpu_ref=cpu_ref)
     del exp32, b32
     return dict(first_step_fp32=fp32, **first_step_check(
-        tag, exp, cfg, TRAIN_GRAD_TOL[tag], cpu_ref=cpu_ref, bf16_limits=True))
+        tag, exp, cfg, TRAIN_GRAD_TOL[tag], cpu_ref=cpu_ref if prepare is None else None,
+        bf16_limits=True, prepare=prepare, both_backends=both_backends))
 
 
 def image_config(name: str, **model) -> dict:
@@ -2831,16 +2892,16 @@ import numpy as np
 import torch
 from vit_tpu_torch.export import load_exported
 from vit_tpu_torch.ops._build import KERNELS, reset_launches
-x = np.load(sys.argv[1])
 out = {}
-for path, npy in zip(sys.argv[2::2], sys.argv[3::2]):
+for path, inputs, npy in zip(sys.argv[1::3], sys.argv[2::3], sys.argv[3::3]):
+    x = np.load(inputs)
     t0 = time.perf_counter()
     p = load_exported(path, device="cuda")
     load_s = time.perf_counter() - t0
-    p.predict(x[:p.batch_size])  # warm-up: loads the kernels' libraries
+    p._batched(x[:p.batch_size])  # warm-up: loads the kernels' libraries
     torch.cuda.synchronize()
     reset_launches()
-    y = p.predict(x)
+    y = p._batched(x)  # what the program returns: denormalised values, or logits
     torch.cuda.synchronize()
     np.save(npy, y)
     out[path] = dict(load_seconds=load_s, launches={n: k.launches for n, k in KERNELS.items()})
@@ -2849,6 +2910,24 @@ bad = sorted(m for m in sys.modules if m.startswith(("vit_tpu_torch.models",
       "optax", "orbax")) or m == "vit_tpu" or m.startswith("vit_tpu."))
 print("EXPORT_RESULT " + json.dumps(dict(results=out, model_modules=bad)))
 """
+
+
+def load_in_fresh_process(tag: str, args: list) -> tuple:
+    """EXPORT_LOADER in a new process over (artifact, inputs .npy, output
+    .npy) triplets ``args``: (its result, the process's seconds). Fails
+    unless it ran and imported no model code."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_LOADER, *args],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=900)
+    load_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{tag}: the loading process failed:\n{proc.stderr[-4000:]}")
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("EXPORT_RESULT ")]
+    check(len(line) == 1, f"{tag}: no result from the loading process:\n{proc.stdout[-2000:]}")
+    result = json.loads(line[0][len("EXPORT_RESULT "):])
+    check(result["model_modules"] == [],
+          f"{tag}: the loading process imported model code: {result['model_modules']}")
+    return result, load_s
 
 
 def export_runs(work: str, kernels) -> dict:
@@ -2900,21 +2979,11 @@ def export_runs(work: str, kernels) -> dict:
         header = p.export(path)
         meta[tag] = dict(export_seconds=time.perf_counter() - t0,
                          artifact_bytes=os.path.getsize(path), header=header)
-        args += [path, os.path.join(work, f"{tag}_loaded.npy")]
+        args += [path, x_path, os.path.join(work, f"{tag}_loaded.npy")]
         del p
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", EXPORT_LOADER, x_path, *args],
-                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-                          text=True, timeout=900)
-    load_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"x: the loading process failed:\n{proc.stderr[-4000:]}")
-    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("EXPORT_RESULT ")]
-    check(len(line) == 1, f"x: no result from the loading process:\n{proc.stdout[-2000:]}")
-    result = json.loads(line[0][len("EXPORT_RESULT "):])
-    check(result["model_modules"] == [],
-          f"x: the loading process imported model code: {result['model_modules']}")
+    result, load_s = load_in_fresh_process("x", args)
     rows = {}
-    for (tag, cfg, mode, tol, expect), path in zip(cases, args[::2]):
+    for (tag, cfg, mode, tol, expect), path in zip(cases, args[::3]):
         got = np.load(os.path.join(work, f"{tag}_loaded.npy"))
         diff = float(abs(got - live[tag]).max())
         launches = result["results"][path]["launches"]
@@ -3078,6 +3147,455 @@ def repair_runs(work: str, kernels) -> dict:
     return rows
 
 
+# Run (z), the Mixture-of-Experts ViT: cifar_vit_s16_moe.yaml at full width
+# with one card's overrides (expert parallelism waits for a mesh; the
+# short kernels K2/K6 for attention; no diagnostics).
+MOE_CONFIG = "cifar_vit_s16_moe.yaml"
+MOE_OVERRIDES = dict(attn_impl="flash")
+MOE_EPOCHS = 2  # (z1): epoch 1 is the steady one
+MOE_SERVE_IMAGES = 256  # (z2): two batches of 128
+MOE_SWEEP_LRS = [1e-4, 1e-3, 1e-2]  # (z3): three replicas
+ATTENTION_KERNELS = ("short_kernel", "dq_kernel", "dkv_kernel")  # K2's and K6's functions
+
+
+def moe_config(**model) -> dict:
+    """cifar_vit_s16_moe.yaml as image_config cuts it (synthetic images, one
+    epoch) with MOE_OVERRIDES, ``train.model_parallel: 1`` and ``model``."""
+    cfg = image_config(MOE_CONFIG, **MOE_OVERRIDES, **model)
+    cfg["train"]["model_parallel"] = 1
+    cfg["viz"] = {"enable": False}
+    return cfg
+
+
+def moe_routing(module, x: torch.Tensor, seeds=None, forward=None) -> list:
+    """Each MoE layer's (gate_idx, keep) on the host, in one forward of
+    ``x`` (no gradient), read by a hook on the layer's router input: in
+    training mode with ``seeds``, else in eval mode; ``forward(x)`` in place
+    of the module's own call (a quantized predictor's)."""
+    seen = []
+
+    def hook(mod, args, out):
+        _, _, _, idx = mod.route(*args)
+        seen.append((idx.cpu(), mod.slots(idx, args[0].shape[1])[1].cpu()))
+
+    was_training = module.training
+    hooks = [layer.moe.register_forward_hook(hook) for layer in module.vit.encoder.layer]
+    try:
+        with torch.no_grad():
+            module.train(seeds is not None)
+            if forward is not None:
+                forward(x)
+            else:
+                module(x, dropout_seeds=seeds)
+    finally:
+        for h in hooks:
+            h.remove()
+        module.train(was_training)
+    return seen
+
+
+def routing_diff(a: list, b: list) -> dict:
+    """Assignments (token, choice) whose expert differs, and (choice,
+    expert) slots whose keep differs, summed over the layers."""
+    return dict(gate_idx_differ=int(sum((x[0] != y[0]).sum() for x, y in zip(a, b))),
+                keep_differ=int(sum((x[1] != y[1]).sum() for x, y in zip(a, b))),
+                assignments=int(sum(x[0].numel() for x in a)))
+
+
+def force_routing(routing: list):
+    """A ``prepare`` for cpu_step: each MoE layer of the CPU model takes the
+    experts ``routing`` (one (gate_idx, keep) a layer, the card's) chose;
+    its router still computes the probabilities, and the gates are those
+    of the chosen experts (renormalised for top-k > 1), so every gradient
+    but the discrete choice is the CPU's own. A probe batch routes as the
+    recorded batch did: it only has to give other gradients."""
+    def route_as(moe, idx):
+        real = moe.route
+
+        def route(x, seed=None):
+            logits, probs, _, _ = real(x, seed)
+            vals = probs.gather(-1, idx)
+            if moe.top_k > 1:
+                vals = vals / vals.sum(-1, keepdim=True).clamp_min(1e-9)
+            return logits, probs, vals, idx
+
+        return route
+
+    def prepare(model):
+        for layer, (idx, _) in zip(model.vit.encoder.layer, routing):
+            layer.moe.route = route_as(layer.moe, idx)
+
+    return prepare
+
+
+def moe_first_step(tag, exp, cfg) -> dict:
+    """(z1)'s first step on a batch of 4 with first_step_check's seeds. The
+    routing of that batch on the card, against the CPU's in bf16 and fp32
+    from the same weights: the assignments that differ. The same weights
+    in fp32 on the card against the CPU (image_grad_check's 1e-4). Then the
+    config's bf16 step at (u)'s per-tensor limits against fp32 on the CPU
+    with the card's routing imposed on every CPU step (force_routing): a
+    routing decision is discrete, and one class token's choice that bf16
+    flips in the last layer moves that layer's expert gradients by tens of
+    percent (the loss reads the class tokens only). Without the imposed
+    routing the distance is reported, not held. The CPU's own bf16 error
+    is taken over both of its bf16 matmul backends (first_step_check's
+    ``both_backends``): a router's gradient is a difference of two experts'
+    contributions, and two CPU bf16 steps that sum the same products in
+    other orders can put it several times as far from fp32 as each other
+    (the row's ``cpu_backend_own_ratio``), so one CPU step alone is no
+    measure of bf16's own error there."""
+    import copy
+
+    from vit_tpu_torch.models.builder import get_model
+    from vit_tpu_torch.train.loop import loss_and_grads
+
+    x = torch.from_numpy(exp.datamodule.train.arrays()["x"][:4])
+    seeds = list(range(1000, 1000 + exp.module.num_dropout_sites))  # first_step_check's
+    card = moe_routing(exp.module, x.cuda(), seeds)
+    state = {k: v.cpu() for k, v in exp.module.state_dict().items()}
+    row = {}
+    for precision in ("bf16", "float32"):
+        c = copy.deepcopy(cfg)
+        c["train"]["precision"] = precision
+        cpu = get_model(c).module
+        cpu.load_state_dict(state)
+        row[f"routing_vs_cpu_{precision}"] = routing_diff(card, moe_routing(cpu, x, seeds))
+
+    cpu_ref = {}
+    row.update(image_grad_check(tag, exp, cfg, cpu_ref=cpu_ref, prepare=force_routing(card),
+                                both_backends=True))
+    batch = {"x": x.cuda(), "label": torch.from_numpy(
+        exp.datamodule.train.arrays()["label"][:4]).cuda()}
+    exp.module.train()
+    loss_and_grads(exp.module, batch, exp.bundle.vit_config.task_type, exp.bundle.loss_name,
+                   [seeds])
+    (_, ref), _ = cpu_ref["ref"]
+    total = torch.sqrt(sum(r.square().sum() for r in ref)).item()
+    names = [n for n, _ in exp.module.named_parameters()]
+    errs = {n: rel_l2(p.grad.float().cpu(), r, GRAD_FLOOR * total)
+            for n, p, r in zip(names, exp.module.parameters(), ref)}
+    for p in exp.module.parameters():
+        p.grad = None
+    worst = max(errs, key=errs.get)
+    row["unforced_routing"] = dict(grad_rel_l2_max=errs[worst], grad_rel_l2_worst=worst,
+                                   grad_rel_l2_median=statistics.median(errs.values()),
+                                   tensors_over_2e2=sum(e > 2e-2 for e in errs.values()),
+                                   tensors=len(errs))
+    return row
+
+
+def moe_step_shares(exp, ffn: int, slots: int) -> dict:
+    """torch.profiler over one training step (inputs shapes recorded): the
+    shares of its device time in K2 and K6 (by kernel name), in the
+    experts' products (the bmm whose operands hold the MLP width ``ffn``)
+    and in the dispatch and combine products (the bmm over ``slots`` =
+    E x C), forward and backward; the rest (projections, routing, one-hots,
+    norms, optimizer) is the remainder."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_tpu_torch.train.optim import OptSpec, schedule_scale
+
+    steps = -(-len(exp.datamodule.train) // exp.batch_size)
+    spec = OptSpec.from_config(exp.config, steps, monitor_metric=exp.monitor)
+    arrays = exp.datamodule.train.arrays()
+    batch = {k: torch.from_numpy(arrays[k][:exp.batch_size]).cuda() for k in ("x", "label")}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        exp.train_step(batch, spec, schedule_scale(spec))
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0 and "#" not in e.key]
+    total = sum(e.self_device_time_total for e in kernels)
+    attention = sum(e.self_device_time_total for e in kernels
+                    if any(n in e.key for n in ATTENTION_KERNELS))
+    experts = dispatch = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key != "aten::bmm" or e.device_type == DeviceType.CUDA:
+            continue
+        dims = {d for shape in e.input_shapes for d in shape}
+        if ffn in dims:
+            experts += e.self_device_time_total
+        elif slots in dims:
+            dispatch += e.self_device_time_total
+    check(total > 0 and attention > 0, f"z: the step's profile: total {total}, K2+K6 {attention}")
+    return dict(step_device_ms=total / 1e3, share_k2_k6=attention / total,
+                share_expert_products=experts / total,
+                share_dispatch_combine=dispatch / total,
+                share_rest=1.0 - (attention + experts + dispatch) / total,
+                attribution="K2/K6 by kernel name; bmm by its operands' shapes")
+
+
+def moe_train_runs(kernels) -> tuple:
+    """(z1) ViT-S/16-MoE on one card: per step (2 epochs, after the
+    first-step check of moe_first_step), then ``fused_epoch: true`` from the
+    same seed (parameters bit-equal to the per-step run's); K2/K6 launches
+    exact in each fit (the per-epoch moe_dropped_frac forward included; the
+    row's ``launches`` are both fits'); host and device ms a step, busy
+    share, and the step's profile split; beside it, a row of its own, the
+    dense cifar_vit_s16.yaml with the same overrides, per step."""
+    import copy
+
+    from vit_tpu_torch.data.images import ImageDataModule
+    from vit_tpu_torch.models.builder import get_vit_config
+    from vit_tpu_torch.models.moe import moe_capacity
+    from vit_tpu_torch.train.loop import Experiment
+
+    none = {n: 0 for n in kernels}
+    cfg = moe_config()
+    vc = get_vit_config(copy.deepcopy(cfg))
+    layers, bs = vc.num_hidden_layers, cfg["train"]["batch_size"]
+    steps, val = -(-IMAGE_INPUTS // bs), -(-IMAGE_VAL // min(bs, IMAGE_VAL))
+    # Each epoch: the steps, the validation batches, one batch of moe_dropped_frac.
+    expect = dict(none, short_fwd=layers * (steps + val + 1) * MOE_EPOCHS,
+                  short_bwd=layers * steps * MOE_EPOCHS)
+    dense_expect = dict(expect, short_fwd=layers * (steps + val) * MOE_EPOCHS)
+    tag = "z_cifar_s16_moe_bf16"
+    probe = Experiment(copy.deepcopy(cfg), device="cuda", seed=0,
+                       datamodule=ImageDataModule(cfg))
+    probe.datamodule.setup("fit")
+    t0 = time.perf_counter()
+    first = dict(moe_first_step(tag, probe, cfg), first_step_seconds=time.perf_counter() - t0)
+    del probe
+
+    eager = window_fit(cfg, IMAGE_INPUTS, MOE_EPOCHS, False)
+    check(eager["counts"] == expect, f"z1 per step: launches {eager['counts']}, "
+          f"expected {expect}")
+    eager_dev = window_device(eager)
+    shares = moe_step_shares(eager["exp"], vc.intermediate_size,
+                             vc.moe_experts * moe_capacity(vc.seq_len, vc.moe_experts,
+                                                           vc.moe_top_k,
+                                                           vc.moe_capacity_factor))
+    graph = window_fit(cfg, IMAGE_INPUTS, MOE_EPOCHS, True)
+    launches = graph_launches(graph, dict(none, short_fwd=layers, short_bwd=layers), kernels)
+    check(launches["launches"] == expect, f"z1 graph: launches {launches['launches']}, "
+          f"expected {expect}")
+    _, equal, diff = params_close(graph["params"], eager["params"])
+    check(equal, f"z1: the graph's parameters differ from the per-step run's by {diff}")
+    graph_dev = window_device(graph)
+    dropped = [m["moe_dropped_frac"] for m in eager["logged"]]
+    check(all(0.0 <= d <= 1.0 for d in dropped)
+          and [m["moe_dropped_frac"] for m in graph["logged"]] == dropped,
+          f"z1: moe_dropped_frac per step {dropped}, graph "
+          f"{[m['moe_dropped_frac'] for m in graph['logged']]}")
+
+    dense = window_fit(image_config("cifar_vit_s16.yaml", **MOE_OVERRIDES), IMAGE_INPUTS,
+                       MOE_EPOCHS, False)
+    check(dense["counts"] == dense_expect, f"z1 dense: launches {dense['counts']}, "
+          f"expected {dense_expect}")
+    dense_dev = window_device(dense)
+    dense_row = dict(phase="moe_train", run="z_cifar_s16_dense_bf16",
+                     config="cifar_vit_s16.yaml", launches=dense["counts"],
+                     **fit_summary(dense), **dense_dev)
+    emit(dense_row)
+    row = dict(phase="moe_train", run=tag, T=vc.seq_len, layers=layers, experts=vc.moe_experts,
+               top_k=vc.moe_top_k, capacity=moe_capacity(vc.seq_len, vc.moe_experts,
+                                                         vc.moe_top_k, vc.moe_capacity_factor),
+               dtype=str(vc.dtype), batch=bs, inputs=IMAGE_INPUTS, epochs=MOE_EPOCHS,
+               steps_per_epoch=steps,
+               launches={n: eager["counts"][n] + launches["launches"][n] for n in kernels},
+               launches_per_fit=expect,
+               moe_dropped_frac=dropped, train_loss=[m["train_loss"] for m in eager["logged"]],
+               val_acc=[m.get("val_acc") for m in eager["logged"]],
+               graph_vs_per_step_bit_equal=equal, graph_vs_per_step_max_abs_diff=diff,
+               per_step=dict(**fit_summary(eager), **eager_dev),
+               graph=dict(**fit_summary(graph), **graph_dev,
+                          **{k: v for k, v in launches.items() if k != "launches"}),
+               step_profile=shares, moe_over_dense_device_ms=eager_dev["device_ms_per_step"]
+               / dense_dev["device_ms_per_step"],
+               moe_over_dense_host_ms=eager["steady_host_ms_per_step"]
+               / dense["steady_host_ms_per_step"], **first)
+    emit(row)
+    return {tag: row, dense_row["run"]: dense_row}, graph["exp"].module
+
+
+def moe_serve_runs(work: str, module, kernels) -> tuple:
+    """(z2) (z1)'s trained weights served at batch 128 in bf16 over
+    MOE_SERVE_IMAGES synthetic images, unquantized and int8-wo: K2 launched
+    exactly layers x batches, finite logits, the logits and per-token
+    features of two served images and two probes against the same variant
+    on the CPU in bf16 (1e-2, 0.125) with the card's routing of those four
+    imposed on the CPU (force_routing; the assignments the CPU would route
+    otherwise are counted), images/s, device ms a batch, busy share;
+    int8-wo's table bytes and the device bytes held."""
+    import numpy as np
+
+    from vit_tpu_torch.data.images import ImageDataset
+    from vit_tpu_torch.ops._build import reset_launches
+    from vit_tpu_torch.ops.quant import quantized_size_bytes
+    from vit_tpu_torch.serve import Predictor
+    from vit_tpu_torch.train.torch_bridge import save_torch_checkpoint
+
+    cfg = moe_config()
+    pt = os.path.join(work, "z_moe.pt")
+    save_torch_checkpoint(module, pt)
+    images = ImageDataset(num_test_samples=MOE_SERVE_IMAGES, image_size=cfg["model"]["image_size"],
+                          num_classes=cfg["model"]["num_labels"])
+    images.load_data("test")
+    x = images.images
+    probes = torch.randn((2,) + x.shape[1:], generator=torch.Generator().manual_seed(2)).numpy()
+    xs = torch.from_numpy(np.concatenate([x[:2], probes]))
+    layers, bs = module.cfg.num_hidden_layers, 128
+    expect = dict({n: 0 for n in kernels}, short_fwd=layers * -(-len(x) // bs))
+    rows, live = {}, None
+    for mode in (None, "int8-wo"):
+        tag = f"z_moe_serve_{mode or 'bf16'}"
+        p, held = resident_predictor(lambda: Predictor.from_checkpoint(
+            cfg, ckpt=pt, batch_size=bs, quantize=mode, device="cuda"))
+        p.predict(x[:bs])  # warm-up
+        reset_launches()
+        out = p._batched_logits(x)
+        launches = {n: k.launches for n, k in kernels.items()}
+        check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
+        check(out.shape == (len(x), cfg["model"]["num_labels"]) and bool(np.isfinite(out).all()),
+              f"{tag}: logits not finite or of shape {out.shape}")
+        timing = serve_timing(p, x)
+        cpu = Predictor.from_checkpoint(cfg, ckpt=pt, batch_size=len(xs), quantize=mode,
+                                        device="cpu")
+        card = moe_routing(p.module, xs.cuda(), forward=p._forward)
+        routing = routing_diff(card, moe_routing(cpu.module, xs, forward=cpu._forward))
+        force_routing(card)(cpu.module)
+        with torch.inference_mode():
+            want = cpu._forward(xs).float()
+            got = p._forward(xs.cuda()).float().cpu()
+        logit_err = (got - want).abs().max().item()
+        feat_err = (quant_features(p, xs.cuda()) - quant_features(cpu, xs)).abs().max().item()
+        check(logit_err <= 1e-2 and feat_err <= BF16_FEATURE_TOL,
+              f"{tag}: card against the CPU's: logits {logit_err} (tol 1e-2), features "
+              f"{feat_err} (tol {BF16_FEATURE_TOL})")
+        row = dict(phase="moe_serve", run=tag, quantize=mode, variant=p.quant_variant,
+                   batch=bs, inputs=len(x), launches=launches,
+                   smoke_images_per_s=timing.pop("inputs_per_s"), **timing,
+                   quantized_layers=len(p._qtable or {}),
+                   quantized_size_bytes=quantized_size_bytes(p._qtable or {}),
+                   resident_device_bytes=held, max_abs_logit_err_vs_cpu_same_variant=logit_err,
+                   logit_tol=1e-2, max_abs_feature_err_vs_cpu_same_variant=feat_err,
+                   feature_tol=BF16_FEATURE_TOL, routing_vs_cpu_unforced=routing)
+        emit(row)
+        rows[tag] = row
+        if mode is None:
+            live = p
+        del cpu
+    return rows, live, x
+
+
+def moe_sweep_run(work: str, kernels) -> dict:
+    """(z3) ``lr --engine vmap`` by its runner over three replicas of a
+    2-layer MoE at (z)'s widths (dropout and jitter off, fp32: in bf16 the
+    stacked and single products would round apart), one epoch, against the
+    sequential engine's trials (its Experiments, built as it builds them):
+    each replica's validation accuracy (the metric a classifier's sweep
+    ranks by) and its epoch's mean training loss, the regulariser
+    included, within SWEEP_REL; the captured replica step launches K2 and
+    K6 once a layer."""
+    import yaml
+
+    from vit_tpu_torch.ops._build import reset_launches
+    from vit_tpu_torch.opt.parallel_sweep import ParallelSweepRunner, _SequentialSweepEngine
+    from vit_tpu_torch.train.loop import Experiment
+
+    cfg = moe_config(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0, moe_router_jitter=0.0)
+    cfg["train"]["precision"] = "float32"
+    cfg["train"].pop("fused_epoch", None)
+    path = os.path.join(work, "z_moe_sweep.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    runner = ParallelSweepRunner(path, lr_values=MOE_SWEEP_LRS, schedulers=["none"],
+                                 metric_name="val_acc", metric_goal="maximize",
+                                 results_dir=os.path.join(work, "z_vmap"), seed=0,
+                                 device="cuda", gpu_ids=[0])
+    reset_launches()
+    t0 = time.perf_counter()
+    runner.run()
+    sweep_s = time.perf_counter() - t0
+    calls = {n: k.launches for n, k in kernels.items()}
+    with open(runner.summary_path) as f:
+        summary = yaml.safe_load(f)
+    vm = summary["results"]
+    launches = replica_launches(runner.engine_run.epochs, calls,
+                                dict({n: 0 for n in kernels}, short_fwd=2, short_bwd=2), kernels)
+    vm_losses = runner.engine_run.epochs.losses.mean(dim=1).tolist()  # the one epoch's
+    engine = _SequentialSweepEngine(runner.base_config, runner.sweep_configs, "val_acc",
+                                    "maximize", 0, device="cuda")
+    t0 = time.perf_counter()
+    seq = [Experiment(engine.trial_config(c), seed=c.idx, device="cuda").fit()
+           for c in runner.sweep_configs]
+    seq_s = time.perf_counter() - t0
+    rel = []
+    for a, loss, b in zip(vm, vm_losses, seq):
+        check(a["status"] == "ok", f"z3: replica {a}")
+        rel.append(max(abs(a["metric"] - b["val_acc"]) / max(abs(b["val_acc"]), 1e-12),
+                       abs(loss - b["train_loss"]) / abs(b["train_loss"])))
+    check(max(rel) <= SWEEP_REL, f"z3: replicas' val_acc {[a['metric'] for a in vm]} and "
+          f"train loss {vm_losses} against the sequential trials' "
+          f"{[(b['val_acc'], b['train_loss']) for b in seq]} (relative {rel})")
+    row = dict(phase="moe_sweep", run="z_moe_vmap_sweep", engine=summary["engine"],
+               layers=2, replicas=len(vm), dtype="float32", lrs=MOE_SWEEP_LRS,
+               val_acc=[a["metric"] for a in vm], train_loss=vm_losses,
+               sequential_val_acc=[b["val_acc"] for b in seq],
+               sequential_train_loss=[b["train_loss"] for b in seq], max_rel_diff=max(rel),
+               tol=SWEEP_REL, sweep_seconds=sweep_s, sequential_seconds=seq_s, **launches)
+    emit(row)
+    return {row["run"]: row}
+
+
+def moe_export_run(work: str, live, x, kernels) -> dict:
+    """(z4) (z2)'s bf16 predictor exported and loaded by EXPORT_LOADER in a
+    fresh process: its logits against the live predictor's (the same
+    kernels in the same order: 0 expected), K2 counted inside the loaded
+    program, layers x batches."""
+    import numpy as np
+
+    path, x_path = os.path.join(work, "z_moe.vittxpt"), os.path.join(work, "z_images.npy")
+    out_path = os.path.join(work, "z_moe_loaded.npy")
+    np.save(x_path, x)
+    want = live._batched_logits(x)
+    t0 = time.perf_counter()
+    live.export(path)
+    export_s = time.perf_counter() - t0
+    result, load_s = load_in_fresh_process("z4", [path, x_path, out_path])
+    got = np.load(out_path)
+    diff = float(abs(got - want).max())
+    expect = dict({n: 0 for n in kernels},
+                  short_fwd=live.module.cfg.num_hidden_layers * -(-len(x) // live.batch_size))
+    launches = result["results"][path]["launches"]
+    check(launches == expect, f"z4: the loaded program launched {launches}, expected {expect}")
+    check(got.shape == want.shape and diff <= 1e-2,
+          f"z4: loaded against live logits {diff} apart (tol 1e-2)")
+    row = dict(phase="export", run="z_moe_export", batch=live.batch_size, inputs=len(x),
+               launches=launches, max_abs_diff_loaded_vs_live=diff, bit_equal=diff == 0.0,
+               tol=1e-2, export_seconds=export_s, artifact_bytes=os.path.getsize(path),
+               load_seconds=result["results"][path]["load_seconds"],
+               loading_process_seconds=load_s)
+    emit(row)
+    return {row["run"]: row}
+
+
+def moe_runs(work: str, kernels) -> dict:
+    """Run (z), the Mixture-of-Experts ViT: (z1) training, (z2) serving,
+    (z3) the vmapped sweep, (z4) export. Its seconds, and each part's, are
+    printed."""
+    t0 = time.perf_counter()
+    parts = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return out
+
+    runs, module = timed("z1", moe_train_runs, kernels)
+    serve, live, x = timed("z2", moe_serve_runs, work, module, kernels)
+    runs.update(serve)
+    runs.update(timed("z3", moe_sweep_run, work, kernels))
+    runs.update(timed("z4", moe_export_run, work, live, x, kernels))
+    emit(dict(phase="run_seconds", run="z (MoE)", seconds=time.perf_counter() - t0, parts=parts))
+    return runs
+
+
 def slice11_runs(work: str, kernels, only=None) -> dict:
     """Runs (v) int8 serving ('z' for --only: 'v' runs (s')), (x) export and
     (y) the repairs; ``only``: the letters to run (all by default). Each
@@ -3133,9 +3651,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", default=None,
                         help="letters of runs (j)-(r), (w), (s), (u), 'v' for (s'), 'z' for "
-                             "(v) int8 serving, 'x' export and 'y' the repairs, to run after "
-                             "the build, e.g. 'jkl' or 'pqr' or 'svu' or 'zxy', skipping the "
-                             "kernel phases and runs (a)-(i); prints no result")
+                             "(v) int8 serving, 'x' export, 'y' the repairs and 'M' for (z) "
+                             "MoE, to run after the build, e.g. 'jkl' or 'pqr' or 'svu' or "
+                             "'zxy' or 'M', skipping the kernel phases and runs (a)-(i); "
+                             "prints no result")
     args = parser.parse_args(argv)
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3177,6 +3696,8 @@ def main(argv=None) -> int:
             replica_and_image_runs(work, {n: 0 for n in kernels}, kernels,
                                    only=set(args.only) & set("svu"))
             slice11_runs(work, kernels, only=set(args.only) & set("zxy"))
+            if "M" in args.only:
+                moe_runs(work, kernels)
         print("chip_smoke: partial run (--only): no result line", flush=True)
         return 0
 
@@ -3288,6 +3809,7 @@ def main(argv=None) -> int:
         runs.update(graph_and_sweep_runs(ckpt_dir, kernels))
         runs.update(replica_and_image_runs(ckpt_dir, none, kernels))
         runs.update(slice11_runs(ckpt_dir, kernels))
+        runs.update(moe_runs(ckpt_dir, kernels))
 
     summary = []
     for name, k in kernels.items():

@@ -695,3 +695,75 @@ def test_stream_dropout_in_a_graph_equals_eager(gen):
         cpu = stream_dropout(x.cpu(), 0.1, s)
         assert torch.equal(out.cpu() != 0, cpu != 0)
         torch.testing.assert_close(out.cpu(), cpu, rtol=2**-23, atol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_layer_on_the_card_matches_the_cpu(gen, dtype):
+    """The MoE layer at ViT-S/16-MoE's widths (E 8, top-2, C 21, D 384,
+    F 1536, T 65) on the card against the same layer on the CPU: the same
+    routing (the router runs in fp32 on the same inputs), the output within
+    _tol of the CPU's and the statistics within 1e-5; then the gradients
+    of the same loss, per tensor within 1e-4 (fp32) or 2e-2 (bf16) of the
+    larger of its norm and 1e-3 of the global norm."""
+    from vit_tpu_torch.models.builder import get_vit_config
+    from vit_tpu_torch.models.moe import MoEMLP
+
+    precision = "bf16" if dtype == torch.bfloat16 else "float32"
+    cfg = get_vit_config({"model": dict(name="vit-s16", task_type="cls", input_kind="image",
+                                        image_size=32, patch_size=4, num_labels=10,
+                                        moe_experts=8, moe_top_k=2, moe_capacity_factor=1.25),
+                          "train": {"precision": precision}})
+    layer, g = MoEMLP(cfg), torch.Generator().manual_seed(0)
+    layer.init_(g)
+    layer.router.init_(g)
+    x = torch.randn(4, 65, 384, generator=torch.Generator().manual_seed(1)).to(dtype)
+    cpu = []
+    for dev in ("cpu", "cuda"):
+        layer.to(dev).zero_grad()
+        xi = x.to(dev).clone().requires_grad_(True)
+        y, stats = layer(xi)
+        (y.float().square().mean() + stats[0]).backward()
+        idx = layer.route(xi.detach())[3]
+        cpu.append((y.detach().cpu(), stats.detach().cpu(), idx.cpu(),
+                    [p.grad.float().cpu().clone() for p in layer.parameters()]
+                    + [xi.grad.float().cpu()]))
+    (y0, s0, i0, g0), (y1, s1, i1, g1) = cpu
+    assert torch.equal(i0, i1)
+    assert (y1.float() - y0.float()).abs().max().item() <= _tol(y0)
+    assert torch.allclose(s1, s0, rtol=0, atol=1e-5)
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    total = torch.sqrt(sum(g.square().sum() for g in g0))
+    for a, b in zip(g1, g0):
+        assert (a - b).norm() <= tol * max(b.norm(), 1e-3 * total)
+
+
+def test_moe_step_in_a_graph_equals_the_per_step_path(gen, tmp_path, monkeypatch):
+    """A tiny MoE model (E 4, top-2 at cf 1.0, router jitter, dropout, the
+    short kernels) trained two epochs through the CUDA graph of its step and
+    per step from one seed: the parameters bit-equal; the routing's
+    one-hots, cumsum and top-k hold no host read, so the step captures."""
+    from vit_tpu_torch.data.datasets import SpecDataModule
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+    from vit_tpu_torch.train.loop import Experiment
+
+    monkeypatch.setenv("CKPT_DIR", str(tmp_path))
+    cfg = {"model": dict(name="vit", task_type="reg", image_size=256, patch_size=16,
+                         hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
+                         stride_size=16, attn_impl="flash", moe_experts=4, moe_top_k=2,
+                         moe_capacity_factor=1.0, moe_router_jitter=0.1, moe_z_weight=1e-3),
+           "train": {"batch_size": 8, "ep": 2, "save": False},
+           "loss": {"name": "mae"}, "opt": {"type": "AdamW", "lr": 1e-3, "lr_sch": "none"},
+           "data": {"file_path": "in-memory", "val_path": "in-memory", "param": "log_g",
+                    "num_samples": 64, "label_norm": "minmax"},
+           "noise": {"noise_level": 0}, "viz": {"enable": False}}
+    data = make_dummy_spectra(n=64, length=256, seed=1)
+    params, dropped = [], []
+    for fused in (False, True):
+        c = dict(cfg, train=dict(cfg["train"], fused_epoch=fused))
+        exp = Experiment(c, device="cuda", seed=0, datamodule=SpecDataModule(c, source=data))
+        dropped.append(exp.fit()["moe_dropped_frac"])
+        params.append({k: v.detach().cpu() for k, v in exp.module.state_dict().items()})
+    assert exp.fused is not None and exp.fused.replays == 2 * 8 - 1
+    assert dropped[0] == dropped[1]
+    for k in params[0]:
+        assert torch.equal(params[1][k], params[0][k]), k

@@ -202,17 +202,15 @@ def test_quantize_respects_min_fan_in_and_exclude(served):
 
 
 def test_quantize_excludes_a_router():
-    """DEFAULT_EXCLUDE skips a layer named ``router`` (an MoE router's logits
-    feed a discontinuous top_k); the port has no MoE model yet, so a module
-    holding one stands in."""
-    from vit_tpu_torch.models.layers import Linear
-
-    holder = torch.nn.Module()
-    holder.router = Linear(64, 8)
-    holder.experts = Linear(64, 64)
-    for lin in (holder.router, holder.experts):
-        lin.init_(torch.Generator().manual_seed(0))
-    assert set(quant.quantize_dense_params(holder)) == {"experts"}
+    """DEFAULT_EXCLUDE skips the MoE ``router`` (its logits feed a
+    discontinuous top_k), on a real MoE model as tests/test_quant.py does:
+    only attention's Linears quantize; the stacked experts are no Linear."""
+    cfg = _config(moe_experts=4, moe_top_k=1)
+    table = quant.quantize_dense_params(get_model(copy.deepcopy(cfg)).module)
+    assert table and not any("router" in n or ".moe." in n for n in table), sorted(table)
+    assert sorted(table) == sorted(f"vit.encoder.layer.{i}.attention.{leaf}" for i in range(2)
+                                   for leaf in ("attention.query", "attention.key",
+                                                "attention.value", "output.dense"))
 
 
 def test_quantized_forward_close_and_strip_exact(served, spectra):

@@ -112,7 +112,7 @@ def test_cpu_tensors_run_the_plain_versions_and_leave_the_counts():
 def test_training_mode_and_unported_paths_raise(tmp_path, monkeypatch, capsys):
     """What is ported runs (training, diagnostics, W&B with its console
     fallback, log_mfu, profile, RoPE, the covariance preprocessors, the
-    nn.Dropout streams, every optimizer); what is not raises."""
+    nn.Dropout streams, every optimizer, MoE); what is not raises."""
     from vit_tpu_torch.data.datasets import SpecDataModule
     from vit_tpu_torch.data.synthetic import make_dummy_spectra
     from vit_tpu_torch.models.builder import get_model
@@ -131,9 +131,14 @@ def test_training_mode_and_unported_paths_raise(tmp_path, monkeypatch, capsys):
     assert slow.train()(x, dropout_seeds=seeds).shape == (1, 1)  # nn.Dropout streams
     rope = get_model(dict(cfg, model=dict(cfg["model"], pos_encoding_type="rope"))).module
     assert rope.train()(x, dropout_seeds=seeds).shape == (1, 1)
-    for extra in ({"attn_impl": "ring"}, {"moe_experts": 4}):
-        with pytest.raises(NotImplementedError):
-            get_model(dict(cfg, model=dict(cfg["model"], **extra)))
+    with pytest.raises(NotImplementedError):
+        get_model(dict(cfg, model=dict(cfg["model"], attn_impl="ring")))
+    from vit_tpu_torch.models.vit import train_forward
+
+    moe = get_model(dict(cfg, model=dict(cfg["model"], moe_experts=4, moe_top_k=2))).module
+    logits, reg = train_forward(moe.train(), x, seeds)  # the MoE family builds and trains
+    (logits.sum() + reg).backward()
+    assert logits.shape == (1, 1) and moe.vit.encoder.layer[0].moe.router.weight.grad.any()
     s16 = get_model(dict(cfg, model=dict(cfg["model"], name="vit-s16", num_hidden_layers=1,
                                          task_type="cls", num_labels=3))).module
     images = torch.zeros((1, 64, 64, 3))  # the image family is ported

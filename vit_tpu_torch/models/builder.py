@@ -20,13 +20,13 @@ pca`` puts a patch-level PCA projection in front of its embeddings
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
 
 from vit_tpu_torch.config import normalize_task
+from vit_tpu_torch.models.moe import moe_capacity
 from vit_tpu_torch.models.tokenization import conv1d_num_patches, sliding_window_num_patches
 
 __all__ = [
@@ -143,8 +143,7 @@ def step_matmul_flops(vc: VitConfig, batch_size: int, train: bool = True) -> flo
     if vc.moe_experts > 1:
         # Experts process E * C slot-tokens a row (C: the per-row capacity,
         # vit_tpu's moe_capacity) instead of T, plus the (T, H) @ (H, E) router.
-        capacity = max(1, int(math.ceil(vc.moe_top_k * T * vc.moe_capacity_factor
-                                        / vc.moe_experts)))
+        capacity = moe_capacity(T, vc.moe_experts, vc.moe_top_k, vc.moe_capacity_factor)
         mlp = 4.0 * vc.moe_experts * capacity * H * inter + 2.0 * T * H * vc.moe_experts
     else:
         mlp = 4.0 * T * H * inter

@@ -40,14 +40,22 @@ vmapped sweep) the checkpoint is taken around the whole replica batch, by
 counter-based stream of each site's seed, so a recompute redraws them); attention's
 flash route keeps its hash mask either way. RoPE (``pos_encoding_type:
 rope``) rotates q and k inside attention. :func:`compute_loss` keeps the
-reference quirk that ``loss.name: 'mae'`` trains MSE. MoE is not ported
-yet.
+reference quirk that ``loss.name: 'mae'`` trains MSE.
+
+Mixture of Experts (``model.moe_experts > 1``): each layer's MLP is a
+:class:`~vit_tpu_torch.models.moe.MoEMLP` under ``moe.`` (no
+``intermediate``/``output``), taken before the fused MLP as in ``vit_tpu``
+(``fused_mlp`` then leaves the MLP alone). Each such layer returns its
+(3,) router statistics beside its output; ``forward(..., moe_stats=True)``
+returns them stacked, (MoE layers, 3), and :func:`train_forward` turns them
+into the training objective's regulariser. With ``moe_router_jitter > 0``
+each MoE layer takes one more dropout seed, its router's jitter.
 
 Diagnostics capture (``vit_tpu/models/vit.py:231-345``): ``forward`` takes
 an optional ``capture`` dict and fills it with ``vit_tpu``'s tree of
 intermediates: ``encoder/layer_{i}/attention/attention_probs`` (batch mean,
-fp32), ``encoder/layer_{i}/mlp_activation`` (post-GELU, (B, T, I)),
-``encoder/cls_hidden_{i}`` (the CLS row after layer i) and
+fp32), ``encoder/layer_{i}/mlp_activation`` (post-GELU, (B, T, I); none
+for an MoE layer), ``encoder/cls_hidden_{i}`` (the CLS row after layer i) and
 ``cls_embedding`` (after the final LayerNorm). Under capture the flash
 attention takes the xla math and the fused MLP its dense path, as in
 ``vit_tpu``, and nothing is rematerialised.
@@ -69,6 +77,7 @@ from vit_tpu_torch.func_internals import (
     tree_unflatten,
 )
 from vit_tpu_torch.models.attention import MultiHeadSelfAttention
+from vit_tpu_torch.models.moe import MoEMLP
 from vit_tpu_torch.models.layers import (
     KERNEL_STD,
     DenseHolder,
@@ -86,9 +95,15 @@ from vit_tpu_torch.models.tokenization import (
 from vit_tpu_torch.ops.dropout import site_dropout
 
 __all__ = ["SpectraEmbeddings", "ImageEmbeddings", "ViTLayer", "ViTEncoder", "SpecViT",
-           "compute_loss", "remat"]
+           "compute_loss", "remat", "train_forward"]
 
 SITES_PER_LAYER = 3  # attention probabilities, attention output, MLP output
+
+
+def sites_per_layer(cfg: Any) -> int:
+    """Dropout seeds a layer takes: SITES_PER_LAYER, and an MoE router's
+    jitter when it is on."""
+    return SITES_PER_LAYER + int(cfg.moe_experts > 1 and cfg.moe_router_jitter > 0)
 
 
 class _ReplicaRemat(torch.autograd.Function):
@@ -241,62 +256,85 @@ class ViTLayer(nn.Module):
             out_dropout_rate=cfg.hidden_dropout,  # HF ViTSelfOutput drops at the hidden rate
         )
         self.layernorm_after = LayerNorm(cfg.hidden_size, dt)
-        self.intermediate = DenseHolder(cfg.hidden_size, cfg.intermediate_size)
-        self.output = DenseHolder(cfg.intermediate_size, cfg.hidden_size)
+        if cfg.moe_experts > 1:
+            self.moe = MoEMLP(cfg)
+        else:
+            self.intermediate = DenseHolder(cfg.hidden_size, cfg.intermediate_size)
+            self.output = DenseHolder(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor, seeds: Optional[Sequence[int]] = None,
-                capture: Optional[dict] = None) -> torch.Tensor:
-        """``seeds``: this layer's SITES_PER_LAYER dropout seeds (training).
-        ``capture``: this layer's dict of intermediates."""
+                capture: Optional[dict] = None):
+        """``seeds``: this layer's dropout seeds (training; ``sites_per_layer``
+        of them). ``capture``: this layer's dict of intermediates. Returns
+        the layer's output, and for an MoE layer ``(output, stats)``
+        (:meth:`MoEMLP.forward`)."""
         attn_capture = None if capture is None else capture.setdefault("attention", {})
         x = x + self.attention(self.layernorm_before(x), None if seeds is None else seeds[:2],
                                attn_capture)
-        mlp_seed = None if seeds is None else seeds[2]
+        mlp_seeds = None if seeds is None else list(seeds[2:])
         if self.cfg.remat == "mlp" and torch.is_grad_enabled() and capture is None:
             # vit.py:233-236: the attention residuals stay saved; the MLP
             # sublayer (and its kernel) runs again in the backward.
-            return remat(self, self._mlp, x, mlp_seed)
-        return self._mlp(x, mlp_seed, capture)
+            return remat(self, self._mlp, x, mlp_seeds)
+        return self._mlp(x, mlp_seeds, capture)
 
-    def _mlp(self, x: torch.Tensor, seed: Optional[int],
-             capture: Optional[dict] = None) -> torch.Tensor:
-        """LN -> MLP (dense or fused) -> dropout -> residual."""
+    def _mlp(self, x: torch.Tensor, seeds: Optional[Sequence[int]],
+             capture: Optional[dict] = None):
+        """LN -> MLP (MoE, fused or dense) -> dropout -> residual. ``seeds``:
+        the MLP output's dropout seed, then an MoE router's jitter seed."""
         cfg = self.cfg
         dt = cfg.dtype
+        seed = None if seeds is None else seeds[0]
         h = self.layernorm_after(x)
-        w1, w2 = self.intermediate.dense, self.output.dense
-        if cfg.fused_mlp and capture is None:
+        stats = None
+        if cfg.moe_experts > 1:
+            # vit.py:249-257: no mlp_activation capture, the fused MLP unused.
+            h, stats = self.moe(h, None if seeds is None or len(seeds) < 2 else seeds[1])
+        elif cfg.fused_mlp and capture is None:
             from vit_tpu_torch.ops.fused_mlp import fused_mlp
 
+            w1, w2 = self.intermediate.dense, self.output.dense
             h = fused_mlp(h.to(dt), w1.weight, w1.bias, w2.weight, w2.bias)
         else:
+            w1, w2 = self.intermediate.dense, self.output.dense
             h = F.gelu(w1(h, dt), approximate="tanh" if cfg.gelu_approximate else "none")
             if capture is not None:
                 capture["mlp_activation"] = h
             h = w2(h, dt)
         if self.training and seed is not None:
             h = site_dropout(h, cfg.hidden_dropout, seed, cfg.fast_dropout)
-        return x + h
+        return x + h if stats is None else (x + h, stats)
 
 
 class ViTEncoder(nn.Module):
     def __init__(self, cfg: Any) -> None:
         super().__init__()
         self.remat_layers = cfg.remat is True  # "mlp" remats inside the layer
+        self.sites = sites_per_layer(cfg)
+        self.has_moe = cfg.moe_experts > 1
         self.layer = nn.ModuleList(ViTLayer(cfg) for _ in range(cfg.num_hidden_layers))
 
     def forward(self, x: torch.Tensor, seeds: Optional[Sequence[int]] = None,
-                capture: Optional[dict] = None) -> torch.Tensor:
+                capture: Optional[dict] = None):
+        """(the last layer's output, the MoE layers' stats stacked (L, 3)
+        or None for a dense model)."""
+        stats = []
         for i, layer in enumerate(self.layer):
-            s = None if seeds is None else seeds[SITES_PER_LAYER * i:SITES_PER_LAYER * (i + 1)]
+            s = None if seeds is None else seeds[self.sites * i:self.sites * (i + 1)]
             if capture is not None:
-                x = layer(x, s, capture.setdefault(f"layer_{i}", {}))
-                capture[f"cls_hidden_{i}"] = x[:, 0, :]
+                out = layer(x, s, capture.setdefault(f"layer_{i}", {}))
             elif self.remat_layers and torch.is_grad_enabled():
-                x = remat(layer, layer, x, s)  # vit.py:307
+                out = remat(layer, layer, x, s)  # vit.py:307
             else:
-                x = layer(x, s)
-        return x
+                out = layer(x, s)
+            if self.has_moe:
+                x, st = out
+                stats.append(st)
+            else:
+                x = out
+            if capture is not None:
+                capture[f"cls_hidden_{i}"] = x[:, 0, :]
+        return x, (torch.stack(stats) if stats else None)
 
 
 class _ViTModel(nn.Module):
@@ -319,8 +357,6 @@ class SpecViT(nn.Module):
     def __init__(self, cfg: Any, generator: Optional[torch.Generator] = None,
                  preprocessor: Optional[nn.Module] = None) -> None:
         super().__init__()
-        if getattr(cfg, "moe_experts", 0) > 1:
-            raise NotImplementedError("MoE MLPs are not ported yet")
         self.cfg = cfg
         self.head_name = "classifier" if cfg.task_type == "cls" else "regressor"
         patch_features = None
@@ -348,33 +384,43 @@ class SpecViT(nn.Module):
     def init_weights(self, g: torch.Generator) -> None:
         """Draw every weight of the ViT (not the preprocessor's) from ``g``."""
         for m in [*self.vit.modules(), self.head]:
-            if isinstance(m, (Linear, LayerNorm, SpectraEmbeddings, ImageEmbeddings)):
+            if isinstance(m, (Linear, LayerNorm, SpectraEmbeddings, ImageEmbeddings, MoEMLP)):
                 m.init_(g)
 
     @property
     def num_dropout_sites(self) -> int:
-        """Seeds one training step draws: the embeddings' and three a layer."""
-        return 1 + SITES_PER_LAYER * self.cfg.num_hidden_layers
+        """Seeds one training step draws: the embeddings' and three a layer
+        (four an MoE layer with router jitter)."""
+        return 1 + sites_per_layer(self.cfg) * self.cfg.num_hidden_layers
 
     def forward(self, x: torch.Tensor, dropout_seeds: Optional[Sequence[int]] = None,
-                capture: Optional[dict] = None) -> torch.Tensor:
+                capture: Optional[dict] = None, moe_stats: bool = False):
         """(B, L) spectra -> (B, num_labels) fp32 logits. In training mode with
-        any dropout rate above 0, ``dropout_seeds`` holds one int32 per site
-        (:attr:`num_dropout_sites`): a list of ints, or a (sites,) integer
-        tensor on the device. ``capture``: a dict that receives the
-        diagnostics tree (module doc)."""
-        cls_token = self.features(x, dropout_seeds, capture)[:, 0, :]
+        any dropout rate above 0, or MoE router jitter, ``dropout_seeds``
+        holds one int32 per site (:attr:`num_dropout_sites`): a list of
+        ints, or a (sites,) integer tensor on the device. ``capture``: a dict
+        that receives the diagnostics tree (module doc). ``moe_stats``:
+        return ``(logits, stats)``, the MoE layers' router statistics (L, 3)
+        in :data:`~vit_tpu_torch.models.moe.MOE_STATS` order, None for a
+        dense model."""
+        feats, stats = self._features(x, dropout_seeds, capture)
+        cls_token = feats[:, 0, :]
         if capture is not None:
             capture["cls_embedding"] = cls_token
-        return dense(cls_token.float(), self.head.weight, self.head.bias, torch.float32)
+        logits = dense(cls_token.float(), self.head.weight, self.head.bias, torch.float32)
+        return (logits, stats) if moe_stats else logits
 
     def features(self, x: torch.Tensor, dropout_seeds: Optional[Sequence[int]] = None,
                  capture: Optional[dict] = None) -> torch.Tensor:
         """The final LayerNorm's output for every token, (B, T, H), in the
         compute dtype: what the head reads its CLS row from."""
+        return self._features(x, dropout_seeds, capture)[0]
+
+    def _features(self, x, dropout_seeds, capture):
         cfg = self.cfg
         seeds = None
-        if self.training and (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0):
+        jitter = cfg.moe_experts > 1 and cfg.moe_router_jitter > 0
+        if self.training and (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0 or jitter):
             if dropout_seeds is None or len(dropout_seeds) != self.num_dropout_sites:
                 raise ValueError(
                     f"training-mode dropout needs {self.num_dropout_sites} dropout_seeds"
@@ -388,9 +434,28 @@ class SpecViT(nn.Module):
         tokens = self.vit.embeddings(x)
         if seeds is not None:
             tokens = site_dropout(tokens, cfg.hidden_dropout, seeds[0], cfg.fast_dropout)
-        h = self.vit.encoder(tokens, None if seeds is None else seeds[1:],
-                             None if capture is None else capture.setdefault("encoder", {}))
-        return self.vit.layernorm(h)
+        h, stats = self.vit.encoder(tokens, None if seeds is None else seeds[1:],
+                                    None if capture is None else capture.setdefault("encoder",
+                                                                                    {}))
+        return self.vit.layernorm(h), stats
+
+
+def train_forward(module: SpecViT, x: torch.Tensor, dropout_seeds) -> tuple:
+    """The training forward every training path shares (port of
+    ``vit_tpu/train/loop.py::make_train_forward``): ``(logits, reg)`` with
+    ``reg`` the pre-weighted router regulariser ``moe_aux_weight *
+    mean(aux) + moe_z_weight * mean(z)`` over the MoE layers, to be added
+    to the task loss, or None for a dense model or with both weights 0.
+    Evaluation metrics leave it out."""
+    cfg = module.cfg
+    aux_w, z_w = (cfg.moe_aux_weight, cfg.moe_z_weight) if cfg.moe_experts > 1 else (0.0, 0.0)
+    if aux_w <= 0.0 and z_w <= 0.0:
+        return module(x, dropout_seeds=dropout_seeds), None
+    logits, stats = module(x, dropout_seeds=dropout_seeds, moe_stats=True)
+    reg = aux_w * stats[:, 0].mean()
+    if z_w > 0.0:
+        reg = reg + z_w * stats[:, 1].mean()
+    return logits, reg
 
 
 def compute_loss(logits: torch.Tensor, labels: torch.Tensor, task_type: str,

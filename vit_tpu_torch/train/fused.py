@@ -55,6 +55,8 @@ import numpy as np
 import torch
 
 from vit_tpu_torch.data.pipeline import epoch_permutation
+from vit_tpu_torch.func_internals import reparametrize
+from vit_tpu_torch.models.vit import train_forward
 
 __all__ = ["FusedEpochs", "ReplicaEpochs", "StepDraws", "fused_epoch_setting",
            "FUSED_DATA_BYTES", "FUSED_VAL_BYTES"]
@@ -289,8 +291,9 @@ class ReplicaEpochs:
     one step (the vmapped sweep's ``vepoch``, module doc).
 
     ``module``: the model in training mode, whose parameters are replaced by
-    ``params`` (name -> (R, ...) leaf tensors) through
-    ``torch.func.functional_call``; ``optimizer``: a
+    ``params`` (name -> (R, ...) leaf tensors) for each call (what
+    ``torch.func.functional_call`` does); ``loss_fn(logits, labels)``: the
+    task loss; ``optimizer``: a
     :class:`~vit_tpu_torch.train.optim.ReplicaOptimizer` over ``params``
     (its learning-rate vector and ``active`` mask are device buffers the
     step reads); ``cols``: the epoch's needed host columns; ``frozen_names``:
@@ -364,10 +367,14 @@ class ReplicaEpochs:
 
     # -- the step --------------------------------------------------------
     def _losses(self, x: torch.Tensor, y: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:
-        """(R,) losses of the replicas' batches, each under its parameters."""
+        """(R,) losses of the replicas' batches, each under its parameters:
+        ``loss_fn`` of the logits plus, for an MoE model, the router
+        regulariser (:func:`~vit_tpu_torch.models.vit.train_forward`)."""
         def one(p, x, y, s):
-            return self.loss_fn(torch.func.functional_call(self.module, p, (x,),
-                                                           {"dropout_seeds": s}), y)
+            with reparametrize(self.module, p):
+                logits, reg = train_forward(self.module, x, s)
+            loss = self.loss_fn(logits, y)
+            return loss if reg is None else loss + reg
 
         return torch.func.vmap(one)(self.params, x, y, seeds)
 

@@ -12,7 +12,10 @@ One training step (``_make_grads_fn`` :168 and ``_make_step_body`` :242):
 * optional noise injection ``x + randn * error * noise_level``, the normal
   draws from a second CPU generator;
 * loss and gradients, over ``train.accumulate_steps`` micro-batches whose
-  gradients are summed and scaled by 1/A;
+  gradients are summed and scaled by 1/A; the loss is the task loss plus,
+  for an MoE model, the router regulariser of
+  :func:`~vit_tpu_torch.models.vit.train_forward` (the objective the fused
+  epoch and the vmapped sweep train as well; evaluation leaves it out);
 * global-norm clip (``train.grad_clip``, 0.5) with optax's rule;
 * the update at learning rate ``spec.lr * schedule(step) * plateau_scale``
   with ``step`` counted before the update;
@@ -42,6 +45,10 @@ Around the steps, as in ``vit_tpu`` (``loop.py:1210-1224,1444-1702``):
   first validation spectra, capped by ``capture_batch_cap``, feeds the
   GIF frames and the CKA monitor; GIFs and the CKA report are written at
   train end. A failure there is printed and skipped, never fatal;
+* an MoE model logs ``moe_dropped_frac`` each epoch: the share of (token,
+  slot) assignments the capacity dropped, averaged over the layers, from a
+  deterministic forward over up to one batch of validation rows
+  (``vit_tpu/train/loop.py:1150-1185``), outside any graph;
 * ``train.log_mfu``: ``tflops_per_s`` from ``step_matmul_flops`` over the
   epoch's wall clock, and ``mfu`` against ``train.peak_tflops`` (the H100's
   dense bf16 peak is 989);
@@ -74,7 +81,8 @@ capturable=True)``: the learning rate in a device scalar, the step counts
 on the device) on both paths.
 
 Runs on the card unless ``device="cpu"`` is given. Multi-device training,
-model/sequence/pipeline parallelism, optimizer-state sharding and MoE raise.
+model/sequence/pipeline parallelism (an MoE model's expert parallelism,
+``train.model_parallel``, among them) and optimizer-state sharding raise.
 """
 
 from __future__ import annotations
@@ -89,7 +97,7 @@ import torch
 from vit_tpu_torch.data.datasets import RegSpecDataset, SpecDataModule, parse_param_list
 from vit_tpu_torch.data.pipeline import Batcher, prefetch_to_device
 from vit_tpu_torch.models.builder import get_model, step_matmul_flops
-from vit_tpu_torch.models.vit import compute_loss
+from vit_tpu_torch.models.vit import compute_loss, train_forward
 from vit_tpu_torch.serve import resolve_device
 from vit_tpu_torch.train.checkpoint import CheckpointManager, default_ckpt_dir
 from vit_tpu_torch.train.fused import (
@@ -153,8 +161,10 @@ def loss_and_grads(module: torch.nn.Module, batch: Dict[str, torch.Tensor], task
             z = (noise[a] if isinstance(noise, torch.Tensor)
                  else torch.randn(xa.shape, generator=noise).to(xa.device))
             xa = xa + z * batch["error"][a * mb:(a + 1) * mb] * noise_level
-        loss = compute_loss(module(xa, dropout_seeds=seeds[a]), y[a * mb:(a + 1) * mb],
-                            task, loss_name)
+        logits, reg = train_forward(module, xa, seeds[a])
+        loss = compute_loss(logits, y[a * mb:(a + 1) * mb], task, loss_name)
+        if reg is not None:
+            loss = loss + reg
         loss.backward()
         total = loss.detach() if total is None else total + loss.detach()
     if accum > 1:
@@ -380,6 +390,27 @@ class Experiment:
         self.module.train(was_training)
         return np.concatenate(logits_all), np.concatenate(labels_all)
 
+    @torch.no_grad()
+    def _moe_dropped_frac(self) -> Optional[float]:
+        """The capacity's dropped share of (token, slot) assignments, the
+        mean over the MoE layers, on a deterministic forward over up to one
+        batch of validation rows (training rows without a validation split);
+        None for a dense model."""
+        if self.bundle.vit_config.moe_experts <= 1:
+            return None
+        ds = self.datamodule.val or self.datamodule.train
+        if ds is None or len(ds) == 0:
+            return None
+        n = min(self.batch_size, len(ds))
+        x = torch.from_numpy(np.ascontiguousarray(ds.arrays()["x"][:n])).to(self.device)
+        was_training = self.module.training
+        self.module.eval()
+        try:
+            _, stats = self.module(x, moe_stats=True)
+        finally:
+            self.module.train(was_training)
+        return float(stats[:, 2].mean())
+
     def _metrics_from_arrays(self, logits: np.ndarray, labels: np.ndarray,
                              prefix: str) -> Dict[str, float]:
         task = self.bundle.vit_config.task_type
@@ -561,6 +592,9 @@ class Experiment:
                     epoch_metrics["mfu"] = tflops / float(peak_tflops)  # one device
             if self.bundle.has_preprocessor:
                 epoch_metrics["preprocessor_frozen"] = float(self.frozen)
+            dropped = self._moe_dropped_frac()
+            if dropped is not None:
+                epoch_metrics["moe_dropped_frac"] = dropped
             mon, stop = None, False
             if has_val:
                 if fused_logits is not None:

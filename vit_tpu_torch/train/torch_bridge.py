@@ -17,6 +17,12 @@ tree of numpy arrays laid out like ``vit_tpu``'s Flax params:
   ``encoder/layer_i/attention/{query,key,value}``
 * ``vit.encoder.layer.{i}.attention.output.dense.*`` <- ``.../attention/out``
 * ``vit.encoder.layer.{i}.{intermediate,output}.dense.*`` <- ``.../{intermediate,output}``
+* an MoE layer (``model.moe_experts > 1``) instead of those two:
+  ``vit.encoder.layer.{i}.moe.router.weight`` (E, D) and ``.bias`` (E,) <-
+  ``.../moe/router/{kernel,bias}`` (kernel (D, E) transposed to torch's
+  (out, in)), and ``vit.encoder.layer.{i}.moe.{wi,wi_bias,wo,wo_bias}``
+  ((E, D, F), (E, F), (E, F, D), (E, D)) <- ``.../moe/{wi,wi_bias,wo,wo_bias}``
+  as they are
 * ``vit.encoder.layer.{i}.layernorm_{before,after}.*`` and ``vit.layernorm.*``
   <- LayerNorm ``scale``/``bias``
 * ``classifier.*`` | ``regressor.*`` <- the task head
@@ -24,6 +30,11 @@ tree of numpy arrays laid out like ``vit_tpu``'s Flax params:
   (``LinearPreprocessor``, ``PatchPCAProjector``);
   ``preprocessor.{q_lin,k_lin,v_lin}.weight`` <-
   ``preprocessor/{q_lin,k_lin,v_lin}`` (``PrefilledAttention``), those present
+
+The MoE keys are the port's own: ``vit_tpu``'s HF export
+(``to_torch_state_dict``) raises for an MoE model, and an MoE ``.pt`` of the
+port is no HF ViT layout. A port ``state.pt`` of an MoE model loads back
+with ``strict=True`` (``Predictor.from_checkpoint``, ``test --ckpt``).
 """
 
 from __future__ import annotations
@@ -53,8 +64,6 @@ def _ln(prefix: str, node: dict, out: Dict[str, torch.Tensor]) -> None:
 
 def from_flax_params(params: Dict[str, Any], vit_config) -> Dict[str, torch.Tensor]:
     """Flax-layout param tree (numpy leaves) -> the port's ``state_dict``."""
-    if getattr(vit_config, "moe_experts", 0) > 1:
-        raise ValueError("MoE models have no HF ViT state-dict layout")
     out: Dict[str, torch.Tensor] = {}
     emb = params["embeddings"]
     out["vit.embeddings.cls_token"] = _t(emb["cls_token"])
@@ -80,8 +89,14 @@ def from_flax_params(params: Dict[str, Any], vit_config) -> Dict[str, torch.Tens
         for name in ("query", "key", "value"):
             _dense(f"{tp}.attention.attention.{name}", attn[name], out)
         _dense(f"{tp}.attention.output.dense", attn["out"], out)
-        _dense(f"{tp}.intermediate.dense", layer["intermediate"], out)
-        _dense(f"{tp}.output.dense", layer["output"], out)
+        if "moe" in layer:
+            moe = layer["moe"]
+            _dense(f"{tp}.moe.router", moe["router"], out)
+            for name in ("wi", "wi_bias", "wo", "wo_bias"):
+                out[f"{tp}.moe.{name}"] = _t(moe[name])
+        else:
+            _dense(f"{tp}.intermediate.dense", layer["intermediate"], out)
+            _dense(f"{tp}.output.dense", layer["output"], out)
         _ln(f"{tp}.layernorm_before", layer["layernorm_before"], out)
         _ln(f"{tp}.layernorm_after", layer["layernorm_after"], out)
     _ln("vit.layernorm", params["layernorm"], out)
