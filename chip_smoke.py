@@ -192,7 +192,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    images at full width: cifar_vit_s16.yaml as it stands (the fused
    epoch), with flash and the fused MLP (per step, exact launches), behind
    patch-PCA statistics made on the card (held against the CPU's), and
-   vit_b16_bf16.yaml with flash and the fused MLP at batch 64 (of 1024):
+   vit_b16_bf16.yaml with flash and the fused MLP at batch 64 (of 1024)
+   and 4 of its 12 layers:
    the first step in fp32 on the card against the CPU per tensor (1e-4)
    and in bf16 (2e-2, global relative L2; per tensor reported), one epoch,
    then served in bf16 (features 0.125, logits what that implies through
@@ -202,8 +203,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    calibrated and int8-wo, K1 launched exactly, each held against the same
    variant on the CPU in bf16 (logits 1e-2, features 0.125), with
    spectra/s, device ms a batch, the int8 table's bytes and the device
-   bytes held after the strip; then ViT-B/16 the same four ways at batch 8
-   and 128 (images/s, device ms a batch: the W8A8 / weight-only route on
+   bytes held after the strip; then ViT-B/16 (4 of its 12 layers) the same
+   four ways at batch 8 and 128 (images/s, device ms a batch: the W8A8 / weight-only route on
    this card). (x) ``Predictor.export`` of stride1 bf16, stride1 with the
    fused MLP, baseline with flash in fp32 and stride1 int8-w8a8, loaded in
    one fresh process that imports no model code: predictions against the
@@ -215,8 +216,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    graph (parameters bit-equal), and three replicas' masks under vmap in
    a graph bit-equal to single calls with the engine's seeds.
 10. Run (z), the Mixture-of-Experts ViT (``--only M``; 'z' runs (v)):
-   cifar_vit_s16_moe.yaml at full width (hidden 384, 12 layers, T 65, 8
-   experts, top-2, C 21, bf16, batch 128) with ``attn_impl: flash`` and
+   cifar_vit_s16_moe.yaml at full width (hidden 384, 6 of its 12 layers,
+   T 65, 8 experts, top-2, C 21, bf16, batch 128) with ``attn_impl: flash`` and
    ``train.model_parallel: 1``, on synthetic images (512 train, 128 val).
    (z1) The first step on 4 images: the routing on the card against the
    CPU's in bf16 and fp32 (assignments that differ, reported); the same
@@ -238,7 +239,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the epoch's training loss). (z4) (z2)'s bf16 predictor exported and
    served by EXPORT_LOADER in a fresh process: against the live logits,
    K2 counted inside the loaded program.
-11. Print the kernels' summary, the card line again, and last
+11. Run (P), the offline statistics (``--only P``), on 16384 synthetic
+   spectra of 4096 pixels (``make_dummy_spectra``, seed 2; 4096 more held
+   out), each card result held against the port's ``device="cpu"`` run of
+   the same call: (P1) ``compute_pca`` at patch 32, step 32 over all and at
+   step 1 over 2048 (8,325,120 windows); (P2) ``ZCAWhitening`` (gamma 0.1,
+   eps 1e-5; then rank 64, alpha 0.1) with the whitening check and the
+   held-out spectra's whitened covariance; (P3) ``compute_kernel_pca`` at
+   the CLI's defaults, the transform of all spectra at chunk 4096 against
+   one pass and the Nyström property on the landmarks; (P4) ``compute_pcp``
+   on 1024 spectra at its defaults, with one SVT timed as Gram-eigh and as
+   ``torch.linalg.svd``; (P5) ``SVDDenoiser(32)`` and 1024 noisy copies;
+   (P6) ``KPCAWarmSelfAttention`` forward and backward at stride1's width
+   (batch 16, T 4066); (P7) ``python -m vit_tpu_torch.prepca.
+   precompute_pca --images`` in a subprocess, its artifact behind
+   cifar_vit_s16_pca.yaml. Eigenvectors and what flips with them are
+   compared after aligning each group of near-equal eigenvalues
+   (``aligned_err``). Limits: float64 results 1e-5, float32 products 1e-4
+   (relative to the largest value), PCP's L and S 1e-4 of ||D||.
+12. Print the kernels' summary, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs torch with CUDA, nvcc and one card; exits non-zero without them.
@@ -2309,6 +2328,10 @@ SUMMARY_KEYS = ["generated_at", "base_config", "metric", "search_space", "gpus",
 SWEEP_REL = 1e-4  # a replica's validation metric against its sequential trial
 IMAGE_INPUTS, IMAGE_VAL = 512, 128  # (u)'s synthetic training and validation images
 B16_BATCH = 64  # vit_b16_bf16.yaml's batch of 1024 cut to 64 for (u)'s steps
+# ViT-B/16's 12 layers cut to 4 in (u) and (v) for the script's time: the
+# width (768, 12 heads, T 197, K3/K7 at D768) and remat are as configured,
+# and the kernel rows at its shapes stand in the kernel phase.
+B16_LAYERS = 4
 IMAGE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "exp", "image")
 
 
@@ -2629,8 +2652,9 @@ def image_runs(work: str, none: dict, kernels) -> dict:
     ``fused_mlp: true`` (K2/K6 at T65 d64, K3/K7 at R8320 D384 F1536, per
     step: exact launches); cifar_vit_s16_pca.yaml behind patch-PCA
     statistics computed on the card (held against the CPU's); and
-    vit_b16_bf16.yaml (hidden 768, 12 layers, T 197, remat) with flash and
-    the fused MLP, its batch of 1024 cut to B16_BATCH. Each run: the first
+    vit_b16_bf16.yaml (hidden 768, B16_LAYERS of its 12 layers, T 197,
+    remat) with flash and the fused MLP, its batch of 1024 cut to
+    B16_BATCH. Each run: the first
     step's gradients against fp32 on the CPU (2e-2), one epoch, then the
     trained weights served on the card and held as (a)-(c) are."""
     import copy
@@ -2702,14 +2726,16 @@ def image_runs(work: str, none: dict, kernels) -> dict:
                                         pca_mean_err_vs_cpu=mean_err,
                                         pca_basis_err_vs_cpu=basis_err)
 
-    b16 = image_config("vit_b16_bf16.yaml", attn_impl="flash", fused_mlp=True)
+    b16 = image_config("vit_b16_bf16.yaml", attn_impl="flash", fused_mlp=True,
+                       num_hidden_layers=B16_LAYERS)
     b16["train"].update(batch_size=B16_BATCH, fused_epoch=False)
     expect, serve_expect = counts(b16, remat_layer=True)
     run("u_vit_b16_flash_fused_bf16", b16, expect, serve_expect, B16_BATCH)
     emit(dict(phase="image_cuts", reduced={
         "all": f"synthetic class-conditional images ({IMAGE_INPUTS} train, {IMAGE_VAL} val) "
                "in place of the npz files; 1 epoch",
-        "u_vit_b16_flash_fused_bf16": f"train.batch_size 1024 -> {B16_BATCH}"}))
+        "u_vit_b16_flash_fused_bf16": f"train.batch_size 1024 -> {B16_BATCH}; "
+                                      f"num_hidden_layers 12 -> {B16_LAYERS}"}))
     return rows
 
 
@@ -2844,7 +2870,7 @@ def quant_serve_runs(work: str, kernels) -> dict:
         rows[row["run"]] = row
         del p, cpu
 
-    b16 = image_config("vit_b16_bf16.yaml")
+    b16 = image_config("vit_b16_bf16.yaml", num_hidden_layers=B16_LAYERS)
     bundle = get_model(copy.deepcopy(b16), generator=torch.Generator().manual_seed(0))
     images = ImageDataset(num_test_samples=B16_SERVE_IMAGES, image_size=b16["model"]["image_size"],
                           num_classes=b16["model"]["num_labels"])
@@ -2878,6 +2904,7 @@ def quant_serve_runs(work: str, kernels) -> dict:
                       / r[f"batch_{b}"]["device_ms_per_batch"] for b in B16_SERVE_BATCHES}
                 for tag, r in b16_rows.items()}
     row = dict(phase="int8_serve", run="v_vit_b16_int8", images=B16_SERVE_IMAGES,
+               reduced={"num_hidden_layers": f"12 -> {B16_LAYERS}"},
                batches=list(B16_SERVE_BATCHES), launches=dict(none), variants=b16_rows,
                device_speedup_vs_bf16=speedups,
                route_threshold=64, note="vit_tpu's W8A8_WO_BATCH_THRESHOLD kept as it is")
@@ -3149,9 +3176,10 @@ def repair_runs(work: str, kernels) -> dict:
 
 # Run (z), the Mixture-of-Experts ViT: cifar_vit_s16_moe.yaml at full width
 # with one card's overrides (expert parallelism waits for a mesh; the
-# short kernels K2/K6 for attention; no diagnostics).
+# short kernels K2/K6 for attention; no diagnostics), 6 of its 12 layers
+# for the script's time (the dense model beside it likewise).
 MOE_CONFIG = "cifar_vit_s16_moe.yaml"
-MOE_OVERRIDES = dict(attn_impl="flash")
+MOE_OVERRIDES = dict(attn_impl="flash", num_hidden_layers=6)
 MOE_EPOCHS = 2  # (z1): epoch 1 is the steady one
 MOE_SERVE_IMAGES = 256  # (z2): two batches of 128
 MOE_SWEEP_LRS = [1e-4, 1e-3, 1e-2]  # (z3): three replicas
@@ -3161,7 +3189,7 @@ ATTENTION_KERNELS = ("short_kernel", "dq_kernel", "dkv_kernel")  # K2's and K6's
 def moe_config(**model) -> dict:
     """cifar_vit_s16_moe.yaml as image_config cuts it (synthetic images, one
     epoch) with MOE_OVERRIDES, ``train.model_parallel: 1`` and ``model``."""
-    cfg = image_config(MOE_CONFIG, **MOE_OVERRIDES, **model)
+    cfg = image_config(MOE_CONFIG, **dict(MOE_OVERRIDES, **model))
     cfg["train"]["model_parallel"] = 1
     cfg["viz"] = {"enable": False}
     return cfg
@@ -3596,6 +3624,429 @@ def moe_runs(work: str, kernels) -> dict:
     return runs
 
 
+# Run (P), the offline statistics (vit_tpu_torch.prepca, spectro): the sizes
+# of a survey's preprocessing run, each card result held against the port's
+# own device="cpu" run of the same call. The whole run (P1-P6) is float32
+# exact on the card only with TF32 off, which main() sets for the script:
+# the PCA scores, the KPCA kernels and transforms, PCP's power iteration and
+# the attention are float32 products; the Grams, covariances, ZCA, PCP's
+# loop and the eigendecompositions are float64 and do not depend on it.
+P_SIZES = dict(spectra=16384, held_out=4096, length=4096, step1_spectra=2048, pcp_rows=1024,
+               noisy=1024, r=64, landmarks=2048, chunk=4096, attn_batch=16, attn_tokens=4066,
+               attn_dim=128, attn_heads=2, attn_fit_tokens=16384, attn_cpu_batch=2, images=512)
+P_GAP = 1e-4  # relative eigengap under which columns are compared as one group
+P_F64 = 1e-5  # float64 results (rounded to float32 where vit_tpu stores float32)
+P_F32 = 1e-4  # float32 products: PCA scores, KPCA transforms, the attention
+# Chunked against one-pass KPCA transforms on the card: only the float32
+# reduction order differs (the CPU rehearsal, permuting the pixels: 1.8e-6).
+P_CHUNK = 1e-5
+P_PCP = 1e-4  # PCP's L and S within P_PCP * ||D||; iterations within P_PCP_ITERS
+P_PCP_ITERS = 2
+P_SELF_CHECK = 0.1  # ||W^T C W - I|| / ||I||: zca_self_check's gate (CPU rehearsal 4.6e-6)
+P_NYSTROM = 1e-4  # landmark features' Z^T Z off-diagonal over its largest diagonal entry
+
+
+def eig_groups(lam, gap: float = P_GAP) -> list:
+    """Index groups of eigenvalues ``lam`` (any order) whose sorted
+    neighbours lie within ``gap`` of the largest."""
+    import numpy as np
+
+    lam = np.asarray(lam, np.float64)
+    order = np.argsort(lam)
+    rel = np.diff(lam[order]) / max(float(np.abs(lam).max()), 1e-300)
+    return [order[g] for g in np.split(np.arange(len(lam)), np.flatnonzero(rel > gap) + 1)]
+
+
+def aligned_err(want, got, lam, gap: float = P_GAP, dev: str = "cpu") -> float:
+    """Largest |got - want| over the largest |want| after each group of
+    columns with near-equal eigenvalues ``lam`` is rotated onto ``want``'s by
+    the orthogonal Procrustes solution (a sign for a lone column):
+    eigenvectors, and features or scores that flip with them, have no sign
+    convention, and a near-degenerate group none within its span. In
+    float64 on ``dev`` (the card for the 8.3M-row scores of P1)."""
+    a = torch.as_tensor(want).to(dev, torch.float64)
+    b = torch.as_tensor(got).to(dev, torch.float64)
+    err = 0.0
+    for g in eig_groups(lam, gap):
+        g = torch.as_tensor(g, device=dev)
+        ag, bg = a[:, g], b[:, g]
+        u, _, vt = torch.linalg.svd(bg.T @ ag)
+        err = max(err, (bg @ (u @ vt) - ag).abs().max().item())
+    return err / a.abs().max().item()
+
+
+def rel_err(got, want) -> float:
+    import numpy as np
+
+    want = np.asarray(want, np.float64)
+    return float(np.abs(np.asarray(got, np.float64) - want).max() / np.abs(want).max())
+
+
+def on_card(dev: str, fn):
+    """(fn(), seconds, peak MiB allocated) with the card synchronised around
+    fn; ``dev`` "cpu" (a rehearsal of run (P) on the CPU) reports no memory."""
+    cuda = dev == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2**20 if cuda else None)
+
+
+def on_cpu(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def hold(tag: str, errors: dict) -> dict:
+    """Check each ``name: (error, limit)``; the errors with their limits."""
+    for name, (err, limit) in errors.items():
+        check(err <= limit, f"{tag}: {name} {err} over its limit {limit}")
+    return {name: dict(err=err, limit=limit) for name, (err, limit) in errors.items()}
+
+
+def offline_pca(flux, x, sizes, dev) -> dict:
+    """(P1) compute_pca at the CLI's example (patch 32, step 32) over every
+    spectrum, then at step 1 over the first step1_spectra."""
+    import numpy as np
+
+    from vit_tpu_torch.prepca.pipeline import compute_pca
+
+    rows = {}
+    for tag, n, step in (("P1_pca_step32", sizes["spectra"], 32),
+                         ("P1_pca_step1", sizes["step1_spectra"], 1)):
+        card, card_s, peak = on_card(dev, lambda: compute_pca(x[:n], patch_size=32,
+                                                              step=step, device=dev))
+        cpu, cpu_s = on_cpu(lambda: compute_pca(flux[:n], patch_size=32, step=step,
+                                                device="cpu"))
+        lam = cpu["singular_values"].astype(np.float64) ** 2
+        s_err = float(np.abs(card["singular_values"] / cpu["singular_values"] - 1).max())
+        errors = hold(tag, {
+            "singular_values_rel": (s_err, P_F64),
+            "explained_variance_ratio_abs": (float(np.abs(
+                card["explained_variance_ratio"] - cpu["explained_variance_ratio"]).max()), P_F64),
+            "mean_rel": (rel_err(card["mean"], cpu["mean"]), P_F64),
+            "components_aligned": (aligned_err(cpu["components"], card["components"], lam), P_F64),
+            "scores_aligned": (aligned_err(cpu["scores"], card["scores"], lam, dev=dev), P_F32),
+        })
+        check(int(card["num_patches"]) == n * ((sizes["length"] - 32) // step + 1),
+              f"{tag}: {int(card['num_patches'])} windows")
+        rows[tag] = dict(phase="offline", step=tag, spectra=n, length=sizes["length"], patch=32,
+                         stride=step, windows=int(card["num_patches"]), card_seconds=card_s,
+                         cpu_seconds=cpu_s, peak_device_mib=peak, errors=errors,
+                         top5_explained_variance=card["explained_variance_ratio"][:5].tolist())
+        emit(rows[tag])
+    return rows
+
+
+def offline_zca(flux, x, held_out, sizes, dev) -> dict:
+    """(P2) ZCAWhitening over every spectrum (N > D: full rank) with gamma
+    0.1, eps 1e-5; then rank 64, alpha 0.1. Held against the CPU: the
+    whitening matrix, covariance, eigenvalues and mean (sign free); the full
+    fit's whitening check ||W^T C W - I|| / ||I|| from the stored float32
+    state in float64 on the card; the low-rank fit's projector subspace.
+    The held-out spectra's whitened covariance is reported."""
+    import numpy as np
+
+    from vit_tpu_torch.prepca.pipeline import ZCAWhitening
+
+    rows = {}
+    for tag, kw in (("P2_zca", dict(gamma=0.1, eps=1e-5)),
+                    ("P2_zca_rank64", dict(gamma=0.1, eps=1e-5, rank=64, alpha=0.1))):
+        card, card_s, peak = on_card(dev, lambda: ZCAWhitening(device=dev, **kw).fit(x))
+        cpu, cpu_s = on_cpu(lambda: ZCAWhitening(device="cpu", **kw).fit(flux))
+        sc, sp = card._state, cpu._state
+        errors = {k: (rel_err(getattr(sc, k), getattr(sp, k)), P_F64)
+                  for k in ("whitening", "covariance", "eigenvalues", "mean")}
+        W = torch.from_numpy(sc.whitening).to(dev).double()
+        eye = torch.eye(W.shape[0], dtype=torch.float64, device=dev)
+        if kw.get("rank") is None:
+            C = torch.from_numpy(sc.covariance).to(dev).double()
+            errors["self_check"] = ((W.T @ C @ W - eye).norm().item() / eye.norm().item(),
+                                    P_SELF_CHECK)
+        else:
+            pc, pp = (torch.from_numpy(p).double() for p in (sc.projector, sp.projector))
+            errors["projector_subspace"] = ((pc.T @ pc - pp.T @ pp).abs().max().item(), P_F64)
+        z = torch.from_numpy(card.transform(held_out)).to(dev).double()
+        z = z - z.mean(dim=0)
+        cov = z.T @ z / (z.shape[0] - 1)
+        rows[tag] = dict(phase="offline", step=tag, spectra=sizes["spectra"],
+                         length=sizes["length"], **{k: v for k, v in kw.items()},
+                         card_seconds=card_s, cpu_seconds=cpu_s, peak_device_mib=peak,
+                         errors=hold(tag, errors), held_out=len(held_out),
+                         held_out_whitened_cov=dict(
+                             diag_mean=cov.diagonal().mean().item(),
+                             off_identity_fro_over_sqrt_d=((cov - eye).norm()
+                                                           / math.sqrt(cov.shape[0])).item()),
+                         eigenvalue_range=[float(sp.eigenvalues.min()),
+                                           float(sp.eigenvalues.max())])
+        del W, eye, z, cov
+        emit(rows[tag])
+    return rows
+
+
+def offline_kpca(flux, x, sizes, dev) -> dict:
+    """(P3) compute_kernel_pca at the CLI's defaults (r 64, 2048 landmarks,
+    rbf, gamma auto) over every spectrum; its transform of every spectrum at
+    chunk 4096 against one pass, against the CPU's state and transform
+    (eigenvalues, then features aligned by eigenvalue group), and the
+    Nyström property on the landmarks (Z^T Z diagonal, Z centred)."""
+    import numpy as np
+
+    from vit_tpu_torch.prepca.pipeline import compute_kernel_pca
+
+    kw = dict(r=sizes["r"], landmarks=sizes["landmarks"])
+    card, fit_s, peak = on_card(dev, lambda: compute_kernel_pca(x, device=dev, **kw))
+    cpu, cpu_fit_s = on_cpu(lambda: compute_kernel_pca(flux, device="cpu", **kw))
+    check(np.array_equal(card.landmarks, cpu.landmarks) and card.gamma == cpu.gamma,
+          "P3: the card's landmarks or gamma differ from the CPU's")
+    lam_card = 1.0 / (card.A.astype(np.float64) ** 2).sum(0)  # A = V Lam^-1/2
+    lam_cpu = 1.0 / (cpu.A.astype(np.float64) ** 2).sum(0)
+    z, chunk_s, chunk_peak = on_card(dev, lambda: card.transform(x, chunk=sizes["chunk"]))
+    one, one_s, one_peak = on_card(dev, lambda: card.transform(x))
+    z_cpu, cpu_tr_s = on_cpu(lambda: cpu.transform(flux))
+    zl = card.transform(card.landmarks).astype(np.float64)
+    gram = zl.T @ zl
+    off = gram - np.diag(np.diag(gram))
+    errors = hold("P3", {
+        "eigenvalues_over_largest": (float(np.abs(lam_card - lam_cpu).max() / lam_cpu.max()),
+                                     P_F64),
+        "chunked_vs_one_pass": (rel_err(z, one), P_CHUNK),
+        "features_aligned_vs_cpu": (aligned_err(z_cpu, z, lam_cpu), P_F32),
+        "nystrom_off_diagonal": (float(np.abs(off).max() / np.abs(np.diag(gram)).max()),
+                                 P_NYSTROM),
+        "nystrom_mean": (float(np.abs(zl.mean(axis=0)).max()), 1e-3),
+    })
+    groups = eig_groups(lam_cpu)
+    row = dict(phase="offline", step="P3_kpca", spectra=sizes["spectra"], length=sizes["length"],
+               **kw, kernel="rbf", gamma=card.gamma, fit_card_seconds=fit_s,
+               fit_cpu_seconds=cpu_fit_s, fit_peak_device_mib=peak,
+               transform_chunked_card_seconds=chunk_s, transform_one_pass_card_seconds=one_s,
+               transform_peak_device_mib=[chunk_peak, one_peak],
+               transform_cpu_seconds=cpu_tr_s, errors=errors,
+               eigenvalue_range=[float(lam_cpu.min()), float(lam_cpu.max())],
+               eigen_groups=len(groups), largest_group=max(len(g) for g in groups))
+    emit(row)
+    return {"P3_kpca": row}
+
+
+def offline_pcp(flux, x, sizes, dev) -> dict:
+    """(P4) compute_pcp on the first pcp_rows spectra at the defaults (tol
+    1e-7, max_iter 1000): L and S against the CPU within P_PCP * ||D||, the
+    iterations within P_PCP_ITERS, the final residual under tol; the rank
+    reported (it may move by one at the threshold). One SVT of D on the
+    card two ways: the Gram-eigh the loop uses, and torch.linalg.svd."""
+    import numpy as np
+
+    from vit_tpu_torch.prepca.pipeline import _svt, compute_pcp
+
+    n = sizes["pcp_rows"]
+    (L, S, hist), card_s, peak = on_card(dev, lambda: compute_pcp(x[:n], device=dev))
+    (Lc, Sc, hc), cpu_s = on_cpu(lambda: compute_pcp(flux[:n], device="cpu"))
+    norm = float(np.linalg.norm(flux[:n].astype(np.float64)))
+    errors = hold("P4", {
+        "low_rank_over_norm": (float(np.abs(L - Lc).max()) / norm, P_PCP),
+        "sparse_over_norm": (float(np.abs(S - Sc).max()) / norm, P_PCP),
+        "iterations_apart": (abs(hist["iters"] - hc["iters"]), P_PCP_ITERS),
+        "final_residual": (hist["primal_resid"][-1], 1e-7),
+    })
+    M = x[:n].double()
+    svt_ms = {}
+    for name, fn in (("gram_eigh", lambda: _svt(M, 1.0)),
+                     ("linalg_svd", lambda: torch.linalg.svd(M, full_matrices=False))):
+        fn()
+        svt_ms[name] = call_ms(fn, reps=2, warmup=0) if dev == "cuda" else None
+    row = dict(phase="offline", step="P4_pcp", rows=n, length=sizes["length"], tol=1e-7,
+               max_iter=1000, card_seconds=card_s, cpu_seconds=cpu_s, peak_device_mib=peak,
+               iterations=hist["iters"], cpu_iterations=hc["iters"],
+               final_residual=hist["primal_resid"][-1], rank=hist["rank"][-1],
+               cpu_rank=hc["rank"][-1], nnz=hist["nnz"][-1], errors=errors,
+               svt_ms_of_d=svt_ms, reduced={"rows": f"16384 -> {n} (time)"})
+    emit(row)
+    return {"P4_pcp": row}
+
+
+def offline_denoise(flux, x, sizes, dev) -> dict:
+    """(P5) SVDDenoiser(32) fit on every spectrum, then the first noisy
+    spectra with seeded noise at the spectra's noise floor denoised; held
+    against the CPU: ratios, mean, basis (aligned), the denoised spectra."""
+    import numpy as np
+
+    from vit_tpu_torch.spectro import SVDDenoiser
+
+    n = sizes["noisy"]
+    card, fit_s, peak = on_card(dev, lambda: SVDDenoiser(32, device=dev).fit(x))
+    cpu, cpu_fit_s = on_cpu(lambda: SVDDenoiser(32, device="cpu").fit(flux))
+    noise = np.random.default_rng(4).standard_normal((n, sizes["length"])).astype(np.float32)
+    noisy = flux[:n] + 0.01 * noise
+    out, den_s, den_peak = on_card(dev, lambda: card.denoise(torch.from_numpy(noisy).to(dev)))
+    out_cpu, cpu_den_s = on_cpu(lambda: cpu.denoise(noisy))
+    evr = cpu.explained_variance_ratio_
+    errors = hold("P5", {
+        "explained_variance_ratio_rel": (float(np.abs(
+            card.explained_variance_ratio_ / evr - 1).max()), P_F64),
+        "mean_rel": (rel_err(card.mean_spectrum, cpu.mean_spectrum), P_F64),
+        "basis_aligned": (aligned_err(cpu.V, card.V, evr), P_F64),
+        "denoised_rel": (rel_err(out, out_cpu), P_F64),
+    })
+    rms = lambda a: float(np.sqrt(((a - flux[:n]) ** 2).mean()))  # noqa: E731
+    row = dict(phase="offline", step="P5_svd_denoiser", spectra=sizes["spectra"],
+               length=sizes["length"], components=32, noisy=n, fit_card_seconds=fit_s,
+               fit_cpu_seconds=cpu_fit_s, denoise_card_seconds=den_s,
+               denoise_cpu_seconds=cpu_den_s, peak_device_mib=[peak, den_peak],
+               errors=errors, explained_variance_top32=float(evr.sum()),
+               rms_noisy=rms(noisy), rms_denoised=rms(out))
+    emit(row)
+    return {"P5_svd_denoiser": row}
+
+
+def offline_attention(sizes, dev) -> dict:
+    """(P6) KPCAWarmSelfAttention at stride1's width (dim 128, 2 heads, T
+    4066, batch 16), its KPCA state (r 64, 2048 landmarks) fitted on the
+    card on seeded 128-wide tokens; forward (with the probabilities) and
+    backward of sum(w * out) in float32. Held against the CPU at the first
+    attn_cpu_batch items (each item's output, probabilities and input
+    gradient depend on it alone), the parameter gradients against a card
+    run at that batch."""
+    import numpy as np
+
+    from vit_tpu_torch.prepca.attention import KPCAWarmSelfAttention
+    from vit_tpu_torch.prepca.pipeline import compute_kernel_pca
+
+    rng = np.random.default_rng(5)
+    d, b, t, cb = sizes["attn_dim"], sizes["attn_batch"], sizes["attn_tokens"], \
+        sizes["attn_cpu_batch"]
+    tokens = torch.from_numpy(rng.standard_normal((sizes["attn_fit_tokens"], d))
+                              .astype(np.float32))
+    state, fit_s, _ = on_card(dev, lambda: compute_kernel_pca(
+        tokens.to(dev), r=sizes["r"], landmarks=sizes["landmarks"], device=dev))
+    module = KPCAWarmSelfAttention(d, sizes["attn_heads"], state,
+                                   generator=torch.Generator().manual_seed(0), device=dev)
+    x = torch.from_numpy(rng.standard_normal((b, t, d)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((b, t, d)).astype(np.float32))
+
+    def step(m, xx, ww):
+        m.zero_grad(set_to_none=True)
+        xx = xx.clone().requires_grad_(True)
+        out, probs = m(xx, need_weights=True)
+        (out * ww).sum().backward()
+        return out.detach(), probs.detach(), xx.grad, {k: p.grad for k, p in m.named_parameters()}
+
+    full, card_s, peak = on_card(dev, lambda: step(module, x.to(dev), w.to(dev)))
+    check(all(bool(torch.isfinite(v).all()) for v in full[:3]),
+          "P6: the full-batch forward or backward is not finite")
+    small = step(module, x[:cb].to(dev), w[:cb].to(dev))
+    cpu_module = KPCAWarmSelfAttention(d, sizes["attn_heads"], state, device="cpu")
+    cpu_module.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()})
+    ref, cpu_s = on_cpu(lambda: step(cpu_module, x[:cb], w[:cb]))
+    errors = {"output": (rel_err(full[0][:cb].cpu(), ref[0]), P_F32),
+              "probs": (rel_err(full[1][:cb].cpu(), ref[1]), P_F32),
+              "input_grad": (rel_err(full[2][:cb].cpu(), ref[2]), P_F32)}
+    errors.update({f"grad_{k}": (rel_err(small[3][k].cpu(), ref[3][k]), P_F32) for k in ref[3]})
+    row = dict(phase="offline", step="P6_kpca_attention", batch=b, tokens=t, dim=d,
+               heads=sizes["attn_heads"], d_k=module.d_k, r=sizes["r"],
+               landmarks=sizes["landmarks"], state_fit_card_seconds=fit_s,
+               fwd_bwd_card_seconds=card_s, peak_device_mib=peak, cpu_batch=cb,
+               fwd_bwd_cpu_seconds=cpu_s, errors=hold("P6", errors))
+    del full, small
+    emit(row)
+    return {"P6_kpca_attention": row}
+
+
+def offline_cli(work: str, sizes, dev) -> dict:
+    """(P7) ``python -m vit_tpu_torch.prepca.precompute_pca --images NPZ
+    --patch-size 4 --device cuda`` on synthetic 32-pixel images in a
+    subprocess; the artifact read by the port's load_patch_pca_stats and
+    held against compute_patch_pca_images on the CPU at (u)'s limits; then
+    cifar_vit_s16_pca.yaml built from it on the card and served a batch."""
+    import copy
+
+    import numpy as np
+
+    from vit_tpu_torch.data.images import make_dummy_images
+    from vit_tpu_torch.models.builder import get_model
+    from vit_tpu_torch.prepca.pipeline import compute_patch_pca_images
+    from vit_tpu_torch.serve import Predictor
+    from vit_tpu_torch.utils import load_patch_pca_stats
+
+    images = make_dummy_images(n=sizes["images"], image_size=32, num_classes=10, seed=0)["images"]
+    npz = os.path.join(work, "p7_images.npz")
+    np.savez(npz, images=images)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vit_tpu_torch.prepca.precompute_pca", "--images", npz,
+         "--patch-size", "4", "--device", dev, "--out", "p7_pca_img_4.npz"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=dict(os.environ, PCA_DIR=work),
+        capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"P7: precompute_pca failed:\n{proc.stderr[-4000:]}")
+    path = os.path.join(work, "p7_pca_img_4.npz")
+    stats = load_patch_pca_stats(path)
+    cpu = compute_patch_pca_images(images, patch_size=4, device="cpu")
+    top = cpu["explained_variance_ratio"] > 1e-3
+    signs = np.sign((stats["components"] * cpu["components"]).sum(0))
+    errors = hold("P7", {
+        "explained_variance_ratio_abs": (float(np.abs(
+            stats["explained_variance_ratio"] - cpu["explained_variance_ratio"]).max()), 1e-5),
+        "mean_abs": (float(np.abs(stats["mean"] - cpu["mean"]).max()), 1e-6),
+        "basis_top_abs": (float(np.abs(stats["components"] * signs - cpu["components"])
+                                [:, top].max()), 1e-3),
+    })
+    cfg = image_config("cifar_vit_s16_pca.yaml")
+    cfg["warmup"]["cov_path"] = path
+    bundle = get_model(copy.deepcopy(cfg), generator=torch.Generator().manual_seed(0))
+    p = Predictor(bundle.module.to(dev), bundle.vit_config, batch_size=8)
+    logits = p._batched_logits(images[:16])
+    check(logits.shape == (16, 10) and bool(np.isfinite(logits).all()),
+          f"P7: logits of shape {logits.shape} or not finite")
+    row = dict(phase="offline", step="P7_precompute_pca_cli", images=sizes["images"],
+               patch=4, cli_process_seconds=cli_s, artifact_keys=sorted(stats),
+               errors=errors, served_logits_shape=list(logits.shape))
+    emit(row)
+    return {"P7_precompute_pca_cli": row}
+
+
+def offline_runs(work: str, sizes=None, dev: str = "cuda") -> dict:
+    """Run (P): P1-P7 on the synthetic spectra (make_dummy_spectra, seed 2:
+    the first ``spectra`` fitted, the last ``held_out`` held out) moved to
+    the card once. Its seconds, and each part's, are printed. ``sizes``
+    overrides P_SIZES and ``dev="cpu"`` runs the "card" side on the CPU: a
+    rehearsal of the run's control flow at small sizes."""
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+
+    sizes = dict(P_SIZES, **(sizes or {}))
+    t0 = time.perf_counter()
+    parts = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return out
+
+    data = timed("data", lambda: make_dummy_spectra(n=sizes["spectra"] + sizes["held_out"],
+                                                    length=sizes["length"], seed=2)["flux"])
+    flux, held_out = data[:sizes["spectra"]], data[sizes["spectra"]:]
+    x = torch.from_numpy(flux).to(dev)
+    runs = {}
+    runs.update(timed("P1", offline_pca, flux, x, sizes, dev))
+    runs.update(timed("P2", offline_zca, flux, x, held_out, sizes, dev))
+    runs.update(timed("P3", offline_kpca, flux, x, sizes, dev))
+    runs.update(timed("P4", offline_pcp, flux, x, sizes, dev))
+    runs.update(timed("P5", offline_denoise, flux, x, sizes, dev))
+    del x
+    runs.update(timed("P6", offline_attention, sizes, dev))
+    runs.update(timed("P7", offline_cli, work, sizes, dev))
+    emit(dict(phase="run_seconds", run="P (offline statistics)",
+              seconds=time.perf_counter() - t0, parts=parts))
+    return runs
+
+
 def slice11_runs(work: str, kernels, only=None) -> dict:
     """Runs (v) int8 serving ('z' for --only: 'v' runs (s')), (x) export and
     (y) the repairs; ``only``: the letters to run (all by default). Each
@@ -3651,10 +4102,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", default=None,
                         help="letters of runs (j)-(r), (w), (s), (u), 'v' for (s'), 'z' for "
-                             "(v) int8 serving, 'x' export, 'y' the repairs and 'M' for (z) "
-                             "MoE, to run after the build, e.g. 'jkl' or 'pqr' or 'svu' or "
-                             "'zxy' or 'M', skipping the kernel phases and runs (a)-(i); "
-                             "prints no result")
+                             "(v) int8 serving, 'x' export, 'y' the repairs, 'M' for (z) "
+                             "MoE and 'P' for (P) the offline statistics, to run after the "
+                             "build, e.g. 'jkl' or 'pqr' or 'svu' or 'zxy' or 'M' or 'P', "
+                             "skipping the kernel phases and runs (a)-(i); prints no result")
     args = parser.parse_args(argv)
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3698,6 +4149,8 @@ def main(argv=None) -> int:
             slice11_runs(work, kernels, only=set(args.only) & set("zxy"))
             if "M" in args.only:
                 moe_runs(work, kernels)
+            if "P" in args.only:
+                offline_runs(work)
         print("chip_smoke: partial run (--only): no result line", flush=True)
         return 0
 
@@ -3810,6 +4263,7 @@ def main(argv=None) -> int:
         runs.update(replica_and_image_runs(ckpt_dir, none, kernels))
         runs.update(slice11_runs(ckpt_dir, kernels))
         runs.update(moe_runs(ckpt_dir, kernels))
+        runs.update(offline_runs(ckpt_dir))
 
     summary = []
     for name, k in kernels.items():

@@ -767,3 +767,113 @@ def test_moe_step_in_a_graph_equals_the_per_step_path(gen, tmp_path, monkeypatch
     assert dropped[0] == dropped[1]
     for k in params[0]:
         assert torch.equal(params[1][k], params[0][k]), k
+
+
+# The offline statistics (vit_tpu_torch.prepca, spectro) on the card against
+# device="cpu" at a small size; chip_smoke.py's run (P) holds them at full
+# size. Limits as there: float64 results 1e-5, float32 products 1e-4,
+# relative to the largest value, after aligning eigenvector groups.
+def _offline_data():
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+
+    return make_dummy_spectra(n=384, length=512, seed=2)["flux"]
+
+
+@pytest.mark.parametrize("step", [32, 1])
+def test_compute_pca_on_the_card_matches_the_cpu(gen, step):
+    import numpy as np
+
+    from chip_smoke import P_F32, P_F64, aligned_err
+    from vit_tpu_torch.prepca.pipeline import compute_pca
+
+    flux = _offline_data()
+    card = compute_pca(torch.from_numpy(flux).cuda(), patch_size=32, step=step, device="cuda")
+    cpu = compute_pca(flux, patch_size=32, step=step, device="cpu")
+    lam = cpu["singular_values"].astype(np.float64) ** 2
+    np.testing.assert_allclose(card["singular_values"], cpu["singular_values"], rtol=P_F64)
+    assert aligned_err(cpu["components"], card["components"], lam) <= P_F64
+    assert aligned_err(cpu["scores"], card["scores"], lam) <= P_F32
+
+
+def test_kernel_pca_on_the_card_matches_the_cpu(gen):
+    import numpy as np
+
+    from chip_smoke import P_CHUNK, P_F32, P_F64, aligned_err, rel_err
+    from vit_tpu_torch.prepca.pipeline import compute_kernel_pca
+
+    flux = _offline_data()
+    card = compute_kernel_pca(torch.from_numpy(flux).cuda(), r=16, landmarks=256, device="cuda")
+    cpu = compute_kernel_pca(flux, r=16, landmarks=256, device="cpu")
+    assert np.array_equal(card.landmarks, cpu.landmarks) and card.gamma == cpu.gamma
+    lam = 1.0 / (cpu.A.astype(np.float64) ** 2).sum(0)
+    lam_card = 1.0 / (card.A.astype(np.float64) ** 2).sum(0)
+    assert np.abs(lam_card - lam).max() <= P_F64 * lam.max()
+    z = card.transform(flux, chunk=100)
+    assert rel_err(z, card.transform(flux)) <= P_CHUNK
+    assert aligned_err(cpu.transform(flux), z, lam) <= P_F32
+
+
+@pytest.mark.parametrize("rank", [None, 8])
+def test_zca_on_the_card_matches_the_cpu(gen, rank):
+    from chip_smoke import P_F64, rel_err
+    from vit_tpu_torch.prepca.pipeline import ZCAWhitening
+
+    flux = _offline_data()[:, :128]  # more spectra than pixels: full rank
+    kw = dict(gamma=0.1, eps=1e-5, rank=rank, alpha=0.1)
+    card = ZCAWhitening(device="cuda", **kw).fit(torch.from_numpy(flux).cuda())
+    cpu = ZCAWhitening(device="cpu", **kw).fit(flux)
+    for key in ("whitening", "covariance", "eigenvalues", "mean"):
+        assert rel_err(getattr(card._state, key), getattr(cpu._state, key)) <= P_F64, key
+    assert rel_err(card.transform(flux[:8]), cpu.transform(flux[:8])) <= P_F64
+
+
+def test_pcp_on_the_card_matches_the_cpu(gen):
+    import numpy as np
+
+    from chip_smoke import P_PCP, P_PCP_ITERS
+    from vit_tpu_torch.prepca.pipeline import compute_pcp
+
+    flux = _offline_data()[:128, :256]
+    L, S, h = compute_pcp(torch.from_numpy(flux).cuda(), device="cuda")
+    Lc, Sc, hc = compute_pcp(flux, device="cpu")
+    norm = np.linalg.norm(flux.astype(np.float64))
+    assert np.abs(L - Lc).max() <= P_PCP * norm and np.abs(S - Sc).max() <= P_PCP * norm
+    assert abs(h["iters"] - hc["iters"]) <= P_PCP_ITERS and h["primal_resid"][-1] < 1e-7
+
+
+def test_svd_denoiser_on_the_card_matches_the_cpu(gen):
+    from chip_smoke import P_F64, aligned_err, rel_err
+    from vit_tpu_torch.spectro import SVDDenoiser
+
+    flux = _offline_data()
+    card = SVDDenoiser(16, device="cuda").fit(torch.from_numpy(flux).cuda())
+    cpu = SVDDenoiser(16, device="cpu").fit(flux)
+    assert rel_err(card.explained_variance_ratio_, cpu.explained_variance_ratio_) <= P_F64
+    assert aligned_err(cpu.V, card.V, cpu.explained_variance_ratio_) <= P_F64
+    assert rel_err(card.denoise(flux[:16] + 0.01), cpu.denoise(flux[:16] + 0.01)) <= P_F64
+
+
+def test_kpca_warm_attention_on_the_card_matches_the_cpu(gen):
+    import numpy as np
+
+    from chip_smoke import P_F32, rel_err
+    from vit_tpu_torch.prepca.attention import KPCAWarmSelfAttention
+    from vit_tpu_torch.prepca.pipeline import compute_kernel_pca
+
+    rng = np.random.default_rng(0)
+    state = compute_kernel_pca(rng.standard_normal((512, 32)).astype(np.float32), r=16,
+                               landmarks=128, device="cuda")
+    card = KPCAWarmSelfAttention(32, 2, state, generator=torch.Generator().manual_seed(0),
+                                 device="cuda")
+    cpu = KPCAWarmSelfAttention(32, 2, state, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    x = torch.from_numpy(rng.standard_normal((3, 130, 32)).astype(np.float32))
+    got = []
+    for m, xx in ((card, x.cuda()), (cpu, x)):
+        xx = xx.clone().requires_grad_(True)
+        out, probs = m(xx, need_weights=True)
+        out.square().sum().backward()
+        got.append([t.detach().cpu() for t in (out, probs, xx.grad)]
+                   + [p.grad.cpu() for _, p in sorted(m.named_parameters())])
+    for a, b in zip(*got):
+        assert rel_err(a, b) <= P_F32

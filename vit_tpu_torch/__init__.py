@@ -15,6 +15,11 @@ Entry points run on the card unless the caller passes ``device="cpu"``:
   (``lr``: :class:`vit_tpu_torch.opt.parallel_sweep.ParallelSweepRunner`)
 * :func:`vit_tpu_torch.prepca.stats.compute_covariance_stats` (``device=``):
   the statistics a ``warmup.preprocessor`` reads from ``warmup.cov_path``
+* the offline statistics of :mod:`vit_tpu_torch.prepca` (``compute_pca``,
+  ``compute_kernel_pca``, ``ZCAWhitening``, ``compute_pcp``,
+  ``PreprocessingPipeline``, ``KPCAWarmSelfAttention``; ``device=``) and
+  ``python -m vit_tpu_torch.prepca.precompute_pca|precompute_kpca ...
+  [--device cuda|cpu]``; :class:`vit_tpu_torch.spectro.SVDDenoiser`
 """
 
 __version__ = "0.1.0"

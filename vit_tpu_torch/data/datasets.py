@@ -16,6 +16,11 @@ Besides HDF5 files, a data module can take its spectra from memory
 (``SpecDataModule(config, source=...)``, a dict shaped like
 ``make_dummy_spectra``'s): every split then reads that source as it would
 read ``file_path``, for machines without ``h5py``.
+
+The masking helpers (:func:`fill_masked`, :func:`create_quantile_mask`,
+:func:`create_lvrg_mask`) and :class:`SingleSpectrumNoiseDataset` are the
+reference's library code that no main-path config uses, kept for the
+spectral tools (:mod:`vit_tpu_torch.spectro`).
 """
 
 from __future__ import annotations
@@ -30,9 +35,13 @@ __all__ = [
     "BaseSpecDataset",
     "ClassSpecDataset",
     "RegSpecDataset",
+    "SingleSpectrumNoiseDataset",
     "SpecDataModule",
     "dataset_from_config",
     "parse_param_list",
+    "fill_masked",
+    "create_quantile_mask",
+    "create_lvrg_mask",
 ]
 
 VAL_TEST_NOISE_SEED = 42  # reference `dataloader/base.py:312` `_set_noise(seed=42)`
@@ -68,6 +77,60 @@ def _fill_nan_with_nearest(arr: np.ndarray) -> np.ndarray:
     if np.isnan(arr).any():
         arr = np.where(np.isnan(arr), np.nanmedian(arr), arr)
     return arr
+
+
+def fill_masked(arr: np.ndarray, mask: np.ndarray, filler: Optional[float] = None) -> np.ndarray:
+    """``filler=None`` selects the masked columns; else fills the complement."""
+    mask = np.asarray(mask, bool)
+    if filler is None:
+        return arr[..., mask]
+    out = arr.copy()
+    out[..., ~mask] = filler
+    return out
+
+
+def create_quantile_mask(arr: np.ndarray, ratio: float = 0.9) -> np.ndarray:
+    """Mask pixels whose per-pixel median flux is below the given quantile."""
+    median = np.median(arr, axis=0)
+    return median < np.quantile(median, ratio)
+
+
+def create_lvrg_mask(wave: np.ndarray, line_positions, halfwidth: int = 25) -> np.ndarray:
+    """+-``halfwidth`` pixels around each line position."""
+    wave = np.asarray(wave)
+    mask = np.zeros(len(wave), dtype=bool)
+    for wdx in np.digitize(np.asarray(line_positions), wave):
+        mask[max(0, wdx - halfwidth) : min(wdx + halfwidth, len(wave))] = True
+    return mask
+
+
+class SingleSpectrumNoiseDataset:
+    """One spectrum repeated with ``repeat`` noise draws made up front from
+    ``np.random.default_rng(seed)``, so a seed gives ``vit_tpu``'s arrays."""
+
+    def __init__(self, flux_0: np.ndarray, error_0: np.ndarray, noise_level: float = 1.0,
+                 repeat: int = 1000, seed: int = 42) -> None:
+        self.repeat = int(repeat)
+        self.noise_level = float(noise_level)
+        self.flux_0 = np.asarray(flux_0, np.float32)
+        self.error_0 = np.asarray(error_0, np.float32)
+        rng = np.random.default_rng(seed)
+        noise = rng.standard_normal((self.repeat, len(self.flux_0))).astype(np.float32)
+        self.noisy = self.flux_0 + noise * self.error_0 * self.noise_level
+
+    def __len__(self) -> int:
+        return self.repeat
+
+    def __getitem__(self, idx: int):
+        return self.noisy[idx], self.flux_0, self.error_0
+
+    def arrays(self) -> Dict[str, np.ndarray]:
+        n = self.repeat
+        return {
+            "x": self.noisy,
+            "flux": np.broadcast_to(self.flux_0, (n, len(self.flux_0))),
+            "error": np.broadcast_to(self.error_0, (n, len(self.error_0))),
+        }
 
 
 class BaseSpecDataset:

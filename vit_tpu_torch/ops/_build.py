@@ -23,7 +23,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["Kernel", "KERNELS", "build_all", "find_nvcc", "reset_launches"]
+__all__ = ["Kernel", "KERNELS", "build_all", "build_dir", "find_nvcc", "reset_launches"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -63,6 +63,12 @@ def _sources_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def build_dir() -> str:
+    """The directory the current sources' libraries are built into and
+    loaded from: ``vit_tpu_torch/_build/<hash of csrc/ and the flags>``."""
+    return os.path.join(BUILD_ROOT, _sources_hash())
+
+
 @dataclass
 class Kernel:
     """One hand-written kernel: its source, C signature and launch count."""
@@ -80,7 +86,7 @@ class Kernel:
 
     @property
     def lib_path(self) -> str:
-        return os.path.join(BUILD_ROOT, _sources_hash(), f"{self.name}.so")
+        return os.path.join(build_dir(), f"{self.name}.so")
 
     def _start_build(self) -> Optional[Tuple[subprocess.Popen, str, str]]:
         out = self.lib_path

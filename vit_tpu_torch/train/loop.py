@@ -96,6 +96,7 @@ import torch
 
 from vit_tpu_torch.data.datasets import RegSpecDataset, SpecDataModule, parse_param_list
 from vit_tpu_torch.data.pipeline import Batcher, prefetch_to_device
+from vit_tpu_torch.hardware import get_prefetch_depth
 from vit_tpu_torch.models.builder import get_model, step_matmul_flops
 from vit_tpu_torch.models.vit import compute_loss, train_forward
 from vit_tpu_torch.serve import resolve_device
@@ -255,7 +256,7 @@ class Experiment:
         if self.batch_size % self.accum_steps != 0:
             raise ValueError(f"train.batch_size {self.batch_size} must divide by "
                              f"train.accumulate_steps {self.accum_steps}")
-        self.prefetch_depth = max(1, min(8, int(train_cfg.get("num_workers", 2) or 2)))
+        self.prefetch_depth = get_prefetch_depth(config)
         profile = train_cfg.get("profile")
         self.profile_dir: Optional[str] = None
         if profile:

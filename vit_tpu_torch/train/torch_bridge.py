@@ -35,6 +35,12 @@ The MoE keys are the port's own: ``vit_tpu``'s HF export
 (``to_torch_state_dict``) raises for an MoE model, and an MoE ``.pt`` of the
 port is no HF ViT layout. A port ``state.pt`` of an MoE model loads back
 with ``strict=True`` (``Predictor.from_checkpoint``, ``test --ckpt``).
+
+:func:`from_flax_kpca_attention` maps the parameters of ``vit_tpu``'s
+``KPCAWarmSelfAttention`` to the port's module of that name
+(:mod:`vit_tpu_torch.prepca.attention`): ``{q_adapter,k_adapter,v_proj,
+out_proj}.{weight,bias}`` <- ``{q_adapter,k_adapter,v_proj,out_proj}/
+{kernel,bias}``.
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["from_flax_params", "load_torch_checkpoint", "save_torch_checkpoint"]
+__all__ = ["from_flax_params", "from_flax_kpca_attention", "load_torch_checkpoint",
+           "save_torch_checkpoint"]
 
 
 def _t(x) -> torch.Tensor:
@@ -110,6 +117,17 @@ def from_flax_params(params: Dict[str, Any], vit_config) -> Dict[str, torch.Tens
             for name in ("q_lin", "k_lin", "v_lin"):
                 if name in pre:
                     _dense(f"preprocessor.{name}", pre[name], out)
+    return out
+
+
+def from_flax_kpca_attention(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``KPCAWarmSelfAttention`` params (numpy leaves, with or without
+    the outer ``params`` level) -> the port module's ``state_dict``: each
+    Dense kernel (in, out) becomes an ``nn.Linear`` weight (out, in)."""
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for name in ("q_adapter", "k_adapter", "v_proj", "out_proj"):
+        _dense(name, params[name], out)
     return out
 
 

@@ -25,6 +25,7 @@ __all__ = [
     "clear_cov_cache",
     "save_cov_stats",
     "load_patch_pca_stats",
+    "to_device",
 ]
 
 _COV_REQUIRED_KEYS = ("mean", "cov", "eigvals", "eigvecs")
@@ -53,6 +54,14 @@ def _to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def to_device(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` (a numpy array, anything ``np.asarray`` takes, or a tensor on
+    any device) as a ``dtype`` tensor on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.detach().to(device=device, dtype=dtype)
 
 
 def _resolve(path: str) -> str:
