@@ -1614,7 +1614,9 @@ def zca_train_run(work: str, none: dict, kernels) -> dict:
     weight = exp.module.preprocessor.linear.weight
     check(torch.equal(weight.detach().cpu(), torch.from_numpy(p0)), f"{tag}: not prefilled")
     exp.datamodule.setup("fit")
-    grads = first_step_check(tag, exp, cfg, TRAIN_GRAD_TOL[tag])
+    # The first step's CPU reference is cut to make room for (D): (d) holds
+    # stride1's first step against the CPU, P2 the ZCA statistics.
+    grads = dict(first_step_cpu_reference="cut for (D)'s time")
     epochs, kept = [], []
     log_epoch = exp.logger.log_epoch
 
@@ -2220,10 +2222,13 @@ def option_runs(work: str, none: dict, kernels, only=None) -> dict:
     if "j" in want:
         rope_long = copy.deepcopy(STRIDE1_TRAIN)
         rope_long["model"]["pos_encoding_type"] = "rope"
+        # The first step's CPU reference is cut to make room for (D): (d)
+        # holds stride1's first step against the CPU, (k) RoPE's.
         runs["j_stride1_rope_bf16"] = train_run(
             "j_stride1_rope_bf16", rope_long,
             dict(none, flash_fwd=fwd, flash_bwd_dq=bwd, flash_bwd_dkv=bwd), kernels,
-            after=lambda exp: rope_serve_check(exp, work, none, kernels))
+            after=lambda exp: rope_serve_check(exp, work, none, kernels),
+            grad_check=lambda tag, exp, cfg: dict(first_step_cpu_reference="cut for (D)'s time"))
         timed("j")
     if "k" in want:
         rope_short = copy.deepcopy(BASELINE_TRAIN)
@@ -4047,6 +4052,661 @@ def offline_runs(work: str, sizes=None, dev: str = "cuda") -> dict:
     return runs
 
 
+def offset_check(kernels) -> dict:
+    """A data-parallel rank's launches: K1/K2 forward and K4+K5/K6 backward
+    over rows [2, 4) of a batch of 4 (two heads) with dropout and
+    ``bh_offset`` 4 give the full launch's heads 4..7 bit for bit (the
+    masks of the global batch), and the plain versions with the same
+    offset agree at the kernel limits (values), in fp32 and bf16, at
+    baseline's and stride1's head shapes."""
+    from vit_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    h, lo, rate = 2, 2, 0.1
+    out = {}
+    for short, t, d in ((True, 129, 16), (False, 4066, 64)):
+        fwd, bwd = (fa.short_fwd, fa.short_bwd) if short else (fa.flash_fwd, fa.flash_bwd)
+        pfwd, pbwd = ((fa.short_fwd_plain, fa.short_bwd_plain) if short
+                      else (fa.flash_fwd_plain, fa.flash_bwd_plain))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(4 * h, t, d, generator=g, device="cuda").to(dtype)
+                           for _ in range(4))
+            scale = d**-0.5
+            part = [x[lo * h:].contiguous() for x in (q, k, v, do)]
+            o, lse = fwd(q, k, v, scale, rate, DROPOUT_SEED)
+            o2, lse2 = fwd(*part[:3], scale, rate, DROPOUT_SEED, bh_offset=lo * h)
+            delta = (do.float() * o.float()).sum(-1)
+            full = bwd(q, k, v, do, lse, delta, scale, rate, DROPOUT_SEED)
+            args = (*part, lse[lo * h:].contiguous(), delta[lo * h:].contiguous(), scale, rate,
+                    DROPOUT_SEED)
+            mine = bwd(*args, bh_offset=lo * h)
+            name = f"{'K2/K6' if short else 'K1/K4+K5'} T{t} d{d} {str(dtype).split('.')[-1]}"
+            same = [torch.equal(o2, o[lo * h:]), torch.equal(lse2, lse[lo * h:])]
+            same += [torch.equal(a, b[lo * h:]) for a, b in zip(mine, full)]
+            check(all(same), f"{name}: a launch at bh_offset {lo * h} is not the full launch's "
+                  f"slice bit for bit ({same})")
+            po, _ = pfwd(*part[:3], scale, rate, DROPOUT_SEED, bh_offset=lo * h)
+            pg = pbwd(*args, bh_offset=lo * h)
+            errs = [(o2.float() - po.float()).abs().max().item()]
+            errs += [(a.float() - b.float()).abs().max().item() for a, b in zip(mine, pg)]
+            tols = [kernel_tol(po)] + [kernel_tol(b) for b in pg]
+            check(all(e <= tl for e, tl in zip(errs, tols)),
+                  f"{name}: against the plain versions at bh_offset {lo * h}: {errs} > {tols}")
+            out[name] = dict(bit_equal_to_full_launch_slice=True,
+                             max_abs_err=dict(zip(("o", "dq", "dk", "dv"), errs)),
+                             limits=dict(zip(("o", "dq", "dk", "dv"), tols)))
+    emit(dict(phase="offset_check", rows=f"[{lo}, 4) of 4", heads=h, rate=rate, results=out))
+    return out
+
+
+# -- (D) parallelism: two ranks sharing the card ---------------------------------
+# The runs' sizes (PERF.md section 4 lists each cut): (D1) "spectra" at
+# batch 16 for "epochs" epochs; (D2) stride1 over "stride1_spectra"; (D3)
+# ViT-B/16 at "b16_layers" layers and batch "b16_batch" of "images"; (D4)
+# ViT-S/16-MoE at "moe_layers" layers over "moe_images", ViT-L/16 at
+# "l16_layers" layers and batch "l16_batch" of "l16_images"; the ring op
+# alone at B "ring_batch", T "ring_t".
+D_SIZES = dict(spectra=1024, epochs=2, stride1_spectra=32, images=512, moe_images=256, val=128,
+               b16_batch=64, b16_layers=4, moe_layers=6, l16_layers=2, l16_batch=32,
+               l16_images=64, ring_batch=16, ring_t=4066, profile_steps=2, forward_rows=8)
+D_LIMITS = {"float32": FP32_TOL, "bfloat16": 2e-2}  # first steps, per tensor
+D_ZERO1_REL = 1e-6  # ZeRO-1 against plain data parallelism after the epochs
+D_TIMEOUT = 600  # seconds for a group of ranks to finish its runs
+
+
+def d_spectra_config(name: str, **train) -> dict:
+    """``configs/exp/att_clp/<name>`` as it stands but for the data (in
+    memory), ``viz`` (off) and ``train`` overrides."""
+    from vit_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                   "exp", "att_clp", name))
+    cfg["data"] = dict(_DATA)
+    cfg["viz"] = {"enable": False}
+    cfg["train"].update(save=False, **train)
+    return cfg
+
+
+def d_jobs(s: dict) -> list:
+    """(D1)-(D4): each run's two-rank config, its data and what it holds."""
+    spectra = dict(kind="spectra", n=s["spectra"], length=4096, seed=1)
+    base = dict(batch_size=16, ep=s["epochs"], gpus=2)
+    flash = d_spectra_config("baseline.yaml", **base)
+    flash["model"].update(attn_impl="flash", fused_mlp=True)
+    jobs = [
+        dict(tag="D1a_baseline_dp", cfg=d_spectra_config("baseline.yaml", **base),
+             data=spectra, first_step=True, save_params=True),
+        dict(tag="D1b_baseline_dp_zero1",
+             cfg=d_spectra_config("baseline.yaml", opt_state_sharding=True, **base),
+             data=spectra, save_params=True, same_as="D1a_baseline_dp"),
+        dict(tag="D1c_baseline_dp_flash_fused", cfg=flash, data=spectra, first_step=True,
+             kernels=("short_fwd", "short_bwd", "fused_mlp_fwd", "fused_mlp_bwd")),
+    ]
+    s1 = d_spectra_config("stride1.yaml", ep=1, gpus=2, sequence_parallel=2)
+    s1["model"]["attn_impl"] = "ring"
+    if s.get("stride1_batch"):
+        s1["train"]["batch_size"] = s["stride1_batch"]
+    jobs.append(dict(tag="D2_stride1_ring_sp2", cfg=s1,
+                     data=dict(kind="spectra", n=s["stride1_spectra"], length=4096, seed=1),
+                     first_step=True))
+    b16 = image_config("vit_b16_bf16.yaml", num_hidden_layers=s["b16_layers"],
+                       attn_impl="flash", hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    b16["data"] = {"num_samples": s["images"], "num_test_samples": s["val"]}
+    b16["train"].update(batch_size=s["b16_batch"], gpus=2, pipeline_parallel=2,
+                        pipeline_microbatches=4)
+    jobs.append(dict(tag="D3_vit_b16_pp2", cfg=b16, data=dict(kind="images"), first_step=True,
+                     forward=True, kernels=("short_fwd", "short_bwd")))
+    moe = image_config("cifar_vit_s16_moe.yaml", num_hidden_layers=s["moe_layers"],
+                       attn_impl="flash")
+    moe["data"] = {"num_samples": s["moe_images"], "num_test_samples": s["val"]}
+    moe["train"].update(gpus=2)  # model_parallel: 2 as the file has it
+    jobs.append(dict(tag="D4a_cifar_s16_moe_ep2", cfg=moe, data=dict(kind="images"),
+                     first_step=True, kernels=("short_fwd", "short_bwd")))
+    l16 = image_config("vit_l16_multihost.yaml", num_hidden_layers=s["l16_layers"])
+    l16["data"] = {"num_samples": s["l16_images"], "num_test_samples": s["val"]}
+    l16["train"].update(batch_size=s["l16_batch"], gpus=2)  # model_parallel: 2 as written
+    jobs.append(dict(tag="D4b_vit_l16_tp2", cfg=l16, data=dict(kind="images"), first_step=True))
+    jobs.append(dict(tag="D2_ring_op", kind="ring_op"))
+    return jobs
+
+
+def d_one_rank(cfg: dict) -> dict:
+    """The one-rank reference of a two-rank config: the same run with every
+    parallel setting at 1."""
+    import copy
+
+    ref = copy.deepcopy(cfg)
+    for key in ("gpus", "model_parallel", "sequence_parallel", "pipeline_parallel",
+                "pipeline_microbatches", "opt_state_sharding"):
+        ref["train"].pop(key, None)
+    return ref
+
+
+def d_datamodule(job: dict, cfg: dict):
+    from vit_tpu_torch.data.datasets import SpecDataModule
+    from vit_tpu_torch.data.images import ImageDataModule
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+
+    d = job["data"]
+    if d["kind"] == "images":
+        return ImageDataModule(cfg)
+    return SpecDataModule(cfg, source=make_dummy_spectra(n=d["n"], length=d["length"],
+                                                         seed=d["seed"]))
+
+
+def d_profile(exp, steps: int, dev: str) -> dict:
+    """``steps`` more training steps on a batch already on the device: host
+    ms a step, torch.profiler's device ms a step and the collectives' share
+    of it (NCCL's kernels, and gloo's host-staging copies: Memcpy), and the
+    host seconds inside the collective wrapper."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_tpu_torch.parallel import comm
+    from vit_tpu_torch.parallel.mesh import active_mesh_scope
+    from vit_tpu_torch.train.optim import OptSpec, schedule_scale
+
+    n = len(exp.datamodule.train)
+    spec = OptSpec.from_config(exp.config, -(-n // exp.batch_size), monitor_metric=exp.monitor)
+    arrays = exp.datamodule.train.arrays()
+    batch = {k: torch.from_numpy(arrays[k][:exp.batch_size]).to(dev) for k in ("x", "label")}
+    sched = schedule_scale(spec)
+    cuda = dev == "cuda"
+    with active_mesh_scope(exp.mesh):
+        exp.train_step(batch, spec, sched)  # warm
+        if cuda:
+            torch.cuda.synchronize()
+        comm.reset_stats()
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        t0 = time.perf_counter()
+        try:
+            with profile(activities=acts) as prof:
+                for _ in range(steps):
+                    exp.train_step(batch, spec, sched)
+                if cuda:
+                    torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ops = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                   and "#" not in e.key]
+            dev_ms = sum(ms for _, ms in ops)
+            coll = sum(ms for k, ms in ops if "nccl" in k.lower() or "memcpy" in k.lower())
+            row = dict(device_ms_per_step=dev_ms / steps if dev_ms else "not measured",
+                       collective_device_share=coll / dev_ms if dev_ms else "not measured")
+        except Exception as e:  # the profiler is untried with two processes on one card
+            wall = time.perf_counter() - t0
+            row = dict(device_ms_per_step="not measured", collective_device_share="not measured",
+                       profiler_error=f"{type(e).__name__}: {e}")
+        row.update(profiled_steps=steps, profiled_host_ms_per_step=wall * 1e3 / steps,
+                   collective_host_share=comm.STATS["seconds"] / wall,
+                   staged_bytes_per_step=comm.STATS["staged_bytes"] / steps,
+                   collective_calls_per_step=comm.STATS["calls"] / steps)
+    return row
+
+
+def d_run(job: dict, world: int, out_dir: str, dev: str, sizes: dict) -> dict:
+    """One (D) run on this rank (``world`` 1: the one-rank reference):
+    Experiment through its entry points; the first step's gradients (rank 0
+    writes them in the one-rank layout), the pipelined forward, ``fit``
+    with its launch counts and timings, then a profiled window."""
+    import copy
+
+    import numpy as np
+
+    from vit_tpu_torch.ops import _build
+    from vit_tpu_torch.parallel import comm
+    from vit_tpu_torch.parallel.checkpoint import canonical_grads, canonical_state_dict
+    from vit_tpu_torch.parallel.mesh import active_mesh_scope
+    from vit_tpu_torch.parallel.tensor import sync_gradients
+    from vit_tpu_torch.train.loop import Experiment, loss_and_grads
+    from vit_tpu_torch.train.optim import state_bytes
+
+    if job.get("kind") == "ring_op":
+        return d_ring_op(world, out_dir, dev, sizes)
+    cfg = copy.deepcopy(job["cfg"] if world > 1 else d_one_rank(job["cfg"]))
+    dm = d_datamodule(job, cfg)
+    exp = Experiment(copy.deepcopy(cfg), device=dev, num_devices=world, datamodule=dm)
+    dm.setup("fit")
+    mesh = exp.mesh
+    rank0 = mesh.rank == 0
+    path = lambda what: os.path.join(out_dir, f"{job['tag']}_{what}_w{world}.pt")  # noqa: E731
+    row = dict(tag=job["tag"], world=world, backend=mesh.backend or "none (one process)",
+               mesh=dict(mesh.shape))
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    if job.get("first_step"):
+        arrays = dm.train.arrays()
+        batch = {k: torch.from_numpy(np.ascontiguousarray(arrays[k][:exp.batch_size])).to(dev)
+                 for k in ("x", "label")}
+        sites = exp.module.num_dropout_sites
+        seeds = [list(range(1000 + 97 * a, 1000 + 97 * a + sites))
+                 for a in range(exp.accum_steps)]
+        exp.module.train()
+        with active_mesh_scope(mesh):
+            loss = loss_and_grads(exp.module, batch, exp.bundle.vit_config.task_type,
+                                  exp.bundle.loss_name, seeds,
+                                  shard=(mesh.coord("data"), mesh.size("data")))
+            loss = sync_gradients([p for p in exp.module.parameters() if p.grad is not None],
+                                  mesh, loss)
+            grads = canonical_grads(exp.module, mesh, exp._param_names)
+        for p in exp.module.parameters():
+            p.grad = None
+        row["first_step_loss"] = float(loss)
+        if rank0:
+            torch.save(grads, path("grads"))
+    if job.get("forward"):
+        x = torch.from_numpy(np.ascontiguousarray(
+            dm.val.arrays()["x"][:sizes["forward_rows"]])).to(dev)
+        exp.module.eval()
+        with torch.no_grad(), active_mesh_scope(mesh):
+            logits = exp.module(x).float().cpu()
+        exp.module.train()
+        if rank0:
+            torch.save(logits, path("logits"))
+    _build.reset_launches()
+    comm.reset_stats()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = exp.fit()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps = len(exp.epoch_losses)
+    row.update(fit_seconds=fit_s, steps_per_epoch=steps, epochs=int(cfg["train"].get("ep", 1)),
+               host_ms_per_step_last_epoch=metrics["epoch_time_s"] * 1e3 / steps,
+               fit_collective_calls=comm.STATS["calls"],
+               fit_staged_bytes=comm.STATS["staged_bytes"],
+               fit_collective_host_seconds=comm.STATS["seconds"],
+               path="per-step" if exp.fused is None else "fused (CUDA graph)",
+               last_epoch_losses_finite=bool(np.isfinite(exp.epoch_losses).all()),
+               train_loss=metrics["train_loss"],
+               launches={n: k.launches for n, k in _build.KERNELS.items()},
+               opt_state_bytes=state_bytes(exp.optimizer))
+    if job.get("save_params"):
+        sd = canonical_state_dict(exp.module, mesh, exp._state_names)
+        if rank0:
+            torch.save(sd, path("params"))
+    pipe = exp.module.vit.encoder.pipeline
+    if pipe is not None:
+        pipe.stats = {}
+    row.update(d_profile(exp, sizes["profile_steps"], dev))
+    if pipe is not None:
+        fw = pipe.stats.get("forward", [])
+        row["stage_forward_busy_share"] = (statistics.mean(r["busy_share"] for r in fw)
+                                           if fw else None)
+        row["bubble_share_ideal"] = fw[0]["bubble_share_ideal"] if fw else None
+        pipe.stats = None
+    row["peak_mib"] = (torch.cuda.max_memory_allocated() / 2**20 if dev == "cuda"
+                       else "not measured")
+    return row
+
+
+def d_ring_inputs(sizes: dict, dtype, dev: str):
+    g = torch.Generator(device=dev).manual_seed(11)
+    shape = (sizes["ring_batch"], 2, sizes["ring_t"], 64)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(4)]
+
+
+def d_ring_op(world: int, out_dir: str, dev: str, sizes: dict) -> dict:
+    """(D2) the ring alone at B16 H2 T4066 d64 over the ranks, fp32 and bf16,
+    dropout 0.1 and 0: rank 0 writes the output and dq, dk, dv (the whole
+    sequence's, gathered); the host ms of a forward and backward, synced."""
+    from vit_tpu_torch.ops.ring_attention import ring_attention
+    from vit_tpu_torch.parallel import comm
+    from vit_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(num_devices=world, model_parallel=world)
+    cases = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for rate in (0.0, 0.1):
+            q, k, v, g = d_ring_inputs(sizes, dtype, dev)
+            xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+
+            def step():
+                for x in xs:
+                    x.grad = None
+                out = ring_attention(*xs, mesh, axis="model", dropout_rate=rate,
+                                     dropout_seed=DROPOUT_SEED if rate else None)
+                (out.float() * g.float()).sum().backward()
+                return out
+
+            out = step()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            comm.reset_stats()
+            reps = 1
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                step()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            seconds = (time.perf_counter() - t0) / reps
+            key = f"{str(dtype).split('.')[-1]}_rate{rate}"
+            cases[key] = dict(host_ms_fwd_bwd=seconds * 1e3,
+                              staged_bytes=comm.STATS["staged_bytes"] / reps,
+                              collective_host_share=comm.STATS["seconds"] / (seconds * reps))
+            if mesh.rank == 0:
+                torch.save([t.detach().float().cpu() for t in (out, *(x.grad for x in xs))],
+                           os.path.join(out_dir, f"ring_{key}_w{world}.pt"))
+            del q, k, v, g, xs, out
+    return dict(tag="D2_ring_op", world=world, backend=mesh.backend, cases=cases)
+
+
+def d_worker(rank: int, world: int, port: int, backend: str, jobs: list, out_dir: str,
+             dev: str, sizes: dict) -> None:
+    """A rank of (D): joins the group, runs every job in order, writes its
+    rows (or its traceback) to ``out_dir``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    result = {}
+    try:
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=D_TIMEOUT))
+        for job in jobs:
+            t0 = time.perf_counter()
+            result[job["tag"]] = d_run(job, world, out_dir, dev, sizes)
+            result[job["tag"]]["run_seconds"] = time.perf_counter() - t0
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - the parent process reports it
+        result["error"] = traceback.format_exc()
+        torch.save(result, os.path.join(out_dir, f"rows_w{world}_r{rank}.pt"))
+        os._exit(1)
+    torch.save(result, os.path.join(out_dir, f"rows_w{world}_r{rank}.pt"))
+
+
+def d_group(world: int, backend: str, jobs: list, out_dir: str, dev: str, sizes: dict) -> list:
+    """Start ``world`` ranks of d_worker and wait for them (D_TIMEOUT; the
+    stragglers are killed): each rank's rows."""
+    import multiprocessing as mp
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=d_worker, args=(r, world, port, backend, jobs, out_dir, dev,
+                                                sizes)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + D_TIMEOUT
+    for p in procs:
+        p.join(timeout=max(1.0, deadline - time.time()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    rows = []
+    for r in range(world):
+        f = os.path.join(out_dir, f"rows_w{world}_r{r}.pt")
+        rows.append(torch.load(f, weights_only=False) if os.path.exists(f) else {})
+    errors = [r["error"] for r in rows if r.get("error")]
+    check(not alive and not errors, f"(D) {world} rank(s) on {backend}: "
+          f"{'timed out; ' if alive else ''}{errors[0][-3000:] if errors else ''}")
+    return rows
+
+
+def d_nccl_probe_worker(rank: int, port: int, q) -> None:
+    import datetime
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=2, timeout=datetime.timedelta(seconds=60))
+        t = torch.ones(4, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        q.put((rank, "ok" if float(t[0]) == 2.0 else f"wrong sum {float(t[0])}"))
+        dist.destroy_process_group()
+    except BaseException as e:  # noqa: BLE001 - the refusal is the expected answer
+        q.put((rank, f"{type(e).__name__}: {e}"))
+
+
+def d_nccl_probe(dev: str) -> dict:
+    """(D0) Two NCCL ranks on the one card, one all-reduce. NCCL refuses a
+    communicator with two ranks on one device; what it answers decides the
+    two-rank backend (gloo when it refuses)."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    if dev != "cuda":
+        return dict(nccl_two_ranks_one_card="not tried (CPU rehearsal)", backend="gloo")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=d_nccl_probe_worker, args=(r, port, q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    answers = []
+    deadline = time.time() + 120
+    while len(answers) < 2 and time.time() < deadline:
+        try:
+            answers.append(q.get(timeout=max(0.1, deadline - time.time())))
+        except queue.Empty:
+            break
+    for p in procs:
+        p.join(timeout=10)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    ok = len(answers) == 2 and all(a[1] == "ok" for a in answers)
+    row = dict(phase="parallel", run="D0_nccl_two_ranks_one_card",
+               nccl_two_ranks_one_card="accepted" if ok else "refused",
+               answers=[a[1][-400:] for a in answers], killed=len(hung),
+               backend="nccl" if ok else "gloo")
+    emit(row)
+    return row
+
+
+def d_grad_errors(got: dict, want: dict) -> dict:
+    check(got.keys() == want.keys(), "(D) gradients of other parameters than the one-rank run's")
+    total = torch.sqrt(sum(w.double().square().sum() for w in want.values())).item()
+    return {n: rel_l2(got[n].double(), want[n].double(), GRAD_FLOOR * total) for n in want}
+
+
+_D_RANK_KEYS = ("host_ms_per_step_last_epoch", "profiled_host_ms_per_step", "device_ms_per_step",
+                "collective_device_share", "collective_host_share", "staged_bytes_per_step",
+                "peak_mib", "opt_state_bytes", "run_seconds", "profiler_error")
+
+
+def d_compare(job: dict, two: list, one, out_dir: str, card: str, kernels,
+              dev: str = "cuda") -> dict:
+    """Hold a two-rank run against its one-rank reference (or, for ZeRO-1,
+    against plain data parallelism); its row."""
+    tag = job["tag"]
+    r0 = two[0][tag]
+    precision = job["cfg"]["train"].get("precision") or "float32"
+    dtype = "bfloat16" if precision in ("bf16", "bfloat16") else "float32"
+    limit = D_LIMITS[dtype]
+    row = dict(phase="parallel", run=tag, card=card, backend=r0["backend"], world=2,
+               mesh=r0["mesh"], dtype=dtype, path=r0["path"],
+               steps_per_epoch=r0["steps_per_epoch"], epochs=r0["epochs"],
+               train_loss=r0["train_loss"],
+               per_rank={k: [two[r][tag].get(k) for r in range(2)] for k in _D_RANK_KEYS},
+               fit_staged_bytes_per_rank=[two[r][tag]["fit_staged_bytes"] for r in range(2)],
+               launches={n: sum(two[r][tag]["launches"][n] for r in range(2)) for n in kernels})
+    check(all(two[r][tag]["last_epoch_losses_finite"] for r in range(2)),
+          f"{tag}: a step loss is not finite")
+    if one is not None:
+        row["one_rank"] = {k: one.get(k) for k in ("backend", "path", "train_loss",
+                                                   *_D_RANK_KEYS)}
+    if job.get("first_step"):
+        got = torch.load(os.path.join(out_dir, f"{tag}_grads_w2.pt"))
+        want = torch.load(os.path.join(out_dir, f"{tag}_grads_w1.pt"))
+        errs = d_grad_errors(got, want)
+        worst = max(errs, key=errs.get)
+        loss_err = abs(r0["first_step_loss"] - one["first_step_loss"]) / abs(one["first_step_loss"])
+        row.update(first_step_limit=limit, first_step_worst=worst,
+                   first_step_rel_l2_max=errs[worst],
+                   first_step_rel_l2_median=statistics.median(errs.values()),
+                   first_step_loss=r0["first_step_loss"],
+                   first_step_loss_one_rank=one["first_step_loss"], first_step_loss_rel=loss_err)
+        check(errs[worst] <= limit, f"{tag}: first-step gradient of {worst} differs from the "
+              f"one-rank step by relative L2 {errs[worst]} (limit {limit})")
+        check(loss_err <= limit, f"{tag}: first-step loss {r0['first_step_loss']} against the "
+              f"one-rank {one['first_step_loss']}")
+    if job.get("forward"):
+        got = torch.load(os.path.join(out_dir, f"{tag}_logits_w2.pt"))
+        want = torch.load(os.path.join(out_dir, f"{tag}_logits_w1.pt"))
+        err = rel_l2(got, want, 0.0)
+        row.update(pipelined_forward_rel_l2=err, pipelined_forward_limit=limit,
+                   stage_forward_busy_share=[two[r][tag].get("stage_forward_busy_share")
+                                             for r in range(2)],
+                   bubble_share_ideal=r0.get("bubble_share_ideal"))
+        check(err <= limit, f"{tag}: the pipelined forward differs from the monolithic one by "
+              f"relative L2 {err} (limit {limit})")
+    if job.get("same_as"):
+        a = torch.load(os.path.join(out_dir, f"{job['same_as']}_params_w2.pt"))
+        b = torch.load(os.path.join(out_dir, f"{tag}_params_w2.pt"))
+        rel = max(rel_l2(b[n].double(), a[n].double(), 1e-30) for n in a)
+        row.update(zero1_params_rel_max=rel, zero1_bit_equal=all(torch.equal(a[n], b[n])
+                                                                 for n in a),
+                   zero1_limit=D_ZERO1_REL, opt_state_bytes_replicated=[
+                       two[r][job["same_as"]]["opt_state_bytes"] for r in range(2)])
+        check(rel <= D_ZERO1_REL, f"{tag}: ZeRO-1 parameters differ from plain data "
+              f"parallelism's by relative L2 {rel}")
+    for name in job.get("kernels", ()) if dev == "cuda" else ():  # the CPU runs plain versions
+        check(row["launches"][name] > 0, f"{tag}: {name} was never launched")
+    emit(row)
+    return row
+
+
+def d_ring_compare(two: list, out_dir: str, sizes: dict, card: str, dev: str) -> dict:
+    """The ring's output and gradients against K1 and K4+K5 on the whole
+    sequence (no dropout), and against the plain attention with the
+    coordinate-hash mask of the whole (B, H, T, T) probabilities (dropout
+    0.1: the ring draws that mask's blocks, as vit_tpu's ring does; K1
+    draws another hash). Then one of the ring's block masks (rank 1's
+    queries, the second key block) against the whole mask's slice, bit for
+    bit."""
+    from vit_tpu_torch.ops.dropout import hash_keep_mask
+    from vit_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from vit_tpu_torch.ops.ring_attention import _DEFAULT_BLOCK_K, _pick_block
+
+    out = {}
+    names = ("o", "dq", "dk", "dv")
+    for dtype in (torch.float32, torch.bfloat16):
+        for rate in (0.0, 0.1):
+            q, k, v, g = d_ring_inputs(sizes, dtype, dev)
+            b, h, t, d = q.shape
+            key = f"{str(dtype).split('.')[-1]}_rate{rate}"
+            got = torch.load(os.path.join(out_dir, f"ring_{key}_w2.pt"))
+            if rate == 0.0:
+                flat = [x.reshape(b * h, t, d).contiguous() for x in (q, k, v, g)]
+                o, lse = flash_fwd(*flat[:3], d**-0.5)
+                delta = (flat[3].float() * o.float()).sum(-1)
+                grads = flash_bwd(*flat[:3], flat[3], lse, delta, d**-0.5)
+                want = [x.reshape(b, h, t, d).float().cpu() for x in (o, *grads)]
+                against = "K1, K4+K5 (no dropout)"
+            else:
+                xs = [x.float().clone().requires_grad_(True) for x in (q, k, v)]
+                p = torch.softmax(torch.matmul(xs[0] * d**-0.5, xs[1].transpose(-1, -2)), -1)
+                o = torch.matmul(p * hash_keep_mask(p.shape, rate, DROPOUT_SEED, device=dev),
+                                 xs[2])
+                (o * g.float()).sum().backward()
+                want = [x.detach().float().cpu() for x in (o, *(x.grad for x in xs))]
+                against = "plain attention, the (B, H, T, T) coordinate-hash mask"
+                del p, o, xs
+            errs = [(a - w).abs().max().item() for a, w in zip(got, want)]
+            tols = [FP32_TOL if dtype == torch.float32
+                    else min(BF16_TOL, BF16_ROUNDINGS * w.abs().max().item()) for w in want]
+            check(all(e <= tl for e, tl in zip(errs, tols)),
+                  f"D2 ring {key}: against {against}: {dict(zip(names, errs))} > {tols}")
+            out[key] = dict(against=against, max_abs_err=dict(zip(names, errs)),
+                            limits=dict(zip(names, tols)),
+                            per_rank=[two[r]["D2_ring_op"]["cases"][key] for r in range(2)])
+            del got, want
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+    t_local = sizes["ring_t"] // 2
+    bk = _pick_block(_DEFAULT_BLOCK_K, t_local)
+    block = hash_keep_mask((2, 2, t_local, bk), 0.1, DROPOUT_SEED, offsets=(0, 0, t_local, bk),
+                           device=dev)
+    whole = hash_keep_mask((2, 2, sizes["ring_t"], sizes["ring_t"]), 0.1, DROPOUT_SEED,
+                           device=dev)
+    same = torch.equal(block, whole[:, :, t_local:, bk:2 * bk])
+    check(same, "D2: the ring's block mask is not the whole mask's slice")
+    row = dict(phase="parallel", run="D2_ring_op", card=card,
+               backend=two[0]["D2_ring_op"]["backend"], world=2,
+               shape=dict(B=sizes["ring_batch"], H=2, T=sizes["ring_t"], d=64),
+               block_k=bk, block_mask_bit_equal=same, cases=out)
+    emit(row)
+    return row
+
+
+def parallel_runs(work: str, kernels, sizes=None, dev: str = "cuda") -> dict:
+    """Run (D): (D0) NCCL with two ranks on one card; the one-rank
+    references (NCCL at world size 1, through the same entry points);
+    (D1)-(D4) on two ranks sharing the card (gloo, the collectives staged
+    through the host, when NCCL refuses), each held against its reference;
+    (D5) serving and the sweep on one card. ``dev="cpu"`` with small
+    ``sizes`` rehearses it on the CPU (gloo throughout)."""
+    from vit_tpu_torch.models.builder import get_model
+    from vit_tpu_torch.opt.parallel_sweep import _replica_devices
+    from vit_tpu_torch.serve import Predictor
+
+    sizes = dict(D_SIZES, **(sizes or {}))
+    t0 = time.perf_counter()
+    card = nvidia_smi("name,power.limit") if dev == "cuda" else "cpu rehearsal"
+    out_dir = os.path.join(work, "parallel")
+    os.makedirs(out_dir, exist_ok=True)
+    probe = d_nccl_probe(dev)
+    jobs = d_jobs(sizes)
+    parts = {}
+    t = time.perf_counter()
+    one = d_group(1, "nccl" if dev == "cuda" else "gloo",
+                  [j for j in jobs if j.get("first_step") or j.get("forward")], out_dir, dev,
+                  sizes)[0]
+    parts["one_rank_group"] = time.perf_counter() - t
+    t = time.perf_counter()
+    two = d_group(2, probe["backend"], jobs, out_dir, dev, sizes)
+    parts["two_rank_group"] = time.perf_counter() - t
+    runs = {"D0_nccl_two_ranks_one_card": probe}
+    for job in jobs:
+        if job.get("kind") == "ring_op":
+            runs[job["tag"]] = d_ring_compare(two, out_dir, sizes, card, dev)
+        else:
+            runs[job["tag"]] = d_compare(job, two, one.get(job["tag"]), out_dir, card, kernels,
+                                         dev)
+    # (D5) serving over two devices needs two cards here; the sweep's
+    # replicas stay on the one (vit_tpu's _replica_devices(R, 1) = 1).
+    bundle = get_model(d_spectra_config("baseline.yaml"))
+    n_dev = torch.cuda.device_count() if dev == "cuda" else 1
+    try:
+        Predictor(bundle.module.to(dev), bundle.vit_config, batch_size=16, num_devices=2)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    if n_dev < 2:
+        check(raised == f"num_devices=2 requested but only {n_dev} devices are available",
+              f"D5: Predictor(num_devices=2) on {n_dev} device(s): {raised}")
+    replicas = {r: _replica_devices(r, n_dev) for r in (1, 6, 7)}
+    runs["D5_serving_and_sweep"] = dict(phase="parallel", run="D5_serving_and_sweep", card=card,
+                                        devices=n_dev, predictor_raised=raised,
+                                        replica_devices=replicas)
+    emit(runs["D5_serving_and_sweep"])
+    emit(dict(phase="run_seconds", run="D (parallelism)", seconds=time.perf_counter() - t0,
+              parts=parts))
+    return runs
+
+
 def slice11_runs(work: str, kernels, only=None) -> dict:
     """Runs (v) int8 serving ('z' for --only: 'v' runs (s')), (x) export and
     (y) the repairs; ``only``: the letters to run (all by default). Each
@@ -4103,9 +4763,11 @@ def main(argv=None) -> int:
     parser.add_argument("--only", default=None,
                         help="letters of runs (j)-(r), (w), (s), (u), 'v' for (s'), 'z' for "
                              "(v) int8 serving, 'x' export, 'y' the repairs, 'M' for (z) "
-                             "MoE and 'P' for (P) the offline statistics, to run after the "
-                             "build, e.g. 'jkl' or 'pqr' or 'svu' or 'zxy' or 'M' or 'P', "
-                             "skipping the kernel phases and runs (a)-(i); prints no result")
+                             "MoE, 'P' for (P) the offline statistics and 'D' for (D) "
+                             "parallelism (with the batch-offset kernel check), to run after "
+                             "the build, e.g. 'jkl' or 'pqr' or 'svu' or 'zxy' or 'M' or 'P' "
+                             "or 'D', skipping the kernel phases and runs (a)-(i); prints no "
+                             "result")
     args = parser.parse_args(argv)
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4151,6 +4813,9 @@ def main(argv=None) -> int:
                 moe_runs(work, kernels)
             if "P" in args.only:
                 offline_runs(work)
+            if "D" in args.only:
+                offset_check(kernels)
+                parallel_runs(work, kernels)
         print("chip_smoke: partial run (--only): no result line", flush=True)
         return 0
 
@@ -4209,6 +4874,7 @@ def main(argv=None) -> int:
     mlp_case(B16_BATCH * 197, 768, 3072, torch.bfloat16, g, sfu_rate, kernels)
     mlp_bwd_case(B16_BATCH * 197, 768, 3072, torch.bfloat16, g, sfu_rate, kernels)
     mask_check(kernels)
+    offset_check(kernels)
 
     none = {n: 0 for n in kernels}
     stride1 = {"model": STRIDE1_MODEL, "train": {"batch_size": BATCH, "precision": "bf16"},
@@ -4264,6 +4930,7 @@ def main(argv=None) -> int:
         runs.update(slice11_runs(ckpt_dir, kernels))
         runs.update(moe_runs(ckpt_dir, kernels))
         runs.update(offline_runs(ckpt_dir))
+        runs.update(parallel_runs(ckpt_dir, kernels))
 
     summary = []
     for name, k in kernels.items():

@@ -877,3 +877,58 @@ def test_kpca_warm_attention_on_the_card_matches_the_cpu(gen):
                    + [p.grad.cpu() for _, p in sorted(m.named_parameters())])
     for a, b in zip(*got):
         assert rel_err(a, b) <= P_F32
+
+
+# -- a data-parallel rank's launches (the batch offset) ------------------------------
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t, short", [(129, True), (197, True), (1000, False), (4066, False)])
+def test_batch_offset_launch_is_the_full_launchs_slice(gen, t, short, dtype):
+    """Rows [2, 4) of a batch of 4 (2 heads), launched alone with bh_offset
+    4, give the full launch's heads 4..7 bit for bit, forward and backward,
+    with dropout: K1/K2, K4+K5/K6 hash the global head. The plain versions
+    with the same offset agree at the kernel limits."""
+    h, lo, rate, seed, d = 2, 2, 0.1, 7, 64
+    q, k, v = _qkv(gen, 4 * h, t, d, dtype)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    fwd, bwd = (fa.short_fwd, fa.short_bwd) if short else (fa.flash_fwd, fa.flash_bwd)
+    scale = d ** -0.5
+    part = [x[lo * h:].contiguous() for x in (q, k, v, do)]
+    o, lse = fwd(q, k, v, scale, rate, seed)
+    o2, lse2 = fwd(*part[:3], scale, rate, seed, bh_offset=lo * h)
+    assert torch.equal(o2, o[lo * h:]) and torch.equal(lse2, lse[lo * h:])
+    delta = (do.float() * o.float()).sum(-1)
+    full = bwd(q, k, v, do, lse, delta, scale, rate, seed)
+    mine = bwd(*part, lse[lo * h:].contiguous(), delta[lo * h:].contiguous(), scale, rate, seed,
+               bh_offset=lo * h)
+    for a, b in zip(mine, full):
+        assert torch.equal(a, b[lo * h:])
+    plain = (fa.short_fwd_plain if short else fa.flash_fwd_plain)(
+        *part[:3], scale, rate, seed, bh_offset=lo * h)
+    assert (plain[0].float() - o2.float()).abs().max().item() <= _tol(plain[0])
+
+
+def test_two_rank_gloo_ring_on_the_card_matches_k1_k4_k5(gen):
+    """Ring attention on two gloo ranks sharing the card (CUDA tensors
+    staged through the host by the collective wrapper), at stride1's head
+    shape, against K1 and K4+K5 on the whole sequence (fp32, no dropout)."""
+    import numpy as np
+
+    from torch_ranks import Ranks, ring
+
+    rng = np.random.default_rng(0)
+    q, k, v, g = (rng.standard_normal((2, 2, 1024, 64)).astype(np.float32) for _ in range(4))
+    ranks = Ranks(2)
+    try:
+        res = ranks.run(ring, 2, 1, q, k, v, g, 0.0, None, None, "cuda")
+    finally:
+        ranks.close()
+    xs = [torch.from_numpy(a).cuda().reshape(4, 1024, 64) for a in (q, k, v, g)]
+    o, lse = fa.flash_fwd(*xs[:3], 64 ** -0.5)
+    delta = (xs[3] * o).sum(-1)
+    grads = fa.flash_bwd(*xs[:3], xs[3], lse, delta, 64 ** -0.5)
+    want = [t.reshape(2, 2, 1024, 64).cpu().numpy() for t in (o, *grads)]
+    for rank_out in res:
+        _, *got = rank_out
+        for a, b in zip(got, want):
+            assert np.abs(a - b).max() <= FP32_TOL * max(1.0, np.abs(b).max())
+

@@ -206,7 +206,7 @@ def test_export_normalized_units_warning(art, tmp_path, capsys):
 
 
 def test_export_rejects_data_parallel_and_missing_shape(art, tmp_path):
-    with pytest.raises(NotImplementedError, match="num_devices"):
+    with pytest.raises(ValueError, match="num_devices"):  # one CPU device
         Predictor.from_checkpoint(dict(art["cfg"]), ckpt=art["pt"], batch_size=8,
                                   num_devices=2, device="cpu")
     live = art["pred"]

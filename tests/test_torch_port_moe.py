@@ -11,7 +11,7 @@ Dropout and router jitter are off where the packages are compared (vit_tpu
 draws them from flax keys); the port's own training paths keep them on.
 
 Expert parallelism (``tests/test_moe.py::test_moe_expert_parallel_sharding``)
-is not ported: ``train.model_parallel: 2`` still raises.
+is held on two ranks by ``tests/test_torch_port_parallel.py``.
 """
 
 import copy
@@ -264,8 +264,9 @@ def test_moe_dropped_frac_is_vit_tpus():
 
 def test_moe_rejections_and_flops(tiny_config):
     """An invalid top_k raises as vit_tpu's; the FLOPs count is vit_tpu's and
-    grows with the slots; expert parallelism (train.model_parallel) still
-    raises."""
+    grows with the slots; expert parallelism (train.model_parallel: 2) needs
+    two ranks, and a single process raises vit_tpu's make_mesh error (the
+    two-rank runs are tests/test_torch_port_parallel.py's)."""
     from vit_tpu_torch.train.loop import Experiment
 
     with pytest.raises(ValueError, match="moe_top_k"):
@@ -280,7 +281,7 @@ def test_moe_rejections_and_flops(tiny_config):
     cfg = copy.deepcopy(tiny_config)
     cfg["model"].update(moe_experts=4)
     cfg["train"]["model_parallel"] = 2
-    with pytest.raises(NotImplementedError, match="model_parallel"):
+    with pytest.raises(ValueError, match="model_parallel=2 x pipeline_parallel=1 must divide"):
         Experiment(cfg, device="cpu")
 
 

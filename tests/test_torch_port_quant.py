@@ -387,7 +387,7 @@ def test_predictor_rejects_unknown_quantize_and_data_parallel(served):
     cfg, pt = served[:2]
     with pytest.raises(ValueError, match="quantize"):
         Predictor.from_checkpoint(dict(cfg), ckpt=pt, quantize="int4", device="cpu")
-    with pytest.raises(NotImplementedError, match="num_devices"):
+    with pytest.raises(ValueError, match="num_devices"):  # one CPU device
         Predictor.from_checkpoint(dict(cfg), ckpt=pt, quantize="int8", num_devices=8,
                                   device="cpu")
 

@@ -112,7 +112,8 @@ def test_cpu_tensors_run_the_plain_versions_and_leave_the_counts():
 def test_training_mode_and_unported_paths_raise(tmp_path, monkeypatch, capsys):
     """What is ported runs (training, diagnostics, W&B with its console
     fallback, log_mfu, profile, RoPE, the covariance preprocessors, the
-    nn.Dropout streams, every optimizer, MoE); what is not raises."""
+    nn.Dropout streams, every optimizer, MoE, ring attention and the
+    parallel modes' checks); what is not raises."""
     from vit_tpu_torch.data.datasets import SpecDataModule
     from vit_tpu_torch.data.synthetic import make_dummy_spectra
     from vit_tpu_torch.models.builder import get_model
@@ -131,8 +132,13 @@ def test_training_mode_and_unported_paths_raise(tmp_path, monkeypatch, capsys):
     assert slow.train()(x, dropout_seeds=seeds).shape == (1, 1)  # nn.Dropout streams
     rope = get_model(dict(cfg, model=dict(cfg["model"], pos_encoding_type="rope"))).module
     assert rope.train()(x, dropout_seeds=seeds).shape == (1, 1)
-    with pytest.raises(NotImplementedError):
-        get_model(dict(cfg, model=dict(cfg["model"], attn_impl="ring")))
+    ring = get_model(dict(cfg, model=dict(cfg["model"], attn_impl="ring"))).module
+    with pytest.raises(RuntimeError, match="needs the training mesh"):
+        ring.train()(x, dropout_seeds=seeds)  # the ring is ported: it needs its mesh
+    from vit_tpu_torch.parallel.mesh import active_mesh_scope, make_mesh
+
+    with active_mesh_scope(make_mesh()):  # a one-rank ring is the whole attention
+        assert ring.train()(x, dropout_seeds=seeds).shape == (1, 1)
     from vit_tpu_torch.models.vit import train_forward
 
     moe = get_model(dict(cfg, model=dict(cfg["model"], moe_experts=4, moe_top_k=2))).module
@@ -160,10 +166,16 @@ def test_training_mode_and_unported_paths_raise(tmp_path, monkeypatch, capsys):
         for p in model.parameters():
             p.grad = torch.zeros_like(p)
         opt.step()
-    for train in ({"gpus": 4}, {"model_parallel": 2}, {"sequence_parallel": 2},
-                  {"pipeline_parallel": 2}, {"opt_state_sharding": True}):
-        with pytest.raises(NotImplementedError):
-            Experiment(dict(cfg, train=train), device="cpu")
+    # Parallelism is ported: one process is a one-rank mesh, so the modes
+    # that split a model axis raise vit_tpu's make_mesh error, and gpus and
+    # ZeRO-1 run on the one rank (tests/test_torch_port_parallel.py runs two).
+    two_layers = dict(cfg["model"], num_hidden_layers=2)
+    for train in ({"model_parallel": 2}, {"sequence_parallel": 2}, {"pipeline_parallel": 2}):
+        with pytest.raises(ValueError, match="must divide device count 1"):
+            Experiment(dict(cfg, model=two_layers, train=train), device="cpu")
+    for train in ({"gpus": 4}, {"opt_state_sharding": True}):
+        assert Experiment(dict(cfg, train=train), device="cpu").mesh.shape == {"data": 1,
+                                                                               "model": 1}
     monkeypatch.setenv("CKPT_DIR", str(tmp_path / "ckpt"))
     monkeypatch.setitem(sys.modules, "wandb", None)  # not installed
     ported = dict(cfg, data={"param": "log_g", "num_samples": 16},

@@ -105,12 +105,27 @@ def test_orbax_ckpt_names_the_converter(served):
         Predictor.from_checkpoint(dict(cfg), ckpt="best", device="cpu")
 
 
-def test_unported_options_raise(served):
-    """Data-parallel serving is the one option still to port (quantize,
-    calibration and export are tests/test_torch_port_{quant,export}.py's)."""
+def test_unported_options_raise(served, monkeypatch):
+    """Data-parallel serving (``num_devices``) raises as vit_tpu's does when
+    more devices are asked for than exist (a CPU predictor has one); with
+    two replicas (both on the CPU here) each batch's rows are split between
+    them and returned in order, the single predictor's logits. (quantize,
+    calibration and export are tests/test_torch_port_{quant,export}.py's.)"""
+    from vit_tpu_torch import serve
+
     cfg, pt = served()
-    with pytest.raises(NotImplementedError, match="num_devices"):
+    with pytest.raises(ValueError, match="num_devices=2 requested but only 1 devices"):
         Predictor.from_checkpoint(dict(cfg), ckpt=pt, device="cpu", num_devices=2)
+    monkeypatch.setattr(serve, "serving_devices", lambda dev, n: [dev] * n)
+    with pytest.raises(ValueError, match="data-parallel degree 2"):
+        Predictor.from_checkpoint(dict(cfg), ckpt=pt, device="cpu", num_devices=2,
+                                  batch_size=5)
+    one = Predictor.from_checkpoint(dict(cfg), ckpt=pt, device="cpu", batch_size=4)
+    two = Predictor.from_checkpoint(dict(cfg), ckpt=pt, device="cpu", batch_size=4,
+                                    num_devices=2)
+    assert len(two.replicas) == 2 and two.replicas[1][0] is not two.module
+    x = np.random.default_rng(0).standard_normal((7, one.input_length)).astype(np.float32)
+    np.testing.assert_allclose(two._batched_logits(x), one._batched_logits(x), atol=1e-6)
 
 
 def test_lightning_checkpoint_loads(served, tmp_path):

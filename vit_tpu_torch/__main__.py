@@ -16,9 +16,19 @@
 * ``sweep`` is the W&B sweep agent (``scripts/sweep.py``, ``launch.sh
   sweep``); it exits 2 without wandb.
 
+``run`` and ``test`` take ``--gpus N``. Launched by ``torchrun``
+(``WORLD_SIZE`` in the environment) the process joins its group as one
+rank. Otherwise ``N > 1`` starts N local ranks of this same command on a
+free localhost port (``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/
+``RANK``/``LOCAL_RANK`` set, as ``torchrun`` sets them), NCCL on the card
+(rank r on ``cuda:r``) and gloo on the CPU, and returns the first failing
+rank's code (the others are stopped), else 0.
+
 All run on the card unless ``--device cpu`` is given, and raise without
 one. Examples:
   python -m vit_tpu_torch run -c configs/exp/att_clp/stride1.yaml --save
+  python -m vit_tpu_torch run -c configs/exp/att_clp/baseline.yaml --gpus 2 --device cpu
+  torchrun --nproc_per_node 2 -m vit_tpu_torch run -c configs/exp/att_clp/baseline.yaml
   python -m vit_tpu_torch test -c configs/exp/att_clp/stride1.yaml --ckpt best
   python -m vit_tpu_torch predict -f configs/exp/att_clp/stride1.yaml \\
       --ckpt model.pt --input $TEST_DIR/dataset.h5 --output preds.npz
@@ -30,8 +40,12 @@ one. Examples:
 from __future__ import annotations
 
 import argparse
+import os
+import socket
+import subprocess
 import sys
-from typing import Optional
+import time
+from typing import List, Optional
 
 import numpy as np
 
@@ -114,13 +128,41 @@ def _test(args: argparse.Namespace) -> int:
     return 0
 
 
+def _launch_ranks(n: int, argv: List[str]) -> int:
+    """Run this command as ``n`` local ranks (module doc); the first failing
+    rank's exit code, else 0."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(n), RANK=str(r), LOCAL_RANK=str(r))
+        procs.append(subprocess.Popen([sys.executable, "-m", "vit_tpu_torch", *argv], env=env))
+    rc = 0
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p.returncode for p in procs if p.returncode not in (None, 0)]
+            if failed:
+                rc = failed[0]
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+            p.wait()
+    return rc or next((p.returncode for p in procs if p.returncode), 0)
+
+
 def _experiment_args(p: argparse.ArgumentParser, ckpt_default, ckpt_help: str) -> None:
     p.add_argument("-c", "-f", "--config", dest="config", required=True,
                    help="YAML config path")
     p.add_argument("--ckpt", default=ckpt_default, help=ckpt_help)
     p.add_argument("-w", "--wandb", type=int, default=0,
                    help="1 = log to W&B (the console only, when wandb is absent)")
-    p.add_argument("-g", "--gpus", type=int, default=None, help="device count (1 only)")
+    p.add_argument("-g", "--gpus", type=int, default=None,
+                   help="ranks (devices) to train on; > 1 starts local ranks (module doc)")
     p.add_argument("-d", "--debug", type=int, nargs="?", const=1, default=0,
                    help="fast dev run (1 batch)")
     p.add_argument("--seed", type=int, default=42)
@@ -162,9 +204,13 @@ def main(argv=None) -> int:
     agent.add_arguments(sub.add_parser("sweep", help="W&B sweep agent"))
     # A W&B agent passes the trial's parameters as flags too; they reach the
     # trial through wandb.config, so the sweep command ignores them.
+    argv = list(sys.argv[1:] if argv is None else argv)
     args, unknown = p.parse_known_args(argv)
     if unknown and args.command != "sweep":
         p.error(f"unrecognized arguments: {' '.join(unknown)}")
+    if (args.command in ("run", "test") and (args.gpus or 1) > 1
+            and "WORLD_SIZE" not in os.environ):
+        return _launch_ranks(args.gpus, argv)
     return {"run": _run, "test": _test, "predict": _predict, "lr": parallel_sweep.main,
             "sweep": agent.main}[args.command](args)
 

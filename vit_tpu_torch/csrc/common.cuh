@@ -49,7 +49,10 @@ __device__ __forceinline__ float sum16(float x) {
 // over R stacked replicas of B*H heads passes R seeds and bh_per_seed = B*H,
 // and head bh hashes (seed[bh / bh_per_seed], bh % bh_per_seed), what each
 // replica draws alone (vit_tpu's kernel under jax.vmap). One seed for the
-// whole launch is bh_per_seed = B*H: seed[0] and the global bh. The
+// whole launch is bh_per_seed = B*H: seed[0] and the global bh. A data-
+// parallel rank's launch covers heads [bh_offset, bh_offset + B_local*H) of
+// the global batch: head bh hashes bh % bh_per_seed + bh_offset, its global
+// index, so the rank draws its rows of the one-device mask. The
 // host computes the keep threshold and 1/keep (vit_tpu_torch/ops/dropout.py::
 // keep_params), which depend on the rate only, and passes them in; an element
 // is kept when its bits are below the threshold.
@@ -59,6 +62,7 @@ struct Dropout {
   unsigned threshold;  // keep iff bits < threshold
   float inv_keep;      // 1 / (1 - rate)
   int on;              // rate > 0
+  int bh_offset;       // the launch's first global head (a rank's batch offset times H)
 };
 
 __device__ __forceinline__ unsigned fmix32(unsigned x) {
@@ -76,7 +80,8 @@ __device__ __forceinline__ unsigned head_term(const Dropout& dr, int bh) {
   if (!dr.on) return static_cast<unsigned>(bh) * 0xC2B2AE35u;
   const int group = bh / dr.bh_per_seed;
   const unsigned seed = static_cast<unsigned>(__ldg(dr.seed + group));
-  return seed * 0x27D4EB2Fu + static_cast<unsigned>(bh - group * dr.bh_per_seed) * 0xC2B2AE35u;
+  return seed * 0x27D4EB2Fu +
+         static_cast<unsigned>(bh - group * dr.bh_per_seed + dr.bh_offset) * 0xC2B2AE35u;
 }
 
 // The keep factor (0 or 1/keep) of element (row, col) of one head.

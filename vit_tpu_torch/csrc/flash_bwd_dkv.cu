@@ -50,10 +50,10 @@ template <typename T, int D> struct DKV {
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv, int bh,
                              int t, int d, float scale, int is_bf16, int dropout,
-                             const void* seed, int bh_per_seed, unsigned threshold,
+                             const void* seed, int bh_per_seed, int bh_offset, unsigned threshold,
                              float inv_keep, void* stream) {
   const attn_bwd::Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, bh, t, scale,
                          Dropout{static_cast<const int*>(seed), bh_per_seed, threshold, inv_keep,
-                                 dropout}};
+                                 dropout, bh_offset}};
   return attn_bwd::dispatch<DKV>(a, d, is_bf16, static_cast<cudaStream_t>(stream));
 }

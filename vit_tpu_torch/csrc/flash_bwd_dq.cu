@@ -49,9 +49,10 @@ template <typename T, int D> struct DQ {
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int bh, int t, int d,
                             float scale, int is_bf16, int dropout, const void* seed,
-                            int bh_per_seed, unsigned threshold, float inv_keep, void* stream) {
+                            int bh_per_seed, int bh_offset, unsigned threshold,
+                            float inv_keep, void* stream) {
   const attn_bwd::Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, bh, t, scale,
                          Dropout{static_cast<const int*>(seed), bh_per_seed, threshold, inv_keep,
-                                 dropout}};
+                                 dropout, bh_offset}};
   return attn_bwd::dispatch<DQ>(a, d, is_bf16, static_cast<cudaStream_t>(stream));
 }

@@ -195,16 +195,17 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, void*
 // (read by the kernel, as the Pallas kernel reads its seed operand from
 // SMEM, so a captured CUDA graph replays with the seeds its buffer holds;
 // unread when `dropout` is 0), one for every `bh_per_seed` heads (common.cuh
-// Dropout; bh_per_seed = bh for one seed), `threshold` and `inv_keep` from the host
+// Dropout; bh_per_seed = bh for one seed), `bh_offset` the launch's first
+// global head (0 unless a data-parallel rank), `threshold` and `inv_keep` from the host
 // (keep iff hash < threshold).
 // Returns cudaGetLastError() after the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int bh, int t, int d, float scale, int is_bf16, int dropout,
-                         const void* seed, int bh_per_seed,
+                         const void* seed, int bh_per_seed, int bh_offset,
                          unsigned threshold, float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{static_cast<const int*>(seed), bh_per_seed, threshold, inv_keep,
-                   dropout};
+                   dropout, bh_offset};
   return is_bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, lse, bh, t, d, scale, dr, s)
                  : launch_d<float>(q, k, v, o, lse, bh, t, d, scale, dr, s);
 }

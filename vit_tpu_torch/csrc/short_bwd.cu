@@ -54,11 +54,11 @@ template <typename T, int D> struct ShortBwd {
 extern "C" int short_bwd(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dq, void* dk, void* dv,
                          int bh, int t, int d, float scale, int is_bf16, int dropout,
-                         const void* seed, int bh_per_seed,
+                         const void* seed, int bh_per_seed, int bh_offset,
                          unsigned threshold, float inv_keep, void* stream) {
   if (t > T_MAX) return cudaErrorInvalidValue;
   const attn_bwd::Args a{q, k, v, dout, lse, delta, dq, dk, dv, bh, t, scale,
                          Dropout{static_cast<const int*>(seed), bh_per_seed, threshold, inv_keep,
-                                 dropout}};
+                                 dropout, bh_offset}};
   return attn_bwd::dispatch<ShortBwd>(a, d, is_bf16, static_cast<cudaStream_t>(stream));
 }

@@ -189,11 +189,11 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, void*
 // after the launch.
 extern "C" int short_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          int bh, int t, int d, float scale, int is_bf16, int dropout,
-                         const void* seed, int bh_per_seed,
+                         const void* seed, int bh_per_seed, int bh_offset,
                          unsigned threshold, float inv_keep, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{static_cast<const int*>(seed), bh_per_seed, threshold, inv_keep,
-                   dropout};
+                   dropout, bh_offset};
   return is_bf16 ? launch_d<__nv_bfloat16>(q, k, v, o, lse, bh, t, d, scale, dr, s)
                  : launch_d<float>(q, k, v, o, lse, bh, t, d, scale, dr, s);
 }

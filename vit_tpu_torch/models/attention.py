@@ -25,7 +25,20 @@ Diagnostics capture (``vit_tpu/models/attention.py:182-186,245-261``): given
 a ``capture`` dict, the forward stores the batch-mean probabilities
 ``(H, T, T)`` in fp32 under ``attention_probs``. The flash path has no
 probabilities to give, so under capture it takes the xla math, as in
-``vit_tpu``. ``ring`` is not ported yet and raises.
+``vit_tpu``; so does ``ring``.
+
+``"ring"`` (``vit_tpu/models/attention.py:182-220``): sequence-parallel
+exact attention (:func:`vit_tpu_torch.ops.ring_attention.ring_attention`)
+over the active mesh's ``model`` axis (``train.sequence_parallel``), with
+in-ring dropout at global coordinates (the batch rows from the
+:func:`~vit_tpu_torch.ops.dropout.batch_offset` in force); it needs the
+active mesh and ``seq_len % sp == 0``. ``ring_block_k`` sets its key-block
+width.
+
+Under tensor parallelism (:mod:`vit_tpu_torch.parallel.tensor`) the
+projections run column-parallel and the attention itself sees whole
+heads, as GSPMD gathers q, k, v in front of ``vit_tpu``'s kernel; the
+fused QKV product reads its weights whole.
 
 RoPE (``use_rope``, ``vit_tpu/models/attention.py:175-178``): q and k are
 rotated after the head split and before the route is chosen, so the flash
@@ -49,6 +62,7 @@ from torch import nn
 from vit_tpu_torch.models.layers import DenseHolder, Linear, dense
 from vit_tpu_torch.models.rope import apply_rope, rope_tables
 from vit_tpu_torch.ops.dropout import site_dropout
+from vit_tpu_torch.parallel.tensor import full_param
 
 __all__ = ["MultiHeadSelfAttention", "select_attn_impl"]
 
@@ -82,12 +96,11 @@ class MultiHeadSelfAttention(nn.Module):
                  use_rope: bool = False, softmax_dtype: Optional[str] = None,
                  fused_qkv: bool = False, dropout_rate: float = 0.0, *,
                  out_dropout_rate: float, rope_base: float = 10000.0,
-                 fast_dropout: bool = True) -> None:
+                 fast_dropout: bool = True, ring_block_k: Optional[int] = None) -> None:
         super().__init__()
         if hidden_size % num_heads != 0:
             raise ValueError(f"hidden_size {hidden_size} not divisible by num_heads {num_heads}")
-        if impl == "ring":
-            raise NotImplementedError("attn_impl='ring' is not ported yet")
+        self.ring_block_k = ring_block_k
         self.hidden_size = hidden_size
         self.num_heads = num_heads
         self.head_dim = hidden_size // num_heads
@@ -115,7 +128,7 @@ class MultiHeadSelfAttention(nn.Module):
             return y.view(b, t, self.num_heads, self.head_dim).transpose(1, 2)
 
         if self.fused_qkv:
-            w = torch.cat([p.query.weight, p.key.weight, p.value.weight], dim=0)
+            w = torch.cat([full_param(lin.weight) for lin in (p.query, p.key, p.value)], dim=0)
             bias = None
             if p.query.bias is not None:
                 bias = torch.cat([p.query.bias, p.key.bias, p.value.bias])
@@ -129,7 +142,9 @@ class MultiHeadSelfAttention(nn.Module):
 
         drop = self.training and seeds is not None
         impl = select_attn_impl(self.impl, t, self.head_dim)
-        if impl == "flash" and capture is None:
+        if impl == "ring" and capture is None:
+            context = self._ring(q, k, v, seeds[0] if drop and self.dropout_rate > 0 else None)
+        elif impl == "flash" and capture is None:
             from vit_tpu_torch.ops.flash_attention import flash_attention
 
             if drop and self.dropout_rate > 0:
@@ -137,7 +152,7 @@ class MultiHeadSelfAttention(nn.Module):
                                           dropout_seed=seeds[0])
             else:
                 context = flash_attention(q, k, v)
-        elif impl in ("xla", "flash"):
+        elif impl in ("xla", "flash", "ring"):
             acc = self.softmax_dtype or torch.float32
             scores = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2))
             probs = torch.softmax(scores * torch.tensor(self.head_dim**-0.5, dtype=acc), dim=-1)
@@ -157,3 +172,26 @@ class MultiHeadSelfAttention(nn.Module):
         if drop:
             out = site_dropout(out, self.out_dropout_rate, seeds[1], self.fast_dropout)
         return out
+
+    def _ring(self, q, k, v, seed) -> torch.Tensor:
+        """The ring over the active mesh's ``model`` axis, with ``vit_tpu``'s
+        checks; ``seed``: the probabilities' dropout seed, or None."""
+        from vit_tpu_torch.ops.ring_attention import ring_attention
+        from vit_tpu_torch.parallel.mesh import active_mesh
+
+        mesh = active_mesh()
+        if mesh is None:
+            raise RuntimeError(
+                "attn_impl='ring' needs the training mesh: Experiment sets it; library "
+                "users call vit_tpu_torch.parallel.mesh.set_active_mesh(mesh) first")
+        sp = mesh.size("model")
+        t = q.shape[2]
+        if t % max(sp, 1) != 0:
+            raise ValueError(
+                f"attn_impl='ring': sequence length {t} (incl. CLS) must divide by the "
+                f"'model' mesh axis ({sp}); choose image/patch/stride so num_patches+1 is a "
+                "multiple of train.sequence_parallel")
+        # The rank's batch rows start at the dropout batch offset in force.
+        return ring_attention(q, k, v, mesh, axis="model",
+                              dropout_rate=self.dropout_rate if seed is not None else 0.0,
+                              dropout_seed=seed, block_k=self.ring_block_k)

@@ -13,7 +13,9 @@ Every dense layer of the model runs :meth:`Linear.forward`, so it is the
 one place a serving-time substitute can take over a layer's product
 (:func:`intercept_linear`, the port's counterpart of flax's
 ``nn.intercept_methods`` on ``nn.Dense.__call__``; int8 serving,
-:mod:`vit_tpu_torch.ops.quant`).
+:mod:`vit_tpu_torch.ops.quant`), and the place a weight split over the
+``model`` axis runs column-parallel
+(:func:`~vit_tpu_torch.parallel.tensor.column_parallel`).
 """
 
 from __future__ import annotations
@@ -73,6 +75,10 @@ class Linear(nn.Module):
             y = fn(self, x, dtype)
             if y is not None:
                 return y
+        if getattr(self.weight, "_shard", None) is not None:
+            from vit_tpu_torch.parallel.tensor import column_parallel
+
+            return column_parallel(x, self.weight, self.bias, dtype, self.in_features)
         return dense(x, self.weight.reshape(-1, self.in_features), self.bias, dtype)
 
     def init_(self, g: torch.Generator) -> None:

@@ -33,6 +33,14 @@ path, the CUDA graph, remat's recompute and each replica of the vmapped
 sweep draw the same noise for the same seed. The two agree in
 distribution, not bit for bit.
 
+Expert parallelism (``train.model_parallel`` > 1,
+:mod:`vit_tpu_torch.parallel.tensor`): the expert leaves hold E/TP experts
+a rank; the router (a column-parallel ``Linear``), the routing, dispatch and
+combine run replicated, each rank applies its experts to their slots, and
+the partial outputs are summed over ``model`` in fp32 and rounded once to
+the compute dtype (``vit_tpu``: GSPMD's collectives around the expert
+einsums).
+
 :meth:`MoEMLP.forward` returns ``(y, stats)``: ``stats`` is a (3,) fp32
 tensor in :data:`MOE_STATS` order, the Switch load-balance loss over
 first choices, the router z-loss ``mean(logsumexp(logits)^2)`` (0 unless
@@ -51,7 +59,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from vit_tpu_torch.models.layers import KERNEL_STD, Linear, init_normal_
-from vit_tpu_torch.ops.dropout import stream_uniform
+from vit_tpu_torch.ops.dropout import batch_offsets, stream_uniform
+from vit_tpu_torch.parallel.comm import reduce_grad, reduce_sum
+from vit_tpu_torch.parallel.tensor import expert_block
 
 __all__ = ["MoEMLP", "moe_capacity", "MOE_STATS"]
 
@@ -108,7 +118,8 @@ class MoEMLP(nn.Module):
         if self.jitter > 0.0 and self.training:
             if seed is None:
                 raise ValueError("training-mode router jitter needs its dropout seed")
-            u = stream_uniform(router_in.shape, seed, device=x.device)
+            u = stream_uniform(router_in.shape, seed, device=x.device,
+                               offsets=batch_offsets(router_in.dim()))
             router_in = router_in * ((1.0 - self.jitter) + u * (2.0 * self.jitter))
         logits = self.router(router_in, torch.float32)
         probs = torch.softmax(logits, dim=-1)
@@ -144,13 +155,25 @@ class MoEMLP(nn.Module):
         combine = (slot_k * gate_vals.transpose(1, 2)[..., None, None]).sum(1)
 
         dt = cfg.dtype
-        expert_in = torch.einsum("btec,btd->ebcd", dispatch.to(dt), x.to(dt))
+        e0, e_here, group = expert_block(self.wi)
+        x_in = x
+        if group is not None:
+            # Expert parallelism: this rank's E/TP experts on the replicated
+            # dispatch; their partial outputs are summed over `model`.
+            x_in, combine = reduce_grad(x, group), reduce_grad(combine, group)
+            dispatch = dispatch[:, :, e0:e0 + e_here]
+            combine = combine[:, :, e0:e0 + e_here]
+        expert_in = torch.einsum("btec,btd->ebcd", dispatch.to(dt), x_in.to(dt))
         h = torch.einsum("ebcd,edf->ebcf", expert_in, self.wi.to(dt))
         h = h + self.wi_bias.to(dt)[:, None, None, :]
         h = F.gelu(h, approximate="tanh" if cfg.gelu_approximate else "none")
         h = torch.einsum("ebcf,efd->ebcd", h, self.wo.to(dt))
         h = h + self.wo_bias.to(dt)[:, None, None, :]
-        y = torch.einsum("btec,ebcd->btd", combine.to(dt), h)
+        if group is None:
+            y = torch.einsum("btec,ebcd->btd", combine.to(dt), h)
+        else:  # the experts' sum in fp32, rounded once, as the one product rounds it
+            y = reduce_sum(torch.einsum("btec,ebcd->btd", combine.to(dt).float(), h.float()),
+                           group).to(dt)
 
         # Switch load balance: first-choice share per expert times mean
         # router probability, scaled by E (uniform routing gives 1).

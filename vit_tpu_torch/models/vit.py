@@ -63,6 +63,7 @@ attention takes the xla math and the fused MLP its dense path, as in
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Optional, Sequence
 
 import torch
@@ -92,7 +93,8 @@ from vit_tpu_torch.models.tokenization import (
     Patch2DTokenizer,
     SlidingWindowTokenizer,
 )
-from vit_tpu_torch.ops.dropout import site_dropout
+from vit_tpu_torch.ops.dropout import batch_offset, current_batch_offset, site_dropout
+from vit_tpu_torch.parallel.tensor import full_param
 
 __all__ = ["SpectraEmbeddings", "ImageEmbeddings", "ViTLayer", "ViTEncoder", "SpecViT",
            "compute_loss", "remat", "train_forward"]
@@ -145,10 +147,13 @@ class _ReplicaRemat(torch.autograd.Function):
 def remat(module: nn.Module, fn, *args):
     """``fn(*args)`` with its activations recomputed in the backward
     (``torch.utils.checkpoint``, non-reentrant, no RNG stash); ``fn`` reads
-    ``module``'s parameters."""
+    ``module``'s parameters. The recompute runs at the dropout
+    :func:`~vit_tpu_torch.ops.dropout.batch_offset` of the forward."""
     leaves, spec = tree_flatten(list(args))
     if not any(map(is_batched, leaves)):
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        rows = current_batch_offset()
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(), batch_offset(rows)))
     names, params = zip(*module.named_parameters())
     return _ReplicaRemat.apply(module, fn, names, spec, *leaves, *params)
 
@@ -181,10 +186,10 @@ class SpectraEmbeddings(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         tokens = self.patch_embeddings(x)  # (B, T, H) in the compute dtype
-        cls = self.cls_token.to(tokens.dtype).expand(tokens.shape[0], 1, -1)
+        cls = full_param(self.cls_token).to(tokens.dtype).expand(tokens.shape[0], 1, -1)
         tokens = torch.cat([cls, tokens], dim=1)
         if self.position_embeddings is not None:
-            tokens = tokens + self.position_embeddings.to(tokens.dtype)
+            tokens = tokens + full_param(self.position_embeddings).to(tokens.dtype)
         return tokens
 
     def init_(self, g: torch.Generator) -> None:
@@ -221,10 +226,10 @@ class ImageEmbeddings(nn.Module):
             tokens = self.patch_embeddings.projection(x, self.cfg.dtype)
         else:
             tokens = self.patch_embeddings(x)
-        cls = self.cls_token.to(tokens.dtype).expand(tokens.shape[0], 1, -1)
+        cls = full_param(self.cls_token).to(tokens.dtype).expand(tokens.shape[0], 1, -1)
         tokens = torch.cat([cls, tokens], dim=1)
         if self.position_embeddings is not None:
-            tokens = tokens + self.position_embeddings.to(tokens.dtype)
+            tokens = tokens + full_param(self.position_embeddings).to(tokens.dtype)
         return tokens
 
     def init_(self, g: torch.Generator) -> None:
@@ -254,6 +259,7 @@ class ViTLayer(nn.Module):
             fused_qkv=cfg.fused_qkv,
             dropout_rate=cfg.attention_dropout,
             out_dropout_rate=cfg.hidden_dropout,  # HF ViTSelfOutput drops at the hidden rate
+            ring_block_k=cfg.ring_block_k,
         )
         self.layernorm_after = LayerNorm(cfg.hidden_size, dt)
         if cfg.moe_experts > 1:
@@ -294,7 +300,7 @@ class ViTLayer(nn.Module):
             from vit_tpu_torch.ops.fused_mlp import fused_mlp
 
             w1, w2 = self.intermediate.dense, self.output.dense
-            h = fused_mlp(h.to(dt), w1.weight, w1.bias, w2.weight, w2.bias)
+            h = fused_mlp(h.to(dt), full_param(w1.weight), w1.bias, full_param(w2.weight), w2.bias)
         else:
             w1, w2 = self.intermediate.dense, self.output.dense
             h = F.gelu(w1(h, dt), approximate="tanh" if cfg.gelu_approximate else "none")
@@ -307,19 +313,37 @@ class ViTLayer(nn.Module):
 
 
 class ViTEncoder(nn.Module):
+    """The layers, run in order; under pipeline parallelism
+    (:attr:`pipeline`, :func:`vit_tpu_torch.parallel.pipeline.attach_pipeline`)
+    this rank holds and runs its stage's layers only, in the GPipe
+    schedule."""
+
     def __init__(self, cfg: Any) -> None:
         super().__init__()
         self.remat_layers = cfg.remat is True  # "mlp" remats inside the layer
         self.sites = sites_per_layer(cfg)
         self.has_moe = cfg.moe_experts > 1
         self.layer = nn.ModuleList(ViTLayer(cfg) for _ in range(cfg.num_hidden_layers))
+        self.pipeline = None
 
     def forward(self, x: torch.Tensor, seeds: Optional[Sequence[int]] = None,
                 capture: Optional[dict] = None):
         """(the last layer's output, the MoE layers' stats stacked (L, 3)
         or None for a dense model)."""
+        if self.pipeline is not None:
+            if capture is not None:
+                raise ValueError("diagnostics capture is not supported under the pipeline "
+                                 "(train.pipeline_parallel)")
+            return self.pipeline.run(self, x, seeds)
+        x, stats = self.run_layers(x, seeds, range(len(self.layer)), capture)
+        return x, (torch.stack(stats) if stats else None)
+
+    def run_layers(self, x: torch.Tensor, seeds, indices, capture: Optional[dict] = None):
+        """Layers ``indices`` (global) in order on ``x``, each with its own
+        slice of ``seeds`` (all the encoder's); (output, MoE stats list)."""
         stats = []
-        for i, layer in enumerate(self.layer):
+        for i in indices:
+            layer = self.layer[i]
             s = None if seeds is None else seeds[self.sites * i:self.sites * (i + 1)]
             if capture is not None:
                 out = layer(x, s, capture.setdefault(f"layer_{i}", {}))
@@ -334,7 +358,7 @@ class ViTEncoder(nn.Module):
                 x = out
             if capture is not None:
                 capture[f"cls_hidden_{i}"] = x[:, 0, :]
-        return x, (torch.stack(stats) if stats else None)
+        return x, stats
 
 
 class _ViTModel(nn.Module):
@@ -407,7 +431,8 @@ class SpecViT(nn.Module):
         cls_token = feats[:, 0, :]
         if capture is not None:
             capture["cls_embedding"] = cls_token
-        logits = dense(cls_token.float(), self.head.weight, self.head.bias, torch.float32)
+        logits = dense(cls_token.float(), full_param(self.head.weight), self.head.bias,
+                       torch.float32)
         return (logits, stats) if moe_stats else logits
 
     def features(self, x: torch.Tensor, dropout_seeds: Optional[Sequence[int]] = None,

@@ -133,10 +133,11 @@ class Kernel:
 
 
 # The dropout tail of the attention kernels: (dropout, seed, bh_per_seed,
-# threshold, inv_keep, stream); the seed is a device pointer to int32 seeds,
-# one for every bh_per_seed heads, which the kernels read, so a captured
-# launch takes the seeds its buffer holds.
-_DROP = (_I, _P, _I, _U, _F, _P)
+# bh_offset, threshold, inv_keep, stream); the seed is a device pointer to
+# int32 seeds, one for every bh_per_seed heads, which the kernels read, so a
+# captured launch takes the seeds its buffer holds; bh_offset is the launch's
+# first global head.
+_DROP = (_I, _P, _I, _I, _U, _F, _P)
 # (q, k, v, o, lse, bh, t, d, scale, is_bf16, *dropout tail)
 _ATTN_FWD = (_P,) * 5 + (_I, _I, _I, _F, _I) + _DROP
 # (q, k, v, dout, lse, delta, *outputs, bh, t, d, scale, is_bf16, *dropout tail)

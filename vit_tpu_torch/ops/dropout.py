@@ -41,11 +41,24 @@ draw the same mask bit for bit. Its stream is the port's, not
 ``vit_tpu``'s: the two agree in distribution (keep rate, ``1/(1-rate)``
 scaling in x's dtype), not bit for bit.
 :func:`site_dropout` picks one of the two by ``fast``.
+
+A data-parallel rank holds rows ``[r·B/dp, (r+1)·B/dp)`` of the global
+batch. ``vit_tpu`` runs its hash masks under GSPMD, so every element is
+hashed at its global coordinates and a sharded step draws the one-device
+step's masks. The port's ranks compute local tensors: within
+:func:`batch_offset` the model's dropout sites (:func:`site_dropout`, the
+MoE jitter's :func:`stream_uniform`, the attention kernels) shift their
+batch coordinate by the rank's first row, so each rank draws its rows of
+the global mask. The offset is read when a site runs; a recomputed forward
+(:func:`~vit_tpu_torch.models.vit.remat`) and the attention backward keep
+the value their forward read.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+import contextvars
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -60,6 +73,9 @@ __all__ = [
     "stream_uniform",
     "stream_dropout",
     "site_dropout",
+    "batch_offset",
+    "current_batch_offset",
+    "batch_offsets",
 ]
 
 _U32 = 0xFFFFFFFF
@@ -79,6 +95,32 @@ _SEED_MULT = 0x7FEB352D
 # a salt, so its bits are not hash_dropout's for the same seed.
 _STREAM_SEED_MULT = 0x846CA68B
 _STREAM_SALT = 0x5BD1E995
+
+
+# The first global batch row of the tensors the model's dropout sites see.
+_BATCH_OFFSET: contextvars.ContextVar = contextvars.ContextVar("batch_offset", default=0)
+
+
+@contextlib.contextmanager
+def batch_offset(rows: int) -> Iterator[None]:
+    """Within the context, the dropout sites hash batch row ``i`` as global
+    row ``rows + i`` (a data-parallel rank's first row of the global batch)."""
+    token = _BATCH_OFFSET.set(int(rows))
+    try:
+        yield
+    finally:
+        _BATCH_OFFSET.reset(token)
+
+
+def current_batch_offset() -> int:
+    return _BATCH_OFFSET.get()
+
+
+def batch_offsets(ndim: int) -> Optional[Tuple[int, ...]]:
+    """The coordinate offsets of a site's ``ndim``-D tensor (batch first), or
+    None at offset 0."""
+    rows = _BATCH_OFFSET.get()
+    return None if rows == 0 else (rows,) + (0,) * (ndim - 1)
 
 
 def seed_u32(seed):
@@ -210,29 +252,34 @@ def hash_keep_mask(shape: Sequence[int], rate: float, seed,
     return torch.where(bits < threshold, inv_keep, 0.0).to(torch.float32)
 
 
-def hash_dropout(x: torch.Tensor, rate: float, seed) -> torch.Tensor:
+def hash_dropout(x: torch.Tensor, rate: float, seed,
+                 offsets: Optional[Sequence] = None) -> torch.Tensor:
     """Inverted dropout with the counter-based mask; ``seed``: an int32 (int
     or 0-d tensor), or (R,) seeds for the R replicas along ``x``'s first
-    axis."""
+    axis. ``offsets``: x's coordinates in a larger tensor, as for
+    :func:`hash_keep_mask`."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     if _is_vector(seed):
-        return _per_replica(lambda s, xr: hash_dropout(xr, rate, s), seed, x)
-    return x * hash_keep_mask(x.shape, rate, seed, device=x.device).to(x.dtype)
+        return _per_replica(lambda s, xr: hash_dropout(xr, rate, s, offsets), seed, x)
+    return x * hash_keep_mask(x.shape, rate, seed, offsets, device=x.device).to(x.dtype)
 
 
-def stream_uniform(shape: Sequence[int], seed, device=None) -> torch.Tensor:
+def stream_uniform(shape: Sequence[int], seed, device=None,
+                   offsets: Optional[Sequence] = None) -> torch.Tensor:
     """fp32 uniforms in [0, 1), one per element of ``shape``: the top 24
     bits of the coordinate hash on the stream's own start, times 2**-24.
-    ``seed``: an int32, as an int or a 0-d tensor (never read back)."""
-    bits = _coord_hash(shape, seed, device=device, seed_mult=_STREAM_SEED_MULT,
+    ``seed``: an int32, as an int or a 0-d tensor (never read back);
+    ``offsets`` as for :func:`hash_keep_mask`."""
+    bits = _coord_hash(shape, seed, offsets, device=device, seed_mult=_STREAM_SEED_MULT,
                        salt=_STREAM_SALT)
     return (bits >> 8).to(torch.float32) * 2.0**-24
 
 
-def stream_dropout(x: torch.Tensor, rate: float, seed) -> torch.Tensor:
+def stream_dropout(x: torch.Tensor, rate: float, seed,
+                   offsets: Optional[Sequence] = None) -> torch.Tensor:
     """``nn.Dropout``: keep each element with probability ``1 - rate`` and
     divide it by ``1 - rate`` (in ``x``'s dtype, as flax does); the mask
     keeps the elements whose :func:`stream_uniform` of ``seed`` (an int32)
@@ -242,13 +289,16 @@ def stream_dropout(x: torch.Tensor, rate: float, seed) -> torch.Tensor:
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = stream_uniform(x.shape, seed, device=x.device) < keep_prob
+    keep = stream_uniform(x.shape, seed, device=x.device, offsets=offsets) < keep_prob
     # flax divides by keep_prob in x's dtype (0.8984375 for 0.9 in bf16)
     scale = float(torch.tensor(keep_prob, dtype=x.dtype))
     return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def site_dropout(x: torch.Tensor, rate: float, seed, fast: bool = True) -> torch.Tensor:
-    """One dropout call site: :func:`hash_dropout` (``fast``, ``vit_tpu``'s
-    default) or :func:`stream_dropout`."""
-    return hash_dropout(x, rate, seed) if fast else stream_dropout(x, rate, seed)
+    """One dropout call site of the model (``x`` batch first, at the
+    :func:`batch_offset` in force): :func:`hash_dropout` (``fast``,
+    ``vit_tpu``'s default) or :func:`stream_dropout`."""
+    offsets = batch_offsets(x.dim())
+    return (hash_dropout(x, rate, seed, offsets) if fast
+            else stream_dropout(x, rate, seed, offsets))

@@ -46,6 +46,13 @@ bh_per_seed], bh % bh_per_seed)``, what each replica draws alone.
 axis into the heads, one launch for all replicas with their seeds; so
 ``vmap`` over R replicas gives what R single calls give, mask for mask.
 
+A data-parallel rank holds rows ``[b0, b0 + B)`` of the global batch and
+draws its rows of the one-device mask: every wrapper takes ``bh_offset =
+b0·H``, the launch's first global head, and head ``bh`` hashes ``bh %
+bh_per_seed + bh_offset`` (a kernel argument: it is fixed for a rank, so a
+captured graph replays with it). :func:`flash_attention` reads ``b0`` from
+:func:`~vit_tpu_torch.ops.dropout.batch_offset`.
+
 Serving (no gradient, no ``vmap``) calls K1 and K2 through the custom
 operators ``torch.ops.vit_tpu_torch.flash_fwd`` and ``short_fwd``
 (``torch.library.custom_op``, with fake versions that give the output
@@ -63,7 +70,12 @@ import torch
 
 from vit_tpu_torch.func_internals import is_batched
 from vit_tpu_torch.ops._build import KERNELS
-from vit_tpu_torch.ops.dropout import attention_keep_mask, device_seed, keep_params
+from vit_tpu_torch.ops.dropout import (
+    attention_keep_mask,
+    current_batch_offset,
+    device_seed,
+    keep_params,
+)
 
 __all__ = [
     "flash_attention",
@@ -95,21 +107,21 @@ def _scaled_q(q: torch.Tensor, scale: float) -> torch.Tensor:
 
 
 def _keep(bh: int, rows: Tuple[int, int], cols: Tuple[int, int], seed, rate: float,
-          device, bh_per_seed: int = 0) -> torch.Tensor:
+          device, bh_per_seed: int = 0, bh_offset: int = 0) -> torch.Tensor:
     """(BH, rows, cols) fp32 keep factors at global coordinates; with an (R,)
     ``seed``, head ``i`` takes seed ``i // bh_per_seed`` and hashes
-    ``i % bh_per_seed``."""
+    ``i % bh_per_seed``; every head hashes ``bh_offset`` more."""
     r = torch.arange(*rows, dtype=torch.int64, device=device)[None, :, None]
     c = torch.arange(*cols, dtype=torch.int64, device=device)[None, None, :]
     heads = torch.arange(bh, dtype=torch.int64, device=device)[:, None, None]
     if isinstance(seed, torch.Tensor) and seed.dim() == 1:
         per = bh_per_seed or bh
         seed, heads = seed.to(device)[heads // per], heads % per
-    return attention_keep_mask(r, c, heads, seed, rate)
+    return attention_keep_mask(r, c, heads + bh_offset, seed, rate)
 
 
 def short_fwd_plain(q, k, v, scale: float, rate: float = 0.0, seed=0,
-                    bh_per_seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                    bh_per_seed: int = 0, bh_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two-pass softmax attention over the whole row: (o (BH,T,d), lse (BH,T))."""
     bh, t, _ = q.shape
     s = torch.matmul(_scaled_q(q, scale).float(), k.float().transpose(1, 2))
@@ -117,13 +129,13 @@ def short_fwd_plain(q, k, v, scale: float, rate: float = 0.0, seed=0,
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     if rate > 0.0:
-        p = p * _keep(bh, (0, t), (0, t), seed, rate, q.device, bh_per_seed)
+        p = p * _keep(bh, (0, t), (0, t), seed, rate, q.device, bh_per_seed, bh_offset)
     o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
     return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
 def flash_fwd_plain(q, k, v, scale: float, rate: float = 0.0, seed=0,
-                    bh_per_seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                    bh_per_seed: int = 0, bh_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Online softmax over key tiles of ``FLASH_BLOCK_K``, as the kernel walks
     them: (o (BH,T,d), lse (BH,T))."""
     bh, t, d = q.shape
@@ -139,34 +151,36 @@ def flash_fwd_plain(q, k, v, scale: float, rate: float = 0.0, seed=0,
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)  # unmasked P
         if rate > 0.0:
-            p = p * _keep(bh, (0, t), (j0, j1), seed, rate, q.device, bh_per_seed)
+            p = p * _keep(bh, (0, t), (j0, j1), seed, rate, q.device, bh_per_seed, bh_offset)
         acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), v[:, j0:j1].float())
         m = m_new
     l = l.clamp_min(1e-30)
     return (acc / l).to(q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
-def _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, j0, j1, bh_per_seed=0):
+def _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, j0, j1, bh_per_seed=0, bh_offset=0):
     """(P*M/keep, ds) of key columns [j0, j1) for every row, fp32."""
     s = torch.matmul(_scaled_q(q, scale).float(), k[:, j0:j1].float().transpose(1, 2))
     p = torch.exp(s - lse[..., None])
     dp = torch.matmul(do.float(), v[:, j0:j1].float().transpose(1, 2))
     pm = p
     if rate > 0.0:
-        keep = _keep(q.shape[0], (0, q.shape[1]), (j0, j1), seed, rate, q.device, bh_per_seed)
+        keep = _keep(q.shape[0], (0, q.shape[1]), (j0, j1), seed, rate, q.device, bh_per_seed,
+                     bh_offset)
         pm, dp = p * keep, dp * keep
     return pm, p * (dp - delta[..., None])
 
 
 def flash_bwd_plain(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed=0,
-                    bh_per_seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                    bh_per_seed: int = 0, bh_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4 and K5: (dq, dk, dv) over key tiles of ``BWD_BLOCK_K``. dK is
     scale * ds^T q with q as it is (``_flash_bwd_dkv_kernel``)."""
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     for j0 in range(0, q.shape[1], BWD_BLOCK_K):
         j1 = min(q.shape[1], j0 + BWD_BLOCK_K)
-        pm, ds = _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, j0, j1, bh_per_seed)
+        pm, ds = _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, j0, j1, bh_per_seed,
+                           bh_offset)
         dq_acc = dq_acc + torch.matmul(ds.to(k.dtype).float(), k[:, j0:j1].float())
         dv[:, j0:j1] = torch.matmul(pm.to(do.dtype).float().transpose(1, 2), do.float())
         dk[:, j0:j1] = torch.matmul(ds.to(q.dtype).float().transpose(1, 2), q.float()) * scale
@@ -174,11 +188,11 @@ def flash_bwd_plain(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, se
 
 
 def short_bwd_plain(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed=0,
-                    bh_per_seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                    bh_per_seed: int = 0, bh_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K6 over the whole row: (dq, dk, dv), with dK = ds^T (q*scale rounded)
     and no final scale (``_short_bwd_kernel``)."""
     t = q.shape[1]
-    pm, ds = _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, 0, t, bh_per_seed)
+    pm, ds = _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, 0, t, bh_per_seed, bh_offset)
     dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * scale
     dv = torch.matmul(pm.to(do.dtype).float().transpose(1, 2), do.float())
     dk = torch.matmul(ds.to(q.dtype).float().transpose(1, 2), _scaled_q(q, scale).float())
@@ -209,14 +223,14 @@ def _check_bwd(q, do, lse, delta) -> None:
 
 
 def _dropout_args(rate: float, seed: Optional[torch.Tensor], bh: int,
-                  bh_per_seed: int) -> tuple:
-    """(on, seed pointer, heads per seed, threshold, 1/keep) for the kernels;
-    ``seed`` the device seeds of :func:`_kernel_seed` (None without
-    dropout)."""
+                  bh_per_seed: int, bh_offset: int) -> tuple:
+    """(on, seed pointer, heads per seed, first global head, threshold,
+    1/keep) for the kernels; ``seed`` the device seeds of :func:`_kernel_seed`
+    (None without dropout)."""
     if rate <= 0.0:
-        return 0, None, 0, 0, 1.0
+        return 0, None, 0, 0, 0, 1.0
     threshold, inv_keep = keep_params(rate)
-    return 1, seed.data_ptr(), bh_per_seed or bh, threshold, inv_keep
+    return 1, seed.data_ptr(), bh_per_seed or bh, int(bh_offset), threshold, inv_keep
 
 
 def _kernel_seed(seed, rate: float, device, bh: int,
@@ -245,7 +259,7 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def _launch_fwd(name: str, q, k, v, scale: float, rate: float, seed,
-                bh_per_seed: int = 0):
+                bh_per_seed: int = 0, bh_offset: int = 0):
     bh, t, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
@@ -258,13 +272,13 @@ def _launch_fwd(name: str, q, k, v, scale: float, rate: float, seed,
     KERNELS[name].launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         bh, t, d, scale_t, int(q.dtype == torch.bfloat16),
-        *_dropout_args(rate, seed, bh, bh_per_seed), _stream(q),
+        *_dropout_args(rate, seed, bh, bh_per_seed, bh_offset), _stream(q),
     )
     return o, lse
 
 
 def _launch_bwd(name: str, outs, q, k, v, do, lse, delta, scale: float, rate: float,
-                seed, bh_per_seed: int = 0) -> None:
+                seed, bh_per_seed: int = 0, bh_offset: int = 0) -> None:
     bh, t, d = q.shape
     if q.numel() == 0:
         return
@@ -272,7 +286,7 @@ def _launch_bwd(name: str, outs, q, k, v, do, lse, delta, scale: float, rate: fl
     KERNELS[name].launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), *(o.data_ptr() for o in outs), bh, t, d, float(scale),
-        int(q.dtype == torch.bfloat16), *_dropout_args(rate, seed, bh, bh_per_seed),
+        int(q.dtype == torch.bfloat16), *_dropout_args(rate, seed, bh, bh_per_seed, bh_offset),
         _stream(q),
     )
 
@@ -286,56 +300,59 @@ def _on_cpu(q) -> bool:
 
 
 def flash_fwd(q, k, v, scale: float, rate: float = 0.0, seed=0,
-              bh_per_seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+              bh_per_seed: int = 0, bh_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming forward (K1): (BH, T, d) x3 -> (o, lse (BH, T) fp32).
-    ``seed``: one int32, or (R,) of them with ``bh_per_seed`` = BH / R."""
+    ``seed``: one int32, or (R,) of them with ``bh_per_seed`` = BH / R;
+    ``bh_offset``: the first head's global index (module doc)."""
     _check_qkv(q, k, v)
     if _on_cpu(q):
-        return flash_fwd_plain(q, k, v, scale, rate, seed, bh_per_seed)
-    return _launch_fwd("flash_fwd", q, k, v, scale, rate, seed, bh_per_seed)
+        return flash_fwd_plain(q, k, v, scale, rate, seed, bh_per_seed, bh_offset)
+    return _launch_fwd("flash_fwd", q, k, v, scale, rate, seed, bh_per_seed, bh_offset)
 
 
 def short_fwd(q, k, v, scale: float, rate: float = 0.0, seed=0,
-              bh_per_seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+              bh_per_seed: int = 0, bh_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Short-sequence forward (K2), for T up to 512: same in and out as
     :func:`flash_fwd`."""
     if q.dim() == 3 and q.shape[1] > SHORT_T_MAX:
         raise ValueError(f"short_fwd takes T <= {SHORT_T_MAX}, got {q.shape[1]}")
     _check_qkv(q, k, v)
     if _on_cpu(q):
-        return short_fwd_plain(q, k, v, scale, rate, seed, bh_per_seed)
-    return _launch_fwd("short_fwd", q, k, v, scale, rate, seed, bh_per_seed)
+        return short_fwd_plain(q, k, v, scale, rate, seed, bh_per_seed, bh_offset)
+    return _launch_fwd("short_fwd", q, k, v, scale, rate, seed, bh_per_seed, bh_offset)
 
 
 def flash_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed=0,
-              bh_per_seed: int = 0):
+              bh_per_seed: int = 0, bh_offset: int = 0):
     """Streaming backward: K4 (dq) then K5 (dk, dv). ``do`` like q; ``lse``
     from the forward and ``delta = rowsum(do*o)``, both (BH, T) fp32."""
     _check_qkv(q, k, v)
     _check_bwd(q, do, lse, delta)
     if _on_cpu(q):
-        return flash_bwd_plain(q, k, v, do, lse, delta, scale, rate, seed, bh_per_seed)
+        return flash_bwd_plain(q, k, v, do, lse, delta, scale, rate, seed, bh_per_seed,
+                               bh_offset)
     q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    args = (q, k, v, do, lse, delta, scale, rate, seed, bh_per_seed)
+    args = (q, k, v, do, lse, delta, scale, rate, seed, bh_per_seed, bh_offset)
     _launch_bwd("flash_bwd_dq", (dq,), *args)
     _launch_bwd("flash_bwd_dkv", (dk, dv), *args)
     return dq, dk, dv
 
 
 def short_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed=0,
-              bh_per_seed: int = 0):
+              bh_per_seed: int = 0, bh_offset: int = 0):
     """Short-sequence backward (K6), T up to 512: as :func:`flash_bwd`."""
     if q.dim() == 3 and q.shape[1] > SHORT_T_MAX:
         raise ValueError(f"short_bwd takes T <= {SHORT_T_MAX}, got {q.shape[1]}")
     _check_qkv(q, k, v)
     _check_bwd(q, do, lse, delta)
     if _on_cpu(q):
-        return short_bwd_plain(q, k, v, do, lse, delta, scale, rate, seed, bh_per_seed)
+        return short_bwd_plain(q, k, v, do, lse, delta, scale, rate, seed, bh_per_seed,
+                               bh_offset)
     q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _launch_bwd("short_bwd", (dq, dk, dv), q, k, v, do, lse, delta, scale, rate, seed,
-                bh_per_seed)
+                bh_per_seed, bh_offset)
     return dq, dk, dv
 
 
@@ -377,30 +394,30 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, scale: float, rate: float, seed: Optional[torch.Tensor],
-                short: bool, bh_per_seed: int = 0):
+                short: bool, bh_per_seed: int = 0, bh_offset: int = 0):
         return (short_fwd if short else flash_fwd)(q, k, v, scale, rate=rate, seed=seed,
-                                                   bh_per_seed=bh_per_seed)
+                                                   bh_per_seed=bh_per_seed, bh_offset=bh_offset)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, scale, rate, seed, short, bh_per_seed = inputs
+        q, k, v, scale, rate, seed, short, bh_per_seed, bh_offset = inputs
         o, lse = output
         ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, o, lse, seed)
-        ctx.cfg = (scale, rate, short, bh_per_seed)
+        ctx.cfg = (scale, rate, short, bh_per_seed, bh_offset)
 
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse, seed = ctx.saved_tensors
-        scale, rate, short, bh_per_seed = ctx.cfg
+        scale, rate, short, bh_per_seed, bh_offset = ctx.cfg
         do = do.contiguous()
         delta = (do.float() * o.float()).sum(dim=-1)  # XLA's D, outside the kernels
         bwd = short_bwd if short else flash_bwd
-        dq, dk, dv = bwd(q, k, v, do, lse, delta, scale, rate, seed, bh_per_seed)
-        return dq, dk, dv, None, None, None, None, None
+        dq, dk, dv = bwd(q, k, v, do, lse, delta, scale, rate, seed, bh_per_seed, bh_offset)
+        return dq, dk, dv, None, None, None, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, scale, rate, seed, short, bh_per_seed):
+    def vmap(info, in_dims, q, k, v, scale, rate, seed, short, bh_per_seed, bh_offset):
         n = info.batch_size
         q, k, v = (replica_first(x, d, n) for x, d in zip((q, k, v), in_dims[:3]))
         r, bh, t, d = q.shape
@@ -409,7 +426,8 @@ class _Attention(torch.autograd.Function):
                 raise ValueError("under vmap, each replica takes one 0-d dropout seed")
             seed = replica_first(seed, in_dims[5], n).contiguous()
         fold = [x.reshape(r * bh, t, d) for x in (q, k, v)]
-        o, lse = _Attention.apply(*fold, scale, rate, seed, short, bh if seed is not None else 0)
+        o, lse = _Attention.apply(*fold, scale, rate, seed, short, bh if seed is not None else 0,
+                                  bh_offset)
         return (o.view(r, bh, t, d), lse.view(r, bh, t)), (0, 0)
 
 
@@ -421,7 +439,9 @@ def flash_attention(q, k, v, dropout_rate: float = 0.0,
     ``dropout_rate > 0`` drops softmax probabilities in the kernels with the
     counter-based mask of ``dropout_seed`` (an int32, as an int or a 0-d
     tensor on q's device; required then): the same (seed, rate) always draws
-    the same mask, as in ``vit_tpu``.
+    the same mask, as in ``vit_tpu``. Batch row ``i`` hashes as global row
+    ``i + b0``, ``b0`` the :func:`~vit_tpu_torch.ops.dropout.batch_offset`
+    in force.
     """
     rate = float(dropout_rate)
     if rate > 0.0 and dropout_seed is None:
@@ -430,9 +450,10 @@ def flash_attention(q, k, v, dropout_rate: float = 0.0,
     b, h, t, d = q.shape
     args = [x.reshape(b * h, t, d).contiguous() for x in (q, k, v)]
     short = _round_up(t, 128) <= SHORT_T_MAX
-    if (torch.is_grad_enabled() and any(x.requires_grad for x in args)) or any(
+    bh_offset = current_batch_offset() * h if rate > 0.0 else 0
+    if (torch.is_grad_enabled() and any(x.requires_grad for x in args)) or bh_offset or any(
             is_batched(x) for x in (*args, seed)):
-        o, _ = _Attention.apply(*args, d**-0.5, rate, seed, short)
+        o, _ = _Attention.apply(*args, d**-0.5, rate, seed, short, 0, bh_offset)
     else:
         o, _ = (_short_fwd_op if short else _flash_fwd_op)(*args, d**-0.5, rate, seed)
     return o.view(b, h, t, d)

@@ -107,6 +107,13 @@ class SweepResult:
         }
 
 
+def _replica_devices(n_replicas: int, n_devices: int) -> int:
+    """Largest divisor of the replica count that fits the device count
+    (``vit_tpu/opt/parallel_sweep.py:109-117``): one replica a device when
+    R <= n_devices."""
+    return max(d for d in range(1, min(n_replicas, n_devices) + 1) if n_replicas % d == 0)
+
+
 def _cosine_scale(epoch: int, t_max: int, eta_ratio: float) -> float:
     # torch CosineAnnealingLR is periodic past T_max (no clamp).
     return eta_ratio + (1.0 - eta_ratio) * 0.5 * (1 + math.cos(math.pi * epoch / t_max))
@@ -284,6 +291,13 @@ class _VmapSweepEngine:
         n_train = len(dm.train)
         steps_per_epoch = max(1, -(-n_train // batch_size))
 
+        # vit_tpu shards the replica axis over _replica_devices(R, n) devices
+        # (:278-312); the port stacks every replica on this one device.
+        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+        dp = _replica_devices(R, n_dev)
+        if dp > 1:
+            print(f"[sweep] {R} replicas on {device} (vit_tpu spreads them over {dp} of "
+                  f"{n_dev} devices; the port's vmapped engine holds them on one)")
         # Stacked replicas: trial idx's weights in row idx of every parameter.
         replicas = [self.init_replica(cfg, c) for c in self.configs]
         names = [n for n, _ in replicas[0].named_parameters()]

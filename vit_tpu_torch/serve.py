@@ -23,7 +23,14 @@ weight-only at or above it. The quantized layers' fp32 weights are
 stripped from the device (:mod:`vit_tpu_torch.ops.quant`).
 :meth:`Predictor.export` writes a ``torch.export`` artifact that
 :func:`vit_tpu_torch.export.load_exported` serves without model code.
-``num_devices > 1`` is not ported yet.
+
+``num_devices=N > 1`` (``vit_tpu/serve.py:106-125``, data-parallel
+serving): one process holds a replica of the model (and of its int8 table)
+on each of ``cuda:0 .. cuda:N-1``; each batch's rows are split into N
+equal blocks, as ``vit_tpu``'s ``data`` axis splits them, run on their
+cards and returned in order. It raises as ``vit_tpu`` does when N exceeds
+the devices present (a CPU predictor has one), or when the batch size does
+not divide by N.
 
 Example::
 
@@ -40,7 +47,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-__all__ = ["Predictor", "resolve_device"]
+__all__ = ["Predictor", "resolve_device", "serving_devices"]
 
 QUANTIZE_MODES = (None, "int8", "int8-w8a8", "int8-wo")
 
@@ -54,6 +61,27 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
             "to run on the CPU"
         )
     return dev
+
+
+def serving_devices(device: torch.device, n: int) -> list:
+    """The devices of ``n`` serving replicas beside ``device``: ``cuda:0 ..
+    cuda:n-1`` (a CPU predictor has one device)."""
+    avail = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n > avail:
+        raise ValueError(f"num_devices={n} requested but only {avail} devices are available")
+    return [torch.device(device.type, i) if device.type == "cuda" else device
+            for i in range(n)]
+
+
+def _to(obj, device):
+    """A nest of dicts, lists and tuples with its tensors on ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _to(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to(v, device) for v in obj)
+    return obj
 
 
 def _check_quantize_mode(quantize: Optional[str]) -> None:
@@ -77,8 +105,6 @@ class Predictor:
         num_devices: Optional[int] = None,
         input_shape: Optional[tuple] = None,
     ) -> None:
-        if num_devices not in (None, 1):
-            raise NotImplementedError("Predictor num_devices > 1 is not ported yet")
         _check_quantize_mode(quantize)
         self.module = module.eval()
         self.vit_config = vit_config
@@ -112,8 +138,19 @@ class Predictor:
             )
         self.quant_variant = None
         self._qtable = None
+        devices = None
+        if num_devices is not None and num_devices > 1:
+            devices = serving_devices(self.device, int(num_devices))
+            if self.batch_size % len(devices):
+                raise ValueError(f"serving batch_size {self.batch_size} must divide by the "
+                                 f"data-parallel degree {len(devices)}")
         if quantize is not None:
             self._quantize(quantize, calibration)
+        # (module, int8 table, device) of each replica; the first is this one.
+        self.replicas = [(self.module, self._qtable, self.device)]
+        for dev in (devices or [])[1:]:
+            self.replicas.append((copy.deepcopy(self.module).to(dev), _to(self._qtable, dev),
+                                  dev))
 
     def _quantize(self, quantize: str, calibration) -> None:
         """Build the int8 table, strip the fp32 weights it replaces, pick the
@@ -155,17 +192,27 @@ class Predictor:
             self._qtable = calibrate_activation_scales(
                 self.module, self._qtable, torch.from_numpy(calib).to(self.device))
 
-    def _forward(self, x: torch.Tensor, qtable: Optional[dict] = None) -> torch.Tensor:
-        """One batch through the model, quantized by ``qtable`` (default the
-        predictor's own) where it has one: the forward both the live
-        predictor and an exported artifact run."""
+    def _forward(self, x: torch.Tensor, qtable: Optional[dict] = None,
+                 module: Optional[torch.nn.Module] = None) -> torch.Tensor:
+        """One batch through the model (default the predictor's own),
+        quantized by ``qtable`` (default the predictor's) where it has one:
+        the forward both the live predictor and an exported artifact run."""
         qtable = self._qtable if qtable is None else qtable
+        module = self.module if module is None else module
         if not qtable:
-            return self.module(x)
+            return module(x)
         from vit_tpu_torch.ops.quant import quantized_apply
 
-        return quantized_apply(self.module, qtable, x,
-                               weight_only=self.quant_variant == "int8-wo")
+        return quantized_apply(module, qtable, x, weight_only=self.quant_variant == "int8-wo")
+
+    def _replicated_logits(self, chunk: np.ndarray) -> np.ndarray:
+        """One batch's logits, its rows split over the replicas in order."""
+        if len(self.replicas) == 1:
+            return self._forward(torch.from_numpy(chunk).to(self.device)).float().cpu().numpy()
+        parts = np.split(chunk, len(self.replicas))
+        outs = [self._forward(torch.from_numpy(part).to(dev), table, module)
+                for part, (module, table, dev) in zip(parts, self.replicas)]
+        return np.concatenate([o.float().cpu().numpy() for o in outs])
 
     @classmethod
     def from_checkpoint(
@@ -280,8 +327,7 @@ class Predictor:
             pad = bs - len(chunk)
             if pad:
                 chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
-            logits = self._forward(torch.from_numpy(chunk).to(self.device))
-            logits = logits.float().cpu().numpy()
+            logits = self._replicated_logits(chunk)
             outs.append(logits[: bs - pad] if pad else logits)
         return np.concatenate(outs)
 

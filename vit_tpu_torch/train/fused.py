@@ -262,7 +262,7 @@ class FusedEpochs:
         losses = torch.empty((len(epochs), self.steps), dtype=torch.float32, device=self.device)
         logits = None
         if with_val:
-            k = exp.module.head.weight.shape[0]
+            k = exp.bundle.vit_config.num_labels
             logits = torch.empty((len(epochs), self.val_idx.numel(), k), dtype=torch.float32,
                                  device=self.device)
         lrs, losses_host = [], None

@@ -80,25 +80,56 @@ The optimizer on the card is graph-safe (``build_optimizer(...,
 capturable=True)``: the learning rate in a device scalar, the step counts
 on the device) on both paths.
 
-Runs on the card unless ``device="cpu"`` is given. Multi-device training,
-model/sequence/pipeline parallelism (an MoE model's expert parallelism,
-``train.model_parallel``, among them) and optimizer-state sharding raise.
+Runs on the card unless ``device="cpu"`` is given.
+
+Parallelism (``vit_tpu/train/loop.py:572-760``), one process a rank on
+``torch.distributed`` (:mod:`vit_tpu_torch.parallel`): ``Experiment``
+builds the ``(data, model[, pipe])`` mesh from ``train.gpus`` (capped by
+the world size), ``train.model_parallel`` (tensor parallelism, an MoE
+model's expert parallelism), ``train.sequence_parallel`` (ring attention,
+``model.attn_impl: ring``) and ``train.pipeline_parallel`` (with
+``train.pipeline_microbatches``), with ``vit_tpu``'s mutual-exclusion
+errors and its shrink of the data axis to a divisor of the batch rows.
+Every rank reads the same global batch (the same permutation, seeds and
+noise) and trains on its rows of each micro-batch, at the dropout
+:func:`~vit_tpu_torch.ops.dropout.batch_offset` of its first row; the
+gradients (and the loss) are averaged over ``data`` before the clip, whose
+global norm counts each split block once; ``train.opt_state_sharding``
+steps ZeRO-1 (:class:`~vit_tpu_torch.train.optim.Zero1Optimizer`). Every
+rank evaluates the whole validation split, so the metrics, the plateau
+scale and early stopping agree on all ranks. Rank 0 alone logs, traces and
+writes checkpoints, which hold the one-rank layout
+(:mod:`vit_tpu_torch.parallel.checkpoint`); a preemption signal on any rank
+stops every rank at the same epoch. A rank the shrink leaves out of the
+mesh trains nothing (``fit`` and ``test`` return empty metrics).
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vit_tpu_torch.data.datasets import RegSpecDataset, SpecDataModule, parse_param_list
 from vit_tpu_torch.data.pipeline import Batcher, prefetch_to_device
 from vit_tpu_torch.hardware import get_prefetch_depth
 from vit_tpu_torch.models.builder import get_model, step_matmul_flops
 from vit_tpu_torch.models.vit import compute_loss, train_forward
+from vit_tpu_torch.ops.dropout import batch_offset
+from vit_tpu_torch.parallel import comm
+from vit_tpu_torch.parallel.checkpoint import (
+    canonical_optimizer_state,
+    canonical_state_dict,
+    local_optimizer_state,
+    local_state_dict,
+)
+from vit_tpu_torch.parallel.mesh import active_mesh_scope, make_mesh, maybe_initialize_distributed
+from vit_tpu_torch.parallel.tensor import global_grad_norm, shard_module, split_axes, sync_gradients
 from vit_tpu_torch.serve import resolve_device
 from vit_tpu_torch.train.checkpoint import CheckpointManager, default_ckpt_dir
 from vit_tpu_torch.train.fused import (
@@ -119,6 +150,7 @@ from vit_tpu_torch.train.optim import (
     EarlyStopping,
     OptSpec,
     PlateauScheduler,
+    Zero1Optimizer,
     build_optimizer,
     clip_by_global_norm,
     load_optimizer_state,
@@ -139,7 +171,7 @@ def draw_seeds(gen: torch.Generator, micro_batches: int, sites: int) -> List[Lis
 
 def loss_and_grads(module: torch.nn.Module, batch: Dict[str, torch.Tensor], task: str,
                    loss_name: str, seeds, noise_level: float = 0.0,
-                   noise=None) -> torch.Tensor:
+                   noise=None, shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """The step's loss (a 0-d tensor on the batch's device), with the
     gradients of the mean over ``len(seeds)`` equal micro-batches left in
     the parameters' ``.grad`` (zeroed first). ``_make_grads_fn``.
@@ -147,7 +179,11 @@ def loss_and_grads(module: torch.nn.Module, batch: Dict[str, torch.Tensor], task
     ``seeds``: one row of site seeds per micro-batch (lists of ints, or an
     (accumulate_steps, sites) int tensor on the device). ``noise``: a CPU
     ``torch.Generator`` that draws each micro-batch's normals, or those
-    normals already drawn, (accumulate_steps, rows, length) on the device."""
+    normals already drawn, (accumulate_steps, rows, length) on the device.
+    ``shard``: (r, n), this rank's block ``r`` of ``n`` of each micro-batch's
+    rows (data parallelism): it trains on those rows, with their noise and
+    at their dropout batch offset, so the ``n`` ranks' mean is the one-rank
+    step's."""
     for p in module.parameters():
         p.grad = None
     x, y = batch["x"], batch["label"]
@@ -155,15 +191,20 @@ def loss_and_grads(module: torch.nn.Module, batch: Dict[str, torch.Tensor], task
     if x.shape[0] % accum != 0:
         raise ValueError(f"batch {x.shape[0]} not divisible by accumulate_steps {accum}")
     mb = x.shape[0] // accum
+    r, n = shard
+    if mb % n != 0:
+        raise ValueError(f"micro-batch {mb} not divisible by {n} data shards")
+    lo, hi = r * mb // n, (r + 1) * mb // n
     total = None
     for a in range(accum):
-        xa = x[a * mb:(a + 1) * mb]
+        xa = x[a * mb + lo:a * mb + hi]
         if noise_level > 0 and "error" in batch:
             z = (noise[a] if isinstance(noise, torch.Tensor)
-                 else torch.randn(xa.shape, generator=noise).to(xa.device))
-            xa = xa + z * batch["error"][a * mb:(a + 1) * mb] * noise_level
-        logits, reg = train_forward(module, xa, seeds[a])
-        loss = compute_loss(logits, y[a * mb:(a + 1) * mb], task, loss_name)
+                 else torch.randn((mb,) + tuple(xa.shape[1:]), generator=noise).to(xa.device))
+            xa = xa + z[lo:hi] * batch["error"][a * mb + lo:a * mb + hi] * noise_level
+        with batch_offset(lo):
+            logits, reg = train_forward(module, xa, seeds[a])
+        loss = compute_loss(logits, y[a * mb + lo:a * mb + hi], task, loss_name)
         if reg is not None:
             loss = loss + reg
         loss.backward()
@@ -200,19 +241,11 @@ def _dataset_label_bounds(ds) -> Optional[list]:
     return None
 
 
-def _reject_unported(config: dict, num_devices: Optional[int]) -> None:
-    t = config.get("train", {}) or {}
-    gpus = num_devices if num_devices is not None else t.get("gpus")
-    asked = {
-        "multi-device training (gpus > 1)": gpus not in (None, 0, 1),
-        "train.model_parallel": int(t.get("model_parallel", 1) or 1) > 1,
-        "train.sequence_parallel": int(t.get("sequence_parallel", 1) or 1) > 1,
-        "train.pipeline_parallel": int(t.get("pipeline_parallel", 1) or 1) > 1,
-        "train.opt_state_sharding": bool(t.get("opt_state_sharding", False)),
-    }
-    for what, on in asked.items():
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet")
+class _Quiet:
+    """The logger of a rank other than 0: every call does nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
 
 
 class Experiment:
@@ -230,7 +263,7 @@ class Experiment:
                  seed: int = 42, device="cuda",
                  datamodule: Optional[SpecDataModule] = None) -> None:
         self.device = resolve_device(device)
-        _reject_unported(config, num_devices)
+        maybe_initialize_distributed(self.device)  # a torchrun launch
         self.config = config
         self.sweep = sweep
         self.ckpt_path = ckpt_path
@@ -239,6 +272,9 @@ class Experiment:
         train_cfg = config.get("train", {}) or {}
         self.bundle = get_model(config, generator=torch.Generator().manual_seed(seed))
         self.module = self.bundle.module.to(self.device)
+        # The one-rank layout's names, in order: what checkpoints hold.
+        self._state_names = list(self.module.state_dict())
+        self._param_names = [n for n, _ in self.module.named_parameters()]
         if datamodule is not None:
             self.datamodule = datamodule
         elif self.bundle.vit_config.input_kind == "image":
@@ -257,17 +293,21 @@ class Experiment:
             raise ValueError(f"train.batch_size {self.batch_size} must divide by "
                              f"train.accumulate_steps {self.accum_steps}")
         self.prefetch_depth = get_prefetch_depth(config)
+        self._build_mesh(train_cfg, train_cfg.get("gpus") if num_devices is None else num_devices)
+        self.is_main = self.mesh.rank == 0
         profile = train_cfg.get("profile")
         self.profile_dir: Optional[str] = None
         if profile:
             self.profile_dir = profile if isinstance(profile, str) else "./results/profile"
         self.monitor, self.monitor_mode = monitor_for_task(self.bundle.vit_config.task_type)
-        self.logger = MetricLogger(project=config.get("project", "vit-tpu"),
-                                   name=self.bundle.model_name, use_wandb=use_wandb,
-                                   config=config, save_artifacts=self.save)
+        self.logger = (MetricLogger(project=config.get("project", "vit-tpu"),
+                                    name=self.bundle.model_name, use_wandb=use_wandb,
+                                    config=config, save_artifacts=self.save)
+                       if self.is_main else _Quiet())
+        # Every rank tracks the best epoch; rank 0 writes.
         self.ckpt = CheckpointManager(default_ckpt_dir(), self.bundle.model_name,
                                       monitor=self.monitor, mode=self.monitor_mode,
-                                      enabled=self.save,
+                                      enabled=self.save and self.is_main,
                                       async_save=bool(train_cfg.get("async_ckpt", False)))
         # Host generators: dropout seeds and injected noise (see module doc).
         self.dropout_gen = torch.Generator().manual_seed(seed)
@@ -281,6 +321,93 @@ class Experiment:
         self.callback_metrics: Dict[str, float] = {}
         self.epoch_losses: Optional[np.ndarray] = None  # the last epoch's step losses
         self.fused: Optional[FusedEpochs] = None  # the fused epoch of the last fit
+
+    # -- the mesh --------------------------------------------------------
+    def _build_mesh(self, train_cfg: dict, num_devices) -> None:
+        """The run's mesh and this rank's part of the model
+        (``vit_tpu/train/loop.py:620-760``): its checks and messages, the
+        data axis shrunk to a divisor of the batch rows, then the model's
+        tensor/expert split (``train.model_parallel``) or this rank's
+        pipeline stage (``train.pipeline_parallel``)."""
+        vc = self.bundle.vit_config
+        tp = int(train_cfg.get("model_parallel", 1) or 1)
+        self.sp = int(train_cfg.get("sequence_parallel", 1) or 1)
+        if tp > 1 and self.sp > 1:
+            raise ValueError("train.model_parallel and train.sequence_parallel both split "
+                             "the 'model' mesh axis — set at most one of them")
+        if tp > 1 and vc.attn_impl == "ring":
+            raise ValueError("model.attn_impl: ring shards the sequence over the 'model' "
+                             "mesh axis and cannot compose with train.model_parallel > 1; "
+                             "use train.sequence_parallel instead")
+        axis_split = max(tp, self.sp)
+        if self.sp > 1 and vc.attn_impl != "ring":
+            print(f"[experiment] train.sequence_parallel={self.sp} has no "
+                  "effect without model.attn_impl: ring")
+        self.pp = int(train_cfg.get("pipeline_parallel", 1) or 1)
+        microbatches = int(train_cfg.get("pipeline_microbatches", 0) or 0)
+        if self.pp > 1:
+            if vc.attn_impl == "ring":
+                raise ValueError("model.attn_impl: ring cannot run inside the pipeline "
+                                 "(the ring splits the sequence over its own mesh axis); use "
+                                 "attn_impl auto/xla/flash with train.pipeline_parallel")
+            if self.sp > 1:
+                raise ValueError("train.sequence_parallel cannot compose with "
+                                 "train.pipeline_parallel (ring attention splits the "
+                                 "sequence over the axis the pipeline body would need)")
+            if not bool(train_cfg.get("pipeline_stage_params", True)):
+                raise ValueError("the port's pipeline is stage-resident only "
+                                 "(train.pipeline_stage_params: true, the default)")
+            if vc.num_hidden_layers % self.pp != 0:
+                raise ValueError(f"model.num_hidden_layers={vc.num_hidden_layers} must be "
+                                 f"divisible by train.pipeline_parallel={self.pp}")
+        self.pp_microbatches = microbatches or self.pp
+        if self.pp <= 1 and microbatches > 0:
+            print("[experiment] train.pipeline_microbatches has no effect "
+                  "without train.pipeline_parallel > 1")
+        self.zero1 = bool(train_cfg.get("opt_state_sharding", False))
+        if self.zero1 and axis_split > 1:
+            raise ValueError("train.opt_state_sharding composes with data/pipeline "
+                             "parallelism only: under model_parallel the moments already "
+                             "inherit the tensor-parallel layouts; set model_parallel/"
+                             "sequence_parallel to 1")
+        if self.zero1 and self.pp > 1:
+            raise ValueError("train.opt_state_sharding is redundant with the stage-"
+                             "resident pipeline layout (encoder optimizer state is "
+                             "already 1/P-sharded over `pipe`)")
+        fwd_batch = self.batch_size // self.accum_steps
+        if self.pp > 1 and fwd_batch % self.pp_microbatches != 0:
+            raise ValueError(
+                f"the per-forward batch {fwd_batch} (train.batch_size {self.batch_size} / "
+                f"accumulate_steps {self.accum_steps}) must divide by "
+                f"train.pipeline_microbatches {self.pp_microbatches}")
+        self.mesh = make_mesh(num_devices=num_devices, model_parallel=axis_split,
+                              pipeline_parallel=self.pp)
+        n_data = self.mesh.size("data")
+        rows = fwd_batch // self.pp_microbatches if self.pp > 1 else fwd_batch
+        data_par = math.gcd(rows, n_data)
+        if data_par != n_data:
+            print(f"[experiment] batch rows {rows} not divisible by "
+                  f"{n_data} data shards; using {data_par}")
+            self.mesh = make_mesh(num_devices=data_par * axis_split * self.pp,
+                                  model_parallel=axis_split, pipeline_parallel=self.pp)
+        if not self.mesh.member:
+            print(f"[experiment] rank {self.mesh.rank} is outside the mesh {self.mesh.shape}: "
+                  "it trains nothing")
+            return
+        if tp > 1:
+            shard_module(self.module, self.mesh)
+        if self.pp > 1:
+            from vit_tpu_torch.parallel.pipeline import attach_pipeline
+
+            attach_pipeline(self.module, self.mesh, self.pp_microbatches)
+        self._split = any(split_axes(p) for p in self.module.parameters())
+
+    def _all_ranks_any(self, flag: bool) -> bool:
+        """True on every rank of the mesh when ``flag`` is on any of them."""
+        if self.mesh.world_group is None:
+            return flag
+        t = torch.tensor([float(flag)], device=self.device)
+        return bool(comm.all_reduce(t, self.mesh.world_group).item() > 0)
 
     # -- the step --------------------------------------------------------
     def train_step(self, batch: Dict[str, torch.Tensor], spec: OptSpec,
@@ -297,14 +424,18 @@ class Experiment:
             noise, lr = self.noise_gen, spec.lr * schedule(self.step) * self.plateau_scale
         else:
             seeds, noise, lr = draws
+        mesh = self.mesh
         loss = loss_and_grads(self.module, batch, vc.task_type, self.bundle.loss_name, seeds,
-                              self.noise_level, noise)
+                              self.noise_level, noise,
+                              shard=(mesh.coord("data"), mesh.size("data")))
+        params = [p for p in self.module.parameters() if p.grad is not None]
+        loss = sync_gradients(params, mesh, loss)  # the mean over data, before the clip
         frozen = self._preprocessor_params() if self.frozen else []
         for p in frozen:
             p.grad.zero_()  # before the clip: out of the global norm
-        params = [p for p in self.module.parameters() if p.grad is not None]
         if spec.grad_clip and spec.grad_clip > 0:
-            clip_by_global_norm([p.grad for p in params], spec.grad_clip)
+            norm = global_grad_norm(params, mesh) if self._split else None
+            clip_by_global_norm([p.grad for p in params], spec.grad_clip, norm=norm)
         set_learning_rate(self.optimizer, lr)
         held = [p.detach().clone() for p in frozen]
         self.optimizer.step()
@@ -341,9 +472,16 @@ class Experiment:
 
     # -- state -------------------------------------------------------------
     def _state(self) -> Dict[str, Any]:
+        """The checkpoint, in the one-rank layout (every rank of the mesh
+        takes part; rank 0 writes it)."""
+        opt = None
+        if self.optimizer is not None:
+            opt = (canonical_optimizer_state(self.optimizer, self.module, self.mesh,
+                                             self._param_names)
+                   if self._split else self.optimizer.state_dict())
         return {
-            "state_dict": {k: v.detach().cpu() for k, v in self.module.state_dict().items()},
-            "optimizer": self.optimizer.state_dict() if self.optimizer is not None else None,
+            "state_dict": canonical_state_dict(self.module, self.mesh, self._state_names),
+            "optimizer": opt,
             "step": self.step,
             "plateau_scale": self.plateau_scale,
             "plateau": self.plateau.state_dict() if self.plateau is not None else None,
@@ -356,12 +494,21 @@ class Experiment:
         """Load ``best | last | path``: the weights, and for a resumed fit the
         optimizer, step, plateau scale, generators and scheduler states."""
         self.ckpt.wait()  # an async write must land before it is read back
+        if self.mesh.world_group is not None:
+            dist.barrier(group=self.mesh.world_group)  # rank 0's write has landed
         state = torch.load(self.ckpt.resolve(spec), map_location="cpu", weights_only=True)
-        self.module.load_state_dict(state["state_dict"], strict=True)
+        self.module.load_state_dict(local_state_dict(self.module, state["state_dict"]),
+                                    strict=True)
         if not training:
             return
         if self.optimizer is not None and state.get("optimizer") is not None:
-            load_optimizer_state(self.optimizer, state["optimizer"])
+            opt = state["optimizer"]
+            if self._split:
+                opt = local_optimizer_state(opt, self.module, self._param_names)
+            if isinstance(self.optimizer, Zero1Optimizer):
+                self.optimizer.load_state_dict(opt)
+            else:
+                load_optimizer_state(self.optimizer, opt)
         self.step = int(state["step"])
         self.plateau_scale = float(state["plateau_scale"])
         self.dropout_gen.set_state(state["dropout_rng"])
@@ -464,10 +611,13 @@ class Experiment:
         """Train for ``train.ep`` epochs. The preemption guard lives as long
         as this call: the first SIGTERM stops the run at the end of its
         epoch, after its checkpoint."""
+        if not self.mesh.member:
+            return {}
         enabled = bool((self.config.get("train", {}) or {}).get("handle_preemption", True))
         self._preempt = PreemptionGuard(enabled=enabled).install()
         try:
-            return self._fit_impl()
+            with active_mesh_scope(self.mesh):
+                return self._fit_impl()
         finally:
             self._preempt.uninstall()
 
@@ -483,8 +633,13 @@ class Experiment:
                                    has_val=explicit_val)
         schedule = schedule_scale(spec)
         if self.optimizer is None:
-            self.optimizer = build_optimizer(spec, self.module.parameters(),
-                                             capturable=self.device.type == "cuda")
+            capturable = self.device.type == "cuda"
+            if self.zero1 and self.mesh.size("data") > 1:
+                self.optimizer = Zero1Optimizer(spec, self.module.parameters(), self.mesh,
+                                                capturable=capturable)
+            else:
+                self.optimizer = build_optimizer(spec, self.module.parameters(),
+                                                 capturable=capturable)
         self.plateau = (PlateauScheduler(spec.plateau_factor, spec.plateau_patience,
                                          mode=spec.plateau_mode or self.monitor_mode)
                         if spec.scheduler == "plateau" else None)
@@ -522,8 +677,10 @@ class Experiment:
             ckpt_extra = {"label_norm": train_ds.label_norm,
                           "label_norm_stats": {k: (None if v is None else np.asarray(v).tolist())
                                                for k, v in train_ds.norm_stats().items()}}
+        # Every rank runs the captures (a split model's forward is
+        # collective); rank 0 writes what they make.
         viz, cka, viz_every, viz_every_steps = create_viz_callbacks(
-            self.config.get("viz"), save_enabled=self.save,
+            self.config.get("viz"), save_enabled=self.save and self.is_main,
             model_name=self.bundle.model_name,
             param_names=parse_param_list((self.config.get("data", {}) or {}).get("param")),
             denormalize=train_ds.denormalize if isinstance(train_ds, RegSpecDataset) else None,
@@ -554,7 +711,8 @@ class Experiment:
             # block's later epochs run no steps.
             span = epd if (use_blocks and epoch + epd <= max_epochs) else 1
             prof = None
-            if (self.profile_dir is not None and not profiled and epoch not in block_results
+            if (self.profile_dir is not None and self.is_main and not profiled
+                    and epoch not in block_results
                     and (epoch > start_epoch or epoch + span >= max_epochs)):
                 prof = self._start_profile()
             t0 = time.perf_counter()
@@ -630,7 +788,7 @@ class Experiment:
             if (stop or stop_pending) and block_final:
                 print(f"[experiment] early stopping at epoch {epoch}")
                 break
-            if self._preempt.triggered and block_final:
+            if self._all_ranks_any(self._preempt.triggered) and block_final:
                 hint = ("resume with --ckpt last" if self.save
                         else "train.save is off: nothing was persisted")
                 print(f"[experiment] preemption stop at epoch {epoch} ({hint})")
@@ -681,6 +839,19 @@ class Experiment:
         train_cfg = self.config.get("train", {}) or {}
         fused_cfg = fused_epoch_setting(train_cfg.get("fused_epoch", "auto"))
         data_bytes = sum(v.nbytes for v in train_cols.values())
+        # A CUDA graph captures NCCL's collectives, not gloo's host-staged
+        # ones, and the pipeline's schedule runs per step.
+        mesh = self.mesh
+        per_step = None
+        if self.pp > 1:
+            per_step = "the pipeline schedule runs per step (train.pipeline_parallel)"
+        elif mesh.world_size > 1 and mesh.backend != "nccl" and self.device.type == "cuda":
+            per_step = f"the {mesh.backend} process group's collectives stage through the host"
+        if per_step is not None and fused_cfg in (True, "auto") and not self.debug:
+            if fused_cfg is True:
+                raise ValueError(f"train.fused_epoch=true cannot run here: {per_step}")
+            print(f"[experiment] train.fused_epoch=auto: per-step path ({per_step})")
+            fused_cfg = False
         use = fused_cfg in (True, "auto") and not self.debug and data_bytes < FUSED_DATA_BYTES
         if fused_cfg is True and not use:
             why = "debug mode" if self.debug else (
@@ -733,8 +904,14 @@ class Experiment:
     def test(self, ckpt: Optional[str] = None) -> Dict[str, float]:
         """Metrics on the test split, of ``ckpt`` (``best | last | path``) if
         given, and the regression report when ``viz.enable``."""
+        if not self.mesh.member:
+            return {}
         self.datamodule.setup("test")
         self._check_input_length(self.datamodule.test)
+        with active_mesh_scope(self.mesh):
+            return self._test_impl(ckpt)
+
+    def _test_impl(self, ckpt: Optional[str]) -> Dict[str, float]:
         if ckpt:
             self._restore(ckpt, training=False)
         metrics = self._eval_metrics(self.datamodule.test, "test", self.batch_size)
@@ -755,7 +932,9 @@ class Experiment:
             return
         from vit_tpu_torch.viz.plotter import RegressionPlotter
 
-        logits, labels = self._run_eval(ds, self.batch_size)
+        logits, labels = self._run_eval(ds, self.batch_size)  # on every rank: collective
+        if not self.is_main:
+            return
         quick = bool((self.config.get("plotting", {}) or {}).get("quick_mode", False))
         plotter = RegressionPlotter(
             param_names=parse_param_list((self.config.get("data", {}) or {}).get("param")),

@@ -20,6 +20,12 @@
   ``spec.lr * schedule(step) * plateau_scale``, with ``step`` counted
   before the update (:func:`set_learning_rate`), and clips the gradients
   by global norm with optax's rule (:func:`clip_by_global_norm`).
+* ``train.opt_state_sharding`` (ZeRO-1, :class:`Zero1Optimizer`): under
+  data parallelism each rank keeps and steps only its block of every
+  parameter whose leading dim divides by the data-parallel degree
+  (:func:`~vit_tpu_torch.parallel.mesh.zero1_shard_opt_state`'s rule), then
+  the blocks are all-gathered. The update is elementwise, so the parameters
+  are replicated data parallelism's, bit for bit.
 * The vmapped sweep trains R replicas stacked on a leading axis
   (:class:`ReplicaOptimizer`, :func:`build_replica_optimizer`): an (R,)
   learning-rate vector, each replica's own step counts and global-norm
@@ -40,6 +46,7 @@ __all__ = [
     "OptSpec",
     "OptaxOptimizer",
     "ReplicaOptimizer",
+    "Zero1Optimizer",
     "build_optimizer",
     "build_replica_optimizer",
     "load_optimizer_state",
@@ -599,6 +606,86 @@ def build_replica_optimizer(spec: OptSpec, params: Iterable[torch.Tensor],
                             decoupled=name == "adamw", mu_dtype=mu)
 
 
+class Zero1Optimizer:
+    """ZeRO-1 over ``mesh``'s ``data`` axis around :func:`build_optimizer`'s
+    optimizer (``vit_tpu``'s ``train.opt_state_sharding``).
+
+    A parameter whose leading dim divides by the data-parallel degree
+    ``dp`` is stepped through a view of its block ``r`` (this rank's
+    coordinate) with that block of its (already averaged) gradient, so its
+    moments are 1/dp of the parameter's; the others are stepped whole. One
+    all-gather of the blocks then makes every rank's parameters whole again.
+    :attr:`param_groups` and :attr:`state` are the inner optimizer's
+    (:func:`set_learning_rate`, :func:`state_bytes`); :meth:`state_dict`
+    gathers the moments into the whole parameters' shapes and
+    :meth:`load_state_dict` takes such a state and keeps this rank's blocks,
+    so checkpoints hold replicated data parallelism's layout."""
+
+    def __init__(self, spec: OptSpec, params: Iterable[torch.nn.Parameter], mesh,
+                 capturable: bool = False) -> None:
+        from vit_tpu_torch.parallel.mesh import zero1_shard_opt_state
+
+        self.params = list(params)
+        self.group, self.dp, self.r = mesh.group("data"), mesh.size("data"), mesh.coord("data")
+        rule = zero1_shard_opt_state(self.params, mesh)
+        self.split = [bool(sh.spec) and self.dp > 1 for sh in rule]
+        self.views = [torch.nn.Parameter(self._block(p.data), requires_grad=True) if s else p
+                      for p, s in zip(self.params, self.split)]
+        self.inner = build_optimizer(spec, self.views, capturable=capturable)
+        self.param_groups = self.inner.param_groups
+        self.state = self.inner.state
+
+    def _block(self, t: torch.Tensor) -> torch.Tensor:
+        n = t.shape[0] // self.dp
+        return t[self.r * n:(self.r + 1) * n]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        from vit_tpu_torch.parallel import comm
+
+        for p, v, s in zip(self.params, self.views, self.split):
+            if s:
+                v.grad = None if p.grad is None else self._block(p.grad)
+        self.inner.step()
+        blocks = [v for v, s in zip(self.views, self.split) if s]
+        if not blocks:
+            return
+        flat = comm.all_gather(torch.cat([v.reshape(-1) for v in blocks]), self.group, 0)
+        per = flat.numel() // self.dp
+        for r in range(self.dp):
+            at = r * per
+            for p, s in zip(self.params, self.split):
+                if s:
+                    n = p.numel() // self.dp
+                    p.view(-1)[r * n:(r + 1) * n].copy_(flat[at:at + n])
+                    at += n
+
+    def state_dict(self) -> dict:
+        """The inner optimizer's state with each block's moments gathered
+        whole (every rank takes part)."""
+        from vit_tpu_torch.parallel import comm
+
+        sd = self.inner.state_dict()
+        for i, (v, s) in enumerate(zip(self.views, self.split)):
+            st = sd["state"].get(i)
+            if s and st is not None:
+                st = sd["state"][i] = dict(st)  # the packed dict is the live one
+                for k, t in st.items():
+                    if isinstance(t, torch.Tensor) and t.shape == v.shape:
+                        st[k] = comm.all_gather(t, self.group, 0)
+        return sd
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """A whole-parameter state (:meth:`state_dict`'s, or replicated data
+        parallelism's): this rank's blocks of the split parameters' moments."""
+        sd = {"state": {}, "param_groups": state_dict["param_groups"]}
+        for i, st in state_dict["state"].items():
+            p, s = self.params[int(i)], self.split[int(i)]
+            sd["state"][i] = {k: (self._block(t).clone() if s and isinstance(t, torch.Tensor)
+                                  and t.shape == p.shape else t) for k, t in st.items()}
+        load_optimizer_state(self.inner, sd)
+
+
 def load_optimizer_state(optimizer: torch.optim.Optimizer, state_dict: dict) -> None:
     """``optimizer.load_state_dict``, keeping this optimizer's own learning
     rate holders (a captured graph reads the same device scalar) and
@@ -640,17 +727,21 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr) -> None:
 
 @torch.no_grad()
 def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float,
-                        per_replica: bool = False) -> torch.Tensor:
+                        per_replica: bool = False,
+                        norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """optax's ``clip_by_global_norm``, in place: each gradient becomes
     ``g / norm * max_norm`` when the global L2 norm reaches ``max_norm``
     (no epsilon, unlike ``torch.nn.utils.clip_grad_norm_``). Returns the
     norm, on the gradients' device, without a host sync. ``per_replica``:
     the gradients are stacked on a leading replica axis and each replica is
     clipped by its own norm, an (R,) result (one diverged replica's NaN
-    stays its own)."""
+    stays its own). ``norm``: the global norm when these gradients are
+    only this rank's part of it
+    (:func:`~vit_tpu_torch.parallel.tensor.global_grad_norm`)."""
     grads = [g for g in grads if g is not None]
     if not per_replica:
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        if norm is None:
+            norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
         keep = norm < max_norm
         for g in grads:
             g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
