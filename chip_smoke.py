@@ -12,6 +12,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``cuobjdump --dump-sass``. The run fails unless every bf16 tensor-core
    instantiation of K1, K2 (``attn_fwd_tc``), K3 (``fused_mlp_tc``) and K7
    (``fused_mlp_bwd_tc``: its dx and weight-gradient passes) holds HGMMA,
+   and so does every pass of K3's and K7's wide route
+   (``fused_mlp_wide_tc``, 128 < D <= 1024: K3's act and out passes, K7's
+   act, out and weight-gradient passes), each of which must be there;
    the bf16 dQ and dK/dV passes (``attn_bwd_tc``) of K4, K5 and K6 hold
    exactly their HGMMA counts (dQ 6, 8, 12, 20 and dK/dV 10,
    12, 16, 24 at d = 16, 32, 64, 128: the wgmma in the source, so a
@@ -32,8 +35,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    exact-erf GELU and F.linear in the same dtype (for K7 its autograd
    backward: forward+backward minus forward), and hold the kernel
    bit-repeatable. K7's rows also hold its device memory beyond dx, the
-   gradients and the partials: below one (R, F) tensor on the tensor-core
-   body (g and dh stay on chip), at least two on the FMA body.
+   gradients and the partials: below one (R, F) tensor on the on-chip
+   tensor-core body (D <= 128: g and dh stay in registers), at least two
+   (g and dh) on the wide and FMA bodies.
    Tolerances: fp32 max-abs 1e-4 with TF32 off for matmuls and cuDNN;
    bf16 on O, y, dq, dk, dv and dx the smaller of 2e-2 and four roundings
    to bf16 (4 * 2**-8) of the largest reference value, since the two round
@@ -56,7 +60,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    groups of 8 heads (a stacked launch over four replicas, ``bh_per_seed``):
    each group's mask is its own seed's, bit for bit. The kernel rows
    include the image family's shapes: K2/K6 at B128 H6 T65 d64 and K3/K7 at
-   R8320 D384 F1536, bf16 (ViT-S/16 on 32-pixel images at batch 128).
+   R8320 D384 F1536, bf16 (ViT-S/16 on 32-pixel images at batch 128), and
+   K3/K7 at ViT-B/16's R12608 D768 F3072 (batch 64) and ViT-L/16's R6304
+   D1024 F4096 (batch 32), all three on the wide route; then the wide
+   route's bf16 roundings of h, g and dh against float64 beside the plain
+   version's (K7's at most 1.25 times as often).
 3. Serve the main path through ``Predictor.from_checkpoint(..., device=
    "cuda")`` three times, each from a ``.pt`` written from a port model
    initialised from a seeded ``torch.Generator``: (a) stride1 in bf16
@@ -197,7 +205,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    the first step in fp32 on the card against the CPU per tensor (1e-4)
    and in bf16 (2e-2, global relative L2; per tensor reported), one epoch,
    then served in bf16 (features 0.125, logits what that implies through
-   the fp32 head) and fp32 (1e-4).
+   the fp32 head) and fp32 (1e-4). Last, vit_b16_bf16.yaml as it stands
+   (xla attention, dense MLP) at the same batch and layers, one step timed,
+   and a row of the four device ms a step: each model with xla + dense
+   beside flash + the fused MLP.
 9. Runs (v), (x), (y): (v) int8 serving (``--only z``; 'v' runs (s')):
    stride1.yaml in bf16 at batch 16, unquantized, int8-w8a8 dynamic,
    calibrated and int8-wo, K1 launched exactly, each held against the same
@@ -335,6 +346,9 @@ BATCH = 16
 SERVE_REPEATS = 9  # timed passes over the N_INPUTS spectra; all over their total time
 K7_FP32_REL = 1e-5  # K7 weight gradients against their largest value, fp32 inputs
 K7_BF16_REL = 1e-3  # the same with bf16 inputs; rounding dW to bf16 moves it ~2e-3
+# K7's wide route: its g and dh may round off the float64 reference at most
+# this many times as often as the plain version's (rounding_check).
+ROUNDING_SLACK = 1.25
 GRAD_FLOOR = 1e-3  # per-tensor gradient norms are floored at this share of the global norm
 # (u)'s bf16 first step: a tensor's limit is at least this many times the
 # CPU's own bf16 error on it (the card's bf16 step stands about as far from
@@ -366,13 +380,19 @@ BWD_HGMMA = {"flash_bwd_dq": {"dq_kernel": DQ_HGMMA},
 # The libraries' bf16 tensor-core instantiations live in these namespaces,
 # one per head dim and pass (K3: per column tile of 16, 32, 64 or 128 and
 # one or two warpgroups; K7: its dx and weight-gradient passes per box width
-# 16, 32, 64 and column tile of 64 or 128).
-TC_NAMESPACE = {"flash_fwd": "attn_fwd_tc", "short_fwd": "attn_fwd_tc",
-                "fused_mlp_fwd": "fused_mlp_tc", "flash_bwd_dq": "attn_bwd_tc",
-                "flash_bwd_dkv": "attn_bwd_tc", "short_bwd": "attn_bwd_tc",
-                "fused_mlp_bwd": "fused_mlp_bwd_tc"}
-TC_INSTANTIATIONS = {"flash_fwd": 4, "short_fwd": 4, "fused_mlp_fwd": 8, "flash_bwd_dq": 4,
-                     "flash_bwd_dkv": 4, "short_bwd": 8, "fused_mlp_bwd": 8}
+# 16, 32, 64 and column tile of 64 or 128; and the wide route's passes).
+TC_NAMESPACE = {"flash_fwd": ("attn_fwd_tc",), "short_fwd": ("attn_fwd_tc",),
+                "fused_mlp_fwd": ("fused_mlp_tc", "fused_mlp_wide_tc"),
+                "flash_bwd_dq": ("attn_bwd_tc",), "flash_bwd_dkv": ("attn_bwd_tc",),
+                "short_bwd": ("attn_bwd_tc",),
+                "fused_mlp_bwd": ("fused_mlp_bwd_tc", "fused_mlp_wide_tc")}
+TC_INSTANTIATIONS = {"flash_fwd": 4, "short_fwd": 4, "fused_mlp_fwd": 10, "flash_bwd_dq": 4,
+                     "flash_bwd_dkv": 4, "short_bwd": 8, "fused_mlp_bwd": 11}
+# The wide route's passes (fused_mlp_wide_tc.cuh), each of which must be
+# built and hold HGMMA: K3 forms h then y; K7 forms g and dh, then dx, then
+# the weight gradients.
+WIDE_PASSES = {"fused_mlp_fwd": ("act_kernel", "out_kernel"),
+               "fused_mlp_bwd": ("act_kernel", "out_kernel", "wgt_kernel")}
 DROPOUT_SEED = -123456789  # the kernel rows' dropout seed (any int32)
 # Runs (h) and (i): the last diagnostics capture on the card against the
 # port on the CPU at the config's precision (relative L2 per tensor; the
@@ -521,7 +541,7 @@ def mlp_case(r, d, f, dtype, g, sfu_rate, kernels):
     the same dtype), timed here and called nowhere in the port."""
     import torch.nn.functional as F
 
-    from vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+    from vit_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain, mlp_body
 
     x = torch.randn(r, d, generator=g, device="cuda").to(dtype)
     w1 = (torch.randn(f, d, generator=g, device="cuda") / d**0.5).to(dtype)  # nn.Linear layout
@@ -548,7 +568,8 @@ def mlp_case(r, d, f, dtype, g, sfu_rate, kernels):
     bms, by = bound(4.0 * r * d * f, float(r * f),
                     (2.0 * r * d + 2.0 * d * f + f + d) * item, dtype, sfu_rate)
     row = dict(phase="kernel", kernel=name, shape=dict(R=r, D=d, F=f), dtype=str(dtype),
-               max_abs_err=err, tol=tol, mean_abs_ref=y_ref.float().abs().mean().item(),
+               body=mlp_body(d, f, dtype), max_abs_err=err, tol=tol,
+               mean_abs_ref=y_ref.float().abs().mean().item(),
                max_abs_ref=y_ref.float().abs().max().item(), kernel_ms=ms,
                kernel_call_ms=kernel_call_ms, plain_ms=plain_ms, library_ms=None,
                unfused_ms=unfused_ms, bound_ms=bms, bound_by=by,
@@ -620,7 +641,9 @@ def mlp_bwd_case(r, d, f, dtype, g, sfu_rate, kernels):
     rows), timed here and called nowhere in the port."""
     import torch.nn.functional as F
 
-    from vit_tpu_torch.ops.fused_mlp import bwd_plan, fused_mlp_bwd, fused_mlp_bwd_plain
+    from vit_tpu_torch.ops.fused_mlp import (
+        bwd_plan, fused_mlp_bwd, fused_mlp_bwd_plain, mlp_body,
+    )
 
     x, dy = (torch.randn(r, d, generator=g, device="cuda").to(dtype) for _ in range(2))
     w1 = (torch.randn(f, d, generator=g, device="cuda") / d**0.5).to(dtype)
@@ -629,6 +652,7 @@ def mlp_bwd_case(r, d, f, dtype, g, sfu_rate, kernels):
     name = "fused_mlp_bwd"
     kernels[name].launches = 0
     tensor_cores, n_seg = bwd_plan(r, d, f, dtype)
+    body = mlp_body(d, f, dtype)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -636,15 +660,15 @@ def mlp_bwd_case(r, d, f, dtype, g, sfu_rate, kernels):
     torch.cuda.synchronize()
     check(kernels[name].launches == 1, f"{name} did not launch")
     # Device memory the call held beyond dx, the fp32 gradients and the
-    # partials: the tensor-core body keeps g and dh on chip, so less than one
-    # (R, F) tensor; the FMA body moves both through device memory.
+    # partials (none on the wide body with one segment): the on-chip body
+    # keeps g and dh in registers, so less than one (R, F) tensor; the wide
+    # and FMA bodies move both through device memory.
     n = 2 * f * d + f + d
     item = torch.finfo(dtype).bits // 8
-    scratch = (torch.cuda.max_memory_allocated() - base
-               - (r * d * item + n * 4 + n_seg * n * 4))
-    check(scratch < r * f * item if tensor_cores else scratch >= 2 * r * f * item,
-          f"{name} {(r, d, f)} {dtype}: {scratch} bytes of scratch on the "
-          f"{'tensor-core' if tensor_cores else 'FMA'} body")
+    partials = 0 if body == "wide" and n_seg == 1 else n_seg * n * 4
+    scratch = torch.cuda.max_memory_allocated() - base - (r * d * item + n * 4 + partials)
+    check(scratch < r * f * item if body == "tc" else scratch >= 2 * r * f * item,
+          f"{name} {(r, d, f)} {dtype}: {scratch} bytes of scratch on the {body} body")
     want = fused_mlp_bwd_plain(x, dy, w1, b1, w2)
     rel = K7_FP32_REL if dtype == torch.float32 else K7_BF16_REL
     tols = [kernel_tol(want[0])] + [rel * max(1.0, w.abs().max().item()) for w in want[1:]]
@@ -669,10 +693,59 @@ def mlp_bwd_case(r, d, f, dtype, g, sfu_rate, kernels):
     row = dict(phase="kernel", kernel=name, shape=dict(R=r, D=d, F=f), dtype=str(dtype),
                max_abs_err=max(errs), errs=dict(zip(("dx", "dW1", "db1", "dW2", "db2"), errs)),
                tols=tols, max_abs_ref=[w.float().abs().max().item() for w in want],
-               tensor_cores=tensor_cores, segments=n_seg, scratch_bytes=scratch,
+               tensor_cores=tensor_cores, body=body, segments=n_seg, scratch_bytes=scratch,
                bit_repeatable=True, kernel_ms=ms, kernel_call_ms=kernel_call_ms,
                plain_ms=plain_ms, library_ms=None, unfused_ms=unfused_ms, passes=passes,
                bound_ms=bms, bound_by=by)
+    emit(row)
+    return row
+
+
+def rounding_check(g, kernels, r: int = 2000, d: int = 1024, f: int = 4096) -> dict:
+    """The wide route's bf16 roundings against float64 (bf16 of the float64
+    GELU, and of dg times its derivative, of float64 sums), beside the plain
+    version's fp32 sums: the share of elements of K3's h (pre summed by the
+    tensor cores over all of D) and of K7's g and dh (each k-block's
+    products added in fp32 registers) that round to another bf16 than the
+    reference. K7's g and dh feed fp32 sums over every row, so they are held
+    to at most ROUNDING_SLACK times the plain version's share."""
+    from vit_tpu_torch.ops import fused_mlp as fm
+
+    x, dy = (torch.randn(r, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+    w1 = (torch.randn(f, d, generator=g, device="cuda") / d**0.5).bfloat16()
+    b1 = (0.1 * torch.randn(f, generator=g, device="cuda")).bfloat16()
+    w2 = (torch.randn(d, f, generator=g, device="cuda") / f**0.5).bfloat16()
+    stream = torch.cuda.current_stream().cuda_stream
+    h = fm._fwd_scratch(r, d, f, torch.bfloat16, x.device)
+    kernels["fused_mlp_fwd"].launch(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                                    torch.zeros_like(x[0]).data_ptr(),
+                                    torch.empty_like(x).data_ptr(), h.data_ptr(), r, d, f, 1,
+                                    stream)
+    body, n_seg, gg, dh, part = fm._bwd_scratch(r, d, f, torch.bfloat16, x.device)
+    kernels["fused_mlp_bwd"].launch(
+        x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        torch.empty_like(x).data_ptr(), gg.data_ptr(), dh.data_ptr(),
+        None if part is None else part.data_ptr(),
+        torch.empty(2 * f * d + f + d, device="cuda").data_ptr(), r, d, f, n_seg, 1,
+        fm.BODIES.index(body), stream)
+    torch.cuda.synchronize()
+    pre64, dg64 = x.double() @ w1.double().t() + b1.double(), dy.double() @ w2.double()
+    pre32, dg32 = x.float() @ w1.float().t() + b1.float(), dy.float() @ w2.float()
+    ref = {"h": fm.gelu_as(pre64).bfloat16(), "dh": (dg64 * fm.dgelu_as(pre64)).bfloat16()}
+    plain = {"h": fm.gelu_as(pre32).bfloat16(), "dh": (dg32 * fm.dgelu_as(pre32)).bfloat16()}
+    def share(a, b):
+        return (a != b).float().mean().item()
+
+    shares = {"K3 h": (share(h, ref["h"]), share(plain["h"], ref["h"])),
+              "K7 g": (share(gg, ref["h"]), share(plain["h"], ref["h"])),
+              "K7 dh": (share(dh, ref["dh"]), share(plain["dh"], ref["dh"]))}
+    for name in ("K7 g", "K7 dh"):
+        kernel, plain_share = shares[name]
+        check(kernel <= ROUNDING_SLACK * plain_share,
+              f"{name}: rounds off float64 in {kernel} of elements, plain {plain_share}")
+    row = dict(phase="rounding", shape=dict(R=r, D=d, F=f), body=body,
+               off_float64={k: dict(kernel=v[0], plain=v[1]) for k, v in shares.items()},
+               limit=f"K7: kernel <= {ROUNDING_SLACK} x plain")
     emit(row)
     return row
 
@@ -810,15 +883,16 @@ def ptxas_report(log: str) -> dict:
 
 
 def check_tensor_cores(mma: dict) -> None:
-    """Every bf16 tensor-core instantiation of K1-K6 holds HGMMA (K4, K5 and
-    K6's passes exactly BWD_HGMMA's counts), and no other instantiation (fp32,
-    and K3's bf16 FMA body for widths not a multiple of 16) holds any
+    """Every bf16 tensor-core instantiation of K1-K7 holds HGMMA (K4, K5 and
+    K6's passes exactly BWD_HGMMA's counts; every pass of the wide route,
+    WIDE_PASSES, is there), and no other instantiation (fp32, and K3's and
+    K7's bf16 FMA bodies for widths off the tensor-core rule) holds any
     tensor-core instruction."""
     import re
 
     for lib, funcs in mma.items():
-        tc = {f: c for f, c in funcs.items() if TC_NAMESPACE[lib] in f}
-        plain = {f: c for f, c in funcs.items() if TC_NAMESPACE[lib] not in f}
+        tc = {f: c for f, c in funcs.items() if any(ns in f for ns in TC_NAMESPACE[lib])}
+        plain = {f: c for f, c in funcs.items() if f not in tc}
         check(len(tc) == TC_INSTANTIATIONS[lib] and all(c["HGMMA"] > 0 for c in tc.values()),
               f"{lib}: a bf16 instantiation is missing or holds no HGMMA: {funcs}")
         check(plain and all(c["HGMMA"] + c["HMMA"] == 0 for c in plain.values()),
@@ -831,6 +905,10 @@ def check_tensor_cores(mma: dict) -> None:
             want = {(kind, d): n for kind, by_d in BWD_HGMMA[lib].items()
                     for d, n in by_d.items()}
             check(got == want, f"{lib}: HGMMA by pass and head dim {got}, expected {want}")
+        for kernel in WIDE_PASSES.get(lib, ()):
+            wide = [c for f, c in tc.items() if "fused_mlp_wide_tc" in f and kernel in f]
+            check(len(wide) > 0 and all(c["HGMMA"] > 0 for c in wide),
+                  f"{lib}: the wide route's {kernel} is missing or holds no HGMMA: {funcs}")
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor, floor: float) -> float:
@@ -2337,6 +2415,7 @@ B16_BATCH = 64  # vit_b16_bf16.yaml's batch of 1024 cut to 64 for (u)'s steps
 # width (768, 12 heads, T 197, K3/K7 at D768) and remat are as configured,
 # and the kernel rows at its shapes stand in the kernel phase.
 B16_LAYERS = 4
+L16_BATCH = 32  # ViT-L/16's kernel rows: 32 x 197 = 6304 MLP rows at D1024 F4096
 IMAGE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "exp", "image")
 
 
@@ -2649,6 +2728,29 @@ def image_config(name: str, **model) -> dict:
     return cfg
 
 
+def image_step_run(tag: str, cfg: dict) -> dict:
+    """One epoch of an image config on the card, without the first-step
+    check and the serving of ``image_runs``' runs, then torch.profiler's
+    device ms of one further step (the figure beside the fused MLP's)."""
+    import copy
+
+    import numpy as np
+
+    from vit_tpu_torch.data.images import ImageDataModule
+    from vit_tpu_torch.train.loop import Experiment
+
+    exp = Experiment(copy.deepcopy(cfg), device="cuda", datamodule=ImageDataModule(cfg))
+    metrics = exp.fit()
+    check(np.isfinite(metrics["train_loss"]), f"{tag}: train loss {metrics['train_loss']}")
+    prof = step_profile(exp)
+    vc = exp.bundle.vit_config
+    row = dict(phase="train", run=tag, T=vc.seq_len, layers=vc.num_hidden_layers,
+               dtype=str(vc.dtype), batch=exp.batch_size, train_loss=metrics["train_loss"],
+               device_ms_per_step=prof["device_ms"], top_device_ops=prof["top"])
+    emit(row)
+    return row
+
+
 def image_runs(work: str, none: dict, kernels) -> dict:
     """(u) The image family at full width on synthetic class-conditional
     images: cifar_vit_s16.yaml as it stands (ViT-S: hidden 384, 12 layers,
@@ -2661,7 +2763,10 @@ def image_runs(work: str, none: dict, kernels) -> dict:
     remat) with flash and the fused MLP, its batch of 1024 cut to
     B16_BATCH. Each run: the first
     step's gradients against fp32 on the CPU (2e-2), one epoch, then the
-    trained weights served on the card and held as (a)-(c) are."""
+    trained weights served on the card and held as (a)-(c) are. Last,
+    vit_b16_bf16.yaml as it stands (xla attention, dense MLP) at the same
+    cuts, one epoch and one profiled step (image_step_run), so that each
+    model's xla + dense step stands beside its flash + fused one."""
     import copy
 
     import numpy as np
@@ -2736,6 +2841,15 @@ def image_runs(work: str, none: dict, kernels) -> dict:
     b16["train"].update(batch_size=B16_BATCH, fused_epoch=False)
     expect, serve_expect = counts(b16, remat_layer=True)
     run("u_vit_b16_flash_fused_bf16", b16, expect, serve_expect, B16_BATCH)
+    dense = image_config("vit_b16_bf16.yaml", num_hidden_layers=B16_LAYERS)
+    dense["train"].update(batch_size=B16_BATCH, fused_epoch=False)
+    rows["u_vit_b16_bf16"] = image_step_run("u_vit_b16_bf16", dense)
+    emit(dict(phase="image_steps", device_ms_per_step={
+        "vit_s16": dict(xla_dense=rows["u_cifar_s16_bf16"]["device_ms_per_step"],
+                        flash_fused=rows["u_cifar_s16_flash_fused_bf16"]["device_ms_per_step"]),
+        f"vit_b16_{B16_LAYERS}_layers": dict(
+            xla_dense=rows["u_vit_b16_bf16"]["device_ms_per_step"],
+            flash_fused=rows["u_vit_b16_flash_fused_bf16"]["device_ms_per_step"])}))
     emit(dict(phase="image_cuts", reduced={
         "all": f"synthetic class-conditional images ({IMAGE_INPUTS} train, {IMAGE_VAL} val) "
                "in place of the npz files; 1 epoch",
@@ -4796,6 +4910,7 @@ def main(argv=None) -> int:
     names = demangle({f for per in (*ptxas.values(), *mma.values()) for f in per})
     emit(dict(phase="build", seconds=seconds,
               ptxas={n: {names[f]: r for f, r in per.items()} for n, per in ptxas.items()},
+              wgmma_serialized_notes={n: log.count("C7515") for n, log in logs.items()},
               sass_tensor_core_instructions={n: {names[f]: c for f, c in per.items()}
                                              for n, per in mma.items()}))
     check_tensor_cores(mma)
@@ -4867,12 +4982,17 @@ def main(argv=None) -> int:
     mlp_case(128 * 65, 384, 1536, torch.bfloat16, g, sfu_rate, kernels)
     mlp_bwd_case(128 * 65, 384, 1536, torch.bfloat16, g, sfu_rate, kernels)
     # ViT-B/16 on 224-pixel images at (u)'s cut batch of B16_BATCH (T 197,
-    # d 64; B16_BATCH x 197 MLP rows at D768 F3072, K7 on its FMA body).
+    # d 64; B16_BATCH x 197 MLP rows at D768 F3072), then ViT-L/16
+    # (vit_l16_multihost.yaml, D1024 F4096) at batch L16_BATCH: K3 and K7 on
+    # the wide route.
     attention_case("short_fwd", short_fwd, short_fwd_plain, B16_BATCH, 12, 197, 64,
                    torch.bfloat16, g, sfu_rate, kernels, rate=0.1)
     attention_bwd_case(True, B16_BATCH, 12, 197, 64, torch.bfloat16, 0.1, g, sfu_rate, kernels)
     mlp_case(B16_BATCH * 197, 768, 3072, torch.bfloat16, g, sfu_rate, kernels)
     mlp_bwd_case(B16_BATCH * 197, 768, 3072, torch.bfloat16, g, sfu_rate, kernels)
+    mlp_case(L16_BATCH * 197, 1024, 4096, torch.bfloat16, g, sfu_rate, kernels)
+    mlp_bwd_case(L16_BATCH * 197, 1024, 4096, torch.bfloat16, g, sfu_rate, kernels)
+    rounding_check(g, kernels)
     mask_check(kernels)
     offset_check(kernels)
 

@@ -149,6 +149,88 @@ def test_fused_mlp_tc_matches_plain_and_repeats(gen, r, d):
     assert torch.equal(y, fm.fused_mlp(off, w1, b1, w2, b2))
 
 
+# K3 and K7 on the wide route (bf16, 128 < D <= 1024): the image family's
+# shapes (ViT-S/16 R8320 D384, ViT-B/16 R12608 D768, ViT-L/16 R6304 D1024)
+# and ragged ones: R off the 128-row tiles, F off the 128- and 256-column
+# tiles (F a multiple of 16 only), D400 off the 64-column boxes. At D1024
+# and R of about a hundred, one g or dh that rounds to the other bf16 side
+# than the plain version's (the plain version's own fp32 sums do so against
+# float64 in 1e-4 of the elements) times |dy| or |x| is near K7's 1e-3
+# limit, so the ragged D1024 case takes 1000 rows; R 64 at D1024 is
+# test_fused_mlp_bwd_matches_plain_and_repeats's, and the rounding itself is
+# held against float64 below, whatever R.
+WIDE_MLP = [(8320, 384, 1536), (77, 384, 1552), (12608, 768, 3072), (1000, 768, 3088),
+            (6304, 1024, 4096), (1000, 1024, 4112), (300, 400, 1600)]
+
+
+@pytest.mark.parametrize("r, d, f", WIDE_MLP)
+def test_fused_mlp_wide_route_matches_plain_and_repeats(gen, r, d, f):
+    """One launch of K3 and one of K7 a call, each within the limits of its
+    plain version (_check_mlp_bwd's for K7), and equal bits on a second
+    call (no atomics)."""
+    assert fm.mlp_body(d, f, torch.bfloat16) == "wide"
+    x, w1, b1, w2, b2 = _mlp_operands(gen, r, d, f)
+    before = KERNELS["fused_mlp_fwd"].launches
+    y = fm.fused_mlp(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert KERNELS["fused_mlp_fwd"].launches == before + 1
+    want = fm.fused_mlp_plain(x, w1, b1, w2, b2)
+    assert (y.float() - want.float()).abs().max().item() <= _tol(want)
+    assert torch.equal(y, fm.fused_mlp(x, w1, b1, w2, b2))
+    dy = torch.randn(r, d, generator=gen, device="cuda").to(torch.bfloat16)
+    _check_mlp_bwd(x, dy, w1, b1, w2)
+
+
+def test_wide_route_rounds_g_and_dh_as_well_as_the_plain_version(gen):
+    """K7's act pass rounds g and dh to bf16 from its fp32 pre and dg. Where
+    those sit on a bf16 rounding boundary any fp32 summation order can land
+    on either side, so against a float64 reference (bf16 of the float64
+    GELU, and of dg times its derivative, of float64 sums) the plain
+    version's g and dh differ too. The kernel's must not differ more often
+    than 1.25 times the plain version's: at R 2000, D 1024 each count is
+    some hundreds of 8.2 M elements, a few percent of spread. (Left to the
+    tensor cores' own running sum over D1024, as K3's h is, they differ
+    about three times as often: chip_smoke.py's rounding row.)"""
+    r, d, f = 2000, 1024, 4096
+    x, dy, w1, b1, w2 = _mlp_bwd_operands(gen, r, d, f, torch.bfloat16)
+    body, n_seg, g, dh, part = fm._bwd_scratch(r, d, f, torch.bfloat16, x.device)
+    assert body == "wide"
+    dx = torch.empty_like(x)
+    grads = torch.empty(2 * f * d + f + d, dtype=torch.float32, device="cuda")
+    KERNELS["fused_mlp_bwd"].launch(
+        x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        dx.data_ptr(), g.data_ptr(), dh.data_ptr(), None if part is None else part.data_ptr(),
+        grads.data_ptr(), r, d, f, n_seg, 1, fm.BODIES.index(body),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    pre64 = x.double() @ w1.double().t() + b1.double()
+    dg64 = dy.double() @ w2.double()
+    pre32 = x.float() @ w1.float().t() + b1.float()
+    dg32 = dy.float() @ w2.float()
+    want = (fm.gelu_as(pre64).bfloat16(), (dg64 * fm.dgelu_as(pre64)).bfloat16())
+    plain = (fm.gelu_as(pre32).bfloat16(), (dg32 * fm.dgelu_as(pre32)).bfloat16())
+    for name, got, p, w in zip(("g", "dh"), (g, dh), plain, want):
+        kernel_off, plain_off = (got != w).sum().item(), (p != w).sum().item()
+        assert 0 < plain_off and kernel_off <= 1.25 * plain_off, (name, kernel_off, plain_off)
+
+
+@pytest.mark.parametrize("name, passes", [("fused_mlp_fwd", ("act_kernel", "out_kernel")),
+                                          ("fused_mlp_bwd", ("act_kernel", "out_kernel",
+                                                             "wgt_kernel"))])
+def test_wide_route_runs_every_pass_on_the_tensor_cores(gen, name, passes):
+    """Every pass of the wide route is compiled and holds HGMMA (cuobjdump's
+    SASS, as chip_smoke.py reads it): K3 forms h then y, K7 forms g and dh,
+    then dx, then the weight gradients."""
+    import chip_smoke
+
+    KERNELS[name].fn()  # built if need be
+    counts = chip_smoke.tensor_core_instructions(KERNELS[name].lib_path)
+    for kernel in passes:
+        found = {f: c["HGMMA"] for f, c in counts.items()
+                 if "fused_mlp_wide_tc" in f and kernel in f}
+        assert found and all(n > 0 for n in found.values()), (kernel, counts)
+
+
 def test_fused_mlp_bf16_width_off_the_tensor_core_rule_keeps_the_fma_body(gen):
     """D = 40 is not a multiple of 16: the bf16 forward runs the FMA body,
     still one launch of K3, within the same limit."""
@@ -402,15 +484,19 @@ def test_fused_mlp_bwd_matches_plain_and_repeats(gen, r, d, f, dtype):
     _check_mlp_bwd(*_mlp_bwd_operands(gen, r, d, f, dtype))
 
 
-@pytest.mark.parametrize("r, d, f", [(65056, 128, 512), (2064, 32, 128), (300, 100, 30)])
+@pytest.mark.parametrize("r, d, f", [(65056, 128, 512), (2064, 32, 128), (300, 100, 30),
+                                     (8320, 384, 1536), (12608, 768, 3072)])
 def test_fused_mlp_bwd_bf16_scratch_follows_the_route(gen, r, d, f):
-    """bf16 at K3's widths runs the tensor-core body, which keeps g and dh on
-    chip: beyond dx, the fp32 gradients and the partials, the call's peak
-    device memory holds less than one (R, F) bf16 tensor. D = 100, F = 30
-    (not multiples of 16) keep the FMA body, which moves g and dh through
-    two such tensors; still one launch of K7 within the same limits."""
+    """bf16 at K3's widths runs a tensor-core body. At D <= 128 it keeps g
+    and dh on chip: beyond dx, the fp32 gradients and the partials, the
+    call's peak device memory holds less than one (R, F) bf16 tensor. The
+    wide body (128 < D <= 1024) writes g and dh once, two such tensors, and
+    with one segment no partials. D = 100, F = 30 (not multiples of 16) keep
+    the FMA body, which moves g and dh through two such tensors; each is
+    one launch of K7 within the same limits."""
     ops = _mlp_bwd_operands(gen, r, d, f, torch.bfloat16)
     tc, n_seg = fm.bwd_plan(r, d, f, torch.bfloat16)
+    body = fm.mlp_body(d, f, torch.bfloat16)
     assert tc == (d % 16 == 0 and f % 16 == 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -418,9 +504,10 @@ def test_fused_mlp_bwd_bf16_scratch_follows_the_route(gen, r, d, f):
     fm.fused_mlp_bwd(*ops)
     torch.cuda.synchronize()
     n = 2 * f * d + f + d
-    scratch = torch.cuda.max_memory_allocated() - base - (r * d * 2 + n * 4 + n_seg * n * 4)
+    partials = 0 if body == "wide" and n_seg == 1 else n_seg * n * 4
+    scratch = torch.cuda.max_memory_allocated() - base - (r * d * 2 + n * 4 + partials)
     rf = r * f * 2
-    assert scratch < rf if tc else scratch >= 2 * rf
+    assert scratch < rf if body == "tc" else scratch >= 2 * rf
     _check_mlp_bwd(*ops)
 
 

@@ -69,6 +69,26 @@ def test_plain_forward_matches_jnp_mlp_bf16_at_the_stride1_width():
                                rtol=0)
 
 
+# The image family's widths, where the port's kernels take their wide route
+# (ViT-B/16's D768 F3072, ViT-L/16's D1024 F4096), with a ragged row count:
+# vit_tpu pads 72 rows to one 128-row block; the port's plain version runs
+# here, and tests/test_torch_port_cuda.py holds the kernels to it on the card.
+WIDE = [(72, 768, 3072), (72, 1024, 4096)]
+
+
+@pytest.mark.parametrize("r, d, f", WIDE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_matches_pallas_at_the_image_widths(r, d, f, dtype):
+    ops = _operands(r, d, f, seed=11)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = ref.fused_mlp(*(jnp.asarray(x, jdt) for x in ops), interpret=True)
+    got = port.fused_mlp(*_port_operands(*ops, dtype=dtype))
+    assert got.dtype == dtype and got.shape == (r, d)
+    tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               atol=tol, rtol=0)
+
+
 def test_fused_mlp_keeps_leading_dims():
     x, w1, b1, w2, b2 = _operands(2 * 37, 32, 64, seed=2)
     want = np.asarray(ref.fused_mlp(jnp.asarray(x.reshape(2, 37, 32)), *map(jnp.asarray, (w1, b1, w2, b2)),
@@ -140,6 +160,22 @@ def test_fused_mlp_grads_match_pallas_fp32(r, d, f):
         np.testing.assert_allclose(a, b, atol=tol, rtol=0, err_msg=name)
 
 
+@pytest.mark.parametrize("r, d, f", WIDE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mlp_grads_match_pallas_at_the_image_widths(r, d, f, dtype):
+    """dx and the fp32 weight gradients at D768 and D1024 against
+    vit_tpu's _bwd_kernel in interpret mode: fp32 as above, bf16 by the
+    limits below (dx BF16_TOL, the weight gradients 1e-3 of their largest
+    value)."""
+    got, want = _vjp_both(r, d, f, dtype, seed=13)
+    for name, a, b in zip(("dx", "dW1", "db1", "dW2", "db2"), got, want):
+        if dtype == torch.bfloat16:
+            tol = _bf16_tol(name, b)
+        else:
+            tol = FP32_TOL if name == "dx" else 1e-5 * max(1.0, np.abs(b).max())
+        np.testing.assert_allclose(a, b, atol=tol, rtol=0, err_msg=name)
+
+
 # bf16 in: dx by the bf16 rule; the fp32 weight gradients are sums of
 # products of bf16-rounded g and dh, which round alike in both except where
 # an fp32 pre-activation summed in another order sits on a rounding
@@ -194,12 +230,13 @@ def test_plain_backward_is_the_autograd_backward():
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
-# K7's body and scratch, decided on the host by bwd_plan / _bwd_scratch (the
-# kernels themselves run only on the card: tests/test_torch_port_cuda.py).
+# K3's and K7's bodies and scratch, decided on the host by mlp_body, bwd_plan,
+# _fwd_scratch and _bwd_scratch (the kernels themselves run only on the card:
+# tests/test_torch_port_cuda.py).
 @pytest.mark.parametrize("d, f", [(16, 64), (32, 128), (64, 256), (128, 512), (384, 1536),
-                                  (512, 2048), (48, 96)])
+                                  (512, 2048), (48, 96), (768, 3072), (1024, 4096)])
 def test_bwd_plan_takes_the_tensor_cores_for_bf16_at_k3s_widths(d, f):
-    """bf16 with D and F multiples of 16 (K3's rule) and D <= 512 takes the
+    """bf16 with D and F multiples of 16 (K3's rule) and D <= 1024 takes the
     tensor cores; the same widths in fp32 keep the FMA body. Segments are
     whole 64-row blocks and none is empty."""
     r = 4097
@@ -211,7 +248,7 @@ def test_bwd_plan_takes_the_tensor_cores_for_bf16_at_k3s_widths(d, f):
     assert not port.bwd_plan(r, d, f, torch.float32)[0]
 
 
-@pytest.mark.parametrize("d, f", [(40, 160), (100, 30), (128, 520), (1024, 4096)])
+@pytest.mark.parametrize("d, f", [(40, 160), (100, 30), (128, 520), (2048, 8192)])
 def test_bwd_plan_keeps_the_fma_body_off_the_rule(d, f):
     assert not port.bwd_plan(300, d, f, torch.bfloat16)[0]
 
@@ -226,15 +263,66 @@ def test_bwd_plan_fills_two_waves_at_the_stride1_shape():
 @pytest.mark.parametrize("dtype, r, d, f", [(torch.bfloat16, 4097, 128, 512),
                                             (torch.bfloat16, 2064, 32, 128),
                                             (torch.float32, 4097, 128, 512),
-                                            (torch.bfloat16, 300, 100, 30)])
+                                            (torch.bfloat16, 300, 100, 30),
+                                            (torch.bfloat16, 8320, 384, 1536),
+                                            (torch.bfloat16, 12608, 768, 3072)])
 def test_bwd_scratch_holds_no_rf_tensor_on_the_tensor_cores(dtype, r, d, f):
-    """The tensor-core body keeps g and dh on chip: its only scratch is the
-    (n_seg, 2FD + F + D) fp32 partials. The FMA body adds g and dh, (R, F)
-    each in the input dtype."""
-    tc, n_seg, g, dh, part = port._bwd_scratch(r, d, f, dtype, "cpu")
-    assert (tc, n_seg) == port.bwd_plan(r, d, f, dtype)
-    assert part.shape == (n_seg, 2 * f * d + f + d) and part.dtype == torch.float32
-    if tc:
+    """The on-chip tensor-core body (D <= 128) keeps g and dh in registers:
+    its only scratch is the (n_seg, 2FD + F + D) fp32 partials. The wide
+    body (128 < D <= 1024) and the FMA body add g and dh, (R, F) each in the
+    input dtype; the wide body needs the partials only with more than one
+    segment (one segment writes the gradients themselves)."""
+    body, n_seg, g, dh, part = port._bwd_scratch(r, d, f, dtype, "cpu")
+    assert body == port.mlp_body(d, f, dtype)
+    assert (body != "fma", n_seg) == port.bwd_plan(r, d, f, dtype)
+    if body == "tc":
         assert g is None and dh is None
     else:
         assert g.shape == dh.shape == (r, f) and g.dtype == dh.dtype == dtype
+    if body == "wide" and n_seg == 1:
+        assert part is None
+    else:
+        assert part.shape == (n_seg, 2 * f * d + f + d) and part.dtype == torch.float32
+
+
+# Every route's plan at the widths the repo configures and around them: D128
+# (stride1), D384 (ViT-S/16), D512, D768 (ViT-B/16), D1024 (ViT-L/16), D400
+# (a multiple of 16 that is not one of 64: the wide route, its tiles
+# zero-filled past D), and off the rule F1000 (not a multiple of 16) and
+# D2048 (past the wide route's D_MAX).
+PLAN_CASES = [  # (d, f, body in bf16, bf16 segments at R 8320, at R 12608)
+    (128, 512, "tc", 33, 33),
+    (384, 1536, "wide", 6, 6),
+    (512, 2048, "wide", 4, 4),
+    (768, 3072, "wide", 2, 2),
+    (1024, 4096, "wide", 1, 1),
+    (400, 1600, "wide", 5, 5),
+    (384, 1000, "fma", 3, 3),
+    (2048, 8192, "fma", 1, 1),
+]
+
+
+@pytest.mark.parametrize("d, f, body, seg_s, seg_b", PLAN_CASES)
+def test_plan_of_every_route(d, f, body, seg_s, seg_b):
+    """mlp_body picks one body for K3 and K7 by dtype and width; bwd_plan's
+    segments fill about two waves of 132 SMs with the body's weight-gradient
+    tiles (on-chip: an F chunk of 64 by one D tile; wide: both products'
+    128 x 256 tiles, the count nearest two waves; FMA: 64 x 64 tiles) and
+    none is empty; K3's scratch is h (R, F) on the wide route only, K7's g
+    and dh on the wide and FMA ones."""
+    assert port.mlp_body(d, f, torch.bfloat16) == body
+    assert port.mlp_body(d, f, torch.float32) == "fma"
+    for r, want in ((8320, seg_s), (12608, seg_b)):
+        tc, n_seg = port.bwd_plan(r, d, f, torch.bfloat16)
+        assert (tc, n_seg) == (body != "fma", want)
+        if body == "wide":
+            tiles = -(-f // 128) * -(-d // 256) + -(-d // 128) * -(-f // 256)
+            blocks = -(-r // 64)
+            assert abs(tiles * n_seg - 264) <= tiles / 2 or n_seg == blocks
+            assert (n_seg - 1) * -(-blocks // n_seg) < blocks
+        h = port._fwd_scratch(r, d, f, torch.bfloat16, "meta")
+        assert (h is not None) == (body == "wide")
+        if h is not None:
+            assert h.shape == (r, f) and h.dtype == torch.bfloat16
+        _, _, g, dh, _ = port._bwd_scratch(r, d, f, torch.bfloat16, "meta")
+        assert (g is None) == (dh is None) == (body == "tc")

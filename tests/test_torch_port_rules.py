@@ -238,6 +238,14 @@ def _sass_counts():
     for fma in ("act_kernelIf", "act_kernelI13__nv_bfloat16", "dx_kernelIf",
                 "tn_partial_kernelI13__nv_bfloat16"):
         mlp_bwd[f"_ZN12_GLOBAL__N_1{len(fma.split('I')[0])}{fma}EEvv"] = {"HGMMA": 0, "HMMA": 0}
+    # K3's and K7's wide route (128 < D <= 1024): K3's act and out passes,
+    # K7's act, out and weight-gradient passes.
+    wide = "fused_mlp_wide_tc"
+    mlp[name(wide, "act_kernel", "Lb0ELi256E")] = {"HGMMA": 4, "HMMA": 0}
+    mlp[name(wide, "out_kernel", "Lb0ELi256E")] = {"HGMMA": 4, "HMMA": 0}
+    mlp_bwd[name(wide, "act_kernel", "Lb1ELi64E")] = {"HGMMA": 8, "HMMA": 0}
+    mlp_bwd[name(wide, "out_kernel", "Lb1ELi256E")] = {"HGMMA": 4, "HMMA": 0}
+    mlp_bwd[_K7_WIDE_WGT] = {"HGMMA": 4, "HMMA": 0}
     return {"flash_fwd": counts("attn_fwd_tc", "flash_kernel", fwd),
             "short_fwd": counts("attn_fwd_tc", "short_kernel", fwd),
             "fused_mlp_fwd": mlp,
@@ -250,6 +258,8 @@ def _sass_counts():
 
 _K6_DKV64 = "_ZN3vtt11attn_bwd_tc10dkv_kernelILi64ELb1EEEvv"
 _K7_DX = "_ZN3vtt16fused_mlp_bwd_tc9dx_kernelILi64ELi2EEEvv"
+_K3_WIDE_OUT = "_ZN3vtt17fused_mlp_wide_tc10out_kernelILb0ELi256EEEvv"
+_K7_WIDE_WGT = "_ZN3vtt17fused_mlp_wide_tc10wgt_kernelILi256EEEvv"
 
 
 @pytest.mark.parametrize("fault", [None, "fp32 holds HGMMA", "bf16 holds none",
@@ -258,12 +268,13 @@ _K7_DX = "_ZN3vtt16fused_mlp_bwd_tc9dx_kernelILi64ELi2EEEvv"
                                    "K3 FMA body holds HMMA", "K6 dq count drifts",
                                    "K6 dkv count drifts", "K6 pass missing",
                                    "K6 fp32 holds HGMMA", "K7 bf16 holds none",
-                                   "K7 FMA body holds HGMMA", "K7 pass missing"])
+                                   "K7 FMA body holds HGMMA", "K7 pass missing",
+                                   "K3 wide pass missing", "K7 wide pass holds none"])
 def test_chip_smoke_sass_check_catches_each_fault(fault):
     """chip_smoke's build phase fails unless every bf16 tensor-core
     instantiation of K1-K7 holds HGMMA (the dQ and dK/dV passes of K4, K5 and
-    K6 their exact counts) and no other instantiation holds any tensor-core
-    instruction."""
+    K6 their exact counts; every pass of K3's and K7's wide route there) and
+    no other instantiation holds any tensor-core instruction."""
     import chip_smoke
 
     mma = _sass_counts()
@@ -296,6 +307,10 @@ def test_chip_smoke_sass_check_catches_each_fault(fault):
         mma["fused_mlp_bwd"]["_ZN12_GLOBAL__N_110act_kernelI13__nv_bfloat16EEvv"]["HGMMA"] = 3
     elif fault == "K7 pass missing":
         del mma["fused_mlp_bwd"]["_ZN3vtt16fused_mlp_bwd_tc10wgt_kernelILi32ELi1EEEvv"]
+    elif fault == "K3 wide pass missing":
+        del mma["fused_mlp_fwd"][_K3_WIDE_OUT]
+    elif fault == "K7 wide pass holds none":
+        mma["fused_mlp_bwd"][_K7_WIDE_WGT]["HGMMA"] = 0
     if fault is None:
         chip_smoke.check_tensor_cores(mma)
     else:

@@ -19,13 +19,17 @@
 // no order, so the weight gradients are summed as per-segment fp32
 // partials (each CTA owns a tile of the weight gradients and a fixed
 // segment of rows) and reduced in a fixed order by a last pass: no float
-// atomics, so a step is bit-repeatable. Two bodies, chosen by the caller
-// (`tensor_cores`) by a static rule on dtype and width, not on failure:
-// * bf16 with D and F multiples of 16 and D <= 512 (the spectra configs
-//   and ViT-S/16's D384; not ViT-B's D768 or ViT-L's D1024, which take the
-//   FMA body below) runs fused_mlp_bwd_tc.cuh: every product as wgmma on the
-//   tensor cores, g and dh kept in registers (no (R, F) tensor in device
-//   memory); a dx pass, a weight-gradient pass, then the sum of partials.
+// atomics, so a step is bit-repeatable. Three bodies, chosen by the caller
+// (`body`) by a static rule on dtype and width, not on failure:
+// * bf16 with D and F multiples of 16 and D <= 128 (the spectra configs)
+//   runs fused_mlp_bwd_tc.cuh: every product as wgmma on the tensor cores,
+//   g and dh kept in registers (no (R, F) tensor in device memory); a dx
+//   pass, a weight-gradient pass, then the sum of partials.
+// * bf16 with D and F multiples of 16 and 128 < D <= 1024 (ViT-S/16's D384,
+//   ViT-B/16's D768, ViT-L/16's D1024) runs fused_mlp_wide_tc.cuh: g and dh
+//   written once in bf16 to (R, F) scratch by one pass, then dx = dh W1 and
+//   the four weight gradients as products over them, every product a wgmma
+//   tile fed by TMA; the sum of partials only with more than one segment.
 // * fp32 (tensor cores would mean TF32) and other bf16 widths run the FMA
 //   kernels below, five launches per call:
 //   1. act:      g and dh for a 64-row x 64-column tile of (R, F), written
@@ -39,6 +43,7 @@
 // A call counts as one launch of K7 whichever body runs.
 #include "common.cuh"
 #include "fused_mlp_bwd_tc.cuh"
+#include "fused_mlp_wide_tc.cuh"
 
 using namespace vtt;
 
@@ -272,27 +277,40 @@ cudaError_t run(const void* x, const void* dy, const void* w1, const void* b1, c
 }  // namespace
 
 // x, dy, dx: (r, d), w1 (f, d), b1 (f), w2 (d, f), in float32 (is_bf16 = 0)
-// or bfloat16. tensor_cores = 1 takes the tensor-core body (bf16 and
-// fused_mlp_bwd_tc::takes(d, f), else cudaErrorInvalidValue; bf16 inputs
-// 16-byte aligned for TMA; g and dh unused, may be null); 0 the FMA body,
-// with g and dh (r, f) scratch in the input dtype. part: fp32 scratch of
-// n_seg * (2*f*d + f + d); grads: fp32 (2*f*d + f + d), written as
-// [dW1 (f, d) | db1 (f) | dW2 (d, f) | db2 (d)]. The rows split into n_seg
-// segments (FMA: of whole 32-row slices; tensor cores: of whole 64-row
-// blocks, none empty when n_seg = ceil(blocks / ceil(blocks / n_seg))).
+// or bfloat16. body: BODY_TC takes fused_mlp_bwd_tc.cuh (bf16 and its
+// takes(d, f), else cudaErrorInvalidValue; g and dh unused, may be null),
+// BODY_WIDE fused_mlp_wide_tc.cuh (likewise; g and dh (r, f) bf16 scratch;
+// part unused, may be null, when n_seg = 1), BODY_FMA the FMA body, with g
+// and dh (r, f) scratch in the input dtype. bf16 inputs of the tensor-core
+// bodies are 16-byte aligned for TMA. part: fp32 scratch of n_seg * (2*f*d
+// + f + d); grads: fp32 (2*f*d + f + d), written as [dW1 (f, d) | db1 (f) |
+// dW2 (d, f) | db2 (d)]. The rows split into n_seg segments (FMA: of whole
+// 32-row slices; tensor cores: of whole 64-row blocks, none empty when
+// n_seg = ceil(blocks / ceil(blocks / n_seg))).
 // Returns the first non-zero cudaGetLastError() of the launches.
+enum Body { BODY_FMA = 0, BODY_TC = 1, BODY_WIDE = 2 };
+
 extern "C" int fused_mlp_bwd(const void* x, const void* dy, const void* w1, const void* b1,
                              const void* w2, void* dx, void* g, void* dh, void* part,
                              void* grads, int r, int d, int f, int n_seg, int is_bf16,
-                             int tensor_cores, void* stream) {
+                             int body, void* stream) {
   if (r <= 0 || d <= 0 || f <= 0 || n_seg <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tensor_cores) {
+  if (body == BODY_TC) {
     if (!is_bf16 || !fused_mlp_bwd_tc::takes(d, f)) return cudaErrorInvalidValue;
     const cudaError_t e = fused_mlp_bwd_tc::launch(x, dy, w1, b1, w2, dx, part, r, d, f, n_seg, s);
     return e != cudaSuccess ? e : reduce(part, grads, f, d, n_seg, 1, s);
   }
-  if (g == nullptr || dh == nullptr) return cudaErrorInvalidValue;
+  if (body == BODY_WIDE) {
+    if (!is_bf16 || !fused_mlp_wide_tc::takes(d, f) || g == nullptr || dh == nullptr ||
+        (n_seg > 1 && part == nullptr))
+      return cudaErrorInvalidValue;
+    const cudaError_t e = fused_mlp_wide_tc::launch_bwd(x, dy, w1, b1, w2, dx, g, dh,
+                                                        n_seg > 1 ? part : grads, r, d, f,
+                                                        n_seg, s);
+    return e != cudaSuccess || n_seg == 1 ? e : reduce(part, grads, f, d, n_seg, 0, s);
+  }
+  if (body != BODY_FMA || g == nullptr || dh == nullptr) return cudaErrorInvalidValue;
   return is_bf16 ? run<__nv_bfloat16>(x, dy, w1, b1, w2, dx, g, dh, part, grads, r, d, f,
                                       n_seg, s)
                  : run<float>(x, dy, w1, b1, w2, dx, g, dh, part, grads, r, d, f, n_seg, s);

@@ -7,8 +7,10 @@
 //   dx  = bf16(dh W1);
 //   dW1 = dh^T x, db1 = sum dh, dW2 = dy^T g, db2 = sum dy, in fp32.
 // x and dy are (R, D), W1 (F, D) and W2 (D, F) in torch's nn.Linear layout,
-// read as they lie. fused_mlp_bwd.cu keeps the FMA kernels for fp32 (tensor
-// cores in fp32 would be TF32) and for widths this path does not take.
+// read as they lie. This is the route for D <= 128 (the spectra configs);
+// fused_mlp_wide_tc.cuh takes 128 < D <= 1024, and fused_mlp_bwd.cu keeps
+// the FMA kernels for fp32 (tensor cores in fp32 would be TF32) and for
+// widths neither takes.
 //
 // What bounds it on the H100: 10 R D F operations (five R x D x F products,
 // the pre-activation recomputed) against x, dy, dx and the weights moved
@@ -48,12 +50,13 @@
 // * TMA zero-fills rows and columns past R, D and F, so ragged edges add
 //   exact zeros (rows past R give dh = 0 since dy is 0 there, and g times a
 //   zero dy row adds nothing).
-// * The GELU and its derivative share one reciprocal and one exp: erf's
-//   exp(-z^2) with z = x / sqrt(2) is the pdf's exp(-x^2 / 2). Both are
-//   special-function instructions (rcp.approx, ex2.approx), as in K3.
-// * D tiles above 128 recompute pre and dg (D = 384: three times); the
-//   x and dy tiles (dx pass) and the weight chunks (weight pass) both stay
-//   in shared memory, which caps D at 512 (takes).
+// * The GELU and its derivative share one reciprocal and one exp
+//   (hopper.cuh::gelu_dgelu): erf's exp(-z^2) with z = x / sqrt(2) is the
+//   pdf's exp(-x^2 / 2). Both are special-function instructions
+//   (rcp.approx, ex2.approx), as in K3.
+// * One column tile covers D <= 128, so nothing is recomputed. A wider D
+//   would need a tile per 128 columns, each recomputing pre and dg (three
+//   times at D = 384), so it takes the wide route (takes).
 #pragma once
 
 #include <cuda.h>
@@ -75,11 +78,11 @@ constexpr int FC = 64;      // F chunk: the N of pre and dg (dx pass), their M (
 // they land in slots 2i and 2i + 1, one wgmma of N = 128 reads across both.
 constexpr int STAGES = 4;
 static_assert(STAGES % 2 == 0, "a column tile's two boxes must not wrap the ring");
-constexpr int D_MAX = 512;  // two (64, D) tiles and the ring fit in shared memory
 constexpr int TILE_N = 128; // columns of D a CTA's accumulators cover
+constexpr int D_MAX = TILE_N;  // one column tile: wider D takes fused_mlp_wide_tc.cuh
 
-// Widths this path takes; the others keep the FMA kernels (a static rule,
-// not a fallback: a refused launch here still fails).
+// Widths this path takes; the others take the wide route or keep the FMA
+// kernels (a static rule, not a fallback: a refused launch here still fails).
 inline bool takes(int d, int f) { return d % 16 == 0 && f % 16 == 0 && d <= D_MAX; }
 
 // D padded to whole boxes and column tiles: 16, 32, 64, or a multiple of 128.
@@ -91,20 +94,6 @@ inline int padded(int d) { return d <= 32 ? d : d <= 64 ? 64 : (d + 127) / 128 *
 __device__ __forceinline__ int tile_last(int p, int n, int t0, int nb) {
   const int rest = n - nb;
   return p < rest ? (p < t0 ? p : p + nb) : t0 + p - rest;
-}
-
-// gelu_AS and dgelu_AS of common.cuh on one reciprocal and one exp.
-__device__ __forceinline__ void gelu_dgelu(float x, float& gel, float& dgel) {
-  const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f;
-  const float a4 = -1.453152027f, a5 = 1.061405429f, p = 0.3275911f;
-  const float z = x * 0.7071067811865476f;
-  const float az = fabsf(z);
-  const float t = rcp_ftz(1.0f + p * az);
-  const float poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))));
-  const float e = exp2_ftz(-az * az * LOG2E);  // exp(-x^2 / 2)
-  const float cdf = 0.5f * (1.0f + copysignf(1.0f - poly * e, z));
-  gel = x * cdf;
-  dgel = cdf + x * (0.3989422804014327f * e);
 }
 
 // B read MN-major (k-step kk) over the column boxes of a tile, which lie

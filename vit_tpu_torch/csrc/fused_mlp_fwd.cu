@@ -10,12 +10,16 @@
 // stride-1 shape, D=128, F=512): bound by operations, just past the bf16
 // tensor-core balance point, and far past the fp32 one.
 //
-// Two bodies, chosen by a static rule on dtype and width (not a fallback:
+// Three bodies, chosen by a static rule on dtype and width (not a fallback:
 // a refused launch raises either way):
-// * bf16 with D and F multiples of 16 and D <= 1024 (every width the repo
-//   configures) runs fused_mlp_tc.cuh: both products as wgmma on the tensor
-//   cores from TMA-loaded tiles, the GELU on the accumulator fragment, h
-//   handed to the second product in registers.
+// * bf16 with D and F multiples of 16 and D <= 128 (the spectra configs)
+//   runs fused_mlp_tc.cuh: both products as wgmma on the tensor cores from
+//   TMA-loaded tiles, the GELU on the accumulator fragment, h handed to the
+//   second product in registers.
+// * bf16 with D and F multiples of 16 and 128 < D <= 1024 (the image
+//   family: ViT-S/16, ViT-B/16, ViT-L/16) runs fused_mlp_wide_tc.cuh: h =
+//   bf16(gelu(x W1^T + b1)) once per element into the (R, F) scratch `h`,
+//   then y = h W2^T + b2, both as wgmma tiles fed by TMA.
 // * fp32 (tensor cores would mean TF32) and any other bf16 width run the
 //   FMA kernel below. The (R, F) intermediate never reaches device memory.
 //   One CTA of 256 threads per (64-row block, output column tile of up to
@@ -31,6 +35,7 @@
 //   tile recomputes h.
 #include "common.cuh"
 #include "fused_mlp_tc.cuh"
+#include "fused_mlp_wide_tc.cuh"
 
 using namespace vtt;
 
@@ -169,14 +174,19 @@ cudaError_t launch_w(const void* x, const void* w1, const void* b1, const void* 
 
 // x, y: (r, d); w1: (f, d); b1: (f); w2: (d, f); b2: (d); all contiguous in
 // float32 (is_bf16 = 0) or bfloat16, and in bfloat16 16-byte aligned (TMA).
-// Returns cudaGetLastError() after the launch.
+// h: (r, f) bf16 scratch, read only on the wide route (null elsewhere).
+// Returns cudaGetLastError() after the launches.
 extern "C" int fused_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2,
-                             const void* b2, void* y, int r, int d, int f, int is_bf16,
-                             void* stream) {
+                             const void* b2, void* y, void* h, int r, int d, int f,
+                             int is_bf16, void* stream) {
   if (r <= 0 || d <= 0 || f <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16 && fused_mlp_tc::takes(d, f))
     return fused_mlp_tc::launch(x, w1, b1, w2, b2, y, r, d, f, s);
+  if (is_bf16 && fused_mlp_wide_tc::takes(d, f)) {
+    if (h == nullptr) return cudaErrorInvalidValue;
+    return fused_mlp_wide_tc::launch_fwd(x, w1, b1, w2, b2, y, h, r, d, f, s);
+  }
   return is_bf16 ? launch_w<__nv_bfloat16>(x, w1, b1, w2, b2, y, r, d, f, s)
                  : launch_w<float>(x, w1, b1, w2, b2, y, r, d, f, s);
 }

@@ -6,8 +6,10 @@
 //   y   = bf16(h W2^T + b2)           fp32 sums, b2 added to the sum.
 // x is (R, D), W1 (F, D) and W2 (D, F) in torch's nn.Linear layout; both
 // weights are K-major as they lie (W1 for pre, W2 for y), so nothing is
-// transposed. fused_mlp_fwd.cu keeps the FMA kernel for fp32 (tensor cores
-// in fp32 would be TF32) and for widths this path does not take (`takes`).
+// transposed. This is the route for D <= 128 (the spectra configs);
+// fused_mlp_wide_tc.cuh takes 128 < D <= 1024, and fused_mlp_fwd.cu keeps
+// the FMA kernel for fp32 (tensor cores in fp32 would be TF32) and for
+// widths neither takes.
 //
 // What bounds it on the H100: 4 R D F operations on the tensor cores against
 // x and y moved once. At the stride-1 shape (R = 65056, D = 128, F = 512)
@@ -16,9 +18,11 @@
 // elements on the CUDA cores, each a reciprocal, an exp and about 12 FMAs,
 // which is the larger cost once the products run on the tensor cores.
 //
-// Design. A warpgroup (128 threads) owns 64 rows of x and N columns of y
-// (blockIdx.y tiles D above 128; each column tile recomputes pre, as the
-// FMA kernel does). A CTA holds two warpgroups that share the weight tiles,
+// Design. A warpgroup (128 threads) owns 64 rows of x and all N columns of
+// y (N, the padded D: one column tile, so nothing is recomputed; a wider D
+// would need a tile per 128 columns, each recomputing pre, which is why it
+// takes the wide route). A CTA holds two warpgroups that share the weight
+// tiles,
 // so each tile is read from L2 once per 128 rows, where that still leaves
 // two CTAs per SM of the grid (and both x tiles fit); else one:
 // * The x tiles (64 x D each) are loaded once by TMA and stay in shared
@@ -34,12 +38,13 @@
 //   h rounded to bf16 and packed in place as the A fragment of the next
 //   product (hopper.cuh); y (m64nN, fp32) += h W2c^T as a register-A wgmma
 //   with B K-major. The (R, F) intermediate never leaves the registers.
-// * The GELU is kept short: the reciprocal and exp(-z^2) each one
-//   special-function instruction, rcp.approx and ex2.approx(-z^2 log2 e)
-//   (what __expf does). Each is within a few fp32 ulps of 1.0f / x and
-//   expf, which moves h only where pre sits on a bf16 rounding boundary
-//   (one bf16 ulp of h times |W2| in y, inside the bf16 tolerance). The
-//   correctly rounded reciprocal (__frcp_rn, the bits of 1.0f / x) is a
+// * The GELU (hopper.cuh::gelu_tc) is kept short: the reciprocal and
+//   exp(-z^2) each one special-function instruction, rcp.approx and
+//   ex2.approx(-z^2 log2 e) (what __expf does). Each is within a few fp32
+//   ulps of 1.0f / x and expf, which moves h only where pre sits on a bf16
+//   rounding boundary (one bf16 ulp of h times |W2| in y, inside the bf16
+//   tolerance). The correctly rounded reciprocal (__frcp_rn, the bits of
+//   1.0f / x) is a
 //   longer sequence and made the kernel measurably slower on the card, most
 //   at D = 384. b1 is read once per chunk. Several CTAs share an SM, so one
 //   CTA's GELU runs while another's wgmma is on the tensor cores.
@@ -62,10 +67,10 @@ using namespace hopper;
 
 constexpr int FC = 64;       // F chunk: the N of pre, the K of y += h W2c^T
 constexpr int STAGES = 3;    // ring slots
-constexpr int D_MAX = 1024;  // the x tile and the ring fit in shared memory
+constexpr int D_MAX = 128;   // one column tile: wider D takes fused_mlp_wide_tc.cuh
 
-// Widths this path takes; the others keep the FMA kernel (a static rule,
-// not a fallback: a refused launch here still fails).
+// Widths this path takes; the others take the wide route or keep the FMA
+// kernel (a static rule, not a fallback: a refused launch here still fails).
 inline bool takes(int d, int f) { return d % 16 == 0 && f % 16 == 0 && d <= D_MAX; }
 
 // D padded to the tile's columns: 16, 32, or a multiple of 64.
@@ -103,19 +108,6 @@ __device__ __forceinline__ void pre_mma(float (&pre)[32], uint32_t x_tile, uint3
   wgmma_commit();
   wgmma_wait_all();
   hold(pre);
-}
-
-// gelu_AS(x) of common.cuh with the reciprocal and the exp of the header
-// comment.
-__device__ __forceinline__ float gelu_tc(float x) {
-  const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f;
-  const float a4 = -1.453152027f, a5 = 1.061405429f, p = 0.3275911f;
-  const float z = x * 0.7071067811865476f;
-  const float az = fabsf(z);
-  const float t = rcp_ftz(1.0f + p * az);
-  const float poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))));
-  const float erf = copysignf(1.0f - poly * exp2_ftz(-az * az * LOG2E), z);
-  return 0.5f * x * (1.0f + erf);
 }
 
 // WG warpgroups, each with its own 64 rows of x, share the weight ring.
@@ -287,15 +279,12 @@ cudaError_t launch_wg(const void* x, const void* w1, const void* b1, const void*
 }
 
 // Two warpgroups a CTA read each weight tile once for 128 rows, where that
-// still leaves CTAS_2WG CTAs or more and both x tiles fit beside the ring;
-// otherwise one, for more CTAs.
+// still leaves CTAS_2WG CTAs or more; otherwise one, for more CTAs.
 constexpr int CTAS_2WG = 2 * 132;
 
 inline cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2,
                           const void* b2, void* y, int r, int d, int f, cudaStream_t s) {
-  const long ctas = static_cast<long>((r + 127) / 128) * ((d + 127) / 128);
-  if (ctas >= CTAS_2WG && padded(d) <= 512)
-    return launch_wg<2>(x, w1, b1, w2, b2, y, r, d, f, s);
+  if ((r + 127) / 128 >= CTAS_2WG) return launch_wg<2>(x, w1, b1, w2, b2, y, r, d, f, s);
   return launch_wg<1>(x, w1, b1, w2, b2, y, r, d, f, s);
 }
 

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the tensor-core kernels (attn_fwd_tc.cuh:
 // K1, K2 in bf16; attn_bwd_tc.cuh: K4, K5, K6 in bf16; fused_mlp_tc.cuh: K3
-// in bf16; fused_mlp_bwd_tc.cuh: K7 in bf16).
+// in bf16 at D <= 128; fused_mlp_bwd_tc.cuh: K7 in bf16 at D <= 128;
+// fused_mlp_wide_tc.cuh: K3 and K7 in bf16 at 128 < D <= 1024).
 //
 // * Tiles of 64 rows of a (bh, t, D) bf16 tensor live in shared memory in
 //   the swizzled layout that TMA writes and wgmma reads: rows of
@@ -14,6 +15,11 @@
 //   from a tile transposed (MN-major) or, for K3, K-major, for N = 16..128.
 //   The m64nN fp32 accumulator fragment of a thread, two columns per 32-bit
 //   register after rounding to bf16, is the A fragment of the next product.
+//   WgmmaSS: both operands in shared memory, either one K-major or MN-major,
+//   N = 64 or 256 (the wide MLP kernels' tiles).
+// * A ring of slots between a producer warp and consumer warpgroups: a full
+//   mbarrier per slot that TMA completes, an empty one that each consumer
+//   warp arrives on once its products have read the slot (mbar_arrive).
 #pragma once
 
 #include <cuda.h>
@@ -57,6 +63,17 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
                "r"(bytes)
                : "memory");
+}
+
+// One arrival on `bar` (release: this thread's earlier shared-memory reads
+// are done before the phase can complete).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over the first `threads` threads.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Wait for the phase of `bar` with the given parity. A phase that never
@@ -123,6 +140,10 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait until at most N committed groups are still in flight.
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keep the compiler from moving reads or writes of a register that an
 // in-flight wgmma uses across the wait.
@@ -184,6 +205,71 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
+
+// d (+)= A B^T over one k16 step of m64nNk16, A and B in shared memory;
+// TA / TB = 1 read A / B MN-major (transposed), 0 K-major; `accumulate` 0
+// overwrites d. The wide MLP kernels' products (fused_mlp_wide_tc.cuh).
+template <int N, int TA = 0, int TB = 0> struct WgmmaSS;
+
+template <int TA, int TB> struct WgmmaSS<64, TA, TB> {
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+    wgmma_ss_n64<TA, TB>(d, da, db, accumulate);
+  }
+};
+
+template <int TA, int TB> struct WgmmaSS<256, TA, TB> {
+  __device__ __forceinline__ static void mma(float (&d)[128], uint64_t da, uint64_t db,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, "
+        "%128, %129, p, 1, 1, %131, %132;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
 
 // d += A B over one k16 step: A (64 x 16) in registers as four packed
 // bf16x2. B (16 x N) in shared memory is MN-major (read transposed) for
@@ -310,6 +396,36 @@ __device__ __forceinline__ float rcp_ftz(float x) {
   float y;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// gelu_AS of common.cuh with the reciprocal and exp(-z^2) each one
+// special-function instruction (rcp.approx, ex2.approx(-z^2 log2 e)), as
+// the bf16 MLP kernels compute it: within a few fp32 ulps of 1.0f / x and
+// expf, which moves h only where pre sits on a bf16 rounding boundary.
+__device__ __forceinline__ float gelu_tc(float x) {
+  const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f;
+  const float a4 = -1.453152027f, a5 = 1.061405429f, p = 0.3275911f;
+  const float z = x * 0.7071067811865476f;
+  const float az = fabsf(z);
+  const float t = rcp_ftz(1.0f + p * az);
+  const float poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))));
+  const float erf = copysignf(1.0f - poly * exp2_ftz(-az * az * LOG2E), z);
+  return 0.5f * x * (1.0f + erf);
+}
+
+// gelu_AS and dgelu_AS of common.cuh on one reciprocal and one exp: erf's
+// exp(-z^2) with z = x / sqrt(2) is the pdf's exp(-x^2 / 2).
+__device__ __forceinline__ void gelu_dgelu(float x, float& gel, float& dgel) {
+  const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f;
+  const float a4 = -1.453152027f, a5 = 1.061405429f, p = 0.3275911f;
+  const float z = x * 0.7071067811865476f;
+  const float az = fabsf(z);
+  const float t = rcp_ftz(1.0f + p * az);
+  const float poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))));
+  const float e = exp2_ftz(-az * az * LOG2E);  // exp(-x^2 / 2)
+  const float cdf = 0.5f * (1.0f + copysignf(1.0f - poly * e, z));
+  gel = x * cdf;
+  dgel = cdf + x * (0.3989422804014327f * e);
 }
 
 // ---- host side ---------------------------------------------------------

@@ -142,10 +142,12 @@ _DROP = (_I, _P, _I, _I, _U, _F, _P)
 _ATTN_FWD = (_P,) * 5 + (_I, _I, _I, _F, _I) + _DROP
 # (q, k, v, dout, lse, delta, *outputs, bh, t, d, scale, is_bf16, *dropout tail)
 _ATTN_BWD_TAIL = (_I, _I, _I, _F, _I) + _DROP
-# (x, w1, b1, w2, b2, y, rows, d, f, is_bf16, stream)
-_MLP_FWD = (_P,) * 6 + (_I, _I, _I, _I, _P)
+# (x, w1, b1, w2, b2, y, h, rows, d, f, is_bf16, stream); h is the wide route's
+# (rows, f) scratch, null elsewhere
+_MLP_FWD = (_P,) * 7 + (_I, _I, _I, _I, _P)
 # (x, dy, w1, b1, w2, dx, g, dh, partials, grads, rows, d, f, n_seg, is_bf16,
-#  tensor_cores, stream); g and dh are the FMA body's scratch, null on the tensor cores
+#  body, stream); body 0 FMA, 1 on-chip tensor cores, 2 wide; g and dh are the
+#  FMA and wide bodies' (rows, f) scratch, null on the on-chip body
 _MLP_BWD = (_P,) * 10 + (_I,) * 6 + (_P,)
 
 KERNELS: Dict[str, Kernel] = {

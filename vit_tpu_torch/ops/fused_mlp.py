@@ -15,15 +15,17 @@ transposes of the Pallas kernel's.
 
 The wrappers take the plain versions for tensors on the CPU and launch the
 kernels for tensors on the card. The kernels tile over F and over the
-output columns, so they run at every width. Each kernel picks its body by
-a fixed rule, not on failure: bf16 with D and F multiples of 16 and D at
-most 1024 (forward) or 512 (backward, :func:`bwd_plan`) runs its products
-on the tensor cores (``csrc/fused_mlp_tc.cuh``, ``csrc/fused_mlp_bwd_tc.cuh``);
-fp32, where tensor cores would mean TF32, and other bf16 widths run on the
-fp32 FMA units. So the backward of ViT-B (D768) and ViT-L (D1024) takes the
-FMA body, which ``vit_tpu`` never launches there: its Pallas MLP falls back
-to ``_jnp_mlp`` past a 12 MiB VMEM envelope
-(``vit_tpu/ops/fused_mlp.py:247-261``).
+output columns, so they run at every width. Both pick their body by one
+fixed rule on dtype and width, not on failure (:func:`mlp_body`): bf16 with
+D and F multiples of 16 runs every product on the tensor cores, with the
+(R, F) intermediates in registers at D <= 128 (``csrc/fused_mlp_tc.cuh``,
+``csrc/fused_mlp_bwd_tc.cuh``) and written once in bf16 to (R, F) scratch
+at 128 < D <= 1024 (``csrc/fused_mlp_wide_tc.cuh``: ViT-S/16's D384,
+ViT-B/16's D768, ViT-L/16's D1024); fp32, where tensor cores would mean
+TF32, and other widths run on the fp32 FMA units. ``vit_tpu`` never
+launches its Pallas MLP at D768 or D1024: it falls back to ``_jnp_mlp``
+past a 12 MiB VMEM envelope (``vit_tpu/ops/fused_mlp.py:247-261``), where
+the port launches these kernels.
 
 Under ``torch.func.vmap`` over R replicas (a stacked sweep,
 :mod:`vit_tpu_torch.opt.parallel_sweep`), each replica has its own weights:
@@ -46,8 +48,8 @@ from vit_tpu_torch.func_internals import is_batched
 from vit_tpu_torch.ops._build import KERNELS
 from vit_tpu_torch.ops.flash_attention import _aligned, replica_first
 
-__all__ = ["fused_mlp", "fused_mlp_plain", "fused_mlp_bwd", "fused_mlp_bwd_plain", "bwd_plan",
-           "gelu_as", "dgelu_as", "erf_as"]
+__all__ = ["fused_mlp", "fused_mlp_plain", "fused_mlp_bwd", "fused_mlp_bwd_plain", "mlp_body",
+           "bwd_plan", "gelu_as", "dgelu_as", "erf_as"]
 
 _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
@@ -107,17 +109,32 @@ def _check(x, w1, b1, w2, b2) -> None:
         raise ValueError("fused_mlp operands must lie on one device")
 
 
+def _ptr(t):
+    """A tensor's device pointer for a kernel's C entry, None for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def _fwd_scratch(r: int, d: int, f: int, dtype: torch.dtype, device):
+    """K3's scratch: h, the (R, F) GELU output in bf16, on the wide route;
+    None on the others (the intermediate stays on chip)."""
+    if mlp_body(d, f, dtype) != "wide":
+        return None
+    return torch.empty((r, f), dtype=dtype, device=device)
+
+
 def _launch(x, w1, b1, w2, b2) -> torch.Tensor:
     r, d = x.shape
     y = torch.empty_like(x)
     if r == 0:
         return y
-    if x.dtype == torch.bfloat16:  # the tensor-core body reads through TMA
+    if x.dtype == torch.bfloat16:  # the tensor-core bodies read through TMA
         x, w1, b1, w2, b2 = (_aligned(t) for t in (x, w1, b1, w2, b2))
+    h = _fwd_scratch(r, d, w1.shape[0], x.dtype, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     KERNELS["fused_mlp_fwd"].launch(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        y.data_ptr(), r, d, w1.shape[0], int(x.dtype == torch.bfloat16), stream,
+        y.data_ptr(), _ptr(h), r, d, w1.shape[0],
+        int(x.dtype == torch.bfloat16), stream,
     )
     return y
 
@@ -148,47 +165,73 @@ def _fused_mlp_fwd_fake(x, w1, b1, w2, b2):
 
 
 _WAVES = 2 * 132  # CTAs that fill two waves of the H100's 132 SMs
-_BWD_TC_D_MAX = 512  # csrc/fused_mlp_bwd_tc.cuh::D_MAX
+_TC_D_MAX = 128  # csrc/fused_mlp_tc.cuh, csrc/fused_mlp_bwd_tc.cuh::D_MAX
+_WIDE_D_MAX = 1024  # csrc/fused_mlp_wide_tc.cuh::D_MAX
+_WIDE_TILE = (128, 256)  # fused_mlp_wide_tc.cuh::BM, N_WGT: a weight-gradient tile
+BODIES = ("fma", "tc", "wide")  # the C entry points' body codes 0, 1, 2
+
+
+def mlp_body(d: int, f: int, dtype: torch.dtype) -> str:
+    """The body K3 and K7 run for width D and F hidden units: ``"tc"``
+    (bf16, D and F multiples of 16, D <= 128: the (R, F) intermediates stay
+    in registers), ``"wide"`` (the same with 128 < D <= 1024: h, or g and
+    dh, written once in bf16 to (R, F) scratch) or ``"fma"`` (fp32, where
+    tensor cores would mean TF32, and every other width)."""
+    if dtype != torch.bfloat16 or d % 16 or f % 16 or d > _WIDE_D_MAX:
+        return "fma"
+    return "tc" if d <= _TC_D_MAX else "wide"
 
 
 def bwd_plan(r: int, d: int, f: int, dtype: torch.dtype) -> Tuple[bool, int]:
     """K7's body and row segments for (R, D) rows and F hidden units:
-    ``(tensor_cores, n_seg)``.
+    ``(tensor_cores, n_seg)``, tensor_cores unless :func:`mlp_body` is
+    ``"fma"``.
 
-    bf16 with D and F multiples of 16 and D at most 512 takes the tensor
-    cores (``fused_mlp_bwd_tc.cuh::takes``); fp32 and other widths the FMA
-    body. Either way the weight-gradient CTAs (one per F chunk of 64 and
-    column tile of D) are repeated over ``n_seg`` segments of rows, enough
-    for about two waves of 132 SMs; each segment writes 2FD + F + D fp32
-    partials. Tensor cores: segments of whole 64-row blocks and D tiles of
-    128, none empty. FMA: 64 x 64 tiles, each segment at least 128 rows."""
-    tc = (dtype == torch.bfloat16 and d % 16 == 0 and f % 16 == 0 and d <= _BWD_TC_D_MAX)
-    if not tc:
+    The weight-gradient CTAs (each an output tile) are repeated over
+    ``n_seg`` segments of rows, enough for about two waves of 132 SMs; each
+    segment sums its rows' 2FD + F + D gradients in fp32. On the tensor
+    cores segments are whole 64-row blocks, none empty: ``"tc"`` tiles an F
+    chunk of 64 by D (one column tile), at least two waves; ``"wide"`` both
+    products (dW1 (F, D), dW2 (D, F)) by 128 x 256 output tiles, the count
+    nearest two waves (its CTAs fill an SM each, and one segment needs no
+    partials). FMA: 64 x 64 tiles, each segment at least 128 rows."""
+    body = mlp_body(d, f, dtype)
+    if body == "fma":
         tiles = -(-f // 64) * -(-d // 64)
         return False, max(1, min(-(-_WAVES // tiles), -(-r // 128)))
     blocks = max(1, -(-r // 64))
-    tiles = -(-f // 64) * -(-d // 128)
-    per_seg = -(-blocks // min(-(-_WAVES // tiles), blocks))
+    if body == "tc":
+        want = -(-_WAVES // (-(-f // 64) * -(-d // 128)))
+    else:
+        m, n = _WIDE_TILE
+        tiles = -(-f // m) * -(-d // n) + -(-d // m) * -(-f // n)
+        want = max(1, int(_WAVES / tiles + 0.5))
+    per_seg = -(-blocks // min(want, blocks))
     return True, -(-blocks // per_seg)
 
 
 def _bwd_scratch(r: int, d: int, f: int, dtype: torch.dtype, device):
-    """K7's plan and scratch: (tensor_cores, n_seg, g, dh, partials). g and
-    dh are the FMA body's (R, F) intermediates in the input dtype, None on
-    the tensor cores; the partials are (n_seg, 2FD + F + D) fp32."""
-    tc, n_seg = bwd_plan(r, d, f, dtype)
+    """K7's body, segments and scratch: (body, n_seg, g, dh, partials). g
+    and dh are (R, F) in the input dtype on the FMA and wide bodies (the
+    intermediates the other passes read), None on ``"tc"`` (on chip). The
+    partials are (n_seg, 2FD + F + D) fp32, None on the wide body with one
+    segment, whose last pass writes the gradients themselves."""
+    body = mlp_body(d, f, dtype)
+    n_seg = bwd_plan(r, d, f, dtype)[1]
     g = dh = None
-    if not tc:
+    if body != "tc":
         g = torch.empty((r, f), dtype=dtype, device=device)
         dh = torch.empty_like(g)
-    part = torch.empty((n_seg, 2 * f * d + f + d), dtype=torch.float32, device=device)
-    return tc, n_seg, g, dh, part
+    part = None
+    if body != "wide" or n_seg > 1:
+        part = torch.empty((n_seg, 2 * f * d + f + d), dtype=torch.float32, device=device)
+    return body, n_seg, g, dh, part
 
 
 def fused_mlp_bwd(x, dy, w1, b1, w2):
     """The backward (K7) of :func:`fused_mlp` on (R, D) rows, operands as
-    there: (dx, dW1, db1, dW2, db2), the weight gradients fp32. Only the
-    FMA body allocates (R, F) scratch (g and dh)."""
+    there: (dx, dW1, db1, dW2, db2), the weight gradients fp32. The FMA and
+    wide bodies allocate (R, F) scratch (g and dh, :func:`_bwd_scratch`)."""
     _check(x, w1, b1, w2, torch.empty(x.shape[1], dtype=x.dtype, device=x.device))
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy must match x: {dy.shape} {dy.dtype}, {x.shape} {x.dtype}")
@@ -202,15 +245,14 @@ def fused_mlp_bwd(x, dy, w1, b1, w2):
     grads = (torch.empty if r > 0 else torch.zeros)(2 * f * d + f + d, dtype=torch.float32,
                                                     device=x.device)
     if r > 0:
-        tc, n_seg, g, dh, part = _bwd_scratch(r, d, f, x.dtype, x.device)
-        if tc:  # the tensor-core body reads through TMA
+        body, n_seg, g, dh, part = _bwd_scratch(r, d, f, x.dtype, x.device)
+        if body != "fma":  # the tensor-core bodies read through TMA
             x, dy, w1, b1, w2 = (_aligned(t) for t in (x, dy, w1, b1, w2))
         stream = torch.cuda.current_stream(x.device).cuda_stream
         KERNELS["fused_mlp_bwd"].launch(
             x.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            dx.data_ptr(), None if tc else g.data_ptr(), None if tc else dh.data_ptr(),
-            part.data_ptr(), grads.data_ptr(), r, d, f, n_seg, int(x.dtype == torch.bfloat16),
-            int(tc), stream,
+            dx.data_ptr(), _ptr(g), _ptr(dh), _ptr(part), grads.data_ptr(), r, d, f, n_seg,
+            int(x.dtype == torch.bfloat16), BODIES.index(body), stream,
         )
     dw1, db1, dw2, db2 = torch.split(grads, [f * d, f, d * f, d])
     return dx, dw1.view(f, d), db1, dw2.view(d, f), db2
