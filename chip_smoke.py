@@ -205,10 +205,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    the first step in fp32 on the card against the CPU per tensor (1e-4)
    and in bf16 (2e-2, global relative L2; per tensor reported), one epoch,
    then served in bf16 (features 0.125, logits what that implies through
-   the fp32 head) and fp32 (1e-4). Last, vit_b16_bf16.yaml as it stands
-   (xla attention, dense MLP) at the same batch and layers, one step timed,
-   and a row of the four device ms a step: each model with xla + dense
-   beside flash + the fused MLP.
+   the fp32 head) and fp32 (1e-4). ViT-B/16's D768 lies outside
+   vit_tpu's fused-MLP envelope, so its fused run takes ``library_mlp``
+   and launches no K3/K7 (held exactly). Each model also trains with flash
+   and the dense MLP (one step timed), and vit_b16_bf16.yaml as it stands
+   (xla attention, dense MLP) at the same batch and layers; a row of the
+   six device ms a step: each model with xla + dense, flash + dense and
+   flash + the fused MLP.
 9. Runs (v), (x), (y): (v) int8 serving (``--only z``; 'v' runs (s')):
    stride1.yaml in bf16 at batch 16, unquantized, int8-w8a8 dynamic,
    calibrated and int8-wo, K1 launched exactly, each held against the same
@@ -276,6 +279,7 @@ Needs torch with CUDA, nvcc and one card; exits non-zero without them.
 
 from __future__ import annotations
 
+import copy
 import io
 import json
 import math
@@ -697,6 +701,63 @@ def mlp_bwd_case(r, d, f, dtype, g, sfu_rate, kernels):
                bit_repeatable=True, kernel_ms=ms, kernel_call_ms=kernel_call_ms,
                plain_ms=plain_ms, library_ms=None, unfused_ms=unfused_ms, passes=passes,
                bound_ms=bms, bound_by=by)
+    emit(row)
+    return row
+
+
+def library_mlp_case(r, d, f, g, kernels, k3: dict, k7: dict) -> dict:
+    """``library_mlp``, the model's MLP outside ``vit_tpu``'s envelope (its
+    ``_jnp_mlp``: library products summed in fp32, the fp32 erf GELU, h in
+    bf16), at a wide shape in bf16: no kernel of the package launches; its
+    forward and autograd gradients against the plain versions of K3 and K7
+    (y and dx at the bf16 limit; its weight gradients come out of bf16
+    operands, so four bf16 ulps of the largest value, not K7's 1e-3); its
+    device ms (the backward: forward and backward less the forward) beside
+    K3's and K7's rows at the shape, and the same with ``_gelu_f32``'s A&S
+    GELU as eager passes (``gelu_as``), the GELU it does not take."""
+    from vit_tpu_torch.ops.fused_mlp import (
+        _F32Product, fused_mlp_bwd_plain, fused_mlp_plain, gelu_as, library_mlp,
+    )
+
+    dtype = torch.bfloat16
+    x, dy = (torch.randn(r, d, generator=g, device="cuda").to(dtype) for _ in range(2))
+    w1 = (torch.randn(f, d, generator=g, device="cuda") / d**0.5).to(dtype)
+    b1 = (0.1 * torch.randn(f, generator=g, device="cuda")).to(dtype)
+    w2 = (torch.randn(d, f, generator=g, device="cuda") / f**0.5).to(dtype)
+    b2 = (0.1 * torch.randn(d, generator=g, device="cuda")).to(dtype)
+    leaves = [t.detach().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    before = {n: k.launches for n, k in kernels.items()}
+    y = library_mlp(*leaves)
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    check(all(k.launches == before[n] for n, k in kernels.items()),
+          "library_mlp launched a kernel of the package")
+    want = [fused_mlp_plain(x, w1, b1, w2, b2), *fused_mlp_bwd_plain(x, dy, w1, b1, w2)]
+    names = ("y", "dx", "dW1", "db1", "dW2", "db2")
+    tols = [kernel_tol(want[0]), kernel_tol(want[1])] + [
+        BF16_ROUNDINGS * w.abs().max().item() for w in want[2:]]
+    errs = [(a.float() - b.float()).abs().max().item() for a, b in zip([y, *got], want)]
+    check(all(torch.isfinite(a.float()).all().item() for a in (y, *got)),
+          "library_mlp gave non-finite output")
+    check(all(e <= tl for e, tl in zip(errs, tols)),
+          f"library_mlp {(r, d, f)}: errors {dict(zip(names, errs))}, tols {tols}")
+    fwd_ms = time_ms(lambda: library_mlp(*leaves))
+    bwd_ms = time_ms(lambda: torch.autograd.grad(library_mlp(*leaves), leaves, dy)) - fwd_ms
+
+    def gelu_as_mlp(x, w1, b1, w2, b2):  # _gelu_f32's A&S erf, eager: the GELU not taken
+        h = gelu_as(_F32Product.apply(x, w1) + b1.float()).to(x.dtype)
+        return (_F32Product.apply(h, w2) + b2.float()).to(x.dtype)
+
+    as_fwd_ms = time_ms(lambda: gelu_as_mlp(*leaves), reps=5)
+    as_bwd_ms = time_ms(lambda: torch.autograd.grad(gelu_as_mlp(*leaves), leaves, dy),
+                        reps=5) - as_fwd_ms
+    row = dict(phase="kernel_counterpart", counterpart="library_mlp", replaces_at_this_width=
+               "K3, K7 (vit_tpu: _jnp_mlp past its 12 MiB envelope)",
+               shape=dict(R=r, D=d, F=f), dtype=str(dtype), errs=dict(zip(names, errs)),
+               tols=dict(zip(names, tols)), fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+               gelu_as_fwd_ms=as_fwd_ms, gelu_as_bwd_ms=as_bwd_ms,
+               k3_ms=k3["kernel_ms"], k7_ms=k7["kernel_ms"], k3_unfused_ms=k3["unfused_ms"],
+               k7_unfused_ms=k7["unfused_ms"], kernel_launches=0)
     emit(row)
     return row
 
@@ -2773,6 +2834,7 @@ def image_runs(work: str, none: dict, kernels) -> dict:
 
     from vit_tpu_torch.data.images import make_dummy_images
     from vit_tpu_torch.models.builder import get_vit_config
+    from vit_tpu_torch.ops.fused_mlp import in_envelope
     from vit_tpu_torch.prepca.pipeline import compute_patch_pca_images
 
     rows = {}
@@ -2792,20 +2854,25 @@ def image_runs(work: str, none: dict, kernels) -> dict:
                                          n=2 * serve_batch, batch=serve_batch)
         fp32 = copy.deepcopy(cfg)
         fp32["train"]["precision"] = "float32"
+        if fp32["model"].get("fused_mlp"):  # fp32 moves the MLP's width against the envelope
+            serve_expect = counts(fp32)[1]
         rows[f"{tag}_serve_fp32"] = serve_run(f"{tag}_serve_fp32", fp32, serve_expect,
                                               FP32_TOL, FP32_TOL, work, kernels, module=module,
                                               n=2 * serve_batch, batch=serve_batch)
 
     def counts(cfg, remat_layer=False):
         """Exact per-step launches of one epoch's fit, and of serving two
-        batches, for a config with flash and the fused MLP."""
-        layers = get_vit_config(copy.deepcopy(cfg)).num_hidden_layers
+        batches, for a config with flash and the fused MLP: K3 and K7
+        inside vit_tpu's envelope only (library_mlp outside launches none)."""
+        vc = get_vit_config(copy.deepcopy(cfg))
+        layers = vc.num_hidden_layers
+        mlp = int(in_envelope(vc.hidden_size, vc.intermediate_size, vc.dtype))
         bs = cfg["train"]["batch_size"]
         steps, val = -(-IMAGE_INPUTS // bs), -(-IMAGE_VAL // min(bs, IMAGE_VAL))
         fwd = layers * ((2 if remat_layer else 1) * steps + val)
-        return dict(none, short_fwd=fwd, short_bwd=layers * steps, fused_mlp_fwd=fwd,
-                    fused_mlp_bwd=layers * steps), dict(none, short_fwd=layers * 2,
-                                                        fused_mlp_fwd=layers * 2)
+        return dict(none, short_fwd=fwd, short_bwd=layers * steps, fused_mlp_fwd=mlp * fwd,
+                    fused_mlp_bwd=mlp * layers * steps), dict(none, short_fwd=layers * 2,
+                                                              fused_mlp_fwd=mlp * layers * 2)
 
     s16 = image_config("cifar_vit_s16.yaml")
     run("u_cifar_s16_bf16", s16, none, none, 128)
@@ -2813,6 +2880,10 @@ def image_runs(work: str, none: dict, kernels) -> dict:
     flash["train"]["fused_epoch"] = False  # per step: exact launch counts
     expect, serve_expect = counts(flash)
     run("u_cifar_s16_flash_fused_bf16", flash, expect, serve_expect, 128)
+    flash_dense = image_config("cifar_vit_s16.yaml", attn_impl="flash")
+    flash_dense["train"]["fused_epoch"] = False  # as the flash + fused run steps
+    rows["u_cifar_s16_flash_dense_bf16"] = image_step_run("u_cifar_s16_flash_dense_bf16",
+                                                          flash_dense)
 
     images = make_dummy_images(n=IMAGE_INPUTS, image_size=32, num_classes=10, seed=0)["images"]
     t0 = time.perf_counter()
@@ -2844,17 +2915,27 @@ def image_runs(work: str, none: dict, kernels) -> dict:
     dense = image_config("vit_b16_bf16.yaml", num_hidden_layers=B16_LAYERS)
     dense["train"].update(batch_size=B16_BATCH, fused_epoch=False)
     rows["u_vit_b16_bf16"] = image_step_run("u_vit_b16_bf16", dense)
+    b16_flash_dense = image_config("vit_b16_bf16.yaml", attn_impl="flash",
+                                   num_hidden_layers=B16_LAYERS)
+    b16_flash_dense["train"].update(batch_size=B16_BATCH, fused_epoch=False)
+    rows["u_vit_b16_flash_dense_bf16"] = image_step_run("u_vit_b16_flash_dense_bf16",
+                                                        b16_flash_dense)
+    ms = lambda tag: rows[tag]["device_ms_per_step"]  # noqa: E731
     emit(dict(phase="image_steps", device_ms_per_step={
-        "vit_s16": dict(xla_dense=rows["u_cifar_s16_bf16"]["device_ms_per_step"],
-                        flash_fused=rows["u_cifar_s16_flash_fused_bf16"]["device_ms_per_step"]),
+        "vit_s16": dict(xla_dense=ms("u_cifar_s16_bf16"),
+                        flash_dense=ms("u_cifar_s16_flash_dense_bf16"),
+                        flash_fused=ms("u_cifar_s16_flash_fused_bf16")),
         f"vit_b16_{B16_LAYERS}_layers": dict(
-            xla_dense=rows["u_vit_b16_bf16"]["device_ms_per_step"],
-            flash_fused=rows["u_vit_b16_flash_fused_bf16"]["device_ms_per_step"])}))
+            xla_dense=ms("u_vit_b16_bf16"), flash_dense=ms("u_vit_b16_flash_dense_bf16"),
+            flash_fused=ms("u_vit_b16_flash_fused_bf16"))},
+        fused_mlp_route={"vit_s16": "K3/K7 (inside vit_tpu's envelope)",
+                         f"vit_b16_{B16_LAYERS}_layers":
+                             "library_mlp (outside vit_tpu's envelope: no K3/K7 launch)"}))
     emit(dict(phase="image_cuts", reduced={
         "all": f"synthetic class-conditional images ({IMAGE_INPUTS} train, {IMAGE_VAL} val) "
                "in place of the npz files; 1 epoch",
-        "u_vit_b16_flash_fused_bf16": f"train.batch_size 1024 -> {B16_BATCH}; "
-                                      f"num_hidden_layers 12 -> {B16_LAYERS}"}))
+        "u_vit_b16_*": f"train.batch_size 1024 -> {B16_BATCH}; "
+                       f"num_hidden_layers 12 -> {B16_LAYERS}"}))
     return rows
 
 
@@ -4219,12 +4300,14 @@ def offset_check(kernels) -> dict:
 # ViT-B/16 at "b16_layers" layers and batch "b16_batch" of "images"; (D4)
 # ViT-S/16-MoE at "moe_layers" layers over "moe_images", ViT-L/16 at
 # "l16_layers" layers and batch "l16_batch" of "l16_images"; the ring op
-# alone at B "ring_batch", T "ring_t".
-D_SIZES = dict(spectra=1024, epochs=2, stride1_spectra=32, images=512, moe_images=256, val=128,
+# alone at B "ring_batch", T "ring_t". (D3b) is (D3) with the replicated
+# pipeline (train.pipeline_stage_params: false); (D3c) and (D3d, + ZeRO-1)
+# run it on four ranks, data 2 x pipe 2, over "images4".
+D_SIZES = dict(spectra=1024, epochs=2, stride1_spectra=32, images=512, images4=128,
+               moe_images=256, val=128,
                b16_batch=64, b16_layers=4, moe_layers=6, l16_layers=2, l16_batch=32,
                l16_images=64, ring_batch=16, ring_t=4066, profile_steps=2, forward_rows=8)
 D_LIMITS = {"float32": FP32_TOL, "bfloat16": 2e-2}  # first steps, per tensor
-D_ZERO1_REL = 1e-6  # ZeRO-1 against plain data parallelism after the epochs
 D_TIMEOUT = 600  # seconds for a group of ranks to finish its runs
 
 
@@ -4270,7 +4353,12 @@ def d_jobs(s: dict) -> list:
     b16["train"].update(batch_size=s["b16_batch"], gpus=2, pipeline_parallel=2,
                         pipeline_microbatches=4)
     jobs.append(dict(tag="D3_vit_b16_pp2", cfg=b16, data=dict(kind="images"), first_step=True,
-                     forward=True, kernels=("short_fwd", "short_bwd")))
+                     forward=True, save_params=True, kernels=("short_fwd", "short_bwd")))
+    replicated = copy.deepcopy(b16)
+    replicated["train"]["pipeline_stage_params"] = False
+    jobs.append(dict(tag="D3b_vit_b16_pp2_replicated", cfg=replicated, data=dict(kind="images"),
+                     first_step=True, one_rank_as="D3_vit_b16_pp2", save_params=True,
+                     params_as="D3_vit_b16_pp2", kernels=("short_fwd", "short_bwd")))
     moe = image_config("cifar_vit_s16_moe.yaml", num_hidden_layers=s["moe_layers"],
                        attn_impl="flash")
     moe["data"] = {"num_samples": s["moe_images"], "num_test_samples": s["val"]}
@@ -4285,14 +4373,29 @@ def d_jobs(s: dict) -> list:
     return jobs
 
 
+def d_jobs4(s: dict) -> list:
+    """(D3c), (D3d): (D3b) on four ranks, data 2 x pipe 2, over images4
+    images; (D3d) with ZeRO-1 over each stage's data group, its parameters
+    held bit for bit to (D3c)'s."""
+    b16 = next(j for j in d_jobs(s) if j["tag"] == "D3b_vit_b16_pp2_replicated")["cfg"]
+    c = copy.deepcopy(b16)
+    c["data"]["num_samples"] = s["images4"]
+    c["train"]["gpus"] = 4
+    d = copy.deepcopy(c)
+    d["train"]["opt_state_sharding"] = True
+    kernels = ("short_fwd", "short_bwd")
+    return [dict(tag="D3c_vit_b16_dp2_pp2_replicated", cfg=c, data=dict(kind="images"),
+                 first_step=True, save_params=True, kernels=kernels),
+            dict(tag="D3d_vit_b16_dp2_pp2_replicated_zero1", cfg=d, data=dict(kind="images"),
+                 save_params=True, same_as="D3c_vit_b16_dp2_pp2_replicated", kernels=kernels)]
+
+
 def d_one_rank(cfg: dict) -> dict:
     """The one-rank reference of a two-rank config: the same run with every
     parallel setting at 1."""
-    import copy
-
     ref = copy.deepcopy(cfg)
     for key in ("gpus", "model_parallel", "sequence_parallel", "pipeline_parallel",
-                "pipeline_microbatches", "opt_state_sharding"):
+                "pipeline_microbatches", "pipeline_stage_params", "opt_state_sharding"):
         ref["train"].pop(key, None)
     return ref
 
@@ -4372,7 +4475,6 @@ def d_run(job: dict, world: int, out_dir: str, dev: str, sizes: dict) -> dict:
     from vit_tpu_torch.parallel import comm
     from vit_tpu_torch.parallel.checkpoint import canonical_grads, canonical_state_dict
     from vit_tpu_torch.parallel.mesh import active_mesh_scope
-    from vit_tpu_torch.parallel.tensor import sync_gradients
     from vit_tpu_torch.train.loop import Experiment, loss_and_grads
     from vit_tpu_torch.train.optim import state_bytes
 
@@ -4401,8 +4503,7 @@ def d_run(job: dict, world: int, out_dir: str, dev: str, sizes: dict) -> dict:
             loss = loss_and_grads(exp.module, batch, exp.bundle.vit_config.task_type,
                                   exp.bundle.loss_name, seeds,
                                   shard=(mesh.coord("data"), mesh.size("data")))
-            loss = sync_gradients([p for p in exp.module.parameters() if p.grad is not None],
-                                  mesh, loss)
+            loss = exp.reduce_gradients(loss)
             grads = canonical_grads(exp.module, mesh, exp._param_names)
         for p in exp.module.parameters():
             p.grad = None
@@ -4433,6 +4534,8 @@ def d_run(job: dict, world: int, out_dir: str, dev: str, sizes: dict) -> dict:
                fit_collective_calls=comm.STATS["calls"],
                fit_staged_bytes=comm.STATS["staged_bytes"],
                fit_collective_host_seconds=comm.STATS["seconds"],
+               fit_bucket_bytes=comm.STATS["bucket_bytes"],
+               fit_bucket_seconds=comm.STATS["bucket_seconds"],
                path="per-step" if exp.fused is None else "fused (CUDA graph)",
                last_epoch_losses_finite=bool(np.isfinite(exp.epoch_losses).all()),
                train_loss=metrics["train_loss"],
@@ -4637,33 +4740,40 @@ def d_grad_errors(got: dict, want: dict) -> dict:
 
 _D_RANK_KEYS = ("host_ms_per_step_last_epoch", "profiled_host_ms_per_step", "device_ms_per_step",
                 "collective_device_share", "collective_host_share", "staged_bytes_per_step",
-                "peak_mib", "opt_state_bytes", "run_seconds", "profiler_error")
+                "peak_mib", "opt_state_bytes", "fit_bucket_bytes", "fit_bucket_seconds",
+                "run_seconds", "profiler_error")
 
 
-def d_compare(job: dict, two: list, one, out_dir: str, card: str, kernels,
+def d_compare(job: dict, ranks: list, one, out_dir: str, card: str, kernels,
               dev: str = "cuda") -> dict:
-    """Hold a two-rank run against its one-rank reference (or, for ZeRO-1,
-    against plain data parallelism); its row."""
+    """Hold a run on ``len(ranks)`` ranks against its one-rank reference
+    (``one_rank_as``: another job's), or, for ZeRO-1 (``same_as``) and the
+    replicated pipeline (``params_as``), against another run's parameters
+    after the epochs; its row. ``ranks``: each rank's rows of its group."""
     tag = job["tag"]
-    r0 = two[0][tag]
+    world = len(ranks)
+    r0 = ranks[0][tag]
     precision = job["cfg"]["train"].get("precision") or "float32"
     dtype = "bfloat16" if precision in ("bf16", "bfloat16") else "float32"
     limit = D_LIMITS[dtype]
-    row = dict(phase="parallel", run=tag, card=card, backend=r0["backend"], world=2,
+    row = dict(phase="parallel", run=tag, card=card, backend=r0["backend"], world=world,
                mesh=r0["mesh"], dtype=dtype, path=r0["path"],
                steps_per_epoch=r0["steps_per_epoch"], epochs=r0["epochs"],
                train_loss=r0["train_loss"],
-               per_rank={k: [two[r][tag].get(k) for r in range(2)] for k in _D_RANK_KEYS},
-               fit_staged_bytes_per_rank=[two[r][tag]["fit_staged_bytes"] for r in range(2)],
-               launches={n: sum(two[r][tag]["launches"][n] for r in range(2)) for n in kernels})
-    check(all(two[r][tag]["last_epoch_losses_finite"] for r in range(2)),
+               per_rank={k: [ranks[r][tag].get(k) for r in range(world)] for k in _D_RANK_KEYS},
+               fit_staged_bytes_per_rank=[ranks[r][tag]["fit_staged_bytes"]
+                                          for r in range(world)],
+               launches={n: sum(ranks[r][tag]["launches"][n] for r in range(world))
+                         for n in kernels})
+    check(all(ranks[r][tag]["last_epoch_losses_finite"] for r in range(world)),
           f"{tag}: a step loss is not finite")
     if one is not None:
         row["one_rank"] = {k: one.get(k) for k in ("backend", "path", "train_loss",
                                                    *_D_RANK_KEYS)}
     if job.get("first_step"):
-        got = torch.load(os.path.join(out_dir, f"{tag}_grads_w2.pt"))
-        want = torch.load(os.path.join(out_dir, f"{tag}_grads_w1.pt"))
+        ref = job.get("one_rank_as", tag)
+        got = torch.load(os.path.join(out_dir, f"{tag}_grads_w{world}.pt"))
+        want = torch.load(os.path.join(out_dir, f"{ref}_grads_w1.pt"))
         errs = d_grad_errors(got, want)
         worst = max(errs, key=errs.get)
         loss_err = abs(r0["first_step_loss"] - one["first_step_loss"]) / abs(one["first_step_loss"])
@@ -4677,25 +4787,45 @@ def d_compare(job: dict, two: list, one, out_dir: str, card: str, kernels,
         check(loss_err <= limit, f"{tag}: first-step loss {r0['first_step_loss']} against the "
               f"one-rank {one['first_step_loss']}")
     if job.get("forward"):
-        got = torch.load(os.path.join(out_dir, f"{tag}_logits_w2.pt"))
+        got = torch.load(os.path.join(out_dir, f"{tag}_logits_w{world}.pt"))
         want = torch.load(os.path.join(out_dir, f"{tag}_logits_w1.pt"))
         err = rel_l2(got, want, 0.0)
         row.update(pipelined_forward_rel_l2=err, pipelined_forward_limit=limit,
-                   stage_forward_busy_share=[two[r][tag].get("stage_forward_busy_share")
-                                             for r in range(2)],
+                   stage_forward_busy_share=[ranks[r][tag].get("stage_forward_busy_share")
+                                             for r in range(world)],
                    bubble_share_ideal=r0.get("bubble_share_ideal"))
         check(err <= limit, f"{tag}: the pipelined forward differs from the monolithic one by "
               f"relative L2 {err} (limit {limit})")
+    b = (torch.load(os.path.join(out_dir, f"{tag}_params_w{world}.pt"))
+         if job.get("save_params") else None)
     if job.get("same_as"):
-        a = torch.load(os.path.join(out_dir, f"{job['same_as']}_params_w2.pt"))
-        b = torch.load(os.path.join(out_dir, f"{tag}_params_w2.pt"))
+        other = job["same_as"]
+        a = torch.load(os.path.join(out_dir, f"{other}_params_w{world}.pt"))
+        same = all(torch.equal(a[n], b[n]) for n in a)
+        opt = [ranks[r][tag]["opt_state_bytes"] for r in range(world)]
+        opt_other = [ranks[r][other]["opt_state_bytes"] for r in range(world)]
+        row.update(zero1_params_rel_max=max(rel_l2(b[n].double(), a[n].double(), 1e-30)
+                                            for n in a),
+                   zero1_bit_equal=same, opt_state_bytes_without_zero1=opt_other,
+                   opt_state_bytes_ratio=[x / y for x, y in zip(opt, opt_other)])
+        check(same, f"{tag}: ZeRO-1's parameters are not {other}'s bit for bit")
+        check(all(x < 0.6 * y for x, y in zip(opt, opt_other)),
+              f"{tag}: optimizer bytes a rank {opt} against {opt_other} without ZeRO-1")
+    if job.get("params_as"):
+        # The replicated layout against the stage-resident run: bit for bit
+        # (the same schedule, each layer stepped from the same gradient under
+        # the same norm); held at the first-step limit otherwise.
+        other = job["params_as"]
+        a = torch.load(os.path.join(out_dir, f"{other}_params_w{world}.pt"))
+        same = all(torch.equal(a[n], b[n]) for n in a)
         rel = max(rel_l2(b[n].double(), a[n].double(), 1e-30) for n in a)
-        row.update(zero1_params_rel_max=rel, zero1_bit_equal=all(torch.equal(a[n], b[n])
-                                                                 for n in a),
-                   zero1_limit=D_ZERO1_REL, opt_state_bytes_replicated=[
-                       two[r][job["same_as"]]["opt_state_bytes"] for r in range(2)])
-        check(rel <= D_ZERO1_REL, f"{tag}: ZeRO-1 parameters differ from plain data "
-              f"parallelism's by relative L2 {rel}")
+        row.update(params_bit_equal_to=other, params_bit_equal=same, params_rel_max=rel,
+                   params_limit=None if same else limit,
+                   peak_mib_beside=[ranks[r][other].get("peak_mib") for r in range(world)],
+                   opt_state_bytes_beside=[ranks[r][other]["opt_state_bytes"]
+                                           for r in range(world)])
+        check(same or rel <= limit, f"{tag}: parameters differ from {other}'s by relative "
+              f"L2 {rel} (limit {limit})")
     for name in job.get("kernels", ()) if dev == "cuda" else ():  # the CPU runs plain versions
         check(row["launches"][name] > 0, f"{tag}: {name} was never launched")
     emit(row)
@@ -4765,13 +4895,38 @@ def d_ring_compare(two: list, out_dir: str, sizes: dict, card: str, dev: str) ->
     return row
 
 
+def d_predict_cli(work: str, bundle, n: int, dev: str) -> dict:
+    """``python -m vit_tpu_torch predict ... -g n`` in a process of its own,
+    over ``bundle``'s weights saved as a ``.pt`` and 8 spectra in a
+    ``.npz``: its exit code and the end of its standard error."""
+    import numpy as np
+    import yaml
+
+    d = os.path.join(work, "predict_cli")
+    os.makedirs(d, exist_ok=True)
+    cfg_path, pt, inp = (os.path.join(d, f) for f in ("cfg.yaml", "model.pt", "x.npz"))
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(d_spectra_config("baseline.yaml"), f)
+    torch.save({k: v.cpu() for k, v in bundle.module.state_dict().items()}, pt)
+    np.savez(inp, flux=np.random.default_rng(0).standard_normal((8, 4096)).astype(np.float32))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vit_tpu_torch", "predict", "-f", cfg_path,
+                           "--ckpt", pt, "--input", inp, "--output", os.path.join(d, "p.npz"),
+                           "--batch-size", "8", "-g", str(n), "--device", dev],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    return dict(args=f"predict ... -g {n} --device {dev}", returncode=proc.returncode,
+                seconds=time.perf_counter() - t0, stderr_tail=proc.stderr[-400:])
+
+
 def parallel_runs(work: str, kernels, sizes=None, dev: str = "cuda") -> dict:
     """Run (D): (D0) NCCL with two ranks on one card; the one-rank
     references (NCCL at world size 1, through the same entry points);
-    (D1)-(D4) on two ranks sharing the card (gloo, the collectives staged
-    through the host, when NCCL refuses), each held against its reference;
-    (D5) serving and the sweep on one card. ``dev="cpu"`` with small
-    ``sizes`` rehearses it on the CPU (gloo throughout)."""
+    (D1)-(D4) and (D3b) on two ranks sharing the card (gloo, the
+    collectives staged through the host, when NCCL refuses), (D3c) and
+    (D3d) on four, each held against its reference; (D5) serving (the
+    Predictor and ``predict -g 2``) and the sweep on one card. ``dev="cpu"``
+    with small ``sizes`` rehearses it on the CPU (gloo throughout)."""
     from vit_tpu_torch.models.builder import get_model
     from vit_tpu_torch.opt.parallel_sweep import _replica_devices
     from vit_tpu_torch.serve import Predictor
@@ -4782,23 +4937,28 @@ def parallel_runs(work: str, kernels, sizes=None, dev: str = "cuda") -> dict:
     out_dir = os.path.join(work, "parallel")
     os.makedirs(out_dir, exist_ok=True)
     probe = d_nccl_probe(dev)
-    jobs = d_jobs(sizes)
+    jobs, jobs4 = d_jobs(sizes), d_jobs4(sizes)
     parts = {}
     t = time.perf_counter()
     one = d_group(1, "nccl" if dev == "cuda" else "gloo",
-                  [j for j in jobs if j.get("first_step") or j.get("forward")], out_dir, dev,
-                  sizes)[0]
+                  [j for j in jobs + jobs4 if (j.get("first_step") or j.get("forward"))
+                   and not j.get("one_rank_as")], out_dir, dev, sizes)[0]
     parts["one_rank_group"] = time.perf_counter() - t
     t = time.perf_counter()
     two = d_group(2, probe["backend"], jobs, out_dir, dev, sizes)
     parts["two_rank_group"] = time.perf_counter() - t
+    t = time.perf_counter()
+    four = d_group(4, probe["backend"], jobs4, out_dir, dev, sizes)
+    parts["four_rank_group"] = time.perf_counter() - t
     runs = {"D0_nccl_two_ranks_one_card": probe}
     for job in jobs:
         if job.get("kind") == "ring_op":
             runs[job["tag"]] = d_ring_compare(two, out_dir, sizes, card, dev)
         else:
-            runs[job["tag"]] = d_compare(job, two, one.get(job["tag"]), out_dir, card, kernels,
-                                         dev)
+            runs[job["tag"]] = d_compare(job, two, one.get(job.get("one_rank_as", job["tag"])),
+                                         out_dir, card, kernels, dev)
+    for job in jobs4:
+        runs[job["tag"]] = d_compare(job, four, one.get(job["tag"]), out_dir, card, kernels, dev)
     # (D5) serving over two devices needs two cards here; the sweep's
     # replicas stay on the one (vit_tpu's _replica_devices(R, 1) = 1).
     bundle = get_model(d_spectra_config("baseline.yaml"))
@@ -4811,10 +4971,14 @@ def parallel_runs(work: str, kernels, sizes=None, dev: str = "cuda") -> dict:
     if n_dev < 2:
         check(raised == f"num_devices=2 requested but only {n_dev} devices are available",
               f"D5: Predictor(num_devices=2) on {n_dev} device(s): {raised}")
+    cli = d_predict_cli(work, bundle, 2, dev)
+    if n_dev < 2:
+        check(cli["returncode"] != 0 and f"num_devices=2 requested but only {n_dev} devices are "
+              "available" in cli["stderr_tail"], f"D5: predict -g 2 on {n_dev} device(s): {cli}")
     replicas = {r: _replica_devices(r, n_dev) for r in (1, 6, 7)}
     runs["D5_serving_and_sweep"] = dict(phase="parallel", run="D5_serving_and_sweep", card=card,
                                         devices=n_dev, predictor_raised=raised,
-                                        replica_devices=replicas)
+                                        predict_cli_g2=cli, replica_devices=replicas)
     emit(runs["D5_serving_and_sweep"])
     emit(dict(phase="run_seconds", run="D (parallelism)", seconds=time.perf_counter() - t0,
               parts=parts))
@@ -4988,8 +5152,9 @@ def main(argv=None) -> int:
     attention_case("short_fwd", short_fwd, short_fwd_plain, B16_BATCH, 12, 197, 64,
                    torch.bfloat16, g, sfu_rate, kernels, rate=0.1)
     attention_bwd_case(True, B16_BATCH, 12, 197, 64, torch.bfloat16, 0.1, g, sfu_rate, kernels)
-    mlp_case(B16_BATCH * 197, 768, 3072, torch.bfloat16, g, sfu_rate, kernels)
-    mlp_bwd_case(B16_BATCH * 197, 768, 3072, torch.bfloat16, g, sfu_rate, kernels)
+    b16_k3 = mlp_case(B16_BATCH * 197, 768, 3072, torch.bfloat16, g, sfu_rate, kernels)
+    b16_k7 = mlp_bwd_case(B16_BATCH * 197, 768, 3072, torch.bfloat16, g, sfu_rate, kernels)
+    library_mlp_case(B16_BATCH * 197, 768, 3072, g, kernels, b16_k3, b16_k7)
     mlp_case(L16_BATCH * 197, 1024, 4096, torch.bfloat16, g, sfu_rate, kernels)
     mlp_bwd_case(L16_BATCH * 197, 1024, 4096, torch.bfloat16, g, sfu_rate, kernels)
     rounding_check(g, kernels)

@@ -1019,3 +1019,58 @@ def test_two_rank_gloo_ring_on_the_card_matches_k1_k4_k5(gen):
         for a, b in zip(got, want):
             assert np.abs(a - b).max() <= FP32_TOL * max(1.0, np.abs(b).max())
 
+
+
+# -- vit_tpu's envelope: library_mlp outside it --------------------------------------
+@pytest.mark.parametrize("r, d, f, dtype", [(64 * 197, 768, 3072, torch.bfloat16),
+                                            (1000, 384, 1536, torch.float32)])
+def test_library_mlp_on_the_card_matches_the_plain_versions(gen, r, d, f, dtype):
+    """library_mlp (the model's MLP outside the envelope: ViT-B/16 at (u)'s
+    rows in bf16, ViT-S/16 in fp32) launches no kernel, and its forward and
+    autograd gradients hold against the plain versions of K3 and K7: y and
+    dx at the bf16 limit; bf16 weight gradients come out of bf16 operands,
+    so four bf16 ulps of their largest value; fp32 as _check_mlp_bwd."""
+    x, w1, b1, w2, b2 = _mlp_operands(gen, r, d, f, dtype)
+    dy = torch.randn(r, d, generator=gen, device="cuda").to(dtype)
+    leaves = [t.detach().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    before = {n: k.launches for n, k in KERNELS.items()}
+    y = fm.library_mlp(*leaves)
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert {n: k.launches for n, k in KERNELS.items()} == before
+    want = [fm.fused_mlp_plain(x, w1, b1, w2, b2), *fm.fused_mlp_bwd_plain(x, dy, w1, b1, w2)]
+    for name, a, b in zip(("y", "dx", "dW1", "db1", "dW2", "db2"), [y, *got], want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        if name in ("y", "dx"):
+            tol = _tol(b)
+        elif dtype == torch.bfloat16:
+            tol = 4 * 2**-8 * b.abs().max().item()
+        else:
+            tol = 1e-5 * max(1.0, b.abs().max().item())
+        assert (a.float() - b.float()).abs().max().item() <= tol, name
+
+
+@pytest.mark.parametrize("hidden, mlp, launches", [(768, 3072, 0), (384, 1536, 1)])
+def test_model_mlp_route_on_the_card_follows_the_envelope(gen, hidden, mlp, launches):
+    """fused_mlp: true in bf16: outside vit_tpu's envelope (D768, F3072) a
+    training step launches neither K3 nor K7; inside (D384, F1536) one
+    each a layer. The card's logits and loss stand within bf16 of the CPU's."""
+    from vit_tpu_torch.models.builder import get_model
+
+    cfg = {"model": dict(task_type="reg", image_size=256, patch_size=16, hidden_size=hidden,
+                         intermediate_size=mlp, num_hidden_layers=1,
+                         num_attention_heads=hidden // 64, stride_size=16, attn_impl="flash",
+                         fused_mlp=True),
+           "train": {"precision": "bf16"}, "data": {"param": "log_g"}}
+    model = get_model(cfg, generator=torch.Generator().manual_seed(1)).module.eval()
+    x = torch.randn(4, 256, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = model(x)
+    model.cuda()
+    before = {n: KERNELS[n].launches for n in ("fused_mlp_fwd", "fused_mlp_bwd")}
+    got = model(x.cuda())
+    got.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert {n: KERNELS[n].launches - before[n] for n in before} == {
+        "fused_mlp_fwd": launches, "fused_mlp_bwd": launches}
+    assert (got.detach().cpu() - want).abs().max().item() <= 1e-2

@@ -165,3 +165,33 @@ def test_predict_cli(served, tmp_path, fmt):
     x = data["flux"][:10]
     want = JaxPredictor.from_checkpoint(dict(cfg), ckpt=pt, batch_size=5).predict(x)
     np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+
+
+def test_predict_cli_takes_devices(served, tmp_path, monkeypatch):
+    """``predict -g 2`` (scripts/predict.py's ``-g/--gpus/--devices``) reaches
+    ``Predictor.from_checkpoint(num_devices=2)`` in the one process: with
+    one device it raises vit_tpu's message; with two (serving_devices
+    patched, both the CPU) it writes the single predictor's predictions."""
+    from vit_tpu_torch import serve
+    from vit_tpu_torch.__main__ import main
+
+    cfg, pt = served()
+    inp = str(tmp_path / "spectra.npz")
+    np.savez(inp, flux=make_dummy_spectra(n=10, length=512, seed=8)["flux"])
+    cfg_path = tmp_path / "serve.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+
+    def predict(out, *extra):
+        assert main(["predict", "-f", str(cfg_path), "--ckpt", pt, "--input", inp,
+                     "--output", str(tmp_path / out), "--batch-size", "4", "--device", "cpu",
+                     *extra]) == 0
+        with np.load(tmp_path / out) as z:
+            return z["predictions"]
+
+    for flag in ("-g", "--gpus", "--devices"):
+        with pytest.raises(ValueError, match="num_devices=2 requested but only 1 devices are "
+                                             "available"):
+            predict("never.npz", flag, "2")
+    one = predict("one.npz")
+    monkeypatch.setattr(serve, "serving_devices", lambda dev, n: [dev] * n)
+    np.testing.assert_allclose(predict("two.npz", "-g", "2"), one, atol=1e-6, rtol=0)

@@ -132,7 +132,6 @@ def first_step(cfg, gpus, state_dict, batch, seeds):
 
     from vit_tpu_torch.parallel.checkpoint import canonical_grads
     from vit_tpu_torch.parallel.mesh import active_mesh_scope
-    from vit_tpu_torch.parallel.tensor import sync_gradients
     from vit_tpu_torch.train.loop import loss_and_grads
 
     exp = _experiment(cfg, gpus, state_dict)
@@ -145,8 +144,7 @@ def first_step(cfg, gpus, state_dict, batch, seeds):
         loss = loss_and_grads(exp.module, b, exp.bundle.vit_config.task_type,
                               exp.bundle.loss_name, seeds,
                               shard=(mesh.coord("data"), mesh.size("data")))
-        loss = sync_gradients([p for p in exp.module.parameters() if p.grad is not None],
-                              mesh, loss)
+        loss = exp.reduce_gradients(loss)
         grads = canonical_grads(exp.module, mesh, exp._param_names)
     split = sorted(n for n, p in exp.module.named_parameters() if getattr(p, "_shard", None))
     return (float(loss), {k: _np(v) for k, v in grads.items()}, split) if mesh.rank == 0 else None
@@ -194,3 +192,32 @@ def pipeline_forward(cfg, state_dict, x, microbatches: int, moe: bool):
     if moe:
         return _np(out[0]), _np(out[1]), held
     return _np(out), None, held
+
+
+def restored_state(cfg, gpus, n, length, seed, ckpt_dir, spec):
+    """An Experiment over in-memory spectra restored from ``spec`` (best |
+    last | PATH) as a resumed fit restores it: rank 0's checkpoint of it
+    (the one-rank layout: weights, optimizer state, step), None elsewhere."""
+    os.environ["CKPT_DIR"] = ckpt_dir
+    import torch
+
+    from vit_tpu_torch.data.datasets import SpecDataModule
+    from vit_tpu_torch.data.synthetic import make_dummy_spectra
+    from vit_tpu_torch.parallel.mesh import active_mesh_scope
+    from vit_tpu_torch.train.loop import Experiment
+    from vit_tpu_torch.train.optim import OptSpec
+
+    dm = SpecDataModule(cfg, source=make_dummy_spectra(n=n, length=length, seed=seed))
+    exp = Experiment(cfg, device="cpu", num_devices=gpus, datamodule=dm)
+    if not exp.mesh.member:
+        return None
+    exp.optimizer = exp._make_optimizer(OptSpec.from_config(cfg, 1))
+    with active_mesh_scope(exp.mesh):
+        exp._restore(spec, training=True)
+        state = exp._state()
+    if exp.mesh.rank != 0:
+        return None
+    as_np = lambda x: (_np(x) if isinstance(x, torch.Tensor) else  # noqa: E731
+                       {k: as_np(v) for k, v in x.items()} if isinstance(x, dict) else x)
+    return {"state_dict": as_np(state["state_dict"]), "step": state["step"],
+            "optimizer": as_np(state["optimizer"]["state"])}

@@ -8,7 +8,9 @@
   (classification) for spectra from an HDF5 or ``.npz`` file, written to a
   ``.npz``; ``--quantize int8|int8-w8a8|int8-wo`` serves int8 encoder
   weights and ``--calibrate`` gives W8A8 static activation scales from the
-  first ``--batch-size`` inputs.
+  first ``--batch-size`` inputs; ``-g/--gpus/--devices N`` serves over N
+  devices in one process (``Predictor.from_checkpoint(num_devices=N)``,
+  which raises when fewer exist).
 * ``lr`` is the LR/scheduler grid search (``vit_tpu``'s
   ``opt/parallel_sweep.py``, ``launch.sh lr``) with its flags: ``--engine
   vmap`` (the default) trains the trials as stacked replicas, ``sequential``
@@ -79,7 +81,7 @@ def _predict(args: argparse.Namespace) -> int:
         args.config, ckpt=args.ckpt, batch_size=args.batch_size,
         precision=args.precision, quantize=args.quantize,
         calibration=x[: args.batch_size] if args.calibrate else None,
-        perf_preset=args.perf_preset, device=args.device,
+        perf_preset=args.perf_preset, num_devices=args.devices, device=args.device,
     )
     out = {"predictions": pred.predict(x)}
     if args.proba and pred.vit_config.task_type == "cls":
@@ -196,6 +198,8 @@ def main(argv=None) -> int:
                     help="W8A8: static activation scales from the first --batch-size inputs")
     pp.add_argument("--perf-preset", action="store_true",
                     help="bf16 + tanh GELU + bf16 softmax")
+    pp.add_argument("-g", "--gpus", "--devices", dest="devices", type=int, default=None,
+                    help="data-parallel serving over N devices")
     pp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     from vit_tpu_torch.opt import agent, parallel_sweep
 

@@ -9,9 +9,10 @@
   ViT; RoPE configs add no positions).
 * ``ViTLayer``          — pre-LN block in HF ViT order: layernorm_before ->
   attention -> residual; layernorm_after -> MLP -> residual. LN eps 1e-12.
-  The MLP is dense -> GELU -> dense, or the fused CUDA kernel when
-  ``fused_mlp`` is set (which, as in ``vit_tpu``, ignores
-  ``gelu_approximate``: the kernel is exact GELU).
+  The MLP is dense -> GELU -> dense, or, when ``fused_mlp`` is set, the
+  fused CUDA kernel inside ``vit_tpu``'s envelope and ``_jnp_mlp``'s math
+  outside it (:func:`~vit_tpu_torch.ops.fused_mlp.in_envelope`); both, as
+  in ``vit_tpu``, ignore ``gelu_approximate`` (exact GELU).
 * ``SpecViT``           — [preprocessor] -> embeddings -> encoder -> final
   LN -> CLS -> head, the head in fp32. The optional preprocessor
   (:mod:`vit_tpu_torch.models.preprocessor`, built by the builder from
@@ -297,10 +298,15 @@ class ViTLayer(nn.Module):
             # vit.py:249-257: no mlp_activation capture, the fused MLP unused.
             h, stats = self.moe(h, None if seeds is None or len(seeds) < 2 else seeds[1])
         elif cfg.fused_mlp and capture is None:
-            from vit_tpu_torch.ops.fused_mlp import fused_mlp
+            from vit_tpu_torch.ops import fused_mlp as fm
 
             w1, w2 = self.intermediate.dense, self.output.dense
-            h = fused_mlp(h.to(dt), full_param(w1.weight), w1.bias, full_param(w2.weight), w2.bias)
+            mlp = fm.fused_mlp
+            if not fm.in_envelope(cfg.hidden_size, cfg.intermediate_size, dt):
+                # vit_tpu/ops/fused_mlp.py:247-261: _jnp_mlp past the envelope.
+                fm.note_outside_envelope(cfg.hidden_size, cfg.intermediate_size, dt)
+                mlp = fm.library_mlp
+            h = mlp(h.to(dt), full_param(w1.weight), w1.bias, full_param(w2.weight), w2.bias)
         else:
             w1, w2 = self.intermediate.dense, self.output.dense
             h = F.gelu(w1(h, dt), approximate="tanh" if cfg.gelu_approximate else "none")
@@ -315,8 +321,9 @@ class ViTLayer(nn.Module):
 class ViTEncoder(nn.Module):
     """The layers, run in order; under pipeline parallelism
     (:attr:`pipeline`, :func:`vit_tpu_torch.parallel.pipeline.attach_pipeline`)
-    this rank holds and runs its stage's layers only, in the GPipe
-    schedule."""
+    this rank runs its stage's layers only, in the GPipe schedule, and
+    holds only them in the stage-resident layout; the replicated layout
+    holds every layer and evaluates (``eval()``) without the schedule."""
 
     def __init__(self, cfg: Any) -> None:
         super().__init__()
@@ -330,7 +337,7 @@ class ViTEncoder(nn.Module):
                 capture: Optional[dict] = None):
         """(the last layer's output, the MoE layers' stats stacked (L, 3)
         or None for a dense model)."""
-        if self.pipeline is not None:
+        if self.pipeline is not None and (self.pipeline.resident or self.training):
             if capture is not None:
                 raise ValueError("diagnostics capture is not supported under the pipeline "
                                  "(train.pipeline_parallel)")

@@ -22,10 +22,15 @@ D and F multiples of 16 runs every product on the tensor cores, with the
 ``csrc/fused_mlp_bwd_tc.cuh``) and written once in bf16 to (R, F) scratch
 at 128 < D <= 1024 (``csrc/fused_mlp_wide_tc.cuh``: ViT-S/16's D384,
 ViT-B/16's D768, ViT-L/16's D1024); fp32, where tensor cores would mean
-TF32, and other widths run on the fp32 FMA units. ``vit_tpu`` never
-launches its Pallas MLP at D768 or D1024: it falls back to ``_jnp_mlp``
-past a 12 MiB VMEM envelope (``vit_tpu/ops/fused_mlp.py:247-261``), where
-the port launches these kernels.
+TF32, and other widths run on the fp32 FMA units.
+
+The model takes these kernels inside ``vit_tpu``'s envelope only
+(``vit_tpu/ops/fused_mlp.py:247-261``): past ``(16 + 2·itemsize)·D·F`` =
+12 MiB (:func:`in_envelope`; ViT-S/16 in fp32, ViT-B/16 and ViT-L/16) it
+prints ``vit_tpu``'s line once (:func:`note_outside_envelope`) and runs
+:func:`library_mlp`, ``_jnp_mlp``'s math on the library's operations, as
+``vit_tpu`` runs ``_jnp_mlp`` there. The op itself keeps its device rule:
+called on the card, :func:`fused_mlp` launches the kernels at any width.
 
 Under ``torch.func.vmap`` over R replicas (a stacked sweep,
 :mod:`vit_tpu_torch.opt.parallel_sweep`), each replica has its own weights:
@@ -43,13 +48,15 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from vit_tpu_torch.func_internals import is_batched
 from vit_tpu_torch.ops._build import KERNELS
 from vit_tpu_torch.ops.flash_attention import _aligned, replica_first
 
 __all__ = ["fused_mlp", "fused_mlp_plain", "fused_mlp_bwd", "fused_mlp_bwd_plain", "mlp_body",
-           "bwd_plan", "gelu_as", "dgelu_as", "erf_as"]
+           "bwd_plan", "gelu_as", "dgelu_as", "erf_as", "ENVELOPE_BYTES", "resident_bytes",
+           "in_envelope", "note_outside_envelope", "library_mlp"]
 
 _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
@@ -310,3 +317,77 @@ def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     else:
         y = _fused_mlp_fwd_op(x2, *_cast(x2, w1, b1, w2, b2))
     return y.reshape(shape)
+
+
+# -- vit_tpu's envelope, and what runs outside it -------------------------------
+ENVELOPE_BYTES = 12 * 1024**2  # vit_tpu/ops/fused_mlp.py:252
+_ENVELOPE_NOTED = False  # vit_tpu's fused_mlp._warned: the line is printed once a process
+
+
+def resident_bytes(d: int, f: int, dtype: torch.dtype) -> int:
+    """``vit_tpu``'s estimate of its Pallas MLP's resident VMEM for width D,
+    F hidden units and the compute dtype: the backward's fp32 dW1/dW2
+    accumulators and both weight blocks, ``(16 + 2·itemsize)·D·F`` bytes."""
+    return (16 + 2 * dtype.itemsize) * d * f
+
+
+def in_envelope(d: int, f: int, dtype: torch.dtype) -> bool:
+    """True where ``vit_tpu``'s model runs its Pallas MLP (resident bytes
+    at most 12 MiB); outside, it runs ``_jnp_mlp``."""
+    return resident_bytes(d, f, dtype) <= ENVELOPE_BYTES
+
+
+def note_outside_envelope(d: int, f: int, dtype: torch.dtype) -> None:
+    """``vit_tpu``'s line for a width outside the envelope, once a process."""
+    global _ENVELOPE_NOTED
+    if not _ENVELOPE_NOTED:
+        print(f"[fused_mlp] d={d}, f={f} exceeds the kernel's VMEM envelope "
+              f"(~{resident_bytes(d, f, dtype) / 1e6:.0f} MB resident); using the XLA path")
+        _ENVELOPE_NOTED = True
+
+
+class _F32Product(torch.autograd.Function):
+    """``a @ b.T`` for ``a``, ``b`` of one dtype, summed in fp32 and
+    returned in fp32 (``jnp.dot(..., preferred_element_type=jnp.float32)``):
+    on the card a bf16 product with an fp32 result (``torch.mm(...,
+    out_dtype=torch.float32)``), elsewhere an fp32 product of the same
+    values. The backward rounds the incoming gradient to the operands'
+    dtype, as a cast's gradient does, and takes its two products there."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(a, b):
+        if a.dtype == torch.float32 or a.device.type != "cuda":
+            return torch.matmul(a.float(), b.float().t())
+        return torch.mm(a, b.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return g @ b, g.t() @ a
+
+
+def library_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
+    """``_jnp_mlp``'s math with the library's operations, what the model runs
+    outside the envelope: x·W1 summed in fp32 plus b1, the exact (erf) GELU
+    in fp32 (whatever ``gelu_approximate`` says, as in the fused path), h
+    rounded to x's dtype, h·W2 summed in fp32 plus b2, rounded. Operands as
+    :func:`fused_mlp`'s, the weights cast to x's dtype (as ``vit_tpu``'s
+    model casts them); the gradients come from autograd. No kernel of this
+    package runs here, and no plain version of one.
+
+    The GELU is torch's one pass over the fp32 pre-activation, not
+    :func:`gelu_as`: ``_gelu_f32``'s Abramowitz-Stegun erf is within 1.5e-7
+    of erf, below one fp32 ulp of most GELU values, and its ~20 eager
+    passes over (R, F) fp32 would cost more than both products."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    w1, b1, w2, b2 = (w.to(x.dtype) for w in (w1, b1, w2, b2))
+    h = F.gelu(_F32Product.apply(x2, w1) + b1.float()).to(x.dtype)
+    return (_F32Product.apply(h, w2) + b2.float()).to(x.dtype).reshape(shape)

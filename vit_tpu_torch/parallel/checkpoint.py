@@ -8,9 +8,10 @@ model, and any mesh resumes from it.
 * Tensor/expert parallelism: a split parameter, and each optimizer moment
   of its shape, is gathered over ``model`` to save, and this rank's block
   is taken to load.
-* Pipeline: a stage holds its layers only; the stages' entries are
-  gathered over ``pipe`` to save (host objects), and each stage takes its
-  own to load.
+* Pipeline, stage-resident: a stage holds its layers only; the stages'
+  entries are gathered over ``pipe`` to save (host objects), and each
+  stage takes its own to load. The replicated layout holds every layer on
+  every rank: its entries are the canonical ones as they stand.
 * ZeRO-1 gathers and splits its moments itself
   (:class:`~vit_tpu_torch.train.optim.Zero1Optimizer`).
 
@@ -44,6 +45,11 @@ def _whole(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return t.detach() if sh is None else comm.all_gather(t.detach(), sh.group, sh.dim)
 
 
+def _stage_resident(module: nn.Module, mesh: Mesh) -> bool:
+    """True where this rank holds its pipeline stage's layers only."""
+    return mesh.size("pipe") > 1 and module.vit.encoder.pipeline.resident
+
+
 def _merge_stages(entries: Dict[str, object], mesh: Mesh) -> Dict[str, object]:
     merged: Dict[str, object] = {}
     for part in comm.all_gather_object(entries, mesh.group("pipe")):
@@ -55,7 +61,7 @@ def canonical_state_dict(module: nn.Module, mesh: Mesh,
                          names: Sequence[str]) -> Dict[str, torch.Tensor]:
     """The one-rank ``state_dict`` (on the host, keys ``names`` in order)."""
     sd = {k: full_tensor(v).cpu() for k, v in module.state_dict(keep_vars=True).items()}
-    if mesh.size("pipe") > 1:
+    if _stage_resident(module, mesh):
         sd = _merge_stages(sd, mesh)
     return {k: sd[k] for k in names}
 
@@ -66,7 +72,7 @@ def canonical_grads(module: nn.Module, mesh: Mesh,
     step's, after its reductions), keyed as ``names``."""
     grads = {n: _whole(p.grad, p).cpu() for n, p in module.named_parameters()
              if p.grad is not None}
-    if mesh.size("pipe") > 1:
+    if _stage_resident(module, mesh):
         grads = _merge_stages(grads, mesh)
     return {k: grads[k] for k in names if k in grads}
 
@@ -90,7 +96,7 @@ def canonical_optimizer_state(optimizer, module: nn.Module, mesh: Mesh,
         named[name] = {k: (_whole(t, p).cpu()
                            if isinstance(t, torch.Tensor) and t.shape == p.shape else t)
                        for k, t in st.items()}
-    if mesh.size("pipe") > 1:
+    if _stage_resident(module, mesh):
         named = _merge_stages(named, mesh)
     group = dict(sd["param_groups"][0])
     group["params"] = list(range(len(param_names)))

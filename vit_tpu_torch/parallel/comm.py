@@ -40,15 +40,15 @@ from typing import Any, List, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["STATS", "reset_stats", "all_reduce", "all_gather", "broadcast", "exchange",
-           "all_gather_object", "group_rank", "group_size", "reduce_grad", "reduce_sum",
-           "gather", "scatter"]
+__all__ = ["STATS", "reset_stats", "all_reduce", "all_gather", "broadcast", "broadcast_bucket",
+           "exchange", "all_gather_object", "group_rank", "group_size", "reduce_grad",
+           "reduce_sum", "gather", "scatter"]
 
-STATS = {"calls": 0, "staged_bytes": 0, "seconds": 0.0}
+STATS = {"calls": 0, "staged_bytes": 0, "seconds": 0.0, "bucket_bytes": 0, "bucket_seconds": 0.0}
 
 
 def reset_stats() -> None:
-    STATS.update(calls=0, staged_bytes=0, seconds=0.0)
+    STATS.update(calls=0, staged_bytes=0, seconds=0.0, bucket_bytes=0, bucket_seconds=0.0)
 
 
 def group_size(group) -> int:
@@ -123,17 +123,45 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 
 
 def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
-    """``x`` from global rank ``src`` to every rank of ``group``, in place."""
+    """``x`` from global rank ``src`` to every rank of ``group``, in place
+    (staged: only ``src`` copies its ``x`` to the host)."""
     if group is None:
         return x
     with _Timed():
         if _staged(group, x):
-            h = _host(x).contiguous()
+            h = (_host(x).contiguous() if dist.get_rank() == src
+                 else torch.empty(x.shape, dtype=x.dtype))
             dist.broadcast(h, src, group=group)
             _back(x, h)
         else:
             dist.broadcast(x, src, group=group)
     return x
+
+
+def broadcast_bucket(tensors: Sequence[torch.Tensor], src: int, group) -> None:
+    """The ``tensors`` (of one dtype) of global rank ``src`` to every rank of
+    ``group``, in place, as one flat bucket: one :func:`broadcast` (counted
+    as any call), its bytes and host seconds also in ``bucket_bytes`` and
+    ``bucket_seconds``. The other ranks' tensors are only written."""
+    if group is None or not tensors:
+        return
+    if len({t.dtype for t in tensors}) > 1:
+        raise ValueError("broadcast_bucket takes tensors of one dtype")
+    t0 = time.perf_counter()
+    mine = dist.get_rank() == src
+    if mine:
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+    else:
+        flat = torch.empty(sum(t.numel() for t in tensors), dtype=tensors[0].dtype,
+                           device=tensors[0].device)
+    broadcast(flat, src, group)
+    if not mine:
+        at = 0
+        for t in tensors:
+            t.copy_(flat[at:at + t.numel()].view(t.shape))
+            at += t.numel()
+    STATS["bucket_bytes"] += flat.numel() * flat.element_size()
+    STATS["bucket_seconds"] += time.perf_counter() - t0
 
 
 def exchange(sends: Sequence[Tuple[torch.Tensor, int]],

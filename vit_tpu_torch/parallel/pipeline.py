@@ -15,7 +15,7 @@ input gradients are broadcast so the embeddings' gradients agree on every
 stage. Point to point goes through :func:`~vit_tpu_torch.parallel.comm.
 exchange` (``vit_tpu``: ``ppermute`` inside one ``shard_map``).
 
-Memory is stage-resident, as ``vit_tpu``'s default
+Memory is stage-resident by default, as ``vit_tpu``'s
 (``train.pipeline_stage_params``): :func:`attach_pipeline` removes the
 other stages' layers from this rank's model, so a rank holds (and its
 optimizer steps) only its stage's encoder parameters, under their
@@ -24,6 +24,17 @@ canonical per-layer layout (the stages' layers gathered,
 :meth:`~vit_tpu_torch.train.loop.Experiment` ``_state``).
 :func:`stack_stage_params` and the other layout helpers convert between
 that layout and ``vit_tpu``'s stacked ``(P, L/P, ...)`` one.
+
+``train.pipeline_stage_params: false`` is ``vit_tpu``'s replicated layout
+(``attach_pipeline(..., resident=False)``): every rank keeps every layer
+and steps them all, as GSPMD's replicated parameters do, so it composes
+with ZeRO-1. The schedule still runs this stage's layers only; after the
+backward :meth:`Pipeline.share_grads` gives each stage's layers'
+gradients, which only that stage's ranks hold, to the other stages (one
+bucket a stage, broadcast by its owner). The global norm counts each
+layer at its owner (``_pipe_owner``). Evaluation (``module.eval()``) runs
+the monolithic forward, as ``vit_tpu``'s eval step does under this layout,
+and checkpoints need no gather.
 
 Dropout: each microbatch runs at the :func:`~vit_tpu_torch.ops.dropout.
 batch_offset` of its first global row, so every site draws the masks the
@@ -330,15 +341,34 @@ def pipeline_encoder(stage_fn: Callable, tokens: torch.Tensor, *, mesh: Mesh,
 
 class Pipeline:
     """The encoder's pipeline on this rank: stage ``stage`` of ``mesh``'s
-    ``axis``, holding layers ``layers``, ``num_microbatches`` a training
-    batch (an evaluation batch that does not divide takes one)."""
+    ``axis``, running layers ``layers``, ``num_microbatches`` a training
+    batch (an evaluation batch that does not divide takes one).
+    ``resident``: this rank holds its stage's layers only (else all)."""
 
     def __init__(self, mesh: Mesh, num_microbatches: int, num_layers: int,
-                 axis: str = "pipe") -> None:
+                 axis: str = "pipe", resident: bool = True) -> None:
         self.mesh, self.axis, self.m = mesh, axis, int(num_microbatches)
+        self.resident = resident
         self.stage = mesh.coord(axis)
         self.layers = stage_layers(num_layers, mesh.size(axis), self.stage)
         self.stats: Optional[dict] = None  # set to a dict to record the schedule's times
+
+    @torch.no_grad()
+    def share_grads(self, encoder) -> None:
+        """The replicated layout's gradient exchange: each stage's layers'
+        gradients go from that stage's rank on this rank's ``axis`` line to
+        the others, one flat bucket a stage
+        (:func:`~vit_tpu_torch.parallel.comm.broadcast_bucket`), so every
+        rank holds the whole gradient."""
+        n = self.mesh.size(self.axis)
+        group, ranks = self.mesh.group(self.axis), self.mesh.group_ranks(self.axis)
+        for stage in range(n):
+            params = [p for i in stage_layers(len(encoder.layer), n, stage)
+                      for p in encoder.layer[i].parameters()]
+            for p in params:
+                if p.grad is None:  # another stage's layer: the broadcast fills it
+                    p.grad = (torch.empty_like if stage != self.stage else torch.zeros_like)(p)
+            comm.broadcast_bucket([p.grad for p in params], ranks[stage], group)
 
     def run(self, encoder, x: torch.Tensor, seeds):
         m = self.m if x.shape[0] % self.m == 0 else 1
@@ -349,15 +379,22 @@ class Pipeline:
         return res if encoder.has_moe else (res, None)
 
 
-def attach_pipeline(module, mesh: Mesh, num_microbatches: int, axis: str = "pipe") -> Pipeline:
+def attach_pipeline(module, mesh: Mesh, num_microbatches: int, axis: str = "pipe",
+                    resident: bool = True) -> Pipeline:
     """Make ``module`` (a :class:`~vit_tpu_torch.models.vit.SpecViT`) this
-    rank's stage: the other stages' layers leave it, its own encoder
-    parameters are marked as owned over ``axis`` (for the gradient norm),
-    and its encoder runs the schedule. Returns the :class:`Pipeline`."""
+    rank's stage: its encoder runs the schedule. Stage-resident
+    (``resident``), the other stages' layers leave it and its own encoder
+    parameters are marked as owned over ``axis``; replicated, every layer
+    stays and each layer's parameters name their stage (``_pipe_owner``).
+    Both marks serve the gradient norm. Returns the :class:`Pipeline`."""
     encoder = module.vit.encoder
-    pipe = Pipeline(mesh, num_microbatches, len(encoder.layer), axis)
+    pipe = Pipeline(mesh, num_microbatches, len(encoder.layer), axis, resident)
+    n = mesh.size(axis)
     for i in range(len(encoder.layer)):
-        if i in pipe.layers:
+        if not resident:
+            for p in encoder.layer[i].parameters():
+                p._pipe_owner = i // (len(encoder.layer) // n)
+        elif i in pipe.layers:
             for p in encoder.layer[i].parameters():
                 p._split_axes = tuple(getattr(p, "_split_axes", ())) + (axis,)
         else:

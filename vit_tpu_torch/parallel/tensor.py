@@ -152,13 +152,21 @@ _NORM_KEYS = ((), ("model",), ("pipe",), ("model", "pipe"))
 def global_grad_norm(params: Iterable[torch.Tensor], mesh: Mesh) -> torch.Tensor:
     """The global L2 norm of the step's gradients, each block counted once:
     a gradient split or owned over mesh axes sums its squares over their
-    groups."""
+    groups. A layer of the replicated pipeline (``_pipe_owner``, held by
+    every rank) is counted at its own stage and summed over ``pipe``, as
+    the stage-resident layout counts it."""
     parts: Dict[tuple, List[torch.Tensor]] = {k: [] for k in _NORM_KEYS}
     device = None
     for p in params:
         if p.grad is not None:
-            parts[split_axes(p)].append(p.grad.float().square().sum())
             device = p.grad.device
+            axes = split_axes(p)
+            owner = getattr(p, "_pipe_owner", None)
+            if owner is not None:
+                if owner != mesh.coord("pipe"):
+                    continue
+                axes = axes + ("pipe",)
+            parts[axes].append(p.grad.float().square().sum())
     total = torch.zeros((), device=device)
     for axes in _NORM_KEYS:
         s = torch.stack(parts[axes]).sum() if parts[axes] else torch.zeros((), device=device)

@@ -88,7 +88,9 @@ builds the ``(data, model[, pipe])`` mesh from ``train.gpus`` (capped by
 the world size), ``train.model_parallel`` (tensor parallelism, an MoE
 model's expert parallelism), ``train.sequence_parallel`` (ring attention,
 ``model.attn_impl: ring``) and ``train.pipeline_parallel`` (with
-``train.pipeline_microbatches``), with ``vit_tpu``'s mutual-exclusion
+``train.pipeline_microbatches``; stage-resident, or with
+``train.pipeline_stage_params: false`` replicated, its gradients shared
+over ``pipe`` before anything reads them), with ``vit_tpu``'s mutual-exclusion
 errors and its shrink of the data axis to a divisor of the batch rows.
 Every rank reads the same global batch (the same permutation, seeds and
 noise) and trains on its rows of each micro-batch, at the dropout
@@ -345,6 +347,9 @@ class Experiment:
                   "effect without model.attn_impl: ring")
         self.pp = int(train_cfg.get("pipeline_parallel", 1) or 1)
         microbatches = int(train_cfg.get("pipeline_microbatches", 0) or 0)
+        # train.pipeline_stage_params (on): each rank holds its stage's layers;
+        # off: every layer on every rank, the layout that composes with ZeRO-1.
+        self.pp_resident = self.pp > 1 and bool(train_cfg.get("pipeline_stage_params", True))
         if self.pp > 1:
             if vc.attn_impl == "ring":
                 raise ValueError("model.attn_impl: ring cannot run inside the pipeline "
@@ -354,9 +359,10 @@ class Experiment:
                 raise ValueError("train.sequence_parallel cannot compose with "
                                  "train.pipeline_parallel (ring attention splits the "
                                  "sequence over the axis the pipeline body would need)")
-            if not bool(train_cfg.get("pipeline_stage_params", True)):
-                raise ValueError("the port's pipeline is stage-resident only "
-                                 "(train.pipeline_stage_params: true, the default)")
+            if tp > 1 and not self.pp_resident:
+                raise ValueError("train.model_parallel x pipeline_parallel requires the "
+                                 "stage-resident layout (train.pipeline_stage_params: "
+                                 "true, the default)")
             if vc.num_hidden_layers % self.pp != 0:
                 raise ValueError(f"model.num_hidden_layers={vc.num_hidden_layers} must be "
                                  f"divisible by train.pipeline_parallel={self.pp}")
@@ -370,10 +376,12 @@ class Experiment:
                              "parallelism only: under model_parallel the moments already "
                              "inherit the tensor-parallel layouts; set model_parallel/"
                              "sequence_parallel to 1")
-        if self.zero1 and self.pp > 1:
+        if self.zero1 and self.pp_resident:
             raise ValueError("train.opt_state_sharding is redundant with the stage-"
                              "resident pipeline layout (encoder optimizer state is "
-                             "already 1/P-sharded over `pipe`)")
+                             "already 1/P-sharded over `pipe`); set "
+                             "train.pipeline_stage_params: false to combine zero1 with "
+                             "the replicated-params pipeline")
         fwd_batch = self.batch_size // self.accum_steps
         if self.pp > 1 and fwd_batch % self.pp_microbatches != 0:
             raise ValueError(
@@ -399,8 +407,13 @@ class Experiment:
         if self.pp > 1:
             from vit_tpu_torch.parallel.pipeline import attach_pipeline
 
-            attach_pipeline(self.module, self.mesh, self.pp_microbatches)
+            attach_pipeline(self.module, self.mesh, self.pp_microbatches,
+                            resident=self.pp_resident)
+        # _split: this rank holds a part of the model (checkpoints gather it);
+        # the replicated pipeline holds it all but counts each layer's
+        # gradient norm at its stage.
         self._split = any(split_axes(p) for p in self.module.parameters())
+        self._norm_split = self._split or self.pp > 1
 
     def _all_ranks_any(self, flag: bool) -> bool:
         """True on every rank of the mesh when ``flag`` is on any of them."""
@@ -428,13 +441,15 @@ class Experiment:
         loss = loss_and_grads(self.module, batch, vc.task_type, self.bundle.loss_name, seeds,
                               self.noise_level, noise,
                               shard=(mesh.coord("data"), mesh.size("data")))
+        loss = self.reduce_gradients(loss)
+        # After the exchange: under the replicated pipeline the other stages'
+        # layers had no gradient before it, and the optimizer would skip them.
         params = [p for p in self.module.parameters() if p.grad is not None]
-        loss = sync_gradients(params, mesh, loss)  # the mean over data, before the clip
         frozen = self._preprocessor_params() if self.frozen else []
         for p in frozen:
             p.grad.zero_()  # before the clip: out of the global norm
         if spec.grad_clip and spec.grad_clip > 0:
-            norm = global_grad_norm(params, mesh) if self._split else None
+            norm = global_grad_norm(params, mesh) if self._norm_split else None
             clip_by_global_norm([p.grad for p in params], spec.grad_clip, norm=norm)
         set_learning_rate(self.optimizer, lr)
         held = [p.detach().clone() for p in frozen]
@@ -445,6 +460,27 @@ class Experiment:
         if draws is None:
             self.step += 1
         return loss, lr
+
+    def _make_optimizer(self, spec: OptSpec):
+        """The run's optimizer over this rank's parameters: ZeRO-1 over
+        ``data`` (``train.opt_state_sharding``) or the plain one."""
+        capturable = self.device.type == "cuda"
+        if self.zero1 and self.mesh.size("data") > 1:
+            return Zero1Optimizer(spec, self.module.parameters(), self.mesh,
+                                  capturable=capturable)
+        return build_optimizer(spec, self.module.parameters(), capturable=capturable)
+
+    def reduce_gradients(self, loss: torch.Tensor) -> torch.Tensor:
+        """The step's gradients (left in ``.grad`` by :func:`loss_and_grads`)
+        and ``loss`` averaged over ``data``, before the clip; under the
+        replicated pipeline each stage's layers' gradients then go to the
+        other stages (:meth:`~vit_tpu_torch.parallel.pipeline.Pipeline.
+        share_grads`), so every rank holds them all. Returns the loss."""
+        loss = sync_gradients([p for p in self.module.parameters() if p.grad is not None],
+                              self.mesh, loss)
+        if self.pp > 1 and not self.pp_resident:
+            self.module.vit.encoder.pipeline.share_grads(self.module.vit.encoder)
+        return loss
 
     def _preprocessor_params(self) -> List[torch.nn.Parameter]:
         pre = getattr(self.module, "preprocessor", None)
@@ -633,13 +669,7 @@ class Experiment:
                                    has_val=explicit_val)
         schedule = schedule_scale(spec)
         if self.optimizer is None:
-            capturable = self.device.type == "cuda"
-            if self.zero1 and self.mesh.size("data") > 1:
-                self.optimizer = Zero1Optimizer(spec, self.module.parameters(), self.mesh,
-                                                capturable=capturable)
-            else:
-                self.optimizer = build_optimizer(spec, self.module.parameters(),
-                                                 capturable=capturable)
+            self.optimizer = self._make_optimizer(spec)
         self.plateau = (PlateauScheduler(spec.plateau_factor, spec.plateau_patience,
                                          mode=spec.plateau_mode or self.monitor_mode)
                         if spec.scheduler == "plateau" else None)
