@@ -15,8 +15,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and so does every pass of K3's and K7's wide route
    (``fused_mlp_wide_tc``, 128 < D <= 1024: K3's act and out passes, K7's
    act, out and weight-gradient passes), each of which must be there;
-   the bf16 dQ and dK/dV passes (``attn_bwd_tc``) of K4, K5 and K6 hold
-   exactly their HGMMA counts (dQ 6, 8, 12, 20 and dK/dV 10,
+   the bf16 flash backward (K4 and K5 as one pass, ``attn_bwd_fused_tc``)
+   and K6's dQ and dK/dV passes (``attn_bwd_tc``) hold exactly their HGMMA
+   counts (the one pass 14, 16, 20, 28, K6's dQ 6, 8, 12, 20 and dK/dV 10,
    12, 16, 24 at d = 16, 32, 64, 128: the wgmma in the source, so a
    drift in the shared header shows), and no other instantiation (fp32,
    K3's and K7's bf16 FMA bodies) holds any.
@@ -29,8 +30,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    time of single calls, host launch overhead included), and the card's
    bound for the work. The library call is SDPA for the forward
    kernels and SDPA's backward (forward+backward minus forward, no
-   dropout) for K4/K5/K6; K4 and K5 are timed one by one, but their plain
-   and library times are of the whole backward (dq, dk, dv together). K3
+   dropout) for the flash backward and K6; a dropout row adds
+   ``library_dropout_ms``, SDPA (or its backward) at the same
+   ``dropout_p``: the same rate, other bits. The flash backward (K4 and K5
+   as one kernel, ``flash_bwd``) is timed through its wrapper, its dQ
+   workspace and counters included. K3
    and K7 have no library call; their rows add ``unfused_ms``, F.linear,
    exact-erf GELU and F.linear in the same dtype (for K7 its autograd
    backward: forward+backward minus forward), and hold the kernel
@@ -51,9 +55,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    O = M/(keep*T), zero exactly where ``hash_dropout_mask`` drops, so a
    single wrong mask bit fails (a tolerance on O at T = 4066 is blind to
    one dropped element): in fp32, and in bf16, where O is exact and held
-   bit for bit; and K4, K5 and K6 in bf16 with lse = log T and
-   delta = 0 passed in: K4 and K6 with Q = 0, K = V = I, dO = 1 give
-   dQ = scale*M/(keep*T), K5 and K6 with Q = K = 0, dO = I give
+   bit for bit; and the flash backward and K6 in bf16 with lse = log T and
+   delta = 0 passed in: both with Q = 0, K = V = I, dO = 1 give
+   dQ = scale*M/(keep*T), both with Q = K = 0, dO = I give
    dV[j, c] = M[c, j]/(keep*T), K6 with Q = K6_Q*I, K = 0, V = I, dO = 1
    gives dK[j, c] = M[c, j]/(keep*T) * bf16(K6_Q*bf16(scale)), all exact in
    bf16 and held bit for bit; then the same with one seed for each of four
@@ -372,14 +376,14 @@ SEED_VECTOR = (0, -1, 2**31 - 1)  # one seed a replica in the stacked checks
 # Q = K6_Q * I in K6's dK mask check: a bf16 value where bf16(K6_Q *
 # bf16(scale)) (K6) and bf16(K6_Q * scale) (K5) differ at d = 32 and 128.
 K6_Q = 1.046875
-# HGMMA in each bf16 instantiation of the attention backward's dQ pass and
-# dK/dV pass by head dim: the wgmma in their source per tile (S and dP,
-# d/16 k-steps each; then dS K, or P~^T dO and dS^T Q, four each). K4 is
-# the dQ pass, K5 the dK/dV pass, K6 runs both.
+# HGMMA in each bf16 instantiation of the attention backward by head dim:
+# the wgmma in the source per tile (S and dP, d/16 k-steps each; then four
+# each of dS K in K6's dQ pass; P~^T dO and dS^T Q in its dK/dV pass; and
+# all three in the one-pass flash backward, K4 and K5 as one kernel).
 DQ_HGMMA = {16: 6, 32: 8, 64: 12, 128: 20}
 DKV_HGMMA = {16: 10, 32: 12, 64: 16, 128: 24}
-BWD_HGMMA = {"flash_bwd_dq": {"dq_kernel": DQ_HGMMA},
-             "flash_bwd_dkv": {"dkv_kernel": DKV_HGMMA},
+FUSED_HGMMA = {16: 14, 32: 16, 64: 20, 128: 28}
+BWD_HGMMA = {"flash_bwd": {"bwd_kernel": FUSED_HGMMA},
              "short_bwd": {"dq_kernel": DQ_HGMMA, "dkv_kernel": DKV_HGMMA}}
 # The libraries' bf16 tensor-core instantiations live in these namespaces,
 # one per head dim and pass (K3: per column tile of 16, 32, 64 or 128 and
@@ -387,11 +391,11 @@ BWD_HGMMA = {"flash_bwd_dq": {"dq_kernel": DQ_HGMMA},
 # 16, 32, 64 and column tile of 64 or 128; and the wide route's passes).
 TC_NAMESPACE = {"flash_fwd": ("attn_fwd_tc",), "short_fwd": ("attn_fwd_tc",),
                 "fused_mlp_fwd": ("fused_mlp_tc", "fused_mlp_wide_tc"),
-                "flash_bwd_dq": ("attn_bwd_tc",), "flash_bwd_dkv": ("attn_bwd_tc",),
+                "flash_bwd": ("attn_bwd_fused_tc",),
                 "short_bwd": ("attn_bwd_tc",),
                 "fused_mlp_bwd": ("fused_mlp_bwd_tc", "fused_mlp_wide_tc")}
-TC_INSTANTIATIONS = {"flash_fwd": 4, "short_fwd": 4, "fused_mlp_fwd": 10, "flash_bwd_dq": 4,
-                     "flash_bwd_dkv": 4, "short_bwd": 8, "fused_mlp_bwd": 11}
+TC_INSTANTIATIONS = {"flash_fwd": 4, "short_fwd": 4, "fused_mlp_fwd": 10, "flash_bwd": 4,
+                     "short_bwd": 8, "fused_mlp_bwd": 11}
 # The wide route's passes (fused_mlp_wide_tc.cuh), each of which must be
 # built and hold HGMMA: K3 forms h then y; K7 forms g and dh, then dx, then
 # the weight gradients.
@@ -524,6 +528,10 @@ def attention_case(name, fwd, plain, b, h, t, d, dtype, g, sfu_rate, kernels, ra
     ms = time_ms(lambda: fwd(q, k, v, scale, rate, DROPOUT_SEED))
     plain_ms = time_ms(lambda: plain(q, k, v, scale, rate, DROPOUT_SEED), reps=5)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+    # SDPA at the same dropout_p (the same rate, other bits): a dropout
+    # row's like-for-like yardstick
+    lib_drop_ms = (time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, dropout_p=rate))
+                   if rate > 0 else None)
     per_call = dict(kernel_call_ms=call_ms(lambda: fwd(q, k, v, scale, rate, DROPOUT_SEED)),
                     library_call_ms=call_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4)))
     item = torch.finfo(dtype).bits // 8
@@ -533,8 +541,8 @@ def attention_case(name, fwd, plain, b, h, t, d, dtype, g, sfu_rate, kernels, ra
                dropout=rate, max_abs_err=err, lse_max_abs_err=lse_err, tol=tol,
                mean_abs_ref=o_ref.float().abs().mean().item(),
                max_abs_ref=o_ref.float().abs().max().item(), kernel_ms=ms,
-               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-               launches=kernels[name].launches, **per_call)
+               plain_ms=plain_ms, library_ms=lib_ms, library_dropout_ms=lib_drop_ms,
+               bound_ms=bms, bound_by=by, launches=kernels[name].launches, **per_call)
     emit(row)
     return row
 
@@ -582,11 +590,22 @@ def mlp_case(r, d, f, dtype, g, sfu_rate, kernels):
     return row
 
 
-def attention_bwd_case(short, b, h, t, d, dtype, rate, g, sfu_rate, kernels):
-    """K6, or K4 and K5, against the plain backward on the forward's lse;
-    one row per kernel."""
+def sdpa_bwd_ms(q4, k4, v4, do4, rate: float = 0.0) -> float:
+    """Device ms of SDPA's backward at ``dropout_p = rate``: its forward and
+    backward less its forward (the library yardstick of the backward rows)."""
     import torch.nn.functional as F
 
+    fwd = lambda: F.scaled_dot_product_attention(q4, k4, v4, dropout_p=rate)  # noqa: E731
+    return (time_ms(lambda: torch.autograd.grad(fwd(), (q4, k4, v4), do4)) - time_ms(fwd))
+
+
+def attention_bwd_case(short, b, h, t, d, dtype, rate, g, sfu_rate, kernels):
+    """K6, or the flash backward (K4 and K5 as one kernel), against the
+    plain backward on the forward's lse: one row. Beside SDPA's backward
+    without dropout (``library_ms``), a dropout row gives SDPA's backward at
+    the same ``dropout_p`` (``library_dropout_ms``: the same rate, other
+    bits). The flash backward is timed through its wrapper, its scratch
+    (the dQ workspace, the counters' memset) included; K6 at its launch."""
     from vit_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = (torch.randn(b * h, t, d, generator=g, device="cuda").to(dtype)
@@ -595,47 +614,46 @@ def attention_bwd_case(short, b, h, t, d, dtype, rate, g, sfu_rate, kernels):
     o, lse = (fa.short_fwd if short else fa.flash_fwd)(q, k, v, scale, rate, DROPOUT_SEED)
     delta = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, delta, scale, rate, DROPOUT_SEED)
+    name = "short_bwd" if short else "flash_bwd"
     wrapper, plain = (fa.short_bwd, fa.short_bwd_plain) if short else (fa.flash_bwd,
                                                                          fa.flash_bwd_plain)
-    # name: (outputs it writes, products of T x T x d, tensors of (BH, T, d) moved)
-    parts = ({"short_bwd": ((0, 1, 2), 5, 7)} if short else
-             {"flash_bwd_dq": ((0,), 3, 5), "flash_bwd_dkv": ((1, 2), 4, 6)})
-    for name in parts:
-        kernels[name].launches = 0
+    kernels[name].launches = 0
     got = wrapper(*args)
     torch.cuda.synchronize()
-    check(all(kernels[n].launches == 1 for n in parts), f"{list(parts)} did not launch once")
+    check(kernels[name].launches == 1, f"{name} did not launch once")
     want = plain(*args)
+    errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
+    tols = [kernel_tol(w) for w in want]
+    check(all(torch.isfinite(a.float()).all().item() for a in got),
+          f"{name} gave non-finite output")
+    check(all(e <= tl for e, tl in zip(errs, tols)),
+          f"{name} {(b, h, t, d)} {dtype} rate {rate}: errors {errs} (tols {tols})")
+    if short:
+        bufs = [torch.empty_like(q) for _ in range(3)]
+        launch = lambda: fa._launch_bwd(name, bufs, *args)  # noqa: E731
+    else:
+        launch = lambda: wrapper(*args)  # noqa: E731
+    ms = time_ms(launch)
+    kernel_call_ms = call_ms(launch)
     plain_ms = time_ms(lambda: plain(*args), reps=5)
     q4, k4, v4 = (x.view(b, h, t, d).detach().requires_grad_() for x in (q, k, v))
     do4 = do.view(b, h, t, d)
-    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
-    sdpa_fb = time_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(q4, k4, v4),
-                                                  (q4, k4, v4), do4))
     item = torch.finfo(dtype).bits // 8
-    rows = {}
-    for name, (outs, products, tensors) in parts.items():
-        errs = [(got[i].float() - want[i].float()).abs().max().item() for i in outs]
-        tols = [kernel_tol(want[i]) for i in outs]
-        check(all(torch.isfinite(got[i].float()).all().item() for i in outs),
-              f"{name} gave non-finite output")
-        check(all(e <= tl for e, tl in zip(errs, tols)),
-              f"{name} {(b, h, t, d)} {dtype} rate {rate}: errors {errs} (tols {tols})")
-        bufs = [torch.empty_like(q) for _ in outs]
-        ms = time_ms(lambda: fa._launch_bwd(name, bufs, *args))
-        kernel_call_ms = call_ms(lambda: fa._launch_bwd(name, bufs, *args))
-        bms, by = bound(2.0 * products * b * h * t * t * d, float(b * h * t * t),
-                        tensors * b * h * t * d * item + 2.0 * 4 * b * h * t, dtype, sfu_rate)
-        rows[name] = dict(
-            phase="kernel", kernel=name, shape=dict(B=b, H=h, T=t, d=d), dtype=str(dtype),
-            dropout=rate, max_abs_err=max(errs), errs=errs, tol=min(tols),
-            max_abs_ref=max(want[i].float().abs().max().item() for i in outs),
-            kernel_ms=ms, kernel_call_ms=kernel_call_ms, plain_ms=plain_ms,
-            plain_computes="dq, dk, dv",
-            library_ms=sdpa_fb - sdpa_fwd, library="SDPA backward (fwd+bwd - fwd), no dropout",
-            bound_ms=bms, bound_by=by)
-        emit(rows[name])
-    return rows
+    # Five T x T x d products (S, dP, P~^T dO, dS^T Q, dS K); q, k, v, dO in
+    # and dq, dk, dv out, lse and delta in fp32.
+    bms, by = bound(10.0 * b * h * t * t * d, float(b * h * t * t),
+                    7.0 * b * h * t * d * item + 2.0 * 4 * b * h * t, dtype, sfu_rate)
+    row = dict(
+        phase="kernel", kernel=name, shape=dict(B=b, H=h, T=t, d=d), dtype=str(dtype),
+        dropout=rate, max_abs_err=max(errs), errs=errs, tol=min(tols),
+        max_abs_ref=max(w.float().abs().max().item() for w in want),
+        kernel_ms=ms, kernel_call_ms=kernel_call_ms, plain_ms=plain_ms,
+        library_ms=sdpa_bwd_ms(q4, k4, v4, do4),
+        library="SDPA backward (fwd+bwd - fwd), no dropout",
+        library_dropout_ms=sdpa_bwd_ms(q4, k4, v4, do4, rate) if rate > 0 else None,
+        bound_ms=bms, bound_by=by)
+    emit(row)
+    return {name: row}
 
 
 def mlp_bwd_case(r, d, f, dtype, g, sfu_rate, kernels):
@@ -814,9 +832,9 @@ def rounding_check(g, kernels, r: int = 2000, d: int = 1024, f: int = 4096) -> d
 def mask_check(kernels) -> dict:
     """K1 and K2 with Q = 0 and V the identity: O = M/(keep*T), so O is zero
     exactly where hash_dropout_mask drops (fp32 and bf16; in bf16 every value
-    is exact and held bit for bit). K4, K5 and K6 in bf16 with lse = log T
-    and delta = 0 (P = 1/T): K4 (and K6) with Q = 0, K = V = I, dO = 1 gives
-    dQ = scale*M/(keep*T); K5 (and K6) with Q = K = 0, dO = I gives dV[j, c]
+    is exact and held bit for bit). The flash backward (K4 and K5 as one
+    kernel) and K6 in bf16 with lse = log T and delta = 0 (P = 1/T): Q = 0,
+    K = V = I, dO = 1 gives dQ = scale*M/(keep*T); Q = K = 0, dO = I gives dV[j, c]
     = M[c, j]/(keep*T); K6 with Q = K6_Q * I, K = 0, V = I, dO = 1 gives
     dK[j, c] = M[c, j]/(keep*T) * bf16(K6_Q * bf16(scale)), K6's rounding of
     Q*scale (K5's would round K6_Q * scale). Every value is exact in bf16:
@@ -854,12 +872,12 @@ def mask_check(kernels) -> dict:
         got["flash_bwd_dq"] = flash_bwd(zeros, eye, eye, torch.ones_like(zeros), lse, delta,
                                         scale, *drop)[0]
         want["flash_bwd_dq"] = (mask / t * scale).bfloat16()
-        got["flash_bwd_dkv"] = flash_bwd(zeros, zeros, zeros, eye, lse, delta, scale, *drop)[2]
-        want["flash_bwd_dkv"] = (mask / t).transpose(1, 2).bfloat16()
+        got["flash_bwd_dv"] = flash_bwd(zeros, zeros, zeros, eye, lse, delta, scale, *drop)[2]
+        want["flash_bwd_dv"] = (mask / t).transpose(1, 2).bfloat16()
         got["short_bwd_dq"] = short_bwd(zeros, eye, eye, ones, lse, delta, scale, *drop)[0]
         want["short_bwd_dq"] = want["flash_bwd_dq"]
         got["short_bwd_dv"] = short_bwd(zeros, zeros, zeros, eye, lse, delta, scale, *drop)[2]
-        want["short_bwd_dv"] = want["flash_bwd_dkv"]
+        want["short_bwd_dv"] = want["flash_bwd_dv"]
         got["short_bwd_dk"] = short_bwd(q_k6, zeros, eye, ones, lse, delta, scale, *drop)[1]
         want["short_bwd_dk"] = ((mask / t).transpose(1, 2) * qs_k6).bfloat16()
         if per:
@@ -869,7 +887,7 @@ def mask_check(kernels) -> dict:
             dev_seed = torch.tensor(seed, dtype=torch.int32, device="cuda")
             again = {"flash_fwd": flash_fwd(q, q, v, scale, 0.5, dev_seed)[0],
                      "short_fwd_bf16": short_fwd(zeros, zeros, eye, scale, 0.5, dev_seed)[0],
-                     "flash_bwd_dkv": flash_bwd(zeros, zeros, zeros, eye, lse, delta, scale,
+                     "flash_bwd_dv": flash_bwd(zeros, zeros, zeros, eye, lse, delta, scale,
                                                 0.5, dev_seed)[2],
                      "short_bwd_dk": short_bwd(q_k6, zeros, eye, ones, lse, delta, scale, 0.5,
                                                dev_seed)[1]}
@@ -944,8 +962,8 @@ def ptxas_report(log: str) -> dict:
 
 
 def check_tensor_cores(mma: dict) -> None:
-    """Every bf16 tensor-core instantiation of K1-K7 holds HGMMA (K4, K5 and
-    K6's passes exactly BWD_HGMMA's counts; every pass of the wide route,
+    """Every bf16 tensor-core instantiation of K1-K7 holds HGMMA (the flash
+    backward and K6's passes exactly BWD_HGMMA's counts; every pass of the wide route,
     WIDE_PASSES, is there), and no other instantiation (fp32, and K3's and
     K7's bf16 FMA bodies for widths off the tensor-core rule) holds any
     tensor-core instruction."""
@@ -961,7 +979,7 @@ def check_tensor_cores(mma: dict) -> None:
         if lib in BWD_HGMMA:
             got = {}
             for f, c in tc.items():
-                kind, d = re.search(r"(dq_kernel|dkv_kernel)ILi(\d+)E", f).groups()
+                kind, d = re.search(r"(bwd_kernel|dq_kernel|dkv_kernel)ILi(\d+)E", f).groups()
                 got[kind, int(d)] = c["HGMMA"]
             want = {(kind, d): n for kind, by_d in BWD_HGMMA[lib].items()
                     for d, n in by_d.items()}
@@ -1559,8 +1577,7 @@ def diagnostics_run(cfg: dict, expect: dict, kernels, cap: int) -> dict:
         names = {e.get("name", "") for e in _json.load(f)["traceEvents"]
                  if e.get("cat") == "kernel"}
     traced = {k: sorted(n for n in names if pat in n) for k, pat in
-              (("flash_fwd", "flash_kernel"), ("flash_bwd_dq", "dq_kernel"),
-               ("flash_bwd_dkv", "dkv_kernel"))}
+              (("flash_fwd", "flash_kernel"), ("flash_bwd", "attn_bwd_fused_tc::bwd_kernel"))}
     check(all(traced.values()), f"{tag}: the trace names no kernel for {traced}")
     mfus = [(m["tflops_per_s"], m["mfu"]) for e, m in record["epochs"] if e >= 0]
     check(len(mfus) == 2 and all(0 < mfu <= 1.05 for _, mfu in mfus), f"{tag}: mfu {mfus}")
@@ -1625,8 +1642,7 @@ def viz_runs(work: str, none: dict, kernels) -> dict:
     layers = STRIDE1_MODEL["num_hidden_layers"]
     k1 = layers * (2 * (steps + steps) + 2 * steps)
     runs["i_stride1_diagnostics"] = diagnostics_run(
-        long_viz, dict(none, flash_fwd=k1, flash_bwd_dq=2 * layers * steps,
-                       flash_bwd_dkv=2 * layers * steps), kernels, cap)
+        long_viz, dict(none, flash_fwd=k1, flash_bwd=2 * layers * steps), kernels, cap)
     return runs
 
 
@@ -1777,7 +1793,7 @@ def zca_train_run(work: str, none: dict, kernels) -> dict:
     steps, layers = -(-N_INPUTS // BATCH), STRIDE1_MODEL["num_hidden_layers"]
     # two epochs of train steps and val batches, then the test batches
     expect = dict(none, flash_fwd=layers * (2 * (steps + steps) + steps),
-                  flash_bwd_dq=2 * layers * steps, flash_bwd_dkv=2 * layers * steps)
+                  flash_bwd=2 * layers * steps)
     check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
     frozen = [m.get("preprocessor_frozen") for e, m in epochs if e >= 0]
     check(frozen == [1.0, 0.0], f"{tag}: preprocessor_frozen {frozen}")
@@ -2247,8 +2263,7 @@ def window_runs(kernels) -> dict:
     dm = fit["exp"].datamodule
     val_batches = -(-len(dm.val) // dm.val_batch_size)
     expect = dict(none, flash_fwd=layers * (steps + val_batches) * WINDOW_EPOCHS,
-                  flash_bwd_dq=layers * steps * WINDOW_EPOCHS,
-                  flash_bwd_dkv=layers * steps * WINDOW_EPOCHS)
+                  flash_bwd=layers * steps * WINDOW_EPOCHS)
     check(fit["counts"] == expect, f"w: launches {fit['counts']}, expected {expect}")
     row = dict(phase="window", run="w_stride1_per_step", inputs=WINDOW_INPUTS,
                epochs=WINDOW_EPOCHS, steps_per_epoch=steps, launches=fit["counts"],
@@ -2320,8 +2335,7 @@ def long_graph_run(kernels) -> dict:
     eager = window_fit(STRIDE1_TRAIN, 256, 2, False)
     eager_dev = window_device(eager)
     graph = window_fit(STRIDE1_TRAIN, 256, 2, True)
-    launches = graph_launches(graph, dict(none, flash_fwd=layers, flash_bwd_dq=layers,
-                                          flash_bwd_dkv=layers), kernels)
+    launches = graph_launches(graph, dict(none, flash_fwd=layers, flash_bwd=layers), kernels)
     a, b = graph["params"], eager["params"]
     errs = {k: rel_l2(a[k], b[k], 1e-30) for k in a}
     worst = max(errs, key=errs.get)
@@ -2365,7 +2379,7 @@ def option_runs(work: str, none: dict, kernels, only=None) -> dict:
         # holds stride1's first step against the CPU, (k) RoPE's.
         runs["j_stride1_rope_bf16"] = train_run(
             "j_stride1_rope_bf16", rope_long,
-            dict(none, flash_fwd=fwd, flash_bwd_dq=bwd, flash_bwd_dkv=bwd), kernels,
+            dict(none, flash_fwd=fwd, flash_bwd=bwd), kernels,
             after=lambda exp: rope_serve_check(exp, work, none, kernels),
             grad_check=lambda tag, exp, cfg: dict(first_step_cpu_reference="cut for (D)'s time"))
         timed("j")
@@ -2732,8 +2746,7 @@ def seed_vector_runs(work: str, kernels) -> dict:
     check(all(r.status == "ok" for r in results), f"s': {[r.message for r in results]}")
     ep = engine.epochs
     layers = STRIDE1_MODEL["num_hidden_layers"]
-    expect_step = dict({n: 0 for n in kernels}, flash_fwd=layers, flash_bwd_dq=layers,
-                       flash_bwd_dkv=layers)
+    expect_step = dict({n: 0 for n in kernels}, flash_fwd=layers, flash_bwd=layers)
     row = dict(phase="replica_steps", run="s2_stride1_replicas",
                inputs=128, steps=ep.steps, metrics=[r.metric for r in results],
                sweep_seconds=sweep_s, peak_mib=torch.cuda.max_memory_allocated() / 2**20,
@@ -5195,7 +5208,7 @@ def main(argv=None) -> int:
         bwd = STRIDE1_MODEL["num_hidden_layers"] * steps
         runs["d_stride1_bf16"] = train_run(
             "d_stride1_bf16", STRIDE1_TRAIN,
-            dict(none, flash_fwd=fwd, flash_bwd_dq=bwd, flash_bwd_dkv=bwd), kernels)
+            dict(none, flash_fwd=fwd, flash_bwd=bwd), kernels)
         short_fused = dict(none, short_fwd=fwd, short_bwd=bwd, fused_mlp_fwd=fwd,
                            fused_mlp_bwd=bwd)
         runs["e_baseline_flash_fused_fp32"] = train_run(
@@ -5205,7 +5218,7 @@ def main(argv=None) -> int:
         # (d) with the fused MLP: remat: mlp runs K3 again in each backward.
         runs["g_stride1_bf16_fused_mlp"] = train_run(
             "g_stride1_bf16_fused_mlp", STRIDE1_FUSED_TRAIN,
-            dict(none, flash_fwd=fwd, flash_bwd_dq=bwd, flash_bwd_dkv=bwd,
+            dict(none, flash_fwd=fwd, flash_bwd=bwd,
                  fused_mlp_fwd=fwd + bwd, fused_mlp_bwd=bwd), kernels)
 
         runs.update(viz_runs(ckpt_dir, none, kernels))

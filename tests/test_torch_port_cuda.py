@@ -327,20 +327,21 @@ def test_bwd_bf16_takes_unaligned_inputs(gen, short):
 @pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 129, 513, 1000])
 def test_flash_bwd_matches_plain(gen, t, d, dtype, rate):
     _check_backward(fa.flash_bwd, fa.flash_bwd_plain, *_qkv(gen, 3, t, d, dtype), rate,
-                    names=("flash_bwd_dq", "flash_bwd_dkv"))
+                    names=("flash_bwd",))
 
 
 @pytest.mark.parametrize("rate", RATES)
 def test_flash_bwd_matches_plain_at_the_stride1_shape(gen, rate):
     """T = 4066 = 63*64 + 34, the main path's ragged edge, in bf16."""
     _check_backward(fa.flash_bwd, fa.flash_bwd_plain, *_qkv(gen, 4, 4066, 64, torch.bfloat16),
-                    rate, names=("flash_bwd_dq", "flash_bwd_dkv"))
+                    rate, names=("flash_bwd",))
 
 
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
 @pytest.mark.parametrize("t", [65, 1000])
 def test_flash_bwd_bf16_is_bit_repeatable(gen, t, d):
-    """Each output row is summed in one CTA and written once (no atomics)."""
+    """dK and dV are summed in one CTA and written once; dQ's key blocks add
+    into the workspace in a fixed order (no atomics in a free order)."""
     q, k, v = _qkv(gen, 3, t, d, torch.bfloat16)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
     o, lse = fa.flash_fwd(q, k, v, d**-0.5, 0.1, 3)
@@ -348,6 +349,60 @@ def test_flash_bwd_bf16_is_bit_repeatable(gen, t, d):
     first = fa.flash_bwd(q, k, v, do, lse, delta, d**-0.5, 0.1, 3)
     again = fa.flash_bwd(q, k, v, do, lse, delta, d**-0.5, 0.1, 3)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _grads(gen, bh, t, d, rate, seed, **launch):
+    """(q, k, v, do, lse, delta, grads): the bf16 flash forward and backward
+    of seeded inputs, with ``launch``'s seeds and offset."""
+    q, k, v = _qkv(gen, bh, t, d, torch.bfloat16)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    o, lse = fa.flash_fwd(q, k, v, d**-0.5, rate, seed, **launch)
+    delta = (do.float() * o.float()).sum(-1)
+    return q, k, v, do, lse, delta, fa.flash_bwd(q, k, v, do, lse, delta, d**-0.5, rate, seed,
+                                                 **launch)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("t", [65, 300, 4066])
+def test_flash_bwd_stacked_launch_is_each_replica_alone(gen, t, d):
+    """Three replicas stacked in one bf16 launch (bh_per_seed), a seed each,
+    give each replica's own launch bit for bit: the key blocks of one head
+    add dQ in their order whatever the other heads of the launch do."""
+    seeds, per = [7, -1, 2**31 - 1], 4
+    sv = torch.tensor(seeds, dtype=torch.int32, device="cuda")
+    q, k, v, do, lse, delta, grads = _grads(gen, len(seeds) * per, t, d, 0.1, sv,
+                                            bh_per_seed=per)
+    for i, s in enumerate(seeds):
+        sl = slice(i * per, (i + 1) * per)
+        alone = fa.flash_bwd(q[sl], k[sl], v[sl], do[sl], lse[sl], delta[sl], d**-0.5, 0.1, s)
+        assert all(torch.equal(a[sl], b) for a, b in zip(grads, alone))
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("t", [65, 1000, 4066])
+def test_flash_bwd_offset_launch_is_the_full_launchs_slice(gen, t, d):
+    """Heads [4, 8) of 8 launched alone with bh_offset 4 give the full
+    launch's heads bit for bit in bf16, with dropout: the rank's mask rows
+    and the same dQ order."""
+    q, k, v, do, lse, delta, full = _grads(gen, 8, t, d, 0.1, 3)
+    part = fa.flash_bwd(*(x[4:].contiguous() for x in (q, k, v, do, lse, delta)), d**-0.5, 0.1,
+                        3, bh_offset=4)
+    assert all(torch.equal(a, b[4:]) for a, b in zip(part, full))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_bwd_is_one_launch(gen, dtype):
+    """One flash_bwd call adds exactly one launch to the fused kernel's
+    count (the fp32 route's two passes behind the same entry count once)."""
+    q, k, v = _qkv(gen, 2, 300, 64, dtype)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    o, lse = fa.flash_fwd(q, k, v, 0.125, 0.1, 9)
+    delta = (do.float() * o.float()).sum(-1)
+    before = {n: kk.launches for n, kk in KERNELS.items()}
+    fa.flash_bwd(q, k, v, do, lse, delta, 0.125, 0.1, 9)
+    torch.cuda.synchronize()
+    after = {n: kk.launches for n, kk in KERNELS.items()}
+    assert {n: after[n] - before[n] for n in after} == {n: int(n == "flash_bwd") for n in after}
 
 
 @pytest.mark.parametrize("rate", RATES)
@@ -422,9 +477,9 @@ def test_bf16_kernel_dropout_mask_is_hash_dropout_mask(gen, short, seed):
 
 @pytest.mark.parametrize("seed", [0, -1, 2**31 - 1])
 def test_bf16_backward_dropout_mask_is_hash_dropout_mask(gen, seed):
-    """K4 and K5 in bf16 with lse = log T and delta = 0, so P = 1/T and every
-    value below is exact in bf16. K4: Q = 0, K = V = I, dO = 1 give
-    dQ = scale * M/(keep*T). K5: Q = K = 0, dO = I give dV[j, c] =
+    """The flash backward in bf16 with lse = log T and delta = 0, so P = 1/T
+    and every value below is exact in bf16. Q = 0, K = V = I, dO = 1 give
+    dQ = scale * M/(keep*T); Q = K = 0, dO = I give dV[j, c] =
     M[c, j]/(keep*T). Each is zero exactly where hash_dropout_mask drops."""
     from vit_tpu_torch.ops.dropout import hash_dropout_mask
 

@@ -81,17 +81,19 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_every_kernel_has_a_source_and_names_its_pallas_kernel():
-    assert sorted(_build.KERNELS) == ["flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
-                                      "fused_mlp_bwd", "fused_mlp_fwd", "short_bwd",
-                                      "short_fwd"]
+    assert sorted(_build.KERNELS) == ["flash_bwd", "flash_fwd", "fused_mlp_bwd",
+                                      "fused_mlp_fwd", "short_bwd", "short_fwd"]
+    assert _build.KERNELS["flash_bwd"].replaces == "vit_tpu/ops/flash_attention.py:459,496"
     for k in _build.KERNELS.values():
         assert os.path.isfile(k.source)
         with open(k.source) as f:
             text = f.read()
         assert f'extern "C" int {k.name}(' in text
-        path, line = k.replaces.split(":")
+        path, lines = k.replaces.split(":")
         with open(os.path.join(ROOT, path)) as f:
-            assert "def _" in f.read().splitlines()[int(line) - 1]
+            source = f.read().splitlines()
+        for line in lines.split(","):
+            assert "def _" in source[int(line) - 1]
 
 
 def test_cpu_tensors_run_the_plain_versions_and_leave_the_counts():
@@ -224,6 +226,7 @@ def _sass_counts():
 
     fwd = {16: 5, 32: 6, 64: 8, 128: 12}
     dq, dkv = {16: 6, 32: 8, 64: 12, 128: 20}, {16: 10, 32: 12, 64: 16, 128: 24}
+    fused = {16: 14, 32: 16, 64: 20, 128: 28}  # S, dP (d/16 each), dV, dK, dQ (4 each)
     mlp = {**counts("fused_mlp_tc", "fwd_kernel", {16: 5, 32: 6, 64: 8, 128: 16}, "Li1E"),
            **counts("fused_mlp_tc", "fwd_kernel", {16: 5, 32: 6, 64: 8, 128: 16}, "Li2E")}
     mlp["_ZN12_GLOBAL__N_120fused_mlp_fwd_kernelI13__nv_bfloat16Li2EEEvv"] = {"HGMMA": 0,
@@ -249,14 +252,14 @@ def _sass_counts():
     return {"flash_fwd": counts("attn_fwd_tc", "flash_kernel", fwd),
             "short_fwd": counts("attn_fwd_tc", "short_kernel", fwd),
             "fused_mlp_fwd": mlp,
-            "flash_bwd_dq": counts("attn_bwd_tc", "dq_kernel", dq),
-            "flash_bwd_dkv": counts("attn_bwd_tc", "dkv_kernel", dkv, "Lb0E"),
+            "flash_bwd": counts("attn_bwd_fused_tc", "bwd_kernel", fused),
             "short_bwd": {**counts("attn_bwd_tc", "dq_kernel", dq),
-                          **counts("attn_bwd_tc", "dkv_kernel", dkv, "Lb1E")},
+                          **counts("attn_bwd_tc", "dkv_kernel", dkv)},
             "fused_mlp_bwd": mlp_bwd}
 
 
-_K6_DKV64 = "_ZN3vtt11attn_bwd_tc10dkv_kernelILi64ELb1EEEvv"
+_K45_FUSED = "_ZN3vtt17attn_bwd_fused_tc10bwd_kernelILi{}EEEvv"  # .format(d)
+_K6_DKV64 = "_ZN3vtt11attn_bwd_tc10dkv_kernelILi64EEEvv"
 _K7_DX = "_ZN3vtt16fused_mlp_bwd_tc9dx_kernelILi64ELi2EEEvv"
 _K3_WIDE_OUT = "_ZN3vtt17fused_mlp_wide_tc10out_kernelILb0ELi256EEEvv"
 _K7_WIDE_WGT = "_ZN3vtt17fused_mlp_wide_tc10wgt_kernelILi256EEEvv"
@@ -282,10 +285,10 @@ def test_chip_smoke_sass_check_catches_each_fault(fault):
         mma["short_fwd"]["_ZN12_GLOBAL__N_1fp32_short_kernelIfLi32EEEvv"]["HMMA"] = 2
     elif fault == "bf16 holds none":
         mma["flash_fwd"]["_ZN3vtt11attn_fwd_tc12flash_kernelILi128EEEvv"]["HGMMA"] = 0
-    elif fault == "K4 count drifts":
-        mma["flash_bwd_dq"]["_ZN3vtt11attn_bwd_tc9dq_kernelILi64EEEvv"]["HGMMA"] = 16
+    elif fault == "K4 count drifts":  # K4 and K5 are one kernel, flash_bwd
+        mma["flash_bwd"][_K45_FUSED.format(64)]["HGMMA"] = 16
     elif fault == "K5 count drifts":
-        mma["flash_bwd_dkv"]["_ZN3vtt11attn_bwd_tc10dkv_kernelILi16ELb0EEEvv"]["HGMMA"] = 8
+        mma["flash_bwd"][_K45_FUSED.format(16)]["HGMMA"] = 10
     elif fault == "instantiation missing":
         del mma["short_fwd"]["_ZN3vtt11attn_fwd_tc12short_kernelILi16EEEvv"]
     elif fault == "K3 bf16 holds none":

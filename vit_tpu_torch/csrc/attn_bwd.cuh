@@ -1,5 +1,5 @@
-// The two passes of the attention backward, shared by K4/K5
-// (flash_bwd_dq.cu, flash_bwd_dkv.cu) and K6 (short_bwd.cu).
+// The two fp32 passes of the attention backward, shared by the flash
+// backward (flash_bwd.cu: K4 and K5's function) and K6 (short_bwd.cu).
 //
 // With P = exp(S - lse) re-derived from Q, K and the forward's lse,
 // dP = dO V^T masked by the dropout keep mask M/keep, and
@@ -259,13 +259,17 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
 }
 
-// Pointers of one backward call, as the C entry points receive them.
+// Pointers of one backward call, as the C entry points receive them;
+// dq_ws and counters are the bf16 flash backward's dQ workspace and its
+// per-(bh, query tile) counters (attn_bwd_fused_tc.cuh), null elsewhere.
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *dq, *dk, *dv;
   int bh, t;
   float scale;
   Dropout dr;
+  float* dq_ws = nullptr;
+  unsigned* counters = nullptr;
 };
 
 template <typename T, int D>

@@ -1,50 +1,40 @@
-// The bf16 passes of the attention backward (K4, K5, and K6 as both) on
-// Hopper's tensor cores. They compute what attn_bwd.cuh's passes compute,
-// with every cast of its header comment in the same place:
+// The bf16 passes of the short-sequence attention backward (K6,
+// short_bwd.cu) on Hopper's tensor cores: a dQ pass and a dK/dV pass. They
+// compute what attn_bwd.cuh's passes compute, with every cast of its header
+// comment in the same place:
 //   S  = (Q * bf16(scale) rounded to bf16) K^T, fp32 sums;
 //   P  = exp(S - lse), 0 for rows and keys at or past T;
 //   dS = P (dP * M/keep - delta) with dP = dO V^T, rounded to bf16;
-//   dQ = bf16(scale * sum_k dS K)                              (K4, K6)
-//   dV = bf16(sum_q bf16(P * M/keep)^T dO)                     (K5, K6)
-//   dK = bf16(scale * sum_q dS^T Q), Q as it is                (K5)
-//   dK = bf16(sum_q dS^T bf16(Q * bf16(scale))), no final scale (K6)
-// K6 (short_bwd.cu) runs the dQ pass and the dK/dV pass with QS_IN_DK.
+//   dQ = bf16(scale * sum_k dS K)
+//   dV = bf16(sum_q bf16(P * M/keep)^T dO)
+//   dK = bf16(sum_q dS^T bf16(Q * bf16(scale))), no final scale
 // attn_bwd.cuh keeps the fp32 instantiations (tensor cores in fp32 would
-// be TF32).
+// be TF32). The streaming backward (K4 and K5) is one pass of its own,
+// attn_bwd_fused_tc.cuh.
 //
 // Design. One warpgroup (128 threads) per CTA owns 64 rows of the output
 // and walks 64-row tiles of the other side:
-// * K4, one CTA per (bh, 64 queries): S = Qs K^T and dP = dO V^T as
+// * dQ pass, one CTA per (bh, 64 queries): S = Qs K^T and dP = dO V^T as
 //   wgmma m64n64k16 with both operands in shared memory (K-major); P, the
 //   keep mask and dS in registers; dS rounded to bf16 is repacked in place
 //   as the A operand (the fp32 accumulator fragment of m64nN is the A
 //   fragment of the next product, two columns per 32-bit register) of
 //   dQ += dS K, a wgmma with B = the K tile read transposed (MN-major).
-// * K5, one CTA per (bh, 64 keys), in the transposed orientation so that
-//   P~^T and dS^T come out of the accumulators as A operands:
-//   S^T = K Qs^T, dP^T = V dO^T; dV += bf16(P~^T) dO; dK += bf16(dS^T) Q.
+// * dK/dV pass, one CTA per (bh, 64 keys), in the transposed orientation
+//   so that P~^T and dS^T come out of the accumulators as A operands:
+//   S^T = K Qs^T, dP^T = V dO^T; dV += bf16(P~^T) dO; dK += bf16(dS^T) QS.
 //   lse and delta are per column there.
 // * Tiles are bf16 in shared memory in the swizzled layout that TMA writes
-//   and wgmma reads (rows of min(d, 64) * 2 bytes, 32/64/128-byte swizzle;
-//   d = 128 is two 64-column halves). The walked tiles are double-buffered:
-//   TMA (cp.async.bulk.tensor) loads tile j + 1 into the other stage while
-//   tile j is computed, and completes on an mbarrier. TMA fills rows at or
-//   past T with zeros, so the products need no row masks; P is masked.
-//   These pieces (tiles, TMA, mbarriers, wgmma) are in hopper.cuh, shared
-//   with the bf16 forwards (attn_fwd_tc.cuh).
+//   and wgmma reads (hopper.cuh), double-buffered: TMA loads tile j + 1
+//   into the other stage while tile j is computed, and completes on an
+//   mbarrier. TMA fills rows at or past T with zeros, so the products need
+//   no row masks; P is masked.
 // * The exps and the dropout hash run on the CUDA cores between the
-//   products; several CTAs share an SM (four of K4's, three of K5's at
-//   d = 64), so one CTA's elementwise work runs while another's wgmma is on
-//   the tensor cores. Within a CTA the loop is serial: issuing tile j + 1's
-//   S and dP before tile j's elementwise work, into a second set of
-//   accumulators and a three-stage ring, was built for K4 and ran slower
-//   on the card (202 registers at d = 64: two CTAs an SM).
-// * The elementwise work is the cost at the main shape, so it is kept
-//   short: exp2 on the special-function unit with lse pre-multiplied by
-//   log2(e); the ragged-edge masks only in the last tile; and where
-//   bf16(scale) is a power of two (d = 16, 64) K5 multiplies the Q tile as
-//   it is and puts the scale into the exponent, which gives the same bits
-//   as the scaled copy it otherwise makes of each Q tile.
+//   products; several CTAs share an SM, so one CTA's elementwise work runs
+//   while another's wgmma is on the tensor cores. The ragged-edge masks run
+//   only in the last tile, and where bf16(scale) is a power of two (d = 16,
+//   64) the Q tile is used as it is with the scale in the exponent, which
+//   gives the same bits as the scaled copy made otherwise.
 // * Each output row is summed in one CTA's registers and written once: no
 //   atomics, two calls give equal bits.
 #pragma once
@@ -63,7 +53,7 @@ namespace attn_bwd_tc {
 
 using namespace hopper;
 
-// K4's elementwise step on one 64 x 64 tile: accumulator element
+// The dQ pass's elementwise step on one 64 x 64 tile: accumulator element
 // 4j + 2h + e is row row[h], key k0 + 8j + 2c + e. a[2j + h] receives
 // dS = P (dP * M/keep - delta) of that row's two keys, rounded to bf16 and
 // packed as the A operand of dS K. EDGE masks keys at or past t (only the
@@ -92,7 +82,7 @@ __device__ __forceinline__ void dq_ds(const float (&s)[32], const float (&dp)[32
   }
 }
 
-// K5's elementwise step, transposed: accumulator element 4j + 2h + e is
+// The dK/dV pass's elementwise step, transposed: accumulator element 4j + 2h + e is
 // key key[h], query q0 + 8j + 2c + e; stats holds that tile's lse * log2(e)
 // (64) then delta (64). ap/as receive P~ = P * M/keep and dS, rounded to
 // bf16 and packed as A operands. `s_mul` is log2(e), times the Q scale
@@ -127,7 +117,7 @@ __device__ __forceinline__ void dkv_pds(const float (&s)[32], const float (&dp)[
   }
 }
 
-// ---- K4: dQ ------------------------------------------------------------
+// ---- the dQ pass -------------------------------------------------------
 
 // Shared memory of the dQ pass: Q (scaled in place) and dO, then two
 // stages of (K, V); three mbarriers.
@@ -249,7 +239,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
   }
 }
 
-// ---- K5: dK and dV -----------------------------------------------------
+// ---- the dK/dV pass ----------------------------------------------------
 
 // Shared memory of the dK/dV pass: K, V, the scaled copy of the current Q
 // tile, two stages of (Q, dO), two of (lse, delta) of the tile's 64 query
@@ -262,8 +252,8 @@ template <int D> struct DkvSmem {
   static constexpr int BYTES = BARS + 64 + 1024;
 };
 
-// QS_IN_DK (K6): dK is summed from the scaled Q and written unscaled.
-template <int D, bool QS_IN_DK = false>
+// dK is summed from the scaled Q and written unscaled (K6's rounding).
+template <int D>
 __global__ void __launch_bounds__(THREADS, D == 128 ? 1 : 2)
 dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -323,14 +313,13 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   // holds the same bits as (Q * qscale) K^T, so S^T is formed from the Q
   // tile as it is and the scale joins log2(e) in the exponent. Otherwise
   // (d = 32, 128) each Q tile is first copied scaled and rounded into QS.
-  // K6's dK = sum dS^T bf16(Q * qscale) then reads QS too, and is written
-  // without the final scale. Where Q is left unscaled, K5's dK already has
-  // K6's bits: a power-of-two scale rounds nothing, so sum dS^T (Q * qscale)
-  // = qscale * sum dS^T Q exactly, and qscale is `scale` there.
+  // dK = sum dS^T bf16(Q * qscale) then reads QS too, and is written
+  // without the final scale. Where Q is left unscaled, scale * sum dS^T Q
+  // has the same bits: a power-of-two scale rounds nothing, so sum dS^T
+  // (Q * qscale) = qscale * sum dS^T Q exactly, and qscale is `scale` there.
   const bool q_unscaled = (__float_as_uint(qscale) & 0x7FFFFFu) == 0;
   const float s_mul = q_unscaled ? qscale * LOG2E : LOG2E;
-  const bool dk_from_qs = QS_IN_DK && !q_unscaled;
-  const float dk_mul = dk_from_qs ? 1.f : scale;
+  const float dk_mul = q_unscaled ? scale : 1.f;
 
   float dk_acc[D / 2], dv_acc[D / 2], s[32], dp[32];
   uint32_t ap[16], as[16];
@@ -376,7 +365,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     for (int kk = 0; kk < 4; ++kk) WgmmaRS<D>::mma(dv_acc, ap + 4 * kk, desc_mn<D>(do_tile, kk));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      WgmmaRS<D>::mma(dk_acc, as + 4 * kk, desc_mn<D>(dk_from_qs ? qs_tile : q_tile, kk));
+      WgmmaRS<D>::mma(dk_acc, as + 4 * kk, desc_mn<D>(qs_tile, kk));
     wgmma_commit();
     wgmma_wait_all();
     hold(dv_acc);
@@ -430,8 +419,7 @@ template <int D> cudaError_t launch_dq(const attn_bwd::Args& a, cudaStream_t str
   return cudaGetLastError();
 }
 
-template <int D, bool QS_IN_DK = false>
-cudaError_t launch_dkv(const attn_bwd::Args& a, cudaStream_t stream) {
+template <int D> cudaError_t launch_dkv(const attn_bwd::Args& a, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo;
   cudaError_t e;
   if ((e = map_rows<D>(&tq, a.q, a.bh, a.t)) != cudaSuccess ||
@@ -440,7 +428,7 @@ cudaError_t launch_dkv(const attn_bwd::Args& a, cudaStream_t stream) {
       (e = map_rows<D>(&tdo, a.dout, a.bh, a.t)) != cudaSuccess)
     return e;
   constexpr size_t smem = DkvSmem<D>::BYTES;
-  auto kernel = dkv_kernel<D, QS_IN_DK>;
+  auto kernel = dkv_kernel<D>;
   if ((e = allow_smem(kernel, smem)) != cudaSuccess) return e;
   const int n_kt = (a.t + TILE_ROWS - 1) / TILE_ROWS;
   kernel<<<n_kt * a.bh, THREADS, smem, stream>>>(

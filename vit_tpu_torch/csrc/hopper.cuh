@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the tensor-core kernels (attn_fwd_tc.cuh:
-// K1, K2 in bf16; attn_bwd_tc.cuh: K4, K5, K6 in bf16; fused_mlp_tc.cuh: K3
-// in bf16 at D <= 128; fused_mlp_bwd_tc.cuh: K7 in bf16 at D <= 128;
-// fused_mlp_wide_tc.cuh: K3 and K7 in bf16 at 128 < D <= 1024).
+// K1, K2 in bf16; attn_bwd_fused_tc.cuh: K4 and K5 as one pass in bf16;
+// attn_bwd_tc.cuh: K6 in bf16; fused_mlp_tc.cuh: K3 in bf16 at D <= 128;
+// fused_mlp_bwd_tc.cuh: K7 in bf16 at D <= 128; fused_mlp_wide_tc.cuh: K3
+// and K7 in bf16 at 128 < D <= 1024).
 //
 // * Tiles of 64 rows of a (bh, t, D) bf16 tensor live in shared memory in
 //   the swizzled layout that TMA writes and wgmma reads: rows of
@@ -16,10 +17,12 @@
 //   The m64nN fp32 accumulator fragment of a thread, two columns per 32-bit
 //   register after rounding to bf16, is the A fragment of the next product.
 //   WgmmaSS: both operands in shared memory, either one K-major or MN-major,
-//   N = 64 or 256 (the wide MLP kernels' tiles).
+//   N = 16 .. 128 (the one-pass attention backward's dQ) or 256 (the wide
+//   MLP kernels' tiles).
 // * A ring of slots between a producer warp and consumer warpgroups: a full
 //   mbarrier per slot that TMA completes, an empty one that each consumer
-//   warp arrives on once its products have read the slot (mbar_arrive).
+//   warp arrives on once its products have read the slot (mbar_arrive);
+//   setmaxnreg moves registers from the producer warpgroup to the consumers.
 #pragma once
 
 #include <cuda.h>
@@ -129,6 +132,16 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Registers a thread of this warpgroup may hold from here on (a multiple of
+// 8 in [24, 256]): a producer warpgroup gives registers back to the CTA's
+// pool, consumer warpgroups take them. Every warp of the warpgroup runs it.
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // ---- wgmma -------------------------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -211,10 +224,72 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
 // overwrites d. The wide MLP kernels' products (fused_mlp_wide_tc.cuh).
 template <int N, int TA = 0, int TB = 0> struct WgmmaSS;
 
+template <int TA, int TB> struct WgmmaSS<16, TA, TB> {
+  __device__ __forceinline__ static void mma(float (&d)[8], uint64_t da, uint64_t db,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB> struct WgmmaSS<32, TA, TB> {
+  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t da, uint64_t db,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
 template <int TA, int TB> struct WgmmaSS<64, TA, TB> {
   __device__ __forceinline__ static void mma(float (&d)[32], uint64_t da, uint64_t db,
                                              int accumulate) {
     wgmma_ss_n64<TA, TB>(d, da, db, accumulate);
+  }
+};
+
+template <int TA, int TB> struct WgmmaSS<128, TA, TB> {
+  __device__ __forceinline__ static void mma(float (&d)[64], uint64_t da, uint64_t db,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
   }
 };
 
@@ -366,11 +441,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// dst = bf16(src * s), element for element over one tile. Both tiles have
+// dst = bf16(src * s), element for element over one tile, by the 128
+// threads of a warpgroup (`tid` the thread's index in it). Both tiles have
 // the same swizzled layout, so the position of an element does not matter.
 template <int D>
-__device__ __forceinline__ void scale_tile(uint8_t* dst, const uint8_t* src, float s) {
-  for (int i = threadIdx.x; i < Tile<D>::BYTES / 16; i += THREADS) {
+__device__ __forceinline__ void scale_tile(uint8_t* dst, const uint8_t* src, float s,
+                                           int tid = threadIdx.x) {
+  for (int i = tid; i < Tile<D>::BYTES / 16; i += THREADS) {
     uint4 v = reinterpret_cast<const uint4*>(src)[i];
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll

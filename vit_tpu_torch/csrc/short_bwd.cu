@@ -14,11 +14,11 @@
 // by operations on the FMA units, and at these sizes by the launch.
 // Design. The TPU kernel holds a whole (heads, T, T) block in VMEM; here
 // two passes, a dQ pass and a dK/dV pass, each keep 64 x 64 tiles on chip:
-// * bf16 runs the tensor-core passes of attn_bwd_tc.cuh, K4's dQ pass and
-//   K5's dK/dV pass with QS_IN_DK, which sums dK from the scaled, rounded
-//   copy of each Q tile that the pass already makes for S (d = 32, 128) and
-//   drops the final scale; at d = 16, 64 the scale is a power of two and
-//   K5's dK has K6's bits as it is. Same wgmma counts as K4 and K5.
+// * bf16 runs the tensor-core passes of attn_bwd_tc.cuh, a dQ pass and a
+//   dK/dV pass; the latter sums dK from the scaled, rounded copy of each Q
+//   tile that it already makes for S (d = 32, 128) and drops the final
+//   scale; at d = 16, 64 the scale is a power of two and scale * dS^T Q has
+//   the same bits.
 // * fp32 runs attn_bwd.cuh's FMA passes with QS_IN_DK (tensor cores would
 //   mean TF32).
 // One entry call launches both passes and counts as one launch.
@@ -38,7 +38,7 @@ template <typename T, int D> struct ShortBwd {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       cudaError_t e = attn_bwd_tc::launch_dq<D>(a, s);
       if (e != cudaSuccess) return e;
-      return attn_bwd_tc::launch_dkv<D, /*QS_IN_DK=*/true>(a, s);
+      return attn_bwd_tc::launch_dkv<D>(a, s);
     } else {
       cudaError_t e = attn_bwd::launch_dq<T, D>(a, s);
       if (e != cudaSuccess) return e;

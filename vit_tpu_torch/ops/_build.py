@@ -74,7 +74,7 @@ class Kernel:
     """One hand-written kernel: its source, C signature and launch count."""
 
     name: str
-    replaces: str  # the Pallas kernel it ports, file:line
+    replaces: str  # the Pallas kernels it ports, file:line[,line...]
     argtypes: Tuple
     launches: int = 0
     _fn: Optional[ctypes._CFuncPtr] = field(default=None, repr=False)
@@ -156,9 +156,10 @@ KERNELS: Dict[str, Kernel] = {
         Kernel("flash_fwd", "vit_tpu/ops/flash_attention.py:359", _ATTN_FWD),
         Kernel("short_fwd", "vit_tpu/ops/flash_attention.py:203", _ATTN_FWD),
         Kernel("fused_mlp_fwd", "vit_tpu/ops/fused_mlp.py:72", _MLP_FWD),
-        Kernel("flash_bwd_dq", "vit_tpu/ops/flash_attention.py:459", (_P,) * 7 + _ATTN_BWD_TAIL),
-        Kernel("flash_bwd_dkv", "vit_tpu/ops/flash_attention.py:496",
-               (_P,) * 8 + _ATTN_BWD_TAIL),
+        # K4 and K5 as one kernel: (q, k, v, dout, lse, delta, dq, dk, dv, dq_ws,
+        # counters, ...); dq_ws and counters are the bf16 pass's dQ scratch
+        Kernel("flash_bwd", "vit_tpu/ops/flash_attention.py:459,496",
+               (_P,) * 11 + _ATTN_BWD_TAIL),
         Kernel("short_bwd", "vit_tpu/ops/flash_attention.py:224", (_P,) * 9 + _ATTN_BWD_TAIL),
         Kernel("fused_mlp_bwd", "vit_tpu/ops/fused_mlp.py:83", _MLP_BWD),
     )

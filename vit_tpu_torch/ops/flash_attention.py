@@ -10,10 +10,14 @@ short kernels, longer sequences the streaming ones.
 * K2 short forward, ``csrc/short_fwd.cu``, replaces ``_short_fwd_kernel``
   (K1 and K2 run their products on the tensor cores in bf16,
   ``csrc/attn_fwd_tc.cuh``, and on the fp32 FMA units in fp32);
-* K4 dQ, ``csrc/flash_bwd_dq.cu``, replaces ``_flash_bwd_dq_kernel``;
-* K5 dK and dV, ``csrc/flash_bwd_dkv.cu``, replaces ``_flash_bwd_dkv_kernel``
-  (K4 and K5 likewise, ``csrc/attn_bwd_tc.cuh``);
-* K6 short backward, ``csrc/short_bwd.cu``, replaces ``_short_bwd_kernel``.
+* K4 + K5, the streaming backward, ``csrc/flash_bwd.cu``, replaces
+  ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` with one kernel:
+  in bf16 one pass over each (head, key block) that forms S, dP, the exp
+  and the dropout hash once an element and sums dQ across key blocks in a
+  fixed order through an fp32 workspace (``csrc/attn_bwd_fused_tc.cuh``;
+  :func:`bwd_scratch` sizes it); in fp32 two passes on the FMA units;
+* K6 short backward, ``csrc/short_bwd.cu``, replaces ``_short_bwd_kernel``
+  (its bf16 passes on the tensor cores, ``csrc/attn_bwd_tc.cuh``).
 
 None pads: T and d are used as they are, the kernels mask the ragged edge
 themselves, and d is one of 16, 32, 64, 128. They compute what the Pallas
@@ -87,13 +91,15 @@ __all__ = [
     "short_fwd_plain",
     "flash_bwd_plain",
     "short_bwd_plain",
+    "bwd_scratch",
     "SHORT_T_MAX",
 ]
 
 NEG_INF = -1e30
 SHORT_T_MAX = 512  # padded lengths up to this take the short kernels
 FLASH_BLOCK_K = 64  # key tile of flash_fwd.cu; the plain version walks the same tiles
-BWD_BLOCK_K = 64  # key tile of the dQ pass (both dtypes); flash_bwd_plain walks these
+BWD_BLOCK_K = 64  # key tile of the backward's sums; flash_bwd_plain walks these
+BWD_BLOCK_Q = 64  # query tile of the bf16 flash backward: its dQ workspace rows and counters
 HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -173,8 +179,8 @@ def _bwd_tile(q, k, v, do, lse, delta, scale, rate, seed, j0, j1, bh_per_seed=0,
 
 def flash_bwd_plain(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed=0,
                     bh_per_seed: int = 0, bh_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K4 and K5: (dq, dk, dv) over key tiles of ``BWD_BLOCK_K``. dK is
-    scale * ds^T q with q as it is (``_flash_bwd_dkv_kernel``)."""
+    """K4 and K5's function: (dq, dk, dv) over key tiles of ``BWD_BLOCK_K``.
+    dK is scale * ds^T q with q as it is (``_flash_bwd_dkv_kernel``)."""
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     for j0 in range(0, q.shape[1], BWD_BLOCK_K):
@@ -279,13 +285,16 @@ def _launch_fwd(name: str, q, k, v, scale: float, rate: float, seed,
 
 def _launch_bwd(name: str, outs, q, k, v, do, lse, delta, scale: float, rate: float,
                 seed, bh_per_seed: int = 0, bh_offset: int = 0) -> None:
+    """Launch ``name`` once; ``outs`` its output and scratch tensors in the
+    entry's order, None for a null pointer."""
     bh, t, d = q.shape
     if q.numel() == 0:
         return
     seed = _kernel_seed(seed, rate, q.device, bh, bh_per_seed)
     KERNELS[name].launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), *(o.data_ptr() for o in outs), bh, t, d, float(scale),
+        delta.data_ptr(), *(0 if o is None else o.data_ptr() for o in outs), bh, t, d,
+        float(scale),
         int(q.dtype == torch.bfloat16), *_dropout_args(rate, seed, bh, bh_per_seed, bh_offset),
         _stream(q),
     )
@@ -322,10 +331,23 @@ def short_fwd(q, k, v, scale: float, rate: float = 0.0, seed=0,
     return _launch_fwd("short_fwd", q, k, v, scale, rate, seed, bh_per_seed, bh_offset)
 
 
+def bwd_scratch(bh: int, t: int, d: int, dtype) -> Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
+    """Shapes of the bf16 flash backward's scratch, None for fp32 (which
+    needs none): the fp32 dQ workspace (BH, T_pad, d), T_pad = T rounded up
+    to ``BWD_BLOCK_Q``, which key block 0 of each query tile stores before
+    the others add to it, and the int32 counters (BH, T_pad / BWD_BLOCK_Q),
+    zero at the launch, that order those adds."""
+    if dtype != torch.bfloat16:
+        return None
+    n_qt = -(-t // BWD_BLOCK_Q)
+    return (bh, n_qt * BWD_BLOCK_Q, d), (bh, n_qt)
+
+
 def flash_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed=0,
               bh_per_seed: int = 0, bh_offset: int = 0):
-    """Streaming backward: K4 (dq) then K5 (dk, dv). ``do`` like q; ``lse``
-    from the forward and ``delta = rowsum(do*o)``, both (BH, T) fp32."""
+    """Streaming backward, K4 and K5 as one launch: (dq, dk, dv). ``do``
+    like q; ``lse`` from the forward and ``delta = rowsum(do*o)``, both
+    (BH, T) fp32."""
     _check_qkv(q, k, v)
     _check_bwd(q, do, lse, delta)
     if _on_cpu(q):
@@ -333,9 +355,13 @@ def flash_bwd(q, k, v, do, lse, delta, scale: float, rate: float = 0.0, seed=0,
                                bh_offset)
     q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    args = (q, k, v, do, lse, delta, scale, rate, seed, bh_per_seed, bh_offset)
-    _launch_bwd("flash_bwd_dq", (dq,), *args)
-    _launch_bwd("flash_bwd_dkv", (dk, dv), *args)
+    ws = counters = None
+    scratch = bwd_scratch(*q.shape, q.dtype)
+    if scratch is not None:
+        ws = torch.empty(scratch[0], dtype=torch.float32, device=q.device)
+        counters = torch.zeros(scratch[1], dtype=torch.int32, device=q.device)
+    _launch_bwd("flash_bwd", (dq, dk, dv, ws, counters), q, k, v, do, lse, delta, scale, rate,
+                seed, bh_per_seed, bh_offset)
     return dq, dk, dv
 
 
