@@ -280,7 +280,8 @@ def test_log_mfu_reports_tflops_and_mfu(tiny_config, tmp_path, monkeypatch):
 @pytest.mark.parametrize("ep", [1, 2])
 def test_profile_traces_the_steady_state_epoch(tiny_config, tmp_path, monkeypatch, capsys, ep):
     """The second epoch when there is one, else the first (with the
-    warm-up note); a Chrome trace whose path is printed."""
+    warm-up note); a Chrome trace whose path is printed, which holds the
+    epoch's steps and its validation (the program's spans)."""
     cfg = _config(tiny_config, tmp_path, monkeypatch, ep=ep, profile=str(tmp_path / "prof"))
     exp = Experiment(cfg, seed=0, device="cpu")
     exp.fit()
@@ -291,3 +292,5 @@ def test_profile_traces_the_steady_state_epoch(tiny_config, tmp_path, monkeypatc
     assert f"[experiment] profiler trace written to {path}{note}\n" in out
     events = json.loads(path.read_text())["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
+    names = [e.get("name") for e in events]
+    assert names.count("vtt.train.step") == 6 and names.count("vtt.train.validate") == 1

@@ -14,10 +14,13 @@ from __future__ import annotations
 
 import collections
 import itertools
-from typing import Dict, Iterator
+from collections.abc import Sized
+from typing import Dict, Iterable, Iterator
 
 import numpy as np
 import torch
+
+from vit_tpu_torch.tracing import span
 
 __all__ = ["Batcher", "epoch_permutation", "prefetch_to_device"]
 
@@ -130,13 +133,21 @@ class Batcher:
         self.epoch += 1
 
 
-def prefetch_to_device(iterator: Iterator[Dict[str, np.ndarray]], device,
+def prefetch_to_device(batches: Iterable[Dict[str, np.ndarray]], device,
                        size: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
     """Yield each numpy batch as tensors on ``device``, issuing the copies
     of up to ``size`` batches ahead. On the card a batch is first copied
     into pinned host memory, then to the device with ``non_blocking=True``
-    on the current stream, so later kernels on that stream see it whole."""
+    on the current stream, so later kernels on that stream see it whole.
+
+    Each batch's pull from ``batches`` (a ``Batcher``'s gather) and its copy
+    is one ``vtt.input`` span (:mod:`vit_tpu_torch.tracing`). Where
+    ``batches`` has a length (a ``Batcher``, a list), exactly that many are
+    pulled under a span, and the iterator is then run to its end outside
+    one; an iterator without a length records one last, empty span."""
     device = torch.device(device)
+    n = len(batches) if isinstance(batches, Sized) else None
+    iterator = iter(batches)
 
     def _put(batch):
         out = {}
@@ -147,10 +158,20 @@ def prefetch_to_device(iterator: Iterator[Dict[str, np.ndarray]], device,
             out[k] = t
         return out
 
-    queue = collections.deque(_put(b) for b in itertools.islice(iterator, size))
-    for batch in iterator:
-        out = queue.popleft()
-        queue.append(_put(batch))
-        yield out
+    def _pulls():
+        for _ in itertools.count() if n is None else range(n):
+            with span("vtt.input"):
+                batch = next(iterator, None)
+                if batch is None:
+                    return
+                out = _put(batch)
+            yield out
+        next(iterator, None)  # a Batcher counts its epoch at its end
+
+    pulls = _pulls()
+    queue = collections.deque(itertools.islice(pulls, size))
+    for out in pulls:
+        queue.append(out)
+        yield queue.popleft()
     while queue:
         yield queue.popleft()

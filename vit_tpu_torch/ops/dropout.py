@@ -62,6 +62,8 @@ from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 
+from vit_tpu_torch.tracing import span
+
 __all__ = [
     "hash_dropout",
     "hash_keep_mask",
@@ -299,6 +301,7 @@ def site_dropout(x: torch.Tensor, rate: float, seed, fast: bool = True) -> torch
     """One dropout call site of the model (``x`` batch first, at the
     :func:`batch_offset` in force): :func:`hash_dropout` (``fast``,
     ``vit_tpu``'s default) or :func:`stream_dropout`."""
-    offsets = batch_offsets(x.dim())
-    return (hash_dropout(x, rate, seed, offsets) if fast
-            else stream_dropout(x, rate, seed, offsets))
+    with span("vtt.op.site_dropout"):
+        offsets = batch_offsets(x.dim())
+        return (hash_dropout(x, rate, seed, offsets) if fast
+                else stream_dropout(x, rate, seed, offsets))

@@ -80,6 +80,7 @@ from vit_tpu_torch.ops.dropout import (
     device_seed,
     keep_params,
 )
+from vit_tpu_torch.tracing import span
 
 __all__ = [
     "flash_attention",
@@ -421,8 +422,10 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(q, k, v, scale: float, rate: float, seed: Optional[torch.Tensor],
                 short: bool, bh_per_seed: int = 0, bh_offset: int = 0):
-        return (short_fwd if short else flash_fwd)(q, k, v, scale, rate=rate, seed=seed,
-                                                   bh_per_seed=bh_per_seed, bh_offset=bh_offset)
+        with span("vtt.op.short_fwd" if short else "vtt.op.flash_fwd"):
+            return (short_fwd if short else flash_fwd)(q, k, v, scale, rate=rate, seed=seed,
+                                                       bh_per_seed=bh_per_seed,
+                                                       bh_offset=bh_offset)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -436,10 +439,11 @@ class _Attention(torch.autograd.Function):
     def backward(ctx, do, _dlse):
         q, k, v, o, lse, seed = ctx.saved_tensors
         scale, rate, short, bh_per_seed, bh_offset = ctx.cfg
-        do = do.contiguous()
-        delta = (do.float() * o.float()).sum(dim=-1)  # XLA's D, outside the kernels
-        bwd = short_bwd if short else flash_bwd
-        dq, dk, dv = bwd(q, k, v, do, lse, delta, scale, rate, seed, bh_per_seed, bh_offset)
+        with span("vtt.op.short_bwd" if short else "vtt.op.flash_bwd"):
+            do = do.contiguous()
+            delta = (do.float() * o.float()).sum(dim=-1)  # XLA's D, outside the kernels
+            bwd = short_bwd if short else flash_bwd
+            dq, dk, dv = bwd(q, k, v, do, lse, delta, scale, rate, seed, bh_per_seed, bh_offset)
         return dq, dk, dv, None, None, None, None, None, None
 
     @staticmethod

@@ -53,6 +53,7 @@ import torch.nn.functional as F
 from vit_tpu_torch.func_internals import is_batched
 from vit_tpu_torch.ops._build import KERNELS
 from vit_tpu_torch.ops.flash_attention import _aligned, replica_first
+from vit_tpu_torch.tracing import span
 
 __all__ = ["fused_mlp", "fused_mlp_plain", "fused_mlp_bwd", "fused_mlp_bwd_plain", "mlp_body",
            "bwd_plan", "gelu_as", "dgelu_as", "erf_as", "ENVELOPE_BYTES", "resident_bytes",
@@ -279,10 +280,11 @@ class _FusedMLP(torch.autograd.Function):
 
     @staticmethod
     def forward(x2, w1, b1, w2, b2):
-        ws = _cast(x2, w1, b1, w2, b2)
-        # Views: a weight already in x's dtype is the input itself, which
-        # autograd will not save as an output.
-        return (_fwd(x2, *ws), *(w.view_as(w) for w in ws[:3]))
+        with span("vtt.op.fused_mlp_fwd"):
+            ws = _cast(x2, w1, b1, w2, b2)
+            # Views: a weight already in x's dtype is the input itself, which
+            # autograd will not save as an output.
+            return (_fwd(x2, *ws), *(w.view_as(w) for w in ws[:3]))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -293,7 +295,8 @@ class _FusedMLP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, *_):
         x2, w1, b1, w2 = ctx.saved_tensors
-        return fused_mlp_bwd(x2, dy.contiguous(), w1, b1, w2)
+        with span("vtt.op.fused_mlp_bwd"):
+            return fused_mlp_bwd(x2, dy.contiguous(), w1, b1, w2)
 
     @staticmethod
     def vmap(info, in_dims, *args):

@@ -47,6 +47,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from vit_tpu_torch.tracing import span
+
 __all__ = ["Predictor", "resolve_device", "serving_devices"]
 
 QUANTIZE_MODES = (None, "int8", "int8-w8a8", "int8-wo")
@@ -205,15 +207,6 @@ class Predictor:
 
         return quantized_apply(module, qtable, x, weight_only=self.quant_variant == "int8-wo")
 
-    def _replicated_logits(self, chunk: np.ndarray) -> np.ndarray:
-        """One batch's logits, its rows split over the replicas in order."""
-        if len(self.replicas) == 1:
-            return self._forward(torch.from_numpy(chunk).to(self.device)).float().cpu().numpy()
-        parts = np.split(chunk, len(self.replicas))
-        outs = [self._forward(torch.from_numpy(part).to(dev), table, module)
-                for part, (module, table, dev) in zip(parts, self.replicas)]
-        return np.concatenate([o.float().cpu().numpy() for o in outs])
-
     @classmethod
     def from_checkpoint(
         cls,
@@ -322,12 +315,23 @@ class Predictor:
                              f"{self.input_length}")
         bs = self.batch_size
         outs = []
+        one = len(self.replicas) == 1
         for i in range(0, n, bs):
-            chunk = x[i : i + bs]
-            pad = bs - len(chunk)
-            if pad:
-                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
-            logits = self._replicated_logits(chunk)
+            # Each batch's rows split over the replicas in order.
+            with span("vtt.predict.stage"):
+                chunk = x[i : i + bs]
+                pad = bs - len(chunk)
+                if pad:
+                    chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
+                parts = [chunk] if one else np.split(chunk, len(self.replicas))
+                xs = [torch.from_numpy(part).to(dev)
+                      for part, (_, _, dev) in zip(parts, self.replicas)]
+            with span("vtt.predict.forward"):
+                ys = [self._forward(xr, table, module)
+                      for xr, (module, table, _) in zip(xs, self.replicas)]
+            with span("vtt.predict.readback"):
+                host = [y.float().cpu().numpy() for y in ys]
+                logits = host[0] if one else np.concatenate(host)
             outs.append(logits[: bs - pad] if pad else logits)
         return np.concatenate(outs)
 
@@ -343,16 +347,18 @@ class Predictor:
 
     def predict(self, x: np.ndarray) -> np.ndarray:
         """reg: denormalised parameters (N, num_labels); cls: class ids (N,)."""
-        logits = self._batched_logits(np.ascontiguousarray(x, np.float32))
-        if self.vit_config.task_type == "cls":
-            return logits.argmax(axis=-1)
-        return self._denormalize(logits)
+        with span("vtt.predict.call"):
+            logits = self._batched_logits(np.ascontiguousarray(x, np.float32))
+            if self.vit_config.task_type == "cls":
+                return logits.argmax(axis=-1)
+            return self._denormalize(logits)
 
     def predict_proba(self, x: np.ndarray) -> np.ndarray:
         """Classification: softmax probabilities (N, num_classes)."""
         if self.vit_config.task_type != "cls":
             raise ValueError("predict_proba is only defined for classification")
-        logits = self._batched_logits(np.ascontiguousarray(x, np.float32))
-        z = logits - logits.max(axis=-1, keepdims=True)
-        e = np.exp(z)
-        return e / e.sum(axis=-1, keepdims=True)
+        with span("vtt.predict.call"):
+            logits = self._batched_logits(np.ascontiguousarray(x, np.float32))
+            z = logits - logits.max(axis=-1, keepdims=True)
+            e = np.exp(z)
+            return e / e.sum(axis=-1, keepdims=True)

@@ -53,8 +53,9 @@ Around the steps, as in ``vit_tpu`` (``loop.py:1210-1224,1444-1702``):
   epoch's wall clock, and ``mfu`` against ``train.peak_tflops`` (the H100's
   dense bf16 peak is 989);
 * ``train.profile``: a torch.profiler Chrome trace of the steady-state
-  epoch (the second of the run when there is one) under that directory,
-  ``./results/profile`` for ``true``;
+  epoch (the second of the run when there is one), its validation and end
+  included, with the port's spans (:mod:`vit_tpu_torch.tracing`), under
+  that directory, ``./results/profile`` for ``true``;
 * W&B logging and checkpoint artifacts through :class:`MetricLogger`;
 * ``train.async_ckpt``: checkpoint writes on a background thread, fenced by
   ``CheckpointManager.wait()`` before any read-back.
@@ -133,6 +134,7 @@ from vit_tpu_torch.parallel.checkpoint import (
 from vit_tpu_torch.parallel.mesh import active_mesh_scope, make_mesh, maybe_initialize_distributed
 from vit_tpu_torch.parallel.tensor import global_grad_norm, shard_module, split_axes, sync_gradients
 from vit_tpu_torch.serve import resolve_device
+from vit_tpu_torch.tracing import span
 from vit_tpu_torch.train.checkpoint import CheckpointManager, default_ckpt_dir
 from vit_tpu_torch.train.fused import (
     FUSED_DATA_BYTES,
@@ -431,35 +433,40 @@ class Experiment:
         StepDraws` for this step (seeds, noise and learning rate on the
         device; the fused epoch counts the steps). Without it the step draws
         from the host generators and counts itself."""
-        vc = self.bundle.vit_config
-        if draws is None:
-            seeds = draw_seeds(self.dropout_gen, self.accum_steps, self.module.num_dropout_sites)
-            noise, lr = self.noise_gen, spec.lr * schedule(self.step) * self.plateau_scale
-        else:
-            seeds, noise, lr = draws
-        mesh = self.mesh
-        loss = loss_and_grads(self.module, batch, vc.task_type, self.bundle.loss_name, seeds,
-                              self.noise_level, noise,
-                              shard=(mesh.coord("data"), mesh.size("data")))
-        loss = self.reduce_gradients(loss)
-        # After the exchange: under the replicated pipeline the other stages'
-        # layers had no gradient before it, and the optimizer would skip them.
-        params = [p for p in self.module.parameters() if p.grad is not None]
-        frozen = self._preprocessor_params() if self.frozen else []
-        for p in frozen:
-            p.grad.zero_()  # before the clip: out of the global norm
-        if spec.grad_clip and spec.grad_clip > 0:
-            norm = global_grad_norm(params, mesh) if self._norm_split else None
-            clip_by_global_norm([p.grad for p in params], spec.grad_clip, norm=norm)
-        set_learning_rate(self.optimizer, lr)
-        held = [p.detach().clone() for p in frozen]
-        self.optimizer.step()
-        with torch.no_grad():
-            for p, h in zip(frozen, held):
-                p.copy_(h)  # after the optimizer: no update, no weight decay
-        if draws is None:
-            self.step += 1
-        return loss, lr
+        with span("vtt.train.step"):
+            vc = self.bundle.vit_config
+            if draws is None:
+                seeds = draw_seeds(self.dropout_gen, self.accum_steps,
+                                   self.module.num_dropout_sites)
+                noise, lr = self.noise_gen, spec.lr * schedule(self.step) * self.plateau_scale
+            else:
+                seeds, noise, lr = draws
+            mesh = self.mesh
+            with span("vtt.train.forward_backward"):
+                loss = loss_and_grads(self.module, batch, vc.task_type, self.bundle.loss_name,
+                                      seeds, self.noise_level, noise,
+                                      shard=(mesh.coord("data"), mesh.size("data")))
+                loss = self.reduce_gradients(loss)
+            with span("vtt.train.optimizer"):
+                # After the exchange: under the replicated pipeline the other
+                # stages' layers had no gradient before it, and the optimizer
+                # would skip them.
+                params = [p for p in self.module.parameters() if p.grad is not None]
+                frozen = self._preprocessor_params() if self.frozen else []
+                for p in frozen:
+                    p.grad.zero_()  # before the clip: out of the global norm
+                if spec.grad_clip and spec.grad_clip > 0:
+                    norm = global_grad_norm(params, mesh) if self._norm_split else None
+                    clip_by_global_norm([p.grad for p in params], spec.grad_clip, norm=norm)
+                set_learning_rate(self.optimizer, lr)
+                held = [p.detach().clone() for p in frozen]
+                self.optimizer.step()
+                with torch.no_grad():
+                    for p, h in zip(frozen, held):
+                        p.copy_(h)  # after the optimizer: no update, no weight decay
+            if draws is None:
+                self.step += 1
+            return loss, lr
 
     def _make_optimizer(self, spec: OptSpec):
         """The run's optimizer over this rank's parameters: ZeRO-1 over
@@ -566,7 +573,7 @@ class Experiment:
         if self.debug:
             host = host[:1]  # fast-dev-run: one eval batch
         logits_all, labels_all = [], []
-        xs = prefetch_to_device(({"x": b["x"]} for b in host), self.device, self.prefetch_depth)
+        xs = prefetch_to_device([{"x": b["x"]} for b in host], self.device, self.prefetch_depth)
         for hb, db in zip(host, xs):
             logits = self.module(db["x"]).float().cpu().numpy()
             logits_all.append(logits[hb["mask"]])
@@ -739,11 +746,11 @@ class Experiment:
             # Trace the first epoch after the start that trains (steady
             # state), or the start epoch when it is the run's only one; a
             # block's later epochs run no steps.
-            span = epd if (use_blocks and epoch + epd <= max_epochs) else 1
+            dispatched = epd if (use_blocks and epoch + epd <= max_epochs) else 1
             prof = None
             if (self.profile_dir is not None and self.is_main and not profiled
                     and epoch not in block_results
-                    and (epoch > start_epoch or epoch + span >= max_epochs)):
+                    and (epoch > start_epoch or epoch + dispatched >= max_epochs)):
                 prof = self._start_profile()
             t0 = time.perf_counter()
             fused_logits, block_final, block_dt = None, True, None
@@ -764,56 +771,66 @@ class Experiment:
                 losses, last_lr = self._per_step_epoch(
                     batcher, spec, schedule, epoch * steps_per_epoch, viz, cka,
                     viz_every_steps if has_val else 0, num_viz_samples)
-            self.epoch_losses = np.asarray(losses, np.float32)  # per step
-            train_loss = float(np.mean(self.epoch_losses))
-            dt = block_dt if block_dt is not None else time.perf_counter() - t0
-            if prof is not None:
+            with span("vtt.train.epoch_end"):
+                # The per-step path's losses are still on the device: its
+                # epoch ends at their read-back.
+                if torch.is_tensor(losses):
+                    losses = losses.float().cpu().numpy()
+                self.epoch_losses = np.asarray(losses, np.float32)  # per step
+                train_loss = float(np.mean(self.epoch_losses))
+                dt = block_dt if block_dt is not None else time.perf_counter() - t0
+                n_steps = len(self.epoch_losses)
+                epoch_metrics = {"train_loss": train_loss, "lr": float(last_lr),
+                                 "epoch_time_s": dt,
+                                 "samples_per_s": n_steps * self.batch_size / max(dt, 1e-9)}
+                if flops_per_step is not None:
+                    tflops = n_steps * flops_per_step / max(dt, 1e-9) / 1e12
+                    epoch_metrics["tflops_per_s"] = tflops
+                    if peak_tflops:
+                        epoch_metrics["mfu"] = tflops / float(peak_tflops)  # one device
+                if self.bundle.has_preprocessor:
+                    epoch_metrics["preprocessor_frozen"] = float(self.frozen)
+                dropped = self._moe_dropped_frac()
+                if dropped is not None:
+                    epoch_metrics["moe_dropped_frac"] = dropped
+            val = None
+            if has_val:
+                with span("vtt.train.validate"):
+                    if fused_logits is not None:
+                        val = self._metrics_from_arrays(fused_logits, val_labels, "val")
+                    else:
+                        val = self._eval_metrics(self.datamodule.val, "val",
+                                                 self.datamodule.val_batch_size)
+            with span("vtt.train.epoch_end"):
+                mon, stop = None, False
+                if val is not None:
+                    epoch_metrics.update(val)
+                    mon = val.get(monitor_key)
+                    if self.plateau is not None:
+                        self.plateau_scale = self.plateau.step(mon)
+                    if viz is not None and viz_every_steps == 0 and epoch % viz_every == 0:
+                        try:
+                            epoch_metrics.update(self._capture_into(
+                                viz, cka, epoch, self.datamodule.val, num_viz_samples))
+                        except Exception as e:  # diagnostics never fail training
+                            print(f"[viz] epoch diagnostics skipped: {e}")
+                    stop = self.early.step(mon)
+                    if stop and not block_final and not stop_pending:
+                        # The device already trained through the block's last
+                        # epoch: log the rest of the block (no device work), and
+                        # checkpoint and stop at its end, on the state held.
+                        stop_pending = True
+                        print(f"[experiment] early stopping triggered at epoch {epoch}; "
+                              "flushing to the block boundary")
+                if block_final:  # a block's inner states are never on the host
+                    extra = dict(ckpt_extra, early_stop_state=self.early.state_dict())
+                    if self.plateau is not None:
+                        extra["plateau_state"] = self.plateau.state_dict()
+                    self.ckpt.on_epoch_end(self._state(), epoch, mon, config=self.config,
+                                           extra=extra)
+            if prof is not None:  # the epoch's validation and end are in its trace
                 self._stop_profile(prof, epoch, includes_warmup=epoch == start_epoch)
                 profiled = True
-            n_steps = len(self.epoch_losses)
-            epoch_metrics = {"train_loss": train_loss, "lr": float(last_lr),
-                             "epoch_time_s": dt,
-                             "samples_per_s": n_steps * self.batch_size / max(dt, 1e-9)}
-            if flops_per_step is not None:
-                tflops = n_steps * flops_per_step / max(dt, 1e-9) / 1e12
-                epoch_metrics["tflops_per_s"] = tflops
-                if peak_tflops:
-                    epoch_metrics["mfu"] = tflops / float(peak_tflops)  # one device
-            if self.bundle.has_preprocessor:
-                epoch_metrics["preprocessor_frozen"] = float(self.frozen)
-            dropped = self._moe_dropped_frac()
-            if dropped is not None:
-                epoch_metrics["moe_dropped_frac"] = dropped
-            mon, stop = None, False
-            if has_val:
-                if fused_logits is not None:
-                    val = self._metrics_from_arrays(fused_logits, val_labels, "val")
-                else:
-                    val = self._eval_metrics(self.datamodule.val, "val",
-                                             self.datamodule.val_batch_size)
-                epoch_metrics.update(val)
-                mon = val.get(monitor_key)
-                if self.plateau is not None:
-                    self.plateau_scale = self.plateau.step(mon)
-                if viz is not None and viz_every_steps == 0 and epoch % viz_every == 0:
-                    try:
-                        epoch_metrics.update(self._capture_into(
-                            viz, cka, epoch, self.datamodule.val, num_viz_samples))
-                    except Exception as e:  # diagnostics never fail training
-                        print(f"[viz] epoch diagnostics skipped: {e}")
-                stop = self.early.step(mon)
-                if stop and not block_final and not stop_pending:
-                    # The device already trained through the block's last
-                    # epoch: log the rest of the block (no device work), and
-                    # checkpoint and stop at its end, on the state held.
-                    stop_pending = True
-                    print(f"[experiment] early stopping triggered at epoch {epoch}; "
-                          "flushing to the block boundary")
-            if block_final:  # a block's inner states are never on the host
-                extra = dict(ckpt_extra, early_stop_state=self.early.state_dict())
-                if self.plateau is not None:
-                    extra["plateau_state"] = self.plateau.state_dict()
-                self.ckpt.on_epoch_end(self._state(), epoch, mon, config=self.config, extra=extra)
             self.logger.log_epoch(epoch, epoch_metrics, step=(epoch + 1) * steps_per_epoch)
             if (stop or stop_pending) and block_final:
                 print(f"[experiment] early stopping at epoch {epoch}")
@@ -841,13 +858,13 @@ class Experiment:
         return epoch_metrics
 
     def _per_step_epoch(self, batcher, spec, schedule, first_step: int, viz, cka,
-                        viz_every_steps: int, num_viz_samples: int) -> Tuple[np.ndarray, float]:
+                        viz_every_steps: int, num_viz_samples: int) -> Tuple[torch.Tensor, float]:
         """One epoch of per-step training over ``batcher``'s batches copied
         ahead to the device, with diagnostics every ``viz_every_steps``
-        steps (0: none); (the step losses, the last learning rate)."""
+        steps (0: none); (the step losses, on the device, the last learning
+        rate)."""
         losses, last_lr = [], spec.lr
-        for i, batch in enumerate(prefetch_to_device(iter(batcher), self.device,
-                                                     self.prefetch_depth)):
+        for i, batch in enumerate(prefetch_to_device(batcher, self.device, self.prefetch_depth)):
             loss, last_lr = self.train_step(batch, spec, schedule)
             losses.append(loss)
             gstep = first_step + i + 1
@@ -859,7 +876,7 @@ class Experiment:
                     print(f"[viz] step diagnostics skipped: {e}")
             if self.debug and i == 0:
                 break
-        return torch.stack(losses).float().cpu().numpy(), last_lr
+        return torch.stack(losses), last_lr
 
     def _select_fused(self, spec, schedule, train_cols: Dict[str, np.ndarray],
                       steps_per_epoch: int, has_val: bool):
