@@ -68,7 +68,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    K3/K7 at ViT-B/16's R12608 D768 F3072 (batch 64) and ViT-L/16's R6304
    D1024 F4096 (batch 32), all three on the wide route; then the wide
    route's bf16 roundings of h, g and dh against float64 beside the plain
-   version's (K7's at most 1.25 times as often).
+   version's (K7's at most 1.25 times as often). The hash dropout kernel
+   (``csrc/hash_dropout.cu``, the port's own: no Pallas counterpart) has
+   rows at the cells' site shapes in bf16, rate 0.1 (ViT-B/16's B128 H12
+   T197 T197 and B128 T197 D768, stride1's B16 T4066 D128; ``--only H``
+   prints them alone): its output bit for bit the torch ops' (the plain
+   version on the card, ``plain_ms``), and the byte bound (read x, write
+   y). The runs below hold its launches too: one a dropout site in each
+   training step's forward and backward and in remat's recompute
+   (``hash_per_step``), held at the end of the script so that one call
+   shows every run's count.
 3. Serve the main path through ``Predictor.from_checkpoint(..., device=
    "cuda")`` three times, each from a ``.pt`` written from a port model
    initialised from a seeded ``torch.Generator``: (a) stride1 in bf16
@@ -500,6 +509,59 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+def hash_per_step(vc) -> int:
+    """The hash dropout kernel's launches in one training step of a model
+    (its VitConfig): one a site in the forward and one in the backward, and
+    one again for each site that remat's recompute redraws. The sites, with
+    ``fast_dropout`` and a rate above 0: the embeddings' output, and in each
+    layer the attention probabilities (the plain route only: the flash
+    kernels drop them inside), the attention output and the MLP output.
+    Non-reentrant checkpointing stops its recompute once the region's last
+    saved tensor is back: ``remat: true`` redraws a layer's probabilities and
+    attention output but not its MLP output (nothing is saved after it), and
+    ``remat: mlp`` redraws none (the MLP output's site ends its region)."""
+    from vit_tpu_torch.models.attention import select_attn_impl
+
+    if not vc.fast_dropout:
+        return 0
+    hidden = int(vc.hidden_dropout > 0)
+    probs = int(vc.attention_dropout > 0
+                and select_attn_impl(vc.attn_impl, vc.seq_len, vc.head_dim) == "xla")
+    forward = hidden + vc.num_hidden_layers * (probs + 2 * hidden)
+    return 2 * forward + (vc.num_hidden_layers * (probs + hidden) if vc.remat is True else 0)
+
+
+def counted_steps(exp, steps: int) -> int:
+    """The training steps of ``exp``'s last fit whose launches the wrappers
+    count: all ``steps`` on the per-step path; on the fused path its eager
+    steps and one a captured graph (a replay calls no wrapper)."""
+    fused = exp.fused
+    return steps if fused is None else fused.eager_steps + len(fused.graphs)
+
+
+def with_sites(expect: dict, vc, steps: int) -> dict:
+    """``expect`` with the hash dropout kernel's launches of ``steps``
+    training steps of the model ``vc`` configures."""
+    return dict(expect, hash_dropout=hash_per_step(vc) * steps)
+
+
+# Runs whose hash dropout launches differ from their count: held to the end
+# of the script, so that one call shows every run's count; main() fails then.
+SITE_MISCOUNTS = []
+
+
+def check_launches(tag: str, got: dict, want: dict) -> None:
+    """Every kernel's launches exactly ``want``'s: each but the hash dropout
+    kernel at once, that one at the end of the script (SITE_MISCOUNTS)."""
+    name = "hash_dropout"
+    check({n: c for n, c in got.items() if n != name}
+          == {n: c for n, c in want.items() if n != name},
+          f"{tag}: launches {got}, expected {want}")
+    if got.get(name) != want.get(name):
+        SITE_MISCOUNTS.append(f"{tag}: {got.get(name)}, expected {want.get(name)}")
+        print(f"chip_smoke: {name} launches of {SITE_MISCOUNTS[-1]}", flush=True)
+
+
 def kernel_tol(ref: torch.Tensor) -> float:
     """fp32: FP32_TOL. bf16: the smaller of BF16_TOL and four roundings
     to bf16 of the largest reference value."""
@@ -588,6 +650,44 @@ def mlp_case(r, d, f, dtype, g, sfu_rate, kernels):
                launches=kernels[name].launches)
     emit(row)
     return row
+
+
+def hash_dropout_case(shape, rate: float, g, kernels) -> dict:
+    """The hash dropout kernel (bf16) against the torch ops it replaces, the
+    port's plain version on the card: bit-equal output; its device time
+    beside theirs (``plain_ms``) and the byte bound (read x, write y)."""
+    from vit_tpu_torch.ops.dropout import hash_dropout, hash_keep_mask
+
+    name = "hash_dropout"
+    x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    kernels[name].launches = 0
+    y = hash_dropout(x, rate, DROPOUT_SEED)
+    torch.cuda.synchronize()
+    check(kernels[name].launches == 1, f"{name} did not launch")
+
+    def plain():
+        return x * hash_keep_mask(x.shape, rate, DROPOUT_SEED, device=x.device).to(x.dtype)
+
+    check(torch.equal(y.view(torch.int16), plain().view(torch.int16)),
+          f"{name} {shape}: bits differ from the torch ops")
+    ms = time_ms(lambda: hash_dropout(x, rate, DROPOUT_SEED))
+    bms, by = bound(0.0, 0.0, 2.0 * x.numel() * x.element_size(), x.dtype, 1.0)
+    row = dict(phase="kernel", kernel=name, shape=list(shape), dtype=str(x.dtype), dropout=rate,
+               max_abs_err=0.0, bit_equal=True, kernel_ms=ms,
+               kernel_call_ms=call_ms(lambda: hash_dropout(x, rate, DROPOUT_SEED)),
+               plain_ms=time_ms(plain, reps=5), library_ms=None, bound_ms=bms, bound_by=by,
+               launches=kernels[name].launches)
+    emit(row)
+    return row
+
+
+def hash_dropout_rows(g, kernels) -> dict:
+    """H: the kernel at the cells' site shapes, bf16, rate 0.1: ViT-B/16's
+    attention probabilities (B128 H12 T197 T197) and hidden sites (B128 T197
+    D768), stride1's hidden sites (B16 T4066 D128). Returns the first."""
+    rows = [hash_dropout_case(shape, 0.1, g, kernels)
+            for shape in ((128, 12, 197, 197), (128, 197, 768), (16, 4066, 128))]
+    return rows[0]
 
 
 def sdpa_bwd_ms(q4, k4, v4, do4, rate: float = 0.0) -> float:
@@ -1159,11 +1259,12 @@ def train_run(tag, cfg, expect, kernels, after=None, grad_check=None) -> dict:
     peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in exp.epoch_losses]
     steps = -(-len(dm.train) // exp.batch_size)
-    check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
+    vc = exp.bundle.vit_config
+    expect = with_sites(expect, vc, counted_steps(exp, steps * exp.max_epochs))
+    check_launches(tag, launches, expect)
     check(len(losses) == steps and all(np.isfinite(losses)), f"{tag}: step losses {losses}")
 
     prof = step_profile(exp)
-    vc = exp.bundle.vit_config
     step_ms = metrics["epoch_time_s"] * 1e3 / steps
     row = dict(phase="train", run=tag, T=vc.seq_len, layers=vc.num_hidden_layers,
                dtype=str(vc.dtype), batch=exp.batch_size, inputs=len(dm.train), steps=steps,
@@ -1232,7 +1333,7 @@ def serve_run(tag, cfg, expect, tol, feat_tol, ckpt_dir, kernels, module=None,
         pred.predict(x)  # ends in a copy to the host
         runs.append(time.perf_counter() - t0)
     vc = pred.vit_config
-    check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
+    check_launches(tag, launches, expect)
     check(log_g.shape == ((n, 1) if reg else (n,))
           and bool(torch.isfinite(torch.from_numpy(log_g).double()).all()),
           f"{tag}: predictions not finite or of shape {log_g.shape}")
@@ -1502,7 +1603,10 @@ def default_run(cfg: dict, expect: dict, kernels) -> dict:
         exp2.run()
     launches = {n: k.launches for n, k in kernels.items()}
     text = tee.text
-    check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
+    # epochs 0 and 1 until the preemption, then epoch 2 after the resume
+    check_launches(tag, launches, with_sites(expect, exp.bundle.vit_config,
+                                             counted_steps(exp, 2 * steps)
+                                             + counted_steps(exp2, steps)))
     check("[logger] wandb not installed — console logging only" in first_text,
           f"{tag}: no console-fallback line")
     check("[preempt] signal 15 received" in first_text
@@ -1564,7 +1668,8 @@ def diagnostics_run(cfg: dict, expect: dict, kernels, cap: int) -> dict:
     record["run_peak_bytes"] = max(record["run_peak_bytes"], torch.cuda.max_memory_allocated())
     launches = {n: k.launches for n, k in kernels.items()}
     text = tee.text
-    check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
+    check_launches(tag, launches, with_sites(expect, exp.bundle.vit_config,
+                                             counted_steps(exp, steps * exp.max_epochs)))
     check(record["captures"] == cfg["train"]["ep"] and len(record["x"]) == cap,
           f"{tag}: {record['captures']} captures of {len(record['x'])} spectra")
     check(f"[viz] capture batch capped at {cap} by token count "
@@ -1792,9 +1897,10 @@ def zca_train_run(work: str, none: dict, kernels) -> dict:
     launches = {n: k.launches for n, k in kernels.items()}
     steps, layers = -(-N_INPUTS // BATCH), STRIDE1_MODEL["num_hidden_layers"]
     # two epochs of train steps and val batches, then the test batches
-    expect = dict(none, flash_fwd=layers * (2 * (steps + steps) + steps),
-                  flash_bwd=2 * layers * steps)
-    check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
+    expect = with_sites(dict(none, flash_fwd=layers * (2 * (steps + steps) + steps),
+                             flash_bwd=2 * layers * steps),
+                        exp.bundle.vit_config, counted_steps(exp, 2 * steps))
+    check_launches(tag, launches, expect)
     frozen = [m.get("preprocessor_frozen") for e, m in epochs if e >= 0]
     check(frozen == [1.0, 0.0], f"{tag}: preprocessor_frozen {frozen}")
     check(torch.equal(kept[0], torch.from_numpy(p0)), f"{tag}: the preprocessor moved in epoch 0")
@@ -2026,7 +2132,8 @@ def stream_dropout_run(none: dict, kernels) -> dict:
     metrics = exp.fit()
     torch.cuda.synchronize()
     launches = {n: k.launches for n, k in kernels.items()}
-    check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
+    expect = with_sites(expect, exp.bundle.vit_config, counted_steps(exp, steps * exp.max_epochs))
+    check_launches(tag, launches, expect)
     losses = [float(v) for v in exp.epoch_losses]
     check(all(math.isfinite(v) for v in losses), f"{tag}: losses {losses}")
     prof = step_profile(exp)
@@ -2230,10 +2337,10 @@ def graph_launches(fit: dict, expect_per_step: dict, kernels) -> dict:
     graph must hold ``expect_per_step`` launches a step."""
     fused = fit["exp"].fused
     check(len(fused.graphs) >= 1 and fused.replays > 0, f"no replays: {fused.replays}")
+    expect_per_step = with_sites(expect_per_step, fit["exp"].bundle.vit_config, 1)
     per_graph = list(fused.captured_launches.values())
     for got in per_graph:
-        check(got == expect_per_step, f"a captured step launches {got}, "
-              f"expected {expect_per_step}")
+        check_launches("a captured step", got, expect_per_step)
     replayed = {n: per_graph[0][n] * fused.replays for n in kernels}
     outside = {n: fit["counts"][n] - len(per_graph) * per_graph[0][n] for n in kernels}
     total = {n: replayed[n] + outside[n] for n in kernels}
@@ -2262,9 +2369,10 @@ def window_runs(kernels) -> dict:
     layers, steps = STRIDE1_MODEL["num_hidden_layers"], fit["steps"]
     dm = fit["exp"].datamodule
     val_batches = -(-len(dm.val) // dm.val_batch_size)
-    expect = dict(none, flash_fwd=layers * (steps + val_batches) * WINDOW_EPOCHS,
-                  flash_bwd=layers * steps * WINDOW_EPOCHS)
-    check(fit["counts"] == expect, f"w: launches {fit['counts']}, expected {expect}")
+    expect = with_sites(dict(none, flash_fwd=layers * (steps + val_batches) * WINDOW_EPOCHS,
+                             flash_bwd=layers * steps * WINDOW_EPOCHS),
+                        fit["exp"].bundle.vit_config, steps * WINDOW_EPOCHS)
+    check_launches("w", fit["counts"], expect)
     row = dict(phase="window", run="w_stride1_per_step", inputs=WINDOW_INPUTS,
                epochs=WINDOW_EPOCHS, steps_per_epoch=steps, launches=fit["counts"],
                **fit_summary(fit), **window_device(fit))
@@ -2516,8 +2624,9 @@ def replica_launches(ep, calls: dict, expect_step: dict, kernels) -> dict:
     step's launches (which must be ``expect_step``) times the replays, plus
     the wrapper calls outside the graph (the eager step, validation)."""
     check(ep.graph is not None and ep.replays > 0, f"replica graph: {ep.replays} replays")
-    check(ep.captured_launches == expect_step,
-          f"a captured replica step launches {ep.captured_launches}, expected {expect_step}")
+    # one launch a site for all the replicas
+    expect_step = with_sites(expect_step, ep.module.cfg, 1)
+    check_launches("a captured replica step", ep.captured_launches, expect_step)
     replayed = {n: expect_step[n] * ep.replays for n in kernels}
     outside = {n: calls[n] - expect_step[n] for n in kernels}  # less the capture itself
     for n, per_step in expect_step.items():
@@ -3053,7 +3162,7 @@ def quant_serve_runs(work: str, kernels) -> dict:
         reset_launches()
         out = p.predict(x)
         launches = {n: k.launches for n, k in kernels.items()}
-        check(launches == expect, f"v {tag}: launches {launches}, expected {expect}")
+        check_launches(f"v {tag}", launches, expect)
         check(out.shape == (N_INPUTS, 1) and bool(np.isfinite(out).all()),
               f"v {tag}: predictions not finite or of shape {out.shape}")
         timing = serve_timing(p, x)
@@ -3227,8 +3336,7 @@ def export_runs(work: str, kernels) -> dict:
         got = np.load(os.path.join(work, f"{tag}_loaded.npy"))
         diff = float(abs(got - live[tag]).max())
         launches = result["results"][path]["launches"]
-        check(launches == expect, f"{tag}: the loaded program launched {launches}, "
-              f"expected {expect}")
+        check_launches(f"{tag}: the loaded program", launches, expect)
         check(got.shape == live[tag].shape and diff <= tol,
               f"{tag}: loaded against live predictions {diff} apart (tol {tol})")
         row = dict(phase="export", run=tag, quantize=mode, batch=BATCH, inputs=N_INPUTS,
@@ -3590,8 +3698,8 @@ def moe_train_runs(kernels) -> tuple:
     layers, bs = vc.num_hidden_layers, cfg["train"]["batch_size"]
     steps, val = -(-IMAGE_INPUTS // bs), -(-IMAGE_VAL // min(bs, IMAGE_VAL))
     # Each epoch: the steps, the validation batches, one batch of moe_dropped_frac.
-    expect = dict(none, short_fwd=layers * (steps + val + 1) * MOE_EPOCHS,
-                  short_bwd=layers * steps * MOE_EPOCHS)
+    expect = with_sites(dict(none, short_fwd=layers * (steps + val + 1) * MOE_EPOCHS,
+                             short_bwd=layers * steps * MOE_EPOCHS), vc, steps * MOE_EPOCHS)
     dense_expect = dict(expect, short_fwd=layers * (steps + val) * MOE_EPOCHS)
     tag = "z_cifar_s16_moe_bf16"
     probe = Experiment(copy.deepcopy(cfg), device="cuda", seed=0,
@@ -3602,8 +3710,7 @@ def moe_train_runs(kernels) -> tuple:
     del probe
 
     eager = window_fit(cfg, IMAGE_INPUTS, MOE_EPOCHS, False)
-    check(eager["counts"] == expect, f"z1 per step: launches {eager['counts']}, "
-          f"expected {expect}")
+    check_launches("z1 per step", eager["counts"], expect)
     eager_dev = window_device(eager)
     shares = moe_step_shares(eager["exp"], vc.intermediate_size,
                              vc.moe_experts * moe_capacity(vc.seq_len, vc.moe_experts,
@@ -3611,8 +3718,7 @@ def moe_train_runs(kernels) -> tuple:
                                                            vc.moe_capacity_factor))
     graph = window_fit(cfg, IMAGE_INPUTS, MOE_EPOCHS, True)
     launches = graph_launches(graph, dict(none, short_fwd=layers, short_bwd=layers), kernels)
-    check(launches["launches"] == expect, f"z1 graph: launches {launches['launches']}, "
-          f"expected {expect}")
+    check_launches("z1 graph", launches["launches"], expect)
     _, equal, diff = params_close(graph["params"], eager["params"])
     check(equal, f"z1: the graph's parameters differ from the per-step run's by {diff}")
     graph_dev = window_device(graph)
@@ -3624,8 +3730,8 @@ def moe_train_runs(kernels) -> tuple:
 
     dense = window_fit(image_config("cifar_vit_s16.yaml", **MOE_OVERRIDES), IMAGE_INPUTS,
                        MOE_EPOCHS, False)
-    check(dense["counts"] == dense_expect, f"z1 dense: launches {dense['counts']}, "
-          f"expected {dense_expect}")
+    check_launches("z1 dense", dense["counts"],
+                   with_sites(dense_expect, dense["exp"].bundle.vit_config, steps * MOE_EPOCHS))
     dense_dev = window_device(dense)
     dense_row = dict(phase="moe_train", run="z_cifar_s16_dense_bf16",
                      config="cifar_vit_s16.yaml", launches=dense["counts"],
@@ -3689,7 +3795,7 @@ def moe_serve_runs(work: str, module, kernels) -> tuple:
         reset_launches()
         out = p._batched_logits(x)
         launches = {n: k.launches for n, k in kernels.items()}
-        check(launches == expect, f"{tag}: launches {launches}, expected {expect}")
+        check_launches(tag, launches, expect)
         check(out.shape == (len(x), cfg["model"]["num_labels"]) and bool(np.isfinite(out).all()),
               f"{tag}: logits not finite or of shape {out.shape}")
         timing = serve_timing(p, x)
@@ -3803,7 +3909,7 @@ def moe_export_run(work: str, live, x, kernels) -> dict:
     expect = dict({n: 0 for n in kernels},
                   short_fwd=live.module.cfg.num_hidden_layers * -(-len(x) // live.batch_size))
     launches = result["results"][path]["launches"]
-    check(launches == expect, f"z4: the loaded program launched {launches}, expected {expect}")
+    check_launches("z4: the loaded program", launches, expect)
     check(got.shape == want.shape and diff <= 1e-2,
           f"z4: loaded against live logits {diff} apart (tol 1e-2)")
     row = dict(phase="export", run="z_moe_export", batch=live.batch_size, inputs=len(x),
@@ -5057,8 +5163,8 @@ def main(argv=None) -> int:
                              "MoE, 'P' for (P) the offline statistics and 'D' for (D) "
                              "parallelism (with the batch-offset kernel check), to run after "
                              "the build, e.g. 'jkl' or 'pqr' or 'svu' or 'zxy' or 'M' or 'P' "
-                             "or 'D', skipping the kernel phases and runs (a)-(i); prints no "
-                             "result")
+                             "or 'D', skipping the kernel phases and runs (a)-(i); 'H' adds "
+                             "the hash dropout kernel's rows; prints no result")
     args = parser.parse_args(argv)
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5093,6 +5199,8 @@ def main(argv=None) -> int:
     check_tensor_cores(mma)
     kernels = _build.KERNELS
     if args.only is not None:  # a partial run for iterating on runs (j)-(r), (w)
+        if "H" in args.only:
+            hash_dropout_rows(torch.Generator(device="cuda").manual_seed(0), kernels)
         with tempfile.TemporaryDirectory() as work:
             os.environ["CKPT_DIR"] = work
             option_runs(work, {n: 0 for n in kernels}, kernels,
@@ -5108,6 +5216,7 @@ def main(argv=None) -> int:
             if "D" in args.only:
                 offset_check(kernels)
                 parallel_runs(work, kernels)
+        check(not SITE_MISCOUNTS, f"hash_dropout launches: {'; '.join(SITE_MISCOUNTS)}")
         print("chip_smoke: partial run (--only): no result line", flush=True)
         return 0
 
@@ -5118,6 +5227,7 @@ def main(argv=None) -> int:
         "short_fwd": attention_case("short_fwd", short_fwd, short_fwd_plain, 16, 2, 129, 16,
                                     torch.float32, g, sfu_rate, kernels),
         "fused_mlp_fwd": mlp_case(16 * 4066, 128, 512, torch.bfloat16, g, sfu_rate, kernels),
+        "hash_dropout": hash_dropout_rows(g, kernels),
     }
     attention_case("flash_fwd", flash_fwd, flash_fwd_plain, 16, 2, 4066, 64, torch.float32,
                    g, sfu_rate, kernels)
@@ -5229,6 +5339,7 @@ def main(argv=None) -> int:
         runs.update(moe_runs(ckpt_dir, kernels))
         runs.update(offline_runs(ckpt_dir))
         runs.update(parallel_runs(ckpt_dir, kernels))
+    check(not SITE_MISCOUNTS, f"hash_dropout launches: {'; '.join(SITE_MISCOUNTS)}")
 
     summary = []
     for name, k in kernels.items():

@@ -1129,3 +1129,262 @@ def test_model_mlp_route_on_the_card_follows_the_envelope(gen, hidden, mlp, laun
     assert {n: KERNELS[n].launches - before[n] for n in before} == {
         "fused_mlp_fwd": launches, "fused_mlp_bwd": launches}
     assert (got.detach().cpu() - want).abs().max().item() <= 1e-2
+
+
+# -- hash dropout, csrc/hash_dropout.cu -------------------------------------------------
+# The kernel against the torch ops it replaces (``x * hash_keep_mask(...).to(x.dtype)``,
+# run on the card), forward and backward, bit for bit: compared as integers, so the
+# sign of zero and every NaN's bits count.
+HASH_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+HASH_SHAPES = [(3, 2, 1, 2, 3)[:rank - 1] + (last,) for rank in range(1, 7)
+               for last in (1, 197, 768, 4066)] + [(8, 12, 197, 197)]
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _same_bits(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+def _torch_ops(x, rate, seed, offsets=None):
+    from vit_tpu_torch.ops.dropout import hash_keep_mask
+
+    return x * hash_keep_mask(x.shape, rate, seed, offsets, device=x.device).to(x.dtype)
+
+
+def _with_grad(fn, x, g):
+    """(fn(x), the gradient of fn's output against ``g`` at x)."""
+    x = x.detach().requires_grad_()
+    y = fn(x)
+    y.backward(g)
+    return y.detach(), x.grad
+
+
+def _hash_launches() -> int:
+    return KERNELS["hash_dropout"].launches
+
+
+def _check_hash_dropout(x, g, rate, seed, offsets=None, launches=2):
+    from vit_tpu_torch.ops.dropout import hash_dropout
+
+    launched = _hash_launches()
+    y, dx = _with_grad(lambda t: hash_dropout(t, rate, seed, offsets), x, g)
+    torch.cuda.synchronize()
+    assert _hash_launches() == launched + launches
+    ref_seed = seed.cpu() if isinstance(seed, torch.Tensor) else seed
+    want, want_dx = _with_grad(lambda t: _torch_ops(t, rate, ref_seed, offsets), x, g)
+    assert _same_bits(y, want) and _same_bits(dx, want_dx)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("dtype", HASH_DTYPES)
+@pytest.mark.parametrize("shape", HASH_SHAPES, ids=str)
+def test_hash_dropout_kernel_is_the_torch_ops(gen, shape, dtype, rate):
+    x, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    _check_hash_dropout(x, g, rate, -123456789)
+
+
+@pytest.mark.parametrize("dtype", HASH_DTYPES)
+@pytest.mark.parametrize("seed", ["negative", "max", "device int32", "device int64"])
+@pytest.mark.parametrize("offsets", [None, (3, -2, 2**31 - 1, 7)])
+def test_hash_dropout_kernel_seeds_and_offsets(gen, dtype, seed, offsets):
+    """An int seed is a kernel argument, a 0-d seed on the card is read by
+    the kernel (an int64 one cast there first); offsets wrap as int32."""
+    seed = {"negative": -7, "max": 2**31 - 1,
+            "device int32": torch.tensor(-99, dtype=torch.int32, device="cuda"),
+            "device int64": torch.tensor(2**33 + 5, device="cuda")}[seed]
+    x, g = (torch.randn(5, 3, 197, 197, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    _check_hash_dropout(x, g, 0.1, seed, offsets)
+
+
+@pytest.mark.parametrize("dtype", HASH_DTYPES)
+def test_hash_dropout_kernel_batch_offset(gen, dtype):
+    """A data-parallel rank's site (``site_dropout`` in a ``batch_offset``)
+    draws its rows of the whole batch's mask."""
+    from vit_tpu_torch.ops.dropout import batch_offset, hash_dropout, site_dropout
+
+    x = torch.randn(12, 197, 768, generator=gen, device="cuda").to(dtype)
+    with batch_offset(4):
+        y = site_dropout(x[4:8], 0.1, 31)
+    assert _same_bits(y, hash_dropout(x, 0.1, 31)[4:8])
+    assert _same_bits(y, _torch_ops(x[4:8].contiguous(), 0.1, 31, (4, 0, 0)))
+
+
+@pytest.mark.parametrize("dtype", HASH_DTYPES)
+def test_hash_dropout_kernel_signed_zeros_infs_and_nans(gen, dtype):
+    """A dropped element is x * 0: -0 from a negative x, NaN from inf or NaN;
+    a kept one keeps its sign, and inf stays inf."""
+    x = -torch.rand(4, 197, 768, generator=gen, device="cuda").to(dtype)
+    flat = x.view(-1)
+    flat[::7] = float("inf")
+    flat[3::11] = float("-inf")
+    flat[5::13] = float("nan")
+    flat[6::17] = 0.0
+    flat[8::19] = -0.0
+    g = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    g.view(-1)[1::9] = float("nan")
+    g.view(-1)[2::10] = -0.0
+    _check_hash_dropout(x, g, 0.5, 2024)
+
+
+def test_hash_dropout_kernel_takes_views_and_unaligned_inputs(gen):
+    """A non-contiguous input is made contiguous, an unaligned one copied."""
+    x = torch.randn(2, 197, 770, generator=gen, device="cuda").to(torch.bfloat16)
+    unaligned = x.view(-1)[1:1 + 2 * 197 * 768].view(2, 197, 768)
+    assert unaligned.data_ptr() % 16 != 0
+    for view in (x[..., 1:769], x.transpose(1, 2), unaligned):
+        g = torch.randn(view.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        _check_hash_dropout(view, g, 0.1, 5)
+
+
+def test_hash_dropout_kernel_under_remat(gen):
+    """models.vit.remat (non-reentrant checkpoint) around a site: the
+    recompute launches the kernel again, the backward keeps the batch offset
+    its forward read, and every gradient is the torch ops' bit for bit."""
+    from vit_tpu_torch.models.vit import remat
+    from vit_tpu_torch.ops import dropout as dr
+
+    lin = torch.nn.Linear(768, 768, device="cuda", dtype=torch.bfloat16)
+    x = torch.randn(4, 197, 768, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def grads(drop):
+        def fn(t):  # the dropout is followed by an op that saves its output
+            return lin(drop(lin(t), 0.1, 77, dr.batch_offsets(t.dim()))).tanh()
+
+        xr = x.detach().requires_grad_()
+        lin.zero_grad()
+        with dr.batch_offset(8):
+            y = remat(lin, fn, xr)
+        y.backward(g)
+        return [y.detach(), xr.grad, lin.weight.grad.clone(), lin.bias.grad.clone()]
+
+    launched = _hash_launches()
+    got = grads(dr.hash_dropout)
+    assert _hash_launches() == launched + 3  # forward, recompute, backward
+    want = grads(lambda t, rate, seed, offsets: _torch_ops(t, rate, seed, offsets))
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+
+
+def test_hash_dropout_kernel_in_a_cuda_graph(gen):
+    """A 0-d device seed read by the kernel: a captured graph replayed with
+    new seeds in its buffer draws each seed's mask."""
+    from vit_tpu_torch.ops.dropout import hash_dropout
+
+    x = torch.randn(8, 12, 197, 197, generator=gen, device="cuda").to(torch.bfloat16)
+    seed = torch.zeros((), dtype=torch.int32, device="cuda")
+    out = torch.empty_like(x)
+    hash_dropout(x, 0.1, seed)  # warm-up before the capture
+    torch.cuda.synchronize()
+    launched = KERNELS["hash_dropout"].launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(hash_dropout(x, 0.1, seed))
+    assert KERNELS["hash_dropout"].launches == launched + 1
+    for s in (-5, 2**31 - 1):
+        seed.fill_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(out, _torch_ops(x, 0.1, s))
+
+
+def test_hash_dropout_launches_of_a_vitb16_layer(gen):
+    """One ViT-B/16 layer (D 768, 12 heads, T 197, xla attention, remat:
+    true) in bf16, forward and backward: the embeddings' site and the
+    layer's three draw in the forward (4), the recompute draws the
+    probabilities' and the attention output's again (2: the checkpoint
+    stops once the MLP's saved tensors are back, before the MLP output's
+    site), the backward runs each (4)."""
+    from vit_tpu_torch.models.builder import get_model
+    from vit_tpu_torch.models.vit import compute_loss
+
+    cfg = {"model": dict(name="vit-b16", task_type="cls", input_kind="image", image_size=224,
+                         num_labels=1000, num_hidden_layers=1, remat=True, attn_impl="auto"),
+           "train": {"precision": "bf16"}}
+    model = get_model(cfg, generator=torch.Generator().manual_seed(0)).module.cuda().train()
+    x = torch.randn(2, 3, 224, 224, generator=gen, device="cuda")
+    labels = torch.tensor([3, 7], device="cuda")
+    launched = _hash_launches()
+    logits = model(x, dropout_seeds=list(range(1, 1 + model.num_dropout_sites)))
+    assert _hash_launches() == launched + 4
+    compute_loss(logits, labels, "cls", "ce").backward()
+    torch.cuda.synchronize()
+    assert _hash_launches() == launched + 10
+
+
+@pytest.mark.parametrize("form", ["seed vector", "vmap"])
+@pytest.mark.parametrize("dtype", HASH_DTYPES)
+@pytest.mark.parametrize("shape, offsets", [((3, 197), None), ((3, 5, 1), (2, -1)),
+                                            ((3, 4, 12, 197, 197), (5, 0, 0, 0)),
+                                            ((3, 1, 2, 1, 2, 3, 768), None)], ids=str)
+def test_hash_dropout_kernel_replicas(gen, form, dtype, shape, offsets):
+    """Three replicas in one launch, forward and backward: an (R,) seed
+    vector, or a call under torch.func.vmap with a seed a replica. Replica
+    r's output and gradient are the torch ops' of its seed alone, bit for
+    bit, with 1 to 6 hashed axes and offsets of the hashed axes."""
+    from vit_tpu_torch.ops.dropout import hash_dropout
+
+    x, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    seeds = torch.tensor([7, -123456789, 2**31 - 1], dtype=torch.int32, device="cuda")
+
+    def fn(t):
+        if form == "seed vector":
+            return hash_dropout(t, 0.1, seeds, offsets)
+        return torch.func.vmap(lambda tr, s: hash_dropout(tr, 0.1, s, offsets))(t, seeds)
+
+    launched = _hash_launches()
+    y, dx = _with_grad(fn, x, g)
+    torch.cuda.synchronize()
+    assert _hash_launches() == launched + 2
+    for r, seed in enumerate(seeds.tolist()):
+        assert _same_bits(y[r], _torch_ops(x[r], 0.1, seed, offsets))
+        assert _same_bits(dx[r], _torch_ops(g[r], 0.1, seed, offsets))
+
+
+def test_hash_dropout_launches_of_a_vmapped_vitb16_step(gen, monkeypatch):
+    """The stacked sweep's step (``train.fused.ReplicaEpochs``: three
+    replicas' losses under torch.func.vmap, then one backward) at one
+    ViT-B/16 layer: the kernel launches as often as in one model's step
+    (10, as above), once a site for all replicas, remat's recompute
+    included; the losses and gradients are those of the torch ops under
+    vmap, bit for bit."""
+    from vit_tpu_torch.func_internals import reparametrize
+    from vit_tpu_torch.models.builder import get_model
+    from vit_tpu_torch.models.vit import compute_loss, train_forward
+    from vit_tpu_torch.ops import dropout as dr
+
+    cfg = {"model": dict(name="vit-b16", task_type="cls", input_kind="image", image_size=224,
+                         num_labels=1000, num_hidden_layers=1, remat=True, attn_impl="auto"),
+           "train": {"precision": "bf16"}}
+    model = get_model(cfg, generator=torch.Generator().manual_seed(0)).module.cuda().train()
+    x = torch.randn(3, 2, 3, 224, 224, generator=gen, device="cuda")
+    labels = torch.tensor([[3, 7], [1, 2], [0, 999]], device="cuda")
+    seeds = 11 + torch.arange(3 * model.num_dropout_sites, dtype=torch.int32,
+                              device="cuda").view(3, -1)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+
+    def step():
+        params = {n: torch.stack([p.detach() * (1 + 0.01 * r) for r in range(3)]).requires_grad_()
+                  for n, p in model.named_parameters()}
+
+        def one(p, x, y, s):
+            with reparametrize(model, p):
+                logits, _ = train_forward(model, x, s)
+            return compute_loss(logits, y, "cls", "ce")
+
+        losses = torch.func.vmap(one)(params, x, labels, seeds)
+        out = [losses.detach(), *torch.autograd.grad(losses.sum(), list(params.values()))]
+        torch.cuda.synchronize()
+        return out
+
+    launched = _hash_launches()
+    got = step()
+    assert _hash_launches() == launched + 10
+    monkeypatch.setattr(dr, "_on_card", lambda t: False)
+    want = step()
+    assert _hash_launches() == launched + 10
+    assert all(_same_bits(a, b) for a, b in zip(got, want))

@@ -82,8 +82,10 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_every_kernel_has_a_source_and_names_its_pallas_kernel():
     assert sorted(_build.KERNELS) == ["flash_bwd", "flash_fwd", "fused_mlp_bwd",
-                                      "fused_mlp_fwd", "short_bwd", "short_fwd"]
+                                      "fused_mlp_fwd", "hash_dropout", "short_bwd", "short_fwd"]
     assert _build.KERNELS["flash_bwd"].replaces == "vit_tpu/ops/flash_attention.py:459,496"
+    # hash_dropout ports no Pallas kernel: it names the jnp function XLA fuses
+    assert _build.KERNELS["hash_dropout"].replaces == "vit_tpu/ops/dropout.py:77"
     for k in _build.KERNELS.values():
         assert os.path.isfile(k.source)
         with open(k.source) as f:
@@ -93,7 +95,8 @@ def test_every_kernel_has_a_source_and_names_its_pallas_kernel():
         with open(os.path.join(ROOT, path)) as f:
             source = f.read().splitlines()
         for line in lines.split(","):
-            assert "def _" in source[int(line) - 1]
+            assert ("def hash_dropout(" if k.name == "hash_dropout" else "def _") in source[
+                int(line) - 1]
 
 
 def test_cpu_tensors_run_the_plain_versions_and_leave_the_counts():

@@ -74,7 +74,7 @@ class Kernel:
     """One hand-written kernel: its source, C signature and launch count."""
 
     name: str
-    replaces: str  # the Pallas kernels it ports, file:line[,line...]
+    replaces: str  # the Pallas kernels it ports (hash_dropout: a jnp function), file:line[,...]
     argtypes: Tuple
     launches: int = 0
     _fn: Optional[ctypes._CFuncPtr] = field(default=None, repr=False)
@@ -149,6 +149,11 @@ _MLP_FWD = (_P,) * 7 + (_I, _I, _I, _I, _P)
 #  body, stream); body 0 FMA, 1 on-chip tensor cores, 2 wide; g and dh are the
 #  FMA and wide bodies' (rows, f) scratch, null on the on-chip body
 _MLP_BWD = (_P,) * 10 + (_I,) * 6 + (_P,)
+# (x, y, numel, rank, replicas, dims[7], offsets[7], seed, seed pointer, threshold,
+#  1/keep, dtype, stream); the seed pointer is the device int32 seed (null for
+#  ``seed``), or with replicas (1: x's first axis) one seed a replica
+_HASH_DROPOUT = ((_P, _P, ctypes.c_longlong, _I, _I) + (_I,) * 7 + (_U,) * 7
+                 + (_U, _P, _U, _F, _I, _P))
 
 KERNELS: Dict[str, Kernel] = {
     k.name: k
@@ -162,6 +167,8 @@ KERNELS: Dict[str, Kernel] = {
                (_P,) * 11 + _ATTN_BWD_TAIL),
         Kernel("short_bwd", "vit_tpu/ops/flash_attention.py:224", (_P,) * 9 + _ATTN_BWD_TAIL),
         Kernel("fused_mlp_bwd", "vit_tpu/ops/fused_mlp.py:83", _MLP_BWD),
+        # no Pallas kernel: vit_tpu's hash dropout, jnp ops that XLA fuses
+        Kernel("hash_dropout", "vit_tpu/ops/dropout.py:77", _HASH_DROPOUT),
     )
 }
 

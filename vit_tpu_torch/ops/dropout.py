@@ -42,6 +42,21 @@ draw the same mask bit for bit. Its stream is the port's, not
 scaling in x's dtype), not bit for bit.
 :func:`site_dropout` picks one of the two by ``fast``.
 
+On the card :func:`hash_dropout` is one hand-written kernel,
+``csrc/hash_dropout.cu``: it reads x once and writes ``x * m`` once, the
+hash computed in uint32 registers, bit for bit the plain version's (the
+keep factor rounded to x's dtype, the product rounded as torch rounds
+``x * mask``). Its backward runs it on the incoming gradient with the same
+seed, rate and offsets, so no mask is saved and remat's recompute draws it
+again. It takes a CUDA tensor of 1 to 6 hashed axes in fp32, bf16 or fp16,
+with an int seed (a kernel argument) or a 0-d device seed (read by the
+kernel from device memory, so a captured CUDA graph replays with the seed
+its buffer holds). The stacked sweep's replicas take it too, in one launch for all of
+them: an (R,) seed vector, and a call under ``torch.func.vmap``
+(``_HashDropout.vmap`` puts the replica axis first), hash each replica's
+elements from its own seed. A CUDA tensor of another dtype or rank raises;
+a CPU tensor takes the torch ops.
+
 A data-parallel rank holds rows ``[r·B/dp, (r+1)·B/dp)`` of the global
 batch. ``vit_tpu`` runs its hash masks under GSPMD, so every element is
 hashed at its global coordinates and a sharded step draws the one-device
@@ -58,10 +73,13 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 
+from vit_tpu_torch.func_internals import is_batched
+from vit_tpu_torch.ops._build import KERNELS
 from vit_tpu_torch.tracing import span
 
 __all__ = [
@@ -97,6 +115,12 @@ _SEED_MULT = 0x7FEB352D
 # a salt, so its bits are not hash_dropout's for the same seed.
 _STREAM_SEED_MULT = 0x846CA68B
 _STREAM_SALT = 0x5BD1E995
+
+
+# The kernel's dtypes, by its dtype code, and its axes: the hashed ones and a
+# replica axis.
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_KERNEL_AXES = len(_AXIS_MULTS) + 1
 
 
 # The first global batch row of the tensors the model's dropout sites see.
@@ -258,15 +282,107 @@ def hash_dropout(x: torch.Tensor, rate: float, seed,
                  offsets: Optional[Sequence] = None) -> torch.Tensor:
     """Inverted dropout with the counter-based mask; ``seed``: an int32 (int
     or 0-d tensor), or (R,) seeds for the R replicas along ``x``'s first
-    axis. ``offsets``: x's coordinates in a larger tensor, as for
-    :func:`hash_keep_mask`."""
+    axis. ``offsets``: x's coordinates in a larger tensor (of the replica's
+    axes, with replicas), as for :func:`hash_keep_mask`. On the card, the
+    kernel (module doc)."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    if _is_vector(seed):
-        return _per_replica(lambda s, xr: hash_dropout(xr, rate, s, offsets), seed, x)
-    return x * hash_keep_mask(x.shape, rate, seed, offsets, device=x.device).to(x.dtype)
+    if not _on_card(x):
+        if _is_vector(seed):
+            return _per_replica(lambda s, xr: hash_dropout(xr, rate, s, offsets), seed, x)
+        return x * hash_keep_mask(x.shape, rate, seed, offsets, device=x.device).to(x.dtype)
+    rep = int(_is_vector(seed))
+    hashed = x.dim() - rep
+    if x.dtype not in _KERNEL_DTYPES or not 1 <= hashed <= len(_AXIS_MULTS):
+        raise ValueError(f"hash_dropout on the card takes fp32, bf16 or fp16 with 1 to "
+                         f"{len(_AXIS_MULTS)} hashed axes, not {x.dtype} {tuple(x.shape)}"
+                         + (" (its first axis the replicas')" if rep else ""))
+    if rep and x.shape[0] != seed.numel():
+        raise ValueError(f"{seed.numel()} replica seeds for a leading axis of {x.shape[0]}")
+    if isinstance(seed, torch.Tensor) and (rep or seed.device.type != "cpu" or is_batched(seed)):
+        value, seed_t = 0, device_seed(seed, x.device).to(x.device).contiguous()
+    else:
+        value, seed_t = seed_u32(int(seed)), None
+    offs = None
+    if offsets is not None:
+        if len(offsets) < hashed:
+            raise ValueError(f"{len(offsets)} offsets for {hashed} axes")
+        offs = (0,) * rep + tuple(0 if o is None else int(o) for o in offsets[:hashed])
+    return _HashDropout.apply(x, float(rate), value, seed_t, offs, rep)
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda"
+
+
+class _HashDropout(torch.autograd.Function):
+    """:func:`hash_dropout` on the card as a differentiable op: the backward
+    is the same dropout of the incoming gradient (the same seeds, rate and
+    offsets), so nothing is saved but the seeds; under non-reentrant
+    checkpointing the recompute draws the mask again and the backward keeps
+    the offsets its forward read. ``rep`` 1: x's first axis holds replicas,
+    one seed each in ``seed_t``.
+
+    Under ``torch.func.vmap`` over R replicas, :meth:`vmap` puts the replica
+    axis first and applies this op once with the replicas' seeds (one seed
+    repeated where the seed is not mapped): one launch for all replicas,
+    forward and backward, each replica's mask its own."""
+
+    @staticmethod
+    def forward(x, rate: float, seed: int, seed_t: Optional[torch.Tensor],
+                offsets: Optional[Tuple[int, ...]], rep: int):
+        return _launch(x, rate, seed, seed_t, offsets, rep)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.args = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _HashDropout.apply(grad, *ctx.args), None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, rate, seed, seed_t, offsets, rep):
+        from vit_tpu_torch.ops.flash_attention import replica_first
+
+        if rep:
+            raise ValueError("hash_dropout takes one replica axis: (R,) seeds under vmap")
+        n = info.batch_size
+        x = replica_first(x, in_dims[0], n)
+        seeds = (device_seed(seed, x.device).expand(n) if seed_t is None
+                 else replica_first(seed_t, in_dims[3], n)).contiguous()
+        offs = None if offsets is None else (0,) + offsets
+        return _HashDropout.apply(x, rate, 0, seeds, offs, 1), 0
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_keep(rate: float, dtype: torch.dtype) -> Tuple[int, float]:
+    """(threshold, keep factor): 1/keep rounded to fp32 (``torch.where``'s
+    mask) and then to ``dtype`` (``mask.to(x.dtype)``)."""
+    threshold, inv_keep = keep_params(rate)
+    return threshold, float(torch.tensor(inv_keep, dtype=torch.float32).to(dtype))
+
+
+def _launch(x, rate, seed, seed_t, offsets, rep) -> torch.Tensor:
+    """One launch of the kernel on ``x`` (on the card): ``seed`` the int
+    seed's uint32, or ``seed_t`` an int32 device seed (``rep`` 1: one a
+    replica, x's first axis); ``offsets`` ints, one an axis of x, or None."""
+    x = x.contiguous()
+    if x.data_ptr() % 16:  # the kernel's 16-byte loads
+        x = x.clone()
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    threshold, scale = _kernel_keep(rate, x.dtype)
+    pad = (0,) * (_KERNEL_AXES - x.dim())
+    offs = (0,) * x.dim() if offsets is None else tuple(o & _U32 for o in offsets)
+    KERNELS["hash_dropout"].launch(
+        x.data_ptr(), y.data_ptr(), x.numel(), x.dim(), rep, *x.shape, *pad, *offs, *pad, seed,
+        None if seed_t is None else seed_t.data_ptr(), threshold, scale,
+        _KERNEL_DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    return y
 
 
 def stream_uniform(shape: Sequence[int], seed, device=None,
