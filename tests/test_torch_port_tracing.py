@@ -14,6 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 from vit_tpu_torch import tracing
 from vit_tpu_torch.export import export_predictor, load_exported
 from vit_tpu_torch.models.builder import get_model
+from vit_tpu_torch.parallel import comm
 from vit_tpu_torch.serve import Predictor
 from vit_tpu_torch.train.loop import Experiment
 
@@ -72,9 +73,14 @@ def test_a_per_step_epoch_records_its_spans(tiny_config, tmp_path, monkeypatch):
     cfg["model"].update(attn_impl="flash", fused_mlp=True)
     cfg["train"].update(ep=1, fused_epoch=False)
     exp = Experiment(cfg, seed=0, device="cpu")
+    comm.reset_stats()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         exp.fit()
     spans = _spans(prof)
+    # one rank: no gradient average, no collective, no count
+    assert not [s for s in spans if s[0] in ("vtt.train.grad_sync", "vtt.train.zero1_gather")
+                or s[0].startswith("vtt.comm.")]
+    assert comm.STATS["calls"] == 0 and comm.STATS["ops"] == {}
     steps = _named(spans, "vtt.train.step")
     layers = cfg["model"]["num_hidden_layers"]
     n_steps = -(-cfg["data"]["num_samples"] // cfg["train"]["batch_size"])

@@ -221,3 +221,65 @@ def restored_state(cfg, gpus, n, length, seed, ckpt_dir, spec):
                        {k: as_np(v) for k, v in x.items()} if isinstance(x, dict) else x)
     return {"state_dict": as_np(state["state_dict"]), "step": state["step"],
             "optimizer": as_np(state["optimizer"]["state"])}
+
+
+def dp_steps(cfg, state_dict, batches, skip_sync=False):
+    """``Experiment.train_step`` over ``batches`` (each the global batch,
+    numpy) on every rank of the mesh, under a profiler: (this rank, the
+    losses, learning rates, the step-1 gradients as averaged before the clip
+    and the parameters after the last step (both in the one-rank names),
+    the number of each new span, ``comm.STATS``, and each parameter's
+    ZeRO-1 split). ``skip_sync``: the last rank keeps its own gradient (it
+    takes part in the all-reduce, then puts its gradients back)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_tpu_torch.parallel import comm
+    from vit_tpu_torch.parallel.mesh import active_mesh_scope
+    from vit_tpu_torch.train import loop
+    from vit_tpu_torch.train.optim import OptSpec, schedule_scale
+
+    exp = _experiment(cfg, None, state_dict)
+    mesh = exp.mesh
+    spec = OptSpec.from_config(cfg, len(batches))
+    exp.optimizer = exp._make_optimizer(spec)
+    schedule = schedule_scale(spec)
+    grads = {}
+    orig_clip, orig_sync = loop.clip_by_global_norm, loop.sync_gradients
+
+    def clip(gs, *args, **kwargs):
+        if not grads:
+            grads.update({n: _np(p.grad).copy() for n, p in exp.module.named_parameters()})
+        return orig_clip(gs, *args, **kwargs)
+
+    def own_sync(params, m, extra=None):
+        params = list(params)
+        own = [p.grad.clone() for p in params]
+        out = orig_sync(params, m, extra)
+        for p, g in zip(params, own):
+            p.grad.copy_(g)
+        return out
+
+    loop.clip_by_global_norm = clip
+    if skip_sync and mesh.rank == mesh.world_size - 1:
+        loop.sync_gradients = own_sync
+    comm.reset_stats()
+    losses, lrs = [], []
+    exp.module.train()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof, active_mesh_scope(mesh):
+            for batch in batches:
+                loss, lr = exp.train_step({k: torch.from_numpy(v) for k, v in batch.items()},
+                                          spec, schedule)
+                losses.append(float(loss))
+                lrs.append(float(lr))
+    finally:
+        loop.clip_by_global_norm, loop.sync_gradients = orig_clip, orig_sync
+    spans = {}
+    for e in prof.events():
+        if e.name in ("vtt.train.grad_sync", "vtt.train.zero1_gather", "vtt.train.step") \
+                or e.name.startswith("vtt.comm."):
+            spans[e.name] = spans.get(e.name, 0) + 1
+    params = {n: _np(p) for n, p in exp.module.named_parameters()}
+    split = {n: bool(s) for n, s in zip(exp._param_names, exp.optimizer.split)}
+    return (mesh.rank, losses, lrs, grads, params, spans, dict(comm.STATS), split)

@@ -117,6 +117,7 @@ def _run(args: argparse.Namespace) -> int:
     config = _experiment_config(args, **flags)
     Experiment(config, use_wandb=bool(args.wandb), ckpt_path=args.ckpt, seed=args.seed,
                device=args.device).run()
+    _leave_group()
     return 0
 
 
@@ -127,7 +128,17 @@ def _test(args: argparse.Namespace) -> int:
     metrics = Experiment(config, use_wandb=bool(args.wandb), seed=args.seed,
                          device=args.device).test(ckpt=args.ckpt)
     print({k: round(v, 6) for k, v in metrics.items()})
+    _leave_group()
     return 0
+
+
+def _leave_group() -> None:
+    """A rank's process group, torn down once its work is done (NCCL warns
+    of leaked resources at exit otherwise)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _launch_ranks(n: int, argv: List[str]) -> int:

@@ -14,7 +14,13 @@ is never swapped for gloo and the card's tensors never stay on the CPU.
 
 :data:`STATS` also counts the calls and the host seconds spent inside them
 (a staged collective waits for its copies; an NCCL call returns once it is
-queued).
+queued), and under any backend each collective's calls and bytes
+(``STATS["ops"][op]``): the tensor's bytes for :func:`all_reduce` and
+:func:`broadcast`, the gathered result's for :func:`all_gather`, the bytes
+sent and received for :func:`exchange` (:func:`all_gather_object`: calls
+only). Each call is a ``vtt.comm.<op>`` span (:mod:`vit_tpu_torch.tracing`),
+:func:`broadcast_bucket`'s around its :func:`broadcast`'s. A ``None`` group
+returns before any of this, so a one-rank run counts and records nothing.
 
 The autograd pieces (Megatron's f and g, and a gather/slice pair) hold
 where every rank of the group computes the same replicated tensors around
@@ -40,15 +46,19 @@ from typing import Any, List, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from vit_tpu_torch.tracing import span
+
 __all__ = ["STATS", "reset_stats", "all_reduce", "all_gather", "broadcast", "broadcast_bucket",
            "exchange", "all_gather_object", "group_rank", "group_size", "reduce_grad",
            "reduce_sum", "gather", "scatter"]
 
-STATS = {"calls": 0, "staged_bytes": 0, "seconds": 0.0, "bucket_bytes": 0, "bucket_seconds": 0.0}
+STATS = {"calls": 0, "staged_bytes": 0, "seconds": 0.0, "bucket_bytes": 0, "bucket_seconds": 0.0,
+         "ops": {}}
 
 
 def reset_stats() -> None:
-    STATS.update(calls=0, staged_bytes=0, seconds=0.0, bucket_bytes=0, bucket_seconds=0.0)
+    STATS.update(calls=0, staged_bytes=0, seconds=0.0, bucket_bytes=0, bucket_seconds=0.0,
+                 ops={})
 
 
 def group_size(group) -> int:
@@ -65,12 +75,28 @@ def _staged(group, t: torch.Tensor) -> bool:
 
 
 class _Timed:
+    """One collective ``op`` moving ``nbytes``: its span, its call and bytes
+    in ``STATS["ops"]``, and its host seconds."""
+
+    def __init__(self, op: str, nbytes: int = 0) -> None:
+        self.op, self.nbytes = op, nbytes
+        self.span = span(f"vtt.comm.{op}")
+
     def __enter__(self):
+        self.span.__enter__()
         self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
         STATS["calls"] += 1
         STATS["seconds"] += time.perf_counter() - self.t0
+        op = STATS["ops"].setdefault(self.op, {"calls": 0, "bytes": 0})
+        op["calls"] += 1
+        op["bytes"] += self.nbytes
+        return self.span.__exit__(*exc)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
@@ -88,7 +114,7 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     float sums in fp32 and rounds once (two ranks: NCCL's one rounding)."""
     if group is None:
         return x
-    with _Timed():
+    with _Timed("all_reduce", _nbytes(x)):
         staged = _staged(group, x)
         if staged or (x.dtype in (torch.bfloat16, torch.float16)
                       and dist.get_backend(group) == "gloo"):
@@ -109,7 +135,7 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     if group is None:
         return x
     n = group_size(group)
-    with _Timed():
+    with _Timed("all_gather", n * _nbytes(x)):
         if _staged(group, x):
             h = _host(x).contiguous()
             parts = [torch.empty_like(h) for _ in range(n)]
@@ -127,7 +153,7 @@ def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
     (staged: only ``src`` copies its ``x`` to the host)."""
     if group is None:
         return x
-    with _Timed():
+    with _Timed("broadcast", _nbytes(x)):
         if _staged(group, x):
             h = (_host(x).contiguous() if dist.get_rank() == src
                  else torch.empty(x.shape, dtype=x.dtype))
@@ -148,19 +174,20 @@ def broadcast_bucket(tensors: Sequence[torch.Tensor], src: int, group) -> None:
     if len({t.dtype for t in tensors}) > 1:
         raise ValueError("broadcast_bucket takes tensors of one dtype")
     t0 = time.perf_counter()
-    mine = dist.get_rank() == src
-    if mine:
-        flat = torch.cat([t.reshape(-1) for t in tensors])
-    else:
-        flat = torch.empty(sum(t.numel() for t in tensors), dtype=tensors[0].dtype,
-                           device=tensors[0].device)
-    broadcast(flat, src, group)
-    if not mine:
-        at = 0
-        for t in tensors:
-            t.copy_(flat[at:at + t.numel()].view(t.shape))
-            at += t.numel()
-    STATS["bucket_bytes"] += flat.numel() * flat.element_size()
+    with span("vtt.comm.broadcast_bucket"):
+        mine = dist.get_rank() == src
+        if mine:
+            flat = torch.cat([t.reshape(-1) for t in tensors])
+        else:
+            flat = torch.empty(sum(t.numel() for t in tensors), dtype=tensors[0].dtype,
+                               device=tensors[0].device)
+        broadcast(flat, src, group)
+        if not mine:
+            at = 0
+            for t in tensors:
+                t.copy_(flat[at:at + t.numel()].view(t.shape))
+                at += t.numel()
+    STATS["bucket_bytes"] += _nbytes(flat)
     STATS["bucket_seconds"] += time.perf_counter() - t0
 
 
@@ -169,7 +196,7 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
     """Point-to-point: each ``(tensor, global rank)`` of ``sends`` is sent
     there and each buffer of ``recvs`` filled from there, all posted at once
     (``batch_isend_irecv``) and waited for."""
-    with _Timed():
+    with _Timed("exchange", sum(_nbytes(t) for t, _ in (*sends, *recvs))):
         staged = any(_staged(group, t) for t, _ in (*sends, *recvs))
         send_bufs = [(_host(t).contiguous() if staged else t.contiguous(), r) for t, r in sends]
         recv_bufs = [(torch.empty(t.shape, dtype=t.dtype) if staged else t, r)
@@ -188,7 +215,7 @@ def all_gather_object(obj: Any, group) -> List[Any]:
     if group is None:
         return [obj]
     out: List[Any] = [None] * group_size(group)
-    with _Timed():
+    with _Timed("all_gather_object"):
         dist.all_gather_object(out, obj, group=group)
     return out
 

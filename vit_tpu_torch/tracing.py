@@ -18,6 +18,17 @@ The spans, each on host work (names ``vtt.``):
   inside it ``vtt.train.forward_backward`` (the loss, the gradients and
   their reduction over the mesh) and ``vtt.train.optimizer`` (the clip, the
   learning rate, the optimizer's step);
+* ``vtt.train.grad_sync``: :meth:`~vit_tpu_torch.train.loop.Experiment.
+  reduce_gradients` on a mesh of more than one rank (the gradients and the
+  loss averaged over ``data``, the replicated pipeline's exchange), inside
+  ``vtt.train.forward_backward``; ``vtt.train.zero1_gather``: ZeRO-1's
+  all-gather of the stepped blocks and their copy back into the parameters
+  (:meth:`~vit_tpu_torch.train.optim.Zero1Optimizer.step`), inside
+  ``vtt.train.optimizer``;
+* ``vtt.comm.<op>``: each collective of :mod:`vit_tpu_torch.parallel.comm`
+  (``all_reduce``, ``all_gather``, ``broadcast``, ``broadcast_bucket``,
+  ``exchange``, ``all_gather_object``) over a group of more than one rank;
+  a one-rank run records none of these;
 * ``vtt.input``: one batch's pull from its iterator (a ``Batcher``'s numpy
   gather) and its copy toward the device (pin, non-blocking copy), in
   :func:`~vit_tpu_torch.data.pipeline.prefetch_to_device`;

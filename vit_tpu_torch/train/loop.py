@@ -482,11 +482,15 @@ class Experiment:
         and ``loss`` averaged over ``data``, before the clip; under the
         replicated pipeline each stage's layers' gradients then go to the
         other stages (:meth:`~vit_tpu_torch.parallel.pipeline.Pipeline.
-        share_grads`), so every rank holds them all. Returns the loss."""
-        loss = sync_gradients([p for p in self.module.parameters() if p.grad is not None],
-                              self.mesh, loss)
-        if self.pp > 1 and not self.pp_resident:
-            self.module.vit.encoder.pipeline.share_grads(self.module.vit.encoder)
+        share_grads`), so every rank holds them all. Returns the loss. One
+        rank has nothing to reduce: it returns before the span."""
+        if self.mesh.world_group is None:
+            return loss
+        with span("vtt.train.grad_sync"):
+            loss = sync_gradients([p for p in self.module.parameters() if p.grad is not None],
+                                  self.mesh, loss)
+            if self.pp > 1 and not self.pp_resident:
+                self.module.vit.encoder.pipeline.share_grads(self.module.vit.encoder)
         return loss
 
     def _preprocessor_params(self) -> List[torch.nn.Parameter]:
@@ -701,8 +705,13 @@ class Experiment:
 
         n_params = count_params(self.module)
         self.logger.log({"num_params(M)": n_params / 1e6}, step=0)
+        device = self.device
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        ranks = (f", rank {self.mesh.rank} of {self.mesh.world_size} ({self.mesh.backend})"
+                 if self.mesh.world_size > 1 else "")
         print(f"[experiment] {self.bundle.model_name}: {n_params / 1e6:.3f}M params, "
-              f"{steps_per_epoch} steps/epoch, device={self.device}")
+              f"{steps_per_epoch} steps/epoch, device={device}{ranks}")
 
         need = ("x", "error", "label") if self.noise_level > 0 else ("x", "label")
         train_cols = {k: v for k, v in train_ds.arrays().items() if k in need}

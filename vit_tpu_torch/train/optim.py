@@ -42,6 +42,8 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from vit_tpu_torch.tracing import span
+
 __all__ = [
     "OptSpec",
     "OptaxOptimizer",
@@ -650,15 +652,16 @@ class Zero1Optimizer:
         blocks = [v for v, s in zip(self.views, self.split) if s]
         if not blocks:
             return
-        flat = comm.all_gather(torch.cat([v.reshape(-1) for v in blocks]), self.group, 0)
-        per = flat.numel() // self.dp
-        for r in range(self.dp):
-            at = r * per
-            for p, s in zip(self.params, self.split):
-                if s:
-                    n = p.numel() // self.dp
-                    p.view(-1)[r * n:(r + 1) * n].copy_(flat[at:at + n])
-                    at += n
+        with span("vtt.train.zero1_gather"):
+            flat = comm.all_gather(torch.cat([v.reshape(-1) for v in blocks]), self.group, 0)
+            per = flat.numel() // self.dp
+            for r in range(self.dp):
+                at = r * per
+                for p, s in zip(self.params, self.split):
+                    if s:
+                        n = p.numel() // self.dp
+                        p.view(-1)[r * n:(r + 1) * n].copy_(flat[at:at + n])
+                        at += n
 
     def state_dict(self) -> dict:
         """The inner optimizer's state with each block's moments gathered
